@@ -1,0 +1,7 @@
+"""PyTorch + CUDA port of interpolated_diffusion_tpu for NVIDIA Hopper.
+
+Mirrors the JAX package's layout (ops/, models/, kernels/, sample/, train/).
+The two Pallas kernels on the maze sampling path are hand-written sm_90a CUDA
+kernels under csrc/, built with nvcc at first use (kernels/_build.py).
+Importing this package imports neither JAX nor the CUDA library.
+"""

@@ -1,0 +1,111 @@
+"""Build the port's CUDA kernels with nvcc and load them through ctypes.
+
+All of `csrc/*.cu` is compiled into one shared library with a plain C
+interface (no PyTorch headers, so the build takes seconds):
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
+         -Xcompiler -fPIC -o libid_kernels.so csrc/*.cu
+
+The library goes to `build/kernels/<hash of sources and flags>/` at the root
+of the checkout, so a changed source rebuilds and an unchanged one loads the
+existing library. Nothing here runs at import time.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Optional, Sequence
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+LIB_NAME = "libid_kernels.so"
+
+_lib: Optional[ctypes.CDLL] = None
+_functions: dict = {}
+build_log = ""          # nvcc's output of the last build in this process
+build_seconds = 0.0     # wall time of that build (0.0 if none ran)
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    if home and (Path(home) / "bin" / "nvcc").is_file():
+        return str(Path(home) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.is_file():
+        return str(default)
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+
+
+def _sources() -> list:
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def library_path() -> Path:
+    """Where the library for the current sources lives (built or not)."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_ROOT / h.hexdigest()[:16] / LIB_NAME
+
+
+def build() -> Path:
+    """Compile csrc/*.cu unless the library for these sources exists."""
+    global build_log, build_seconds
+    out = library_path()
+    if out.is_file():
+        return out
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{LIB_NAME}.{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+           *[str(s) for s in sorted(CSRC.glob("*.cu"))]]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    build_seconds = time.perf_counter() - t0
+    build_log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
+    os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
+    return out
+
+
+def load() -> ctypes.CDLL:
+    """The kernel library, built and loaded on first use."""
+    global _lib
+    if _lib is None:
+        _lib = ctypes.CDLL(str(build()))
+    return _lib
+
+
+def function(name: str, argtypes: Sequence) -> ctypes._CFuncPtr:
+    """The library's C entry `name` with its argument types declared.
+
+    Every entry returns a cudaError_t as int; pointers and the stream are
+    passed as c_void_p so that ctypes does not cut them to 32 bits.
+    """
+    fn = _functions.get(name)
+    if fn is None:
+        fn = getattr(load(), name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+        _functions[name] = fn
+    return fn
+
+
+def check(err: int, name: str) -> None:
+    """Raise if a C entry reported a CUDA error (a refused launch never runs,
+    and a later synchronize would not report it)."""
+    if err != 0:
+        msg = load().id_error_string
+        msg.argtypes, msg.restype = [ctypes.c_int], ctypes.c_char_p
+        raise RuntimeError(f"{name}: CUDA error {err} ({msg(err).decode()}) at launch")

@@ -1,0 +1,168 @@
+"""Pre-norm FiLM transformer encoder (port of models/transformer.py, non-causal).
+
+Each block dispatches its attention the way the JAX block does, under an
+explicit `attn_policy` instead of the JAX package's environment/registry
+lookup:
+
+  block  whole block through kernels/fused_block.fused_film_block when
+         L <= 256 and H*L <= 8192 (JAX _use_fused_block_policy);
+  fused  the JAX default: attention through kernels/small_mha.small_mha_packed
+         when 256 < H*L and L <= 256 (JAX _use_fused_packed), plain otherwise;
+  dense  plain PyTorch attention everywhere.
+
+The JAX package's XLA packings (full / group / none) compute the same
+numbers as plain attention, so here they are plain attention. Parameter
+names follow the original PyTorch reference (norm1, attn.in_proj_weight,
+attn.out_proj, ff.0, ff.2, film1, film2).
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..kernels.fused_block import fused_film_block
+from ..kernels.small_mha import small_mha_packed
+
+ATTN_POLICIES = ("fused", "block", "dense")
+FUSED_ROWS = 512  # batch-pack row target of the JAX kernels (group_b = 512 // L)
+
+
+def fused_group_b(L: int) -> int:
+    """The JAX kernels' batch-pack group size G (kept for parity)."""
+    return max(1, min(64, FUSED_ROWS // max(1, L)))
+
+
+def _use_fused_block_policy(policy: str, H: int, L: int) -> bool:
+    return policy == "block" and L <= 256 and H * L <= 8192
+
+
+def _use_fused_packed(policy: str, H: int, L: int) -> bool:
+    return policy == "fused" and 256 < H * L and L <= 256
+
+
+class LayerNorm(nn.Module):
+    """flax LayerNorm: f32 statistics, var = E[x^2] - mu^2 (clipped at 0),
+    eps 1e-6; output in the input dtype. torch.nn.LayerNorm differs (eps
+    1e-5, two-pass variance)."""
+
+    def __init__(self, d: int, eps: float = 1e-6):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(d))
+        self.bias = nn.Parameter(torch.zeros(d))
+
+    def init_seeded(self, uniform_) -> None:
+        self.weight.fill_(1.0)
+        self.bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        mu = xf.mean(dim=-1, keepdim=True)
+        var = torch.clamp((xf * xf).mean(dim=-1, keepdim=True) - mu * mu, min=0.0)
+        y = (xf - mu) * (torch.rsqrt(var + self.eps) * self.weight.float()) + self.bias.float()
+        return y.to(x.dtype)
+
+
+class SelfAttentionParams(nn.Module):
+    """The parameters of torch's nn.MultiheadAttention (fused [q; k; v]
+    in-projection + out_proj), without its forward."""
+
+    def __init__(self, d_model: int):
+        super().__init__()
+        self.in_proj_weight = nn.Parameter(torch.empty(3 * d_model, d_model))
+        self.in_proj_bias = nn.Parameter(torch.empty(3 * d_model))
+        self.out_proj = nn.Linear(d_model, d_model)
+
+    def init_seeded(self, uniform_) -> None:
+        bound = self.in_proj_weight.shape[1] ** -0.5
+        uniform_(self.in_proj_weight, bound)
+        uniform_(self.in_proj_bias, bound)
+
+
+def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    n_heads: int) -> torch.Tensor:
+    """Plain multi-head attention on the packed [B, L, H*Dh] layout, f32 softmax."""
+    B, L, D = q.shape
+    dh = D // n_heads
+    heads = lambda t: t.reshape(B, L, n_heads, dh).transpose(1, 2)
+    logits = (heads(q) @ heads(k).transpose(-1, -2)).float() * dh ** -0.5
+    p = torch.softmax(logits, dim=-1).to(v.dtype)
+    return (p @ heads(v)).transpose(1, 2).reshape(B, L, D)
+
+
+def _film(h: torch.Tensor, gb: torch.Tensor) -> torch.Tensor:
+    gamma, beta = gb.chunk(2, dim=-1)
+    return h * (1.0 + gamma[:, None, :]) + beta[:, None, :]
+
+
+class TransformerBlock(nn.Module):
+    def __init__(self, d_model: int, n_heads: int, d_ff: int, d_cond: int = 128,
+                 use_film: bool = True, attn_policy: str = "fused"):
+        super().__init__()
+        if attn_policy not in ATTN_POLICIES:
+            raise ValueError(f"attn_policy {attn_policy!r} not in {ATTN_POLICIES}")
+        self.d_model, self.n_heads, self.use_film = d_model, n_heads, use_film
+        self.attn_policy = attn_policy
+        self.norm1 = LayerNorm(d_model)
+        self.norm2 = LayerNorm(d_model)
+        self.attn = SelfAttentionParams(d_model)
+        self.ff = nn.Sequential(nn.Linear(d_model, d_ff), nn.SiLU(), nn.Linear(d_ff, d_model))
+        if use_film:
+            self.film1 = nn.Linear(d_cond, 2 * d_model)
+            self.film2 = nn.Linear(d_cond, 2 * d_model)
+
+    def forward(self, x: torch.Tensor, cond: Optional[torch.Tensor] = None) -> torch.Tensor:
+        B, L, D = x.shape
+        H = self.n_heads
+        film_on = self.use_film and cond is not None
+        if _use_fused_block_policy(self.attn_policy, H, L):
+            # FiLM gamma/beta projections stay outside the kernel, as in JAX
+            if film_on:
+                gb1, gb2 = self.film1(cond), self.film2(cond)
+            else:
+                gb1 = gb2 = x.new_zeros((B, 2 * D))
+            return fused_film_block(
+                x, gb1, gb2, self.norm1.weight, self.norm1.bias,
+                self.norm2.weight, self.norm2.bias,
+                self.attn.in_proj_weight, self.attn.in_proj_bias,
+                self.attn.out_proj.weight, self.attn.out_proj.bias,
+                self.ff[0].weight, self.ff[0].bias, self.ff[2].weight, self.ff[2].bias,
+                n_heads=H, group_b=fused_group_b(L), use_film=film_on)
+
+        h = self.norm1(x)
+        if film_on:
+            h = _film(h, self.film1(cond))
+        q, k, v = F.linear(h, self.attn.in_proj_weight, self.attn.in_proj_bias).split(D, dim=-1)
+        if _use_fused_packed(self.attn_policy, H, L):
+            attn = small_mha_packed(q, k, v, H, fused_group_b(L))
+        else:
+            attn = dense_attention(q, k, v, H)
+        x = x + self.attn.out_proj(attn)
+        h = self.norm2(x)
+        if film_on:
+            h = _film(h, self.film2(cond))
+        return x + self.ff(h)
+
+
+class TransformerEncoder(nn.Module):
+    def __init__(self, d_model: int = 256, n_layers: int = 8, n_heads: int = 8,
+                 d_ff: int = 1024, d_cond: int = 128, use_film: bool = True,
+                 attn_policy: str = "fused"):
+        super().__init__()
+        self.layers = nn.ModuleList([
+            TransformerBlock(d_model, n_heads, d_ff, d_cond, use_film, attn_policy)
+            for _ in range(n_layers)])
+
+    def set_attn_policy(self, policy: str) -> None:
+        if policy not in ATTN_POLICIES:
+            raise ValueError(f"attn_policy {policy!r} not in {ATTN_POLICIES}")
+        for layer in self.layers:
+            layer.attn_policy = policy
+
+    def forward(self, x: torch.Tensor, cond: Optional[torch.Tensor] = None) -> torch.Tensor:
+        for layer in self.layers:
+            x = layer(x, cond)
+        return x

@@ -1,0 +1,133 @@
+"""K-schedules, nested keyframe masks and segment-lerp (port of ops/keyframes.py).
+
+Index tensors are int64 here (torch's gather/scatter need it) where the JAX
+package keeps int32. Random priorities come from an explicit `rand` draw or a
+`torch.Generator`, so a test can inject the exact draw JAX made.
+"""
+from __future__ import annotations
+
+from typing import List, Optional, Sequence, Tuple
+
+import torch
+
+
+def compute_k_schedule(T: int, K_min: int, levels: int, schedule: str = "doubling",
+                       geom_gamma: Optional[float] = None) -> List[int]:
+    """Anchor counts per level, K_list[s] for s = 0 (finest) .. levels (coarsest).
+
+    Host-side, identical to the JAX package's compute_k_schedule.
+    """
+    K_min = min(K_min, T)
+    K_list = [0 for _ in range(levels + 1)]
+    K_list[levels] = K_min
+    if levels <= 0:
+        return K_list
+    if schedule == "doubling":
+        for s in range(levels, 0, -1):
+            K_list[s - 1] = min(T, max(K_list[s] + 1, 2 * K_list[s]))
+        return K_list
+    if schedule == "linear":
+        for s in range(levels - 1, -1, -1):
+            frac = float(levels - s) / float(levels)
+            target = int(round(K_min + frac * (T - K_min)))
+            K_list[s] = min(T, max(K_list[s + 1] + 1, target))
+        return K_list
+    if schedule == "geom":
+        if geom_gamma is None:
+            geom_gamma = (float(T) / float(K_min)) ** (1.0 / float(levels)) if K_min > 0 else 1.0
+        for s in range(levels - 1, -1, -1):
+            target = int(round(K_min * (geom_gamma ** float(levels - s))))
+            K_list[s] = min(T, max(K_list[s + 1] + 1, target))
+        return K_list
+    raise ValueError(f"Unknown k schedule: {schedule}")
+
+
+def _mask_from_idx(idx: torch.Tensor, T: int) -> torch.Tensor:
+    """[B, K] int indices -> [B, T] bool mask."""
+    mask = torch.zeros((idx.shape[0], T), dtype=torch.bool, device=idx.device)
+    return mask.scatter(1, idx.long(), True)
+
+
+def _nested_from_order(order: torch.Tensor, T: int, K_list: Sequence[int]
+                       ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+    """Nested masks/idx from a per-sample priority order [B, T]: the level-s
+    anchors are order[:, :K_s], so the levels nest by construction."""
+    masks, idx_levels = [], []
+    for s in range(len(K_list)):
+        K_s = max(int(K_list[s]), 2)
+        idx_s = torch.sort(order[:, :K_s].long(), dim=1).values
+        idx_levels.append(idx_s)
+        masks.append(_mask_from_idx(idx_s, T))
+    return torch.stack(masks, dim=1), idx_levels
+
+
+def build_nested_masks_from_base(
+    idx_base: torch.Tensor, T: int, levels: int, *,
+    k_schedule: str = "doubling", k_geom_gamma: Optional[float] = None,
+    rand: Optional[torch.Tensor] = None,
+    generator: Optional[torch.Generator] = None,
+) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+    """Nested masks whose coarsest level is idx_base [B, K_base].
+
+    Base anchors get priority 2 (ties broken by position, as the stable
+    argsort does in JAX); the other positions are ranked by `rand` [B, T]
+    uniforms, drawn from `generator` when not given.
+    Returns (masks_levels [B, levels+1, T] bool, idx_levels list of [B, K_s]).
+    """
+    if levels < 1:
+        raise ValueError("levels must be >= 1")
+    if idx_base.ndim != 2:
+        raise ValueError("idx_base must be [B, K]")
+    B, K_base = idx_base.shape
+    K_list = compute_k_schedule(T, K_base, levels, schedule=k_schedule,
+                                geom_gamma=k_geom_gamma)
+    if rand is None:
+        if generator is None:
+            raise ValueError("build_nested_masks_from_base needs rand or a generator")
+        rand = torch.rand((B, T), generator=generator, device=idx_base.device)
+    base_mask = _mask_from_idx(idx_base, T)
+    pri = torch.where(base_mask, torch.full_like(rand, 2.0), rand)
+    order = torch.argsort(-pri, dim=1, stable=True)
+    return _nested_from_order(order, T, K_list)
+
+
+def interpolate_from_indices(idx: torch.Tensor, vals: torch.Tensor, T: int,
+                             recompute_velocity: bool = False) -> torch.Tensor:
+    """Piecewise-linear fill between sorted anchors.
+
+    idx: [B, K] sorted anchor positions; vals: [B, K, D] anchor values.
+    Returns [B, T, D] with anchors preserved exactly: searchsorted(right)-1
+    segment lookup, gap-clamped lerp weights, exact anchor scatter, optional
+    velocity recompute for D == 4 ([pos(2), vel(2)] layout).
+    """
+    if idx.ndim != 2:
+        raise ValueError("idx must be [B, K]")
+    if vals.ndim != 3:
+        raise ValueError("vals must be [B, K, D]")
+    idx = idx.long()
+    B, K = idx.shape
+    D = vals.shape[-1]
+    t_grid = torch.arange(T, dtype=torch.long, device=idx.device)
+    seg = torch.searchsorted(idx.contiguous(), t_grid.expand(B, T).contiguous(),
+                             right=True) - 1
+    seg = torch.clamp(seg, 0, K - 2)
+    left_idx = torch.gather(idx, 1, seg)
+    right_idx = torch.gather(idx, 1, seg + 1)
+    left_val = torch.gather(vals, 1, seg[..., None].expand(B, T, D))
+    right_val = torch.gather(vals, 1, (seg + 1)[..., None].expand(B, T, D))
+    denom = torch.clamp(right_idx - left_idx, min=1).to(vals.dtype)[..., None]
+    w = (t_grid[None, :] - left_idx).to(vals.dtype)[..., None] / denom
+    y = left_val + w * (right_val - left_val)
+    y = y.scatter(1, idx[..., None].expand(B, K, D), vals)
+    if recompute_velocity and D == 4:
+        y = recompute_velocity_channels(y, T)
+    return y
+
+
+def recompute_velocity_channels(y: torch.Tensor, T: int) -> torch.Tensor:
+    """Finite-difference velocity for [.., T, 4] = [pos(2), vel(2)] layouts."""
+    pos = y[..., :2]
+    dt = 1.0 / float(T)
+    v = torch.cat([(pos[..., 1:, :] - pos[..., :-1, :]) / dt,
+                   torch.zeros_like(pos[..., :1, :])], dim=-2)
+    return torch.cat([pos, v], dim=-1)
