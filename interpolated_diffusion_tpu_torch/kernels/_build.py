@@ -1,10 +1,12 @@
 """Build the port's CUDA kernels with nvcc and load them through ctypes.
 
 All of `csrc/*.cu` is compiled into one shared library with a plain C
-interface (no PyTorch headers, so the build takes seconds):
+interface (no PyTorch headers, so the build takes seconds): one nvcc per
+source, all started together, then one link:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -o libid_kernels.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler -fPIC \
+         -Xptxas=-v -c csrc/<name>.cu -o <name>.o        (each source, in parallel)
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared -o libid_kernels.so *.o
 
 The library goes to `build/kernels/<hash of sources and flags>/` at the root
 of the checkout, so a changed source rebuilds and an unchanged one loads the
@@ -23,8 +25,8 @@ from typing import Optional, Sequence
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 LIB_NAME = "libid_kernels.so"
 
 _lib: Optional[ctypes.CDLL] = None
@@ -66,15 +68,35 @@ def build() -> Path:
     if out.is_file():
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{LIB_NAME}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(s) for s in sorted(CSRC.glob("*.cu"))]]
+    tag = f"{os.getpid()}.tmp"
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    objs, procs = [], []
+    for src in sorted(CSRC.glob("*.cu")):
+        obj = out.with_name(f"{src.stem}.{tag}.o")
+        objs.append(obj)
+        procs.append((src.name, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    logs, failed = [], []
+    for name, proc in procs:
+        text, _ = proc.communicate()
+        logs.append(f"== {name}\n{text}")
+        if proc.returncode != 0:
+            failed.append(f"{name} ({proc.returncode})")
+    tmp = out.with_name(f"{LIB_NAME}.{tag}")
+    if not failed:
+        link = subprocess.run([nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp),
+                               *[str(o) for o in objs]], capture_output=True, text=True)
+        logs.append(f"== link\n{link.stdout}{link.stderr}")
+        if link.returncode != 0:
+            failed.append(f"link ({link.returncode})")
+    for obj in objs:
+        obj.unlink(missing_ok=True)
     build_seconds = time.perf_counter() - t0
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
+    build_log = "".join(logs)
+    if failed:
+        raise RuntimeError(f"nvcc failed: {', '.join(failed)}\n{build_log}")
     os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
     return out
 

@@ -1,8 +1,10 @@
-"""JAX (flax) denoiser params -> port state_dict.
+"""JAX (flax) params -> port state_dicts.
 
-The inverse of interpolated_diffusion_tpu/models/torch_import.py::
-convert_state_dict for the two maze denoisers. Takes the flax param tree with
-numpy (or array-like) leaves, so it needs no JAX:
+`params_to_state_dict` is the inverse of interpolated_diffusion_tpu/models/
+torch_import.py::convert_state_dict for the two maze denoisers;
+`wan_params_to_state_dict` converts a WanDiT (and FrameCondProjector) tree.
+Both take flax param trees with numpy (or array-like) leaves, so they need
+no JAX:
 
   Dense kernel [in, out]         -> Linear weight [out, in]
   Conv kernel [kh, kw, in, out]  -> Conv2d weight [out, in, kh, kw]
@@ -13,7 +15,7 @@ numpy (or array-like) leaves, so it needs no JAX:
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -90,3 +92,103 @@ def params_to_state_dict(params: Params, kind: str) -> Dict[str, torch.Tensor]:
     _transformer(sd, params["transformer"])
     _linear(sd, "out", params["out"])
     return sd
+
+
+# ---------------------------------------------------------------------------
+# WanDiT
+# ---------------------------------------------------------------------------
+
+_WAN_TOP = (("time_fc1", "condition_embedder.time_embedder.linear_1"),
+            ("time_fc2", "condition_embedder.time_embedder.linear_2"),
+            ("time_proj", "condition_embedder.time_proj"),
+            ("text_fc1", "condition_embedder.text_embedder.linear_1"),
+            ("text_fc2", "condition_embedder.text_embedder.linear_2"),
+            ("extra_fc1", "condition_embedder.extra_embedder.linear_1"),
+            ("extra_fc2", "condition_embedder.extra_embedder.linear_2"),
+            ("proj_out", "proj_out"))
+_WAN_ATTN = (("q_proj", "to_q"), ("k_proj", "to_k"), ("v_proj", "to_v"), ("o_proj", "to_out.0"))
+
+
+def _lora_linear(sd, prefix: str, p: Params) -> None:
+    """Dense or LoRADense; lora_A [in, r] / lora_B [r, out] -> [r, in] / [out, r]."""
+    _linear(sd, prefix, p)
+    if "lora_A" in p:
+        sd[f"{prefix}.lora_A"] = _t(np.asarray(p["lora_A"]).T)
+        sd[f"{prefix}.lora_B"] = _t(np.asarray(p["lora_B"]).T)
+
+
+def _wan_attention(sd, pre: str, p: Params) -> None:
+    for jax_name, name in _WAN_ATTN:
+        _lora_linear(sd, f"{pre}.{name}", p[jax_name])
+    sd[f"{pre}.norm_q.weight"] = _t(p["q_norm"]["scale"])
+    sd[f"{pre}.norm_k.weight"] = _t(p["k_norm"]["scale"])
+    if "sla" in p:
+        _linear(sd, f"{pre}.sla.proj_l", p["sla"]["proj_l"])
+
+
+def _wan_block(sd, pre: str, blk: Params) -> None:
+    if "moe_ffn" in blk:
+        raise NotImplementedError("WanDiT ffn_mode='moe' is not ported yet")
+    sd[f"{pre}scale_shift_table"] = _t(blk["scale_shift_table"])
+    _wan_attention(sd, f"{pre}attn1", blk["self_attn"])
+    _wan_attention(sd, f"{pre}attn2", blk["cross_attn"])
+    _layernorm(sd, f"{pre}norm2", blk["norm2"])
+    _lora_linear(sd, f"{pre}ffn.net.0.proj", blk["ffn_in"])
+    _lora_linear(sd, f"{pre}ffn.net.2", blk["ffn_out"])
+
+
+def _wan_blocks(params: Params):
+    """Per-block trees in layer order from any of the JAX layouts: loop
+    (block_{i}), remat groups (group_{g}/block_{j}) or scan (blocks/block,
+    every leaf stacked on axis 0, unstacked here in numpy)."""
+    if "blocks" in params:
+        stacked = params["blocks"]["block"]
+
+        def take(tree, i):
+            if isinstance(tree, dict):
+                return {k: take(v, i) for k, v in tree.items()}
+            return np.asarray(tree)[i]
+
+        n = len(np.asarray(stacked["scale_shift_table"]))
+        return [take(stacked, i) for i in range(n)]
+    if "block_0" in params:
+        n = sum(1 for k in params if k.startswith("block_"))
+        return [params[f"block_{i}"] for i in range(n)]
+    blocks, g = [], 0
+    while f"group_{g}" in params:
+        grp, j = params[f"group_{g}"], 0
+        while f"block_{j}" in grp:
+            blocks.append(grp[f"block_{j}"])
+            j += 1
+        g += 1
+    return blocks
+
+
+def wan_params_to_state_dict(params: Params, frame_cond: Optional[Params] = None,
+                             patch_size=(1, 2, 2)
+                             ) -> Tuple[Dict[str, torch.Tensor], Optional[Dict[str, torch.Tensor]]]:
+    """flax params of a WanDiT (+ its FrameCondProjector) -> state_dicts of the
+    port's WanDiT and FrameCondProjector (None without `frame_cond`).
+
+    Covers runtime-form LoRA (lora_A / lora_B), the SLA projection
+    (self_attn/sla/proj_l) and the extra-context MLP. The patch-embed kernel
+    [C*pt*ph*pw, dim] becomes the Conv3d-shaped weight [dim, C, pt, ph, pw].
+    """
+    sd: Dict[str, torch.Tensor] = {}
+    kernel = np.asarray(params["patch_embed"]["kernel"])
+    dim = kernel.shape[1]
+    channels = kernel.shape[0] // int(np.prod(patch_size))
+    sd["patch_embedding.weight"] = _t(kernel.T.reshape(dim, channels, *patch_size))
+    sd["patch_embedding.bias"] = _t(params["patch_embed"]["bias"])
+    for jax_name, name in _WAN_TOP:
+        if jax_name in params:
+            _linear(sd, name, params[jax_name])
+    sd["scale_shift_table"] = _t(params["head_scale_shift"])
+    for i, blk in enumerate(_wan_blocks(params)):
+        _wan_block(sd, f"blocks.{i}.", blk)
+    fc_sd = None
+    if frame_cond is not None:
+        fc_sd = {}
+        for name, p in frame_cond.items():
+            _linear(fc_sd, name, p)
+    return sd, fc_sd

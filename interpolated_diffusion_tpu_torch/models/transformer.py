@@ -46,22 +46,26 @@ def _use_fused_packed(policy: str, H: int, L: int) -> bool:
 class LayerNorm(nn.Module):
     """flax LayerNorm: f32 statistics, var = E[x^2] - mu^2 (clipped at 0),
     eps 1e-6; output in the input dtype. torch.nn.LayerNorm differs (eps
-    1e-5, two-pass variance)."""
+    1e-5, two-pass variance). affine=False is flax's use_scale=False,
+    use_bias=False (no parameters)."""
 
-    def __init__(self, d: int, eps: float = 1e-6):
+    def __init__(self, d: int, eps: float = 1e-6, affine: bool = True):
         super().__init__()
         self.eps = eps
-        self.weight = nn.Parameter(torch.ones(d))
-        self.bias = nn.Parameter(torch.zeros(d))
+        self.weight = nn.Parameter(torch.ones(d)) if affine else None
+        self.bias = nn.Parameter(torch.zeros(d)) if affine else None
 
     def init_seeded(self, uniform_) -> None:
-        self.weight.fill_(1.0)
-        self.bias.zero_()
+        if self.weight is not None:
+            self.weight.fill_(1.0)
+            self.bias.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         xf = x.float()
         mu = xf.mean(dim=-1, keepdim=True)
         var = torch.clamp((xf * xf).mean(dim=-1, keepdim=True) - mu * mu, min=0.0)
+        if self.weight is None:
+            return ((xf - mu) * torch.rsqrt(var + self.eps)).to(x.dtype)
         y = (xf - mu) * (torch.rsqrt(var + self.eps) * self.weight.float()) + self.bias.float()
         return y.to(x.dtype)
 
@@ -84,10 +88,11 @@ class SelfAttentionParams(nn.Module):
 
 def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     n_heads: int) -> torch.Tensor:
-    """Plain multi-head attention on the packed [B, L, H*Dh] layout, f32 softmax."""
+    """Plain multi-head attention on the packed [B, L, H*Dh] layout, f32
+    softmax; k/v may have another length than q (cross-attention)."""
     B, L, D = q.shape
     dh = D // n_heads
-    heads = lambda t: t.reshape(B, L, n_heads, dh).transpose(1, 2)
+    heads = lambda t: t.reshape(B, t.shape[1], n_heads, dh).transpose(1, 2)
     logits = (heads(q) @ heads(k).transpose(-1, -2)).float() * dh ** -0.5
     p = torch.softmax(logits, dim=-1).to(v.dtype)
     return (p @ heads(v)).transpose(1, 2).reshape(B, L, D)

@@ -1,0 +1,390 @@
+"""Wan2.1-style video DiT (port of models/wan_dit.py, inference).
+
+Patch embed (1, 2, 2), adaLN-zero blocks with per-block scale-shift tables,
+RMS-normed q/k, 3D RoPE with the Wan t/h/w head-dim split (absolute-time
+frame indices as a forward argument), cross-attention to text (plus optional
+extra context tokens), runtime-form LoRA, and a head modulated by the time
+embedding. The compute dtype is the parameters' dtype.
+
+Attention dispatch is the JAX package's: attn_mode "sla" / "sage_sla" route
+self-attention through SparseLinearAttention (bf16 or int8 sparse kernel);
+any other attention with L >= 2048 queries goes through the flash kernel;
+the rest is plain dense attention.
+
+Module names follow the diffusers WanTransformer3DModel state dict
+(models/wan_convert.py in the JAX package lists the map) so that a Wan2.1
+checkpoint maps straight on. Leaves diffusers does not have sit under names
+of their own: `*.lora_A` / `*.lora_B` beside each adapted Linear,
+`attn1.sla.proj_l`, and `condition_embedder.extra_embedder` (the JAX
+package's extra_fc1/extra_fc2). One Python loop of blocks: the JAX package's
+scan layout, remat and FORA block caching (blocks_delta) are not ported.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..kernels.block_sparse_attention import flash_attention
+from ..kernels.sla import SparseLinearAttention
+from .denoisers import timestep_embedding
+from .transformer import LayerNorm, dense_attention
+
+ATTN_MODES = ("dense", "flash", "sla", "sage_sla")
+FLASH_MIN_L = 2048  # queries from which attention goes through the flash kernel
+FLASH_BLOCKS = (512, 1024)  # the JAX flash tiles (kernels/tuning.flash_blocks defaults)
+
+
+# ---------------------------------------------------------------------------
+# 3D rotary embeddings (Wan head-dim split: h = w = 2 * (d // 6), t = rest)
+# ---------------------------------------------------------------------------
+
+def wan_rope_tables(max_seq_len: int, head_dim: int, theta: float = 10000.0,
+                    device=None) -> Tuple[Dict[str, Tuple[torch.Tensor, torch.Tensor]],
+                                          Tuple[int, int, int]]:
+    """Per-axis (t, h, w) cos/sin tables, each [max_seq_len, axis_dim / 2] f32."""
+    h_dim = 2 * (head_dim // 6)
+    w_dim = h_dim
+    t_dim = head_dim - h_dim - w_dim
+    tables = {}
+    for name, dim in (("t", t_dim), ("h", h_dim), ("w", w_dim)):
+        freqs = 1.0 / (theta ** (torch.arange(0, dim, 2, dtype=torch.float32,
+                                              device=device) / dim))
+        angles = torch.arange(max_seq_len, dtype=torch.float32, device=device)[:, None] * freqs
+        tables[name] = (torch.cos(angles), torch.sin(angles))
+    return tables, (t_dim, h_dim, w_dim)
+
+
+def build_rope_freqs(tables, dims: Tuple[int, int, int], ppf: int, pph: int, ppw: int,
+                     frame_indices: Optional[torch.Tensor] = None):
+    """Per-token (cos, sin), each [B or 1, ppf*pph*ppw, head_dim / 2].
+
+    frame_indices [B, ppf] gives absolute-time RoPE: short K-frame inputs keep
+    the positions of the frames they were taken from.
+    """
+    t_dim, h_dim, w_dim = dims
+    out = []
+    for part in (0, 1):  # cos, sin
+        tt, ht, wt = tables["t"][part], tables["h"][part], tables["w"][part]
+        tsel = tt[frame_indices.long()] if frame_indices is not None else tt[:ppf][None]
+        B = tsel.shape[0]
+        shape = (B, ppf, pph, ppw)
+        pieces = [tsel[:, :, None, None, :].expand(*shape, t_dim // 2),
+                  ht[:pph][None, None, :, None, :].expand(*shape, h_dim // 2),
+                  wt[:ppw][None, None, None, :, :].expand(*shape, w_dim // 2)]
+        out.append(torch.cat(pieces, dim=-1).reshape(B, ppf * pph * ppw, -1))
+    return out[0], out[1]
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """Rotate interleaved pairs; x [B, H, L, D], cos/sin [B or 1, L, D / 2]."""
+    x1, x2 = x[..., 0::2], x[..., 1::2]
+    cos, sin = cos[:, None], sin[:, None]
+    y = torch.stack([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return y.reshape(x.shape).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# modules
+# ---------------------------------------------------------------------------
+
+class LoRALinear(nn.Linear):
+    """Linear with runtime low-rank adaptation: y = x W^T + b + (a/r)(x A^T) B^T.
+
+    The delta is applied to activations, so the base weight is never
+    duplicated. A [r, in] and B [out, r] (torch's layout; the JAX package
+    stores their transposes) are cast to the compute dtype, as is x. B is
+    zero-initialised.
+    """
+
+    zero_init_params = ("lora_B",)
+
+    def __init__(self, in_features: int, out_features: int, rank: int = 0,
+                 alpha: float = 16.0):
+        super().__init__(in_features, out_features)
+        self.rank, self.alpha = rank, alpha
+        if rank > 0:
+            self.lora_A = nn.Parameter(torch.empty(rank, in_features))
+            self.lora_B = nn.Parameter(torch.empty(out_features, rank))
+
+    def init_seeded(self, uniform_) -> None:
+        bound = self.in_features ** -0.5
+        uniform_(self.weight, bound)
+        uniform_(self.bias, bound)
+        if self.rank > 0:
+            uniform_(self.lora_A, math.sqrt(3.0) / self.rank)  # std 1/r, as the JAX init
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dtype = self.weight.dtype
+        x = x.to(dtype)
+        y = F.linear(x, self.weight, self.bias)
+        if self.rank <= 0:
+            return y
+        delta = (x @ self.lora_A.to(dtype).t()) @ self.lora_B.to(dtype).t()
+        return y + delta * (self.alpha / float(self.rank))
+
+
+class RMSNorm(nn.Module):
+    """f32 mean square, x * rsqrt(ms + eps) rounded to the compute dtype,
+    then times the scale (eps 1e-6)."""
+
+    def __init__(self, dim: int, eps: float = 1e-6):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(dim))
+
+    def init_seeded(self, uniform_) -> None:
+        self.weight.fill_(1.0)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dtype = self.weight.dtype
+        var = x.float().square().mean(dim=-1, keepdim=True)
+        return (x.float() * torch.rsqrt(var + self.eps)).to(dtype) * self.weight
+
+
+def _gelu(x: torch.Tensor) -> torch.Tensor:
+    return F.gelu(x, approximate="tanh")  # flax nn.gelu(approximate=True)
+
+
+class WanAttention(nn.Module):
+    def __init__(self, dim: int, n_heads: int, attn_mode: str = "dense",
+                 sla_topk: float = 0.1, sla_block: int = 128, lora_rank: int = 0,
+                 lora_alpha: float = 16.0):
+        super().__init__()
+        if attn_mode not in ATTN_MODES:
+            raise ValueError(f"attn_mode {attn_mode!r} not in {ATTN_MODES}")
+        self.dim, self.n_heads = dim, n_heads
+        self.to_q = LoRALinear(dim, dim, lora_rank, lora_alpha)
+        self.to_k = LoRALinear(dim, dim, lora_rank, lora_alpha)
+        self.to_v = LoRALinear(dim, dim, lora_rank, lora_alpha)
+        self.to_out = nn.ModuleList([LoRALinear(dim, dim, lora_rank, lora_alpha)])
+        self.norm_q = RMSNorm(dim)
+        self.norm_k = RMSNorm(dim)
+        self.sla = None
+        if attn_mode in ("sla", "sage_sla"):
+            self.sla = SparseLinearAttention(dim // n_heads, topk=sla_topk, block_q=sla_block,
+                                             block_k=sla_block)
+        self.set_attn_mode(attn_mode)
+
+    def set_attn_mode(self, mode: str) -> None:
+        """Switch the attention path; the weights are the same for every mode
+        (the sparse modes need the SLA projection this module was built with)."""
+        if mode not in ATTN_MODES:
+            raise ValueError(f"attn_mode {mode!r} not in {ATTN_MODES}")
+        if mode in ("sla", "sage_sla"):
+            if self.sla is None:
+                raise ValueError(f"attn_mode {mode!r} needs a module built in sla or sage_sla mode")
+            self.sla.quant = "int8" if mode == "sage_sla" else "none"
+        self.attn_mode = mode
+
+    def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None,
+                rope=None) -> torch.Tensor:
+        B, L, _ = x.shape
+        H, Dh = self.n_heads, self.dim // self.n_heads
+        kv_src = x if context is None else context
+        Lk = kv_src.shape[1]
+        q = self.norm_q(self.to_q(x)).reshape(B, L, H, Dh).transpose(1, 2)
+        k = self.norm_k(self.to_k(kv_src)).reshape(B, Lk, H, Dh).transpose(1, 2)
+        v = self.to_v(kv_src).reshape(B, Lk, H, Dh).transpose(1, 2)
+        if rope is not None:
+            q, k = apply_rope(q, *rope), apply_rope(k, *rope)
+        if self.attn_mode in ("sla", "sage_sla") and context is None:
+            out = self.sla(q, k, v).transpose(1, 2).reshape(B, L, self.dim)
+        elif L >= FLASH_MIN_L:
+            # the JAX package's tiles (flash_blocks defaults, key tile cut to
+            # Lk): they set where the twin rounds P, not what the kernel does
+            bn = FLASH_BLOCKS[1] if Lk >= FLASH_BLOCKS[1] else max(128, -(-Lk // 128) * 128)
+            bf = torch.bfloat16
+            out = flash_attention(q.reshape(B * H, L, Dh).to(bf), k.reshape(B * H, Lk, Dh).to(bf),
+                                  v.reshape(B * H, Lk, Dh).to(bf), FLASH_BLOCKS[0], bn)
+            out = out.reshape(B, H, L, Dh).to(q.dtype).transpose(1, 2).reshape(B, L, self.dim)
+        else:
+            packed = lambda t: t.transpose(1, 2).reshape(B, t.shape[2], self.dim)
+            out = dense_attention(packed(q), packed(k), packed(v), H)
+        return self.to_out[0](out)
+
+
+class _GeluProj(nn.Module):
+    def __init__(self, d_in: int, d_out: int, rank: int, alpha: float):
+        super().__init__()
+        self.proj = LoRALinear(d_in, d_out, rank, alpha)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return _gelu(self.proj(x))
+
+
+class FeedForward(nn.Module):
+    """diffusers' FeedForward layout: net.0.proj, (net.1 dropout), net.2."""
+
+    def __init__(self, dim: int, ffn_dim: int, rank: int = 0, alpha: float = 16.0):
+        super().__init__()
+        self.net = nn.ModuleList([_GeluProj(dim, ffn_dim, rank, alpha), nn.Identity(),
+                                  LoRALinear(ffn_dim, dim, rank, alpha)])
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.net[2](self.net[0](x))
+
+
+class WanBlock(nn.Module):
+    def __init__(self, dim: int, n_heads: int, ffn_dim: int, attn_mode: str = "dense",
+                 sla_topk: float = 0.1, sla_block: int = 256, lora_rank: int = 0,
+                 lora_alpha: float = 16.0, lora_targets: str = "attn,ffn",
+                 ffn_mode: str = "dense"):
+        super().__init__()
+        if ffn_mode != "dense":
+            raise NotImplementedError(f"ffn_mode={ffn_mode!r} (Switch MoE) is not ported yet")
+        targets = {t.strip() for t in lora_targets.split(",")}
+        r_attn = lora_rank if "attn" in targets else 0
+        r_ffn = lora_rank if "ffn" in targets else 0
+        self.scale_shift_table = nn.Parameter(torch.empty(1, 6, dim))
+        self.norm1 = LayerNorm(dim, affine=False)
+        self.attn1 = WanAttention(dim, n_heads, attn_mode, sla_topk, sla_block, r_attn,
+                                  lora_alpha)
+        self.norm2 = LayerNorm(dim)
+        self.attn2 = WanAttention(dim, n_heads, "dense", lora_rank=r_attn, lora_alpha=lora_alpha)
+        self.norm3 = LayerNorm(dim, affine=False)
+        self.ffn = FeedForward(dim, ffn_dim, r_ffn, lora_alpha)
+
+    def init_seeded(self, uniform_) -> None:
+        uniform_(self.scale_shift_table, 0.02 * math.sqrt(3.0))  # std 0.02, as the JAX init
+
+    def forward(self, x, context, t_mod, rope):
+        dtype = x.dtype
+        mod = self.scale_shift_table.float() + t_mod.float()
+        shift1, scale1, gate1, shift2, scale2, gate2 = (
+            mod[:, i][:, None, :].to(dtype) for i in range(6))
+        h = self.norm1(x) * (1 + scale1) + shift1
+        x = x + gate1 * self.attn1(h, rope=rope)
+        x = x + self.attn2(self.norm2(x), context=context)
+        h = self.norm3(x) * (1 + scale2) + shift2
+        return x + gate2 * self.ffn(h)
+
+
+class _MLP(nn.Module):
+    def __init__(self, d_in: int, d_out: int, act):
+        super().__init__()
+        self.linear_1 = nn.Linear(d_in, d_out)
+        self.linear_2 = nn.Linear(d_out, d_out)
+        self.act = act
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.linear_2(self.act(self.linear_1(x.to(self.linear_1.weight.dtype))))
+
+
+class WanConditionEmbedder(nn.Module):
+    """Time MLP (+ the 6-way projection to the block modulations) and text
+    MLP, under diffusers' names; `extra_embedder` maps extra context tokens
+    (frame conditioning) into the same space."""
+
+    def __init__(self, dim: int, freq_dim: int, text_dim: int, extra_context: bool):
+        super().__init__()
+        self.freq_dim = freq_dim
+        self.time_embedder = _MLP(freq_dim, dim, F.silu)
+        self.time_proj = nn.Linear(dim, 6 * dim)
+        self.text_embedder = _MLP(text_dim, dim, _gelu)
+        self.extra_embedder = _MLP(text_dim, dim, _gelu) if extra_context else None
+
+
+class FrameCondProjector(nn.Module):
+    """Per-frame features [B, T, F] -> extra cross-attention tokens
+    [B, T, text_dim]; the output layer is zero-initialised so that an
+    untrained projector leaves the cross-attention undisturbed."""
+
+    def __init__(self, feat_dim: int, text_dim: int, hidden_dim: int = 256, n_layers: int = 2):
+        super().__init__()
+        self.n_hidden = max(0, n_layers - 1)
+        for i in range(self.n_hidden):
+            setattr(self, f"fc_{i}", nn.Linear(feat_dim if i == 0 else hidden_dim, hidden_dim))
+        self.out = nn.Linear(hidden_dim if self.n_hidden else feat_dim, text_dim)
+        self.out.zero_init = True
+
+    def forward(self, feat: torch.Tensor) -> torch.Tensor:
+        h = feat.to(self.out.weight.dtype)
+        for i in range(self.n_hidden):
+            h = _gelu(getattr(self, f"fc_{i}")(h))
+        return self.out(h)
+
+
+class WanDiT(nn.Module):
+    """Video diffusion transformer over [B, C, T, H, W] latents.
+
+    Defaults are the Wan2.1-T2V-1.3B family (dim 1536, 30 blocks, 12 heads,
+    ffn 8960, text dim 4096, patch (1, 2, 2), head dim 128). extra_context
+    creates the extra-token MLP that FrameCondProjector's output goes through.
+    """
+
+    def __init__(self, dim: int = 1536, n_layers: int = 30, n_heads: int = 12,
+                 ffn_dim: int = 8960, in_channels: int = 16, out_channels: int = 16,
+                 text_dim: int = 4096, patch_size: Tuple[int, int, int] = (1, 2, 2),
+                 max_seq_len: int = 1024, freq_dim: int = 256, attn_mode: str = "dense",
+                 sla_topk: float = 0.1, sla_block: int = 256, lora_rank: int = 0,
+                 lora_alpha: float = 16.0, lora_targets: str = "attn,ffn",
+                 ffn_mode: str = "dense", extra_context: bool = False):
+        super().__init__()
+        self.dim, self.n_heads, self.out_channels = dim, n_heads, out_channels
+        self.patch_size, self.max_seq_len = tuple(patch_size), max_seq_len
+        # a Conv3d-shaped weight [dim, C, pt, ph, pw]; stride == kernel, so it
+        # runs as reshape + linear (no convolution)
+        self.patch_embedding = nn.Conv3d(in_channels, dim, self.patch_size,
+                                         stride=self.patch_size)
+        self.condition_embedder = WanConditionEmbedder(dim, freq_dim, text_dim, extra_context)
+        self.blocks = nn.ModuleList([
+            WanBlock(dim, n_heads, ffn_dim, attn_mode, sla_topk, sla_block, lora_rank,
+                     lora_alpha, lora_targets, ffn_mode) for _ in range(n_layers)])
+        self.scale_shift_table = nn.Parameter(torch.empty(1, 2, dim))
+        self.norm_out = LayerNorm(dim, affine=False)
+        self.proj_out = nn.Linear(dim, out_channels * math.prod(self.patch_size))
+
+    def init_seeded(self, uniform_) -> None:
+        uniform_(self.scale_shift_table, 0.02 * math.sqrt(3.0))
+
+    def set_attn_mode(self, mode: str) -> None:
+        """Self-attention path of every block (the precompute CLI's
+        --attn_mode override: attention weights do not depend on the mode)."""
+        for block in self.blocks:
+            block.attn1.set_attn_mode(mode)
+
+    def forward(self, latents: torch.Tensor, t: torch.Tensor, context: torch.Tensor,
+                frame_indices: Optional[torch.Tensor] = None,
+                extra_context: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """latents [B, C, T, H, W], t [B], context [B, L_text, text_dim],
+        frame_indices [B, T] (absolute-time RoPE), extra_context
+        [B, L_extra, text_dim] -> [B, C_out, T, H, W] float32."""
+        dtype = self.proj_out.weight.dtype
+        B, C, T, H, W = latents.shape
+        pt, ph, pw = self.patch_size
+        ppf, pph, ppw = T // pt, H // ph, W // pw
+        ce = self.condition_embedder
+
+        z = latents.reshape(B, C, ppf, pt, pph, ph, ppw, pw).permute(0, 2, 4, 6, 1, 3, 5, 7)
+        z = z.reshape(B, ppf * pph * ppw, C * pt * ph * pw)
+        x = F.linear(z.to(dtype), self.patch_embedding.weight.flatten(1),
+                     self.patch_embedding.bias)
+
+        t_emb = ce.time_embedder(timestep_embedding(t, ce.freq_dim).to(dtype))
+        t_mod = ce.time_proj(F.silu(t_emb)).reshape(B, 6, self.dim)
+        ctx = ce.text_embedder(context)
+        if extra_context is not None:
+            if ce.extra_embedder is None:
+                raise ValueError("extra_context given to a WanDiT built without extra_context")
+            ctx = torch.cat([ctx, ce.extra_embedder(extra_context)], dim=1)
+
+        if frame_indices is not None and pt != 1:
+            frame_indices = frame_indices // pt
+        tables, dims = wan_rope_tables(self.max_seq_len, self.dim // self.n_heads,
+                                       device=latents.device)
+        rope = build_rope_freqs(tables, dims, ppf, pph, ppw, frame_indices)
+
+        for block in self.blocks:
+            x = block(x, ctx, t_mod, rope)
+
+        # head: modulated by the time embedding itself (diffusers Wan semantics)
+        mod = self.scale_shift_table.float() + t_emb[:, None].float()
+        shift, scale = mod[:, 0][:, None].to(dtype), mod[:, 1][:, None].to(dtype)
+        x = self.proj_out(self.norm_out(x) * (1 + scale) + shift)
+        x = x.reshape(B, ppf, pph, ppw, self.out_channels, pt, ph, pw)
+        x = x.permute(0, 4, 1, 5, 2, 6, 3, 7).reshape(B, self.out_channels, T, H, W)
+        return x.float()

@@ -7,13 +7,18 @@ mode). This file imports no JAX, so it also runs on a machine without it:
 
 (--noconftest: tests/conftest.py sets up JAX for the CPU suite.) Shapes are
 the bench's main path; tolerances are chip_smoke.py's, as max|kernel - twin|
-over max|twin| in bf16: 2e-2 for the block, 1e-2 for the attention.
+over max|twin| in bf16: 2e-2 for the block, 1e-2 for the attention kernels
+(o and lse), 0.08 for int8 SLA against the bf16 SLA twin.
 """
 import numpy as np
 import pytest
 import torch
 
-from interpolated_diffusion_tpu_torch.kernels import fused_block, small_mha
+from interpolated_diffusion_tpu_torch.kernels import block_sparse_attention as bsa
+from interpolated_diffusion_tpu_torch.kernels import fused_block, int8_attention, small_mha
+from interpolated_diffusion_tpu_torch.kernels.block_sparse_reference import (
+    block_sparse_attention_reference)
+from interpolated_diffusion_tpu_torch.kernels.sla import get_block_map
 
 D, H, F = 384, 12, 1536
 
@@ -92,3 +97,116 @@ def test_cuda_wrappers_raise_instead_of_falling_back(cuda):
         fused_block.fused_film_block(xb.float(), *args, n_heads=H)
     with pytest.raises(ValueError):          # f32 bias: the kernels take bf16 tensors
         fused_block.fused_film_block(xb, *args[:7], args[7].float(), *args[8:], n_heads=H)
+
+
+def _qkv_bf16(bh, L, d, device, seed, Lk=None):
+    g = torch.Generator(device=device).manual_seed(seed)
+    q = torch.randn((bh, L, d), generator=g, device=device).to(torch.bfloat16)
+    k, v = (torch.randn((bh, Lk or L, d), generator=g, device=device).to(torch.bfloat16)
+            for _ in range(2))
+    return q, k, v
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("L,d,block,ratio", [
+    (1000, 128, 128, 0.3), (1000, 64, 128, 0.3),   # last block 104 of 128 rows
+    (1000, 128, 256, 0.5), (1000, 64, 256, 0.5),   # last block 232 of 256 rows
+    (7800, 128, 128, 0.1)])                        # the Wan path's L, topk 6 of 61
+def test_sla_kernel_matches_twin(cuda, L, d, block, ratio):
+    q, k, v = _qkv_bf16(6, L, d, cuda, L + d + block)
+    _, lut, _ = get_block_map(q, k, ratio, block, block)
+    before = bsa.block_sparse_attention.launches
+    with torch.inference_mode():
+        o, lse = bsa.block_sparse_attention_fwd(q, k, v, lut, block, block)
+        ro, rlse = block_sparse_attention_reference(q, k, v, lut, block, block)
+    torch.cuda.synchronize()
+    assert bsa.block_sparse_attention.launches == before + 1
+    assert o.dtype == torch.bfloat16 and torch.isfinite(o).all() and torch.isfinite(lse).all()
+    assert _rel(o, ro) <= 1e-2
+    assert _rel(lse, rlse) <= 1e-2
+
+
+@pytest.mark.gpu
+def test_sla_lse_kernel_sentinel(cuda):
+    """Sentinel entries add nothing; rows of sentinels give o = 0 and
+    lse = log2(1e-30), as the twin does."""
+    block, L = 128, 1000
+    q, k, v = _qkv_bf16(4, L, 128, cuda, 3)
+    _, lut, _ = get_block_map(q, k, 0.3, block, block)
+    sentinel = -(-L // block)
+    lut[:, 1, -1] = sentinel
+    lut[:, 3, :] = sentinel
+    with torch.inference_mode():
+        o, lse = bsa.block_sparse_attention_lse(q, k, v, lut.contiguous(), block, block)
+        ro, rlse = block_sparse_attention_reference(q, k, v, lut, block, block, kv_len=L,
+                                                    kv_pad_blocks=1)
+    torch.cuda.synchronize()
+    assert torch.isfinite(o).all() and torch.isfinite(lse).all()
+    assert _rel(o, ro) <= 1e-2 and _rel(lse, rlse) <= 1e-2
+    rows = slice(3 * block, 4 * block)
+    assert (o[:, rows] == 0).all()
+    torch.testing.assert_close(lse[:, rows], torch.full_like(lse[:, rows], float(np.log2(1e-30))))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("Lq,Lk,d", [(1000, 517, 128), (1000, 70, 128), (1000, 517, 64),
+                                     (333, 70, 64), (2048, 2048, 128)])
+def test_flash_kernel_matches_twin(cuda, Lq, Lk, d):
+    q, k, v = _qkv_bf16(6, Lq, d, cuda, Lq + Lk + d, Lk=Lk)
+    before = bsa.flash_attention.launches
+    with torch.inference_mode():
+        o, lse = bsa.flash_attention_fwd(q, k, v)
+        ro, rlse = bsa._torch_flash(q, k, v, d ** -0.5, 1024)
+    torch.cuda.synchronize()
+    assert bsa.flash_attention.launches == before + 1
+    assert _rel(o, ro) <= 1e-2 and _rel(lse, rlse) <= 1e-2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("L,d,block", [(1000, 128, 128), (1000, 64, 128), (1000, 128, 256),
+                                       (7800, 128, 128)])
+def test_int8_kernel_matches_twins(cuda, L, d, block):
+    q, k, v = _qkv_bf16(6, L, d, cuda, 7 * L + d + block)
+    _, lut, _ = get_block_map(q, k, 0.3, block, block)
+    qi, ki, qs, ks = int8_attention.quantize_qk(q, k)
+    before = int8_attention.int8_block_sparse_attention.launches
+    with torch.inference_mode():
+        o, lse = int8_attention.int8_attention_fwd(qi, ki, v, qs, ks, lut, block, block, d ** -0.5)
+        ro, rlse = int8_attention._torch_int8_attention(qi, ki, v, qs, ks, lut, block, block,
+                                                        d ** -0.5)
+        bo, _ = block_sparse_attention_reference(q, k, v, lut, block, block)
+        pub = int8_attention.int8_block_sparse_attention(q, k, v, lut, block, block)
+    torch.cuda.synchronize()
+    assert int8_attention.int8_block_sparse_attention.launches == before + 2
+    assert _rel(o, ro) <= 1e-2 and _rel(lse, rlse) <= 1e-2
+    assert _rel(o, bo) <= 0.08                 # the reference's own int8 bound
+    assert torch.equal(pub, o)
+
+
+@pytest.mark.gpu
+def test_attention_wrappers_raise_instead_of_falling_back(cuda):
+    q, k, v = _qkv_bf16(2, 256, 128, cuda, 0)
+    _, lut, _ = get_block_map(q, k, 0.5, 128, 128)
+    with pytest.raises(ValueError):          # f32 inputs: the kernels take bf16
+        bsa.block_sparse_attention(q.float(), k.float(), v.float(), lut, 128, 128)
+    with pytest.raises(ValueError):
+        bsa.flash_attention(q.float(), k, v)
+    with pytest.raises(ValueError):          # head dim 96
+        bsa.flash_attention(q[..., :96].contiguous(), k[..., :96].contiguous(),
+                            v[..., :96].contiguous())
+    with pytest.raises(ValueError):          # int64 LUT
+        bsa.block_sparse_attention(q, k, v, lut.long(), 128, 128)
+    with pytest.raises(ValueError):          # SLA block not a multiple of 64
+        bsa.block_sparse_attention(q, k, v, get_block_map(q, k, 0.5, 32, 32)[1], 32, 32)
+    qg = q.clone().requires_grad_()
+    with pytest.raises(RuntimeError):        # forward only
+        bsa.block_sparse_attention(qg, k, v, lut, 128, 128)
+    with pytest.raises(RuntimeError):
+        bsa.flash_attention(qg, k, v)
+    with pytest.raises(RuntimeError):
+        int8_attention.int8_attention_fwd(*int8_attention.quantize_qk(q, k)[:2], qg,
+                                          *int8_attention.quantize_qk(q, k)[2:], lut, 128, 128,
+                                          1.0)
+    qi, ki, qs, ks = int8_attention.quantize_qk(q, k)
+    with pytest.raises(ValueError):          # f32 V: the int8 kernel takes bf16 V
+        int8_attention.int8_attention_fwd(qi, ki, v.float(), qs, ks, lut, 128, 128, 1.0)
