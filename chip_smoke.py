@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's two sampling paths once on one GPU.
+"""Drive the PyTorch/CUDA port's sampling paths and its Wan trainer once on one GPU.
 
     python3 chip_smoke.py [--profile]
 
@@ -20,7 +20,7 @@ Phases, each on its own lines; any failure exits non-zero:
                   scripts/bench_wan33k.py (blocks 128 and 256) and at a
                   sentinel case
   7. wan main     Phase-1 anchor sampling (sample/wan_anchors) through
-                  Wan2.1-1.3B at full width and depth (1536d x 30 layers x 12
+                  Wan2.1-1.3B at full width, 6 of 30 layers (1536d x 12
                   heads, ffn 8960, LoRA rank 8, frame conditioning, B=4,
                   K=5 anchors of 16x60x104 latents, L=7800, 3 DDIM
                   evaluations, seeded random weights) under attn_mode sla,
@@ -28,9 +28,25 @@ Phases, each on its own lines; any failure exits non-zero:
                   agreement of the kernel path with the plain-twin path
   8. wan timings  Wan kernels vs twins (CUDA events) and sampler samples/s
                   per mode (kernels, twins, twins, kernels)
---profile adds a torch.profiler table of one sla-mode sampler call. The
-line before the last is a JSON summary
-of the kernels; the last line is {"ok": true, "device": {...}}.
+  9. wan bwd      the SLA and flash backward kernels (dQ, dK/dV) against their
+                  twins at the trainer's shapes ([24, 7800, 128]; SLA blocks
+                  256 and 128, one LUT with duplicated ids; flash cross
+                  7800 x 517 and self 7800 x 7800), with CUDA-event times
+  10. wan train   Phase-1 LoRA training (train/train_keypoints_wansynth) at
+                  the trainer's defaults: Wan2.1-1.3B at full width and depth,
+                  batch 2, L=7800, bf16, LoRA rank 8, frame conditioning,
+                  remat, synthetic data; attn_mode sla (1 warm-up + 3 timed
+                  steps), sage_sla and dense (1 warm-up + 2 timed steps each)
+                  through the trainer's own step; finite loss, every trainable leaf
+                  changed, frozen base bit-identical, launch counts, no twin
+                  call, and loss / gradients of the kernel path against the
+                  plain-twin path from the same state, batch and draws
+Every timing phase also times the one PyTorch library call that computes the
+same function, where there is one (scaled_dot_product_attention), as a
+yardstick that the port never calls. --profile adds torch.profiler tables of
+one sla-mode sampler call and one sla-mode training step. The line before the
+last is a JSON summary of the kernels (time, bound, library time, launches);
+the last line is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -70,12 +86,35 @@ KERNEL_SOURCES = {
                                     "interpolated_diffusion_tpu/kernels/int8_attention.py:48"),
     "flash_attention": ("interpolated_diffusion_tpu_torch/csrc/block_attention.cu",
                         "interpolated_diffusion_tpu/kernels/block_sparse_attention.py:174"),
+    "sla_bwd_dq": ("interpolated_diffusion_tpu_torch/csrc/block_attention_bwd.cu",
+                   "interpolated_diffusion_tpu/kernels/block_sparse_attention.py:438"),
+    "sla_bwd_dkdv": ("interpolated_diffusion_tpu_torch/csrc/block_attention_bwd.cu",
+                     "interpolated_diffusion_tpu/kernels/block_sparse_attention.py:473"),
+    "flash_bwd_dq": ("interpolated_diffusion_tpu_torch/csrc/block_attention_bwd.cu",
+                     "interpolated_diffusion_tpu/kernels/block_sparse_attention.py:214"),
+    "flash_bwd_dkdv": ("interpolated_diffusion_tpu_torch/csrc/block_attention_bwd.cu",
+                       "interpolated_diffusion_tpu/kernels/block_sparse_attention.py:248"),
 }
+
+# Published dense peaks of one H100 SXM (NVIDIA's data sheet), for the bounds:
+# the least time the card could take is the larger of operations over the peak
+# rate of their type and bytes (each input read once, each output written
+# once) over the memory rate.
+PEAK_BF16, PEAK_INT8, PEAK_HBM = 989e12, 1979e12, 3.35e12
+
+
+def bound_ms(bytes_moved, flops_bf16=0.0, ops_int8=0.0):
+    """(bound in ms, "bytes" or "operations") of one call."""
+    t_ops = flops_bf16 / PEAK_BF16 + ops_int8 / PEAK_INT8
+    t_bytes = bytes_moved / PEAK_HBM
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
 
 # Wan2.1-T2V-1.3B Phase-1 anchor sampling: the defaults of
 # data/precompute_phase1_anchors.py (batch 4, ddim_steps 4, sla_block 128) and
 # train/wansynth_common.py (model, LoRA, frame conditioning, latents).
-WAN = dict(wan_dim=1536, wan_layers=30, wan_heads=12, wan_ffn=8960, latent_c=16,
+WAN_SAMPLER_LAYERS = 6   # the sampler's depth here (full width); the trainer runs all 30
+WAN = dict(wan_dim=1536, wan_layers=WAN_SAMPLER_LAYERS, wan_heads=12, wan_ffn=8960, latent_c=16,
            text_dim=4096, attn_mode="sla", sla_topk=0.1, sla_block=128, lora_rank=8,
            lora_alpha=16.0, lora_form="runtime", lora_targets="attn,ffn", ffn_mode="dense",
            frame_cond=1, frame_cond_dim=5)
@@ -85,15 +124,38 @@ WAN_B, WAN_TEXT_LEN = 4, 512
 WAN_33K = (12, 32760)    # (BH, L) of scripts/bench_wan33k.py, Dh 128
 WAN_MODES = ("sla", "sage_sla", "flash")
 WAN_KERNELS = ("block_sparse_attention", "int8_block_sparse_attention", "flash_attention")
-# launches per sampler call: 3 evaluations x 30 layers, self- and cross-attention
-WAN_EXPECT = {"sla": (90, 0, 90), "sage_sla": (0, 90, 90), "flash": (0, 0, 180)}
+# launches per sampler call: 3 evaluations x 6 layers, self- and cross-attention
+_N = 3 * WAN_SAMPLER_LAYERS
+WAN_EXPECT = {"sla": (_N, 0, _N), "sage_sla": (0, _N, _N), "flash": (0, 0, 2 * _N)}
 INT8_VS_BF16_TOL = 0.08  # int8 SLA against the bf16 SLA twin (docs/kernels_tpu.json)
 # Sampler, kernel path vs plain-twin path, max|d| / max|twin| of the anchors:
 # the kernels round P to bf16 per 64-key tile, the twins per LUT block (or
 # not at all); the difference (~1e-3 of an attention output) passes through
-# 30 bf16 layers and 3 DDIM steps, the first of which scales eps by
+# the bf16 layers and 3 DDIM steps, the first of which scales eps by
 # 1/sqrt(alpha_bar(999)) ~ 156 along with the anchors themselves.
 WAN_TOL = 5e-2
+# Backward kernels against their twins, max|d| / max|twin| of dq, dk, dv: bf16
+# outputs of f32 sums over products of two factors (p or ds, and q / k / do)
+# that were each rounded to bf16 from f32 sums taken in another order.
+BWD_TOL = 2e-2
+# Training step, kernel path vs plain-twin path from the same state, batch and
+# draws: relative difference of the loss, and max|d| / max|twin| of every
+# trainable leaf's gradient (30 bf16 layers, forward and backward, between the
+# attention outputs and the leaf).
+TRAIN_LOSS_TOL, TRAIN_GRAD_TOL = 1e-2, 5e-2
+TRAIN_KERNELS = ("block_sparse_attention", "int8_block_sparse_attention", "flash_attention",
+                 "sla_bwd_dq", "sla_bwd_dkdv", "flash_bwd_dq", "flash_bwd_dkdv")
+TRAIN_LAYERS = 30
+# Launches per training step with remat (every block's forward runs twice):
+# per layer one self- and one cross-attention. sla: SLA forward 2, flash
+# forward 2 (cross), each backward kernel 1. sage_sla: int8 forward 2, plus 1
+# bf16 SLA forward inside the straight-through backward. dense: flash forward
+# 4 (self and cross, twice), each flash backward kernel 2.
+_L = TRAIN_LAYERS
+TRAIN_EXPECT = {"sla": (2 * _L, 0, 2 * _L, _L, _L, _L, _L),
+                "sage_sla": (_L, 2 * _L, 2 * _L, _L, _L, _L, _L),
+                "dense": (0, 0, 4 * _L, 0, 0, 2 * _L, 2 * _L)}
+TRAIN_STEPS = {"sla": (1, 3), "sage_sla": (1, 2), "dense": (1, 2)}   # (warm-up, timed)
 
 
 class SmokeFailure(Exception):
@@ -361,13 +423,17 @@ def phase_timings(dev, card, kernel_cases, pipe, kp, it):
             p_ms = _time_ms(lambda: _torch_block(x, *args, n_heads=H, use_film=film))
             print(f"[timing] {tag} fused_film_block [{B},{L},{D}] film={film}: "
                   f"kernel {k_ms:.4f} ms, plain twin {p_ms:.4f} ms", flush=True)
-            times[("fused_film_block", B, L)] = (k_ms, p_ms)
+            times[("fused_film_block", B, L)] = (k_ms, p_ms, None)
         for (B, L), _, q, k, v in kernel_cases["small_mha_packed"]:
             k_ms = _time_ms(lambda: small_mha_packed(q, k, v, H))
             p_ms = _time_ms(lambda: _torch_attention(q, k, v, H))
+            heads = lambda t: t.reshape(B, L, H, D // H).transpose(1, 2)
+            lib_ms = _time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                heads(q), heads(k), heads(v)))
             print(f"[timing] {tag} small_mha_packed [{B},{L},{D}]: kernel {k_ms:.4f} ms, "
-                  f"plain twin {p_ms:.4f} ms", flush=True)
-            times[("small_mha_packed", B, L)] = (k_ms, p_ms)
+                  f"plain twin {p_ms:.4f} ms, library (scaled_dot_product_attention) "
+                  f"{lib_ms:.4f} ms", flush=True)
+            times[("small_mha_packed", B, L)] = (k_ms, p_ms, lib_ms)
         fused_film_block.launches, small_mha_packed.launches = saved
 
     # pipeline samples/s at B=1024, kernel path vs plain-twin path, timed in
@@ -409,6 +475,49 @@ def phase_timings(dev, card, kernel_cases, pipe, kp, it):
                   f"{sum(vals) / len(vals):.1f} samples/s (runs of {iters} calls: "
                   f"{', '.join(f'{v:.1f}' for v in vals)})", flush=True)
     return times
+
+
+def _sla_work(lut, L, block):
+    """(rows x keys summed over the LUT's entries, the same over its distinct
+    (query block, key block) pairs): what this LUT makes the forward and dQ
+    kernels, and the dK/dV kernel, multiply. Ragged last blocks counted as
+    they are."""
+    import torch
+
+    M = lut.shape[1]
+    rows = torch.clamp(L - torch.arange(M, device=lut.device) * block, max=block)
+    keys = torch.clamp(L - lut.long() * block, min=0, max=block)
+    work = rows[None, :, None] * keys
+    same = lut[..., :, None] == lut[..., None, :]
+    first = ~torch.tril(same, diagonal=-1).any(dim=-1)
+    return int(work.sum().item()), int((work * first).sum().item())
+
+
+def _nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _print_profile(prof, tag, what):
+    """The profiler's table by operator, and the device time by kind of kernel."""
+    print(f"[profile] {tag} {what}:\n"
+          f"{prof.key_averages().table(sort_by='cuda_time_total', row_limit=25)}", flush=True)
+    kinds = {"hand-written attention kernels": ("attn_fwd_kernel", "attn_bwd_"),
+             "library GEMMs (cuBLAS)": ("gemm", "nvjet", "cutlass", "cublas", "sm90_xmma",
+                                        "sm80_xmma")}
+    sums, total = dict.fromkeys([*kinds, "PyTorch elementwise, reductions, copies, other"], 0.0), 0.0
+    for evt in prof.key_averages():
+        if "cuda" not in str(getattr(evt, "device_type", "")).lower():
+            continue   # operator rows: their device time is their kernels'
+        us = getattr(evt, "self_device_time_total", None)
+        us = getattr(evt, "self_cuda_time_total", 0.0) if us is None else us
+        kind = next((k for k, pats in kinds.items() if any(p in evt.key for p in pats)),
+                    "PyTorch elementwise, reductions, copies, other")
+        sums[kind] += us
+        total += us
+    for kind, us in sums.items():
+        print(f"[profile] {tag} {what}: {kind}: {us / 1e3:.1f} ms "
+              f"({100 * us / max(total, 1e-9):.1f}% of {total / 1e3:.1f} ms of device time)",
+              flush=True)
 
 
 def _wan_qkv(BH, L, D, gen, dev, Lk=None):
@@ -511,12 +620,27 @@ def phase_wan_kernels(dev):
     return errs, cases
 
 
-def _wan_counts():
+def _train_counts():
     from interpolated_diffusion_tpu_torch.kernels import block_sparse_attention as bsa
     from interpolated_diffusion_tpu_torch.kernels import int8_attention as i8
 
     return (bsa.block_sparse_attention.launches, i8.int8_block_sparse_attention.launches,
-            bsa.flash_attention.launches)
+            bsa.flash_attention.launches, bsa.sla_bwd_dq.launches, bsa.sla_bwd_dkdv.launches,
+            bsa.flash_bwd_dq.launches, bsa.flash_bwd_dkdv.launches)
+
+
+def _set_train_counts(values):
+    from interpolated_diffusion_tpu_torch.kernels import block_sparse_attention as bsa
+    from interpolated_diffusion_tpu_torch.kernels import int8_attention as i8
+
+    (bsa.block_sparse_attention.launches, i8.int8_block_sparse_attention.launches,
+     bsa.flash_attention.launches, bsa.sla_bwd_dq.launches, bsa.sla_bwd_dkdv.launches,
+     bsa.flash_bwd_dq.launches, bsa.flash_bwd_dkdv.launches) = values
+
+
+def _wan_counts():
+    """The three forward kernels' launch counts."""
+    return _train_counts()[:3]
 
 
 @contextlib.contextmanager
@@ -527,7 +651,8 @@ def count_twin_calls():
 
     calls = [0]
     saved = [(bsa, "block_sparse_attention_reference"), (bsa, "_torch_flash"),
-             (i8, "_torch_int8_attention")]
+             (bsa, "_torch_sla_bwd"), (bsa, "_torch_flash_bwd"), (i8, "_torch_int8_attention"),
+             (i8, "block_sparse_attention_reference")]
     originals = [getattr(m, n) for m, n in saved]
 
     def counting(fn):
@@ -547,26 +672,17 @@ def count_twin_calls():
 
 @contextlib.contextmanager
 def wan_plain_twins():
-    """Route WanDiT's attention kernels to their plain twins (on CUDA tensors)."""
-    import torch
+    """Route WanDiT's attention kernels to their plain twins (on CUDA
+    tensors), forward and backward."""
     from interpolated_diffusion_tpu_torch.kernels import block_sparse_attention as bsa
     from interpolated_diffusion_tpu_torch.kernels import int8_attention as i8
     from interpolated_diffusion_tpu_torch.kernels import sla
-    from interpolated_diffusion_tpu_torch.kernels.block_sparse_reference import (
-        block_sparse_attention_reference)
     from interpolated_diffusion_tpu_torch.models import wan_dit
 
-    def int8_twin(q, k, v, lut, bm, bn):
-        qi, ki, qs, ks = i8.quantize_qk(q, k)
-        return i8._torch_int8_attention(qi, ki, v.to(torch.bfloat16), qs, ks, lut, bm, bn,
-                                        q.shape[-1] ** -0.5)[0]
-
     saved = sla.block_sparse_attention, sla.int8_block_sparse_attention, wan_dit.flash_attention
-    sla.block_sparse_attention = (
-        lambda q, k, v, lut, bm, bn: block_sparse_attention_reference(q, k, v, lut, bm, bn)[0])
-    sla.int8_block_sparse_attention = int8_twin
-    wan_dit.flash_attention = (
-        lambda q, k, v, bm, bn: bsa._torch_flash(q, k, v, q.shape[-1] ** -0.5, bn)[0])
+    sla.block_sparse_attention = bsa.block_sparse_attention_twin
+    sla.int8_block_sparse_attention = i8.int8_block_sparse_attention_twin
+    wan_dit.flash_attention = bsa.flash_attention_twin
     try:
         yield
     finally:
@@ -590,7 +706,8 @@ def phase_wan_main(dev):
                           generator=torch.Generator(device=dev).manual_seed(11),
                           zero_init_scale=1e-2)
     n_params = sum(p.numel() for p in model.parameters()) + sum(p.numel() for p in fc.parameters())
-    print(f"[wan main] WanDiT + FrameCondProjector: {n_params / 1e9:.3f} B parameters (bf16), "
+    print(f"[wan main] WanDiT ({WAN_SAMPLER_LAYERS} of 30 layers, full width) + "
+          f"FrameCondProjector: {n_params / 1e9:.3f} B parameters (bf16), "
           f"built in {time.perf_counter() - t0:.1f} s", flush=True)
     cfg = AnchorConfig(**WAN_ANCHORS)
     sampler = make_anchor_sampler(cfg, model, fc, make_schedule(cfg.schedule, cfg.n_train,
@@ -605,9 +722,7 @@ def phase_wan_main(dev):
     inputs = (z_init, idx, text)
     want_shape = (WAN_B, cfg.K, cfg.latent_c, cfg.latent_h, cfg.latent_w)
 
-    bsa.block_sparse_attention.launches = 0
-    i8.int8_block_sparse_attention.launches = 0
-    bsa.flash_attention.launches = 0
+    _set_train_counts((0,) * len(TRAIN_KERNELS))
     outs = {}
     for mode in WAN_MODES:
         model.set_attn_mode(mode)
@@ -654,7 +769,7 @@ def phase_wan_timings(card, cases, model, sampler, inputs, profile):
 
     tag = f"[{card}]"
     times = {}
-    saved = _wan_counts()
+    saved = _train_counts()
     with torch.inference_mode():
         q, k, v, lut, block = cases["sla"]
         qi, ki, vi, qs, ks, lut8, _ = cases["int8"]
@@ -672,14 +787,35 @@ def phase_wan_timings(card, cases, model, sampler, inputs, profile):
                          f"q [{fq.shape[0]},{fq.shape[1]},{fq.shape[2]}] k {fk.shape[1]} rows",
                          lambda fq=fq, fk=fk, fv=fv: bsa.flash_attention_fwd(fq, fk, fv),
                          lambda fq=fq, fk=fk, fv=fv, bn=bn: bsa._torch_flash(fq, fk, fv, scale, bn)))
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        library = {f"flash_attention/{label}":
+                   (lambda c=cases[f"flash_{label}"]: sdpa(c[0][None], c[1][None], c[2][None]))
+                   for label in ("cross", "self")}
+        BH, L, D = q.shape
+        entries, _ = _sla_work(lut, L, block)
+        o_lse = _nbytes(q) + 4 * BH * L   # o like q (bf16), lse f32 per row
+        bounds = {
+            "block_sparse_attention": bound_ms(_nbytes(q, k, v, lut) + o_lse, 4.0 * entries * D),
+            # int8 Q K^T at the int8 rate, bf16 P V at the bf16 rate
+            "int8_block_sparse_attention": bound_ms(
+                _nbytes(qi, ki, vi, qs, ks, lut8) + o_lse, 2.0 * entries * D, 2.0 * entries * D)}
+        for label in ("cross", "self"):
+            fq, fk, fv, _ = cases[f"flash_{label}"]
+            bounds[f"flash_attention/{label}"] = bound_ms(_nbytes(fq, fk, fv) + o_lse,
+                                                          4.0 * BH * L * fk.shape[1] * D)
         for name, shape, kernel, twin in plan:
             k_ms = _time_ms(kernel, iters=10, warmup=2)
             p_ms = _time_ms(twin, iters=3, warmup=1)
-            print(f"[timing] {tag} {name} {shape}: kernel {k_ms:.4f} ms, plain twin "
-                  f"{p_ms:.4f} ms", flush=True)
-            times[name] = (k_ms, p_ms)
-    bsa.block_sparse_attention.launches, i8.int8_block_sparse_attention.launches, \
-        bsa.flash_attention.launches = saved
+            lib_ms = _time_ms(library[name], iters=10, warmup=2) if name in library else None
+            lib = (f"library (scaled_dot_product_attention) {lib_ms:.4f} ms" if lib_ms
+                   else "library: none")
+            print(f"[timing] {tag} {name} {shape}: kernel {k_ms:.4f} ms, bound "
+                  f"{bounds[name][0]:.4f} ms ({bounds[name][1]}), plain twin {p_ms:.4f} ms, {lib}",
+                  flush=True)
+            times[name] = (k_ms, p_ms, lib_ms)
+        bounds["flash_attention"] = bounds["flash_attention/cross"]
+        times["bounds"] = bounds
+    _set_train_counts(saved)
 
     # sampler samples/s per mode, one call per run, kernels / twins in turns
     for mode in WAN_MODES:
@@ -703,9 +839,245 @@ def phase_wan_timings(card, cases, model, sampler, inputs, profile):
         with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             sampler(*inputs)
             torch.cuda.synchronize()
-        table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=25)
-        print(f"[profile] {tag} one sla-mode sampler call (B={WAN_B}):\n{table}", flush=True)
+        _print_profile(prof, tag, f"one sla-mode sampler call (B={WAN_B})")
     return times
+
+
+def phase_wan_bwd_kernels(dev, card):
+    """The four backward kernels against their twins at the trainer's shapes,
+    then their times, the twins' and the library's."""
+    import torch
+    from interpolated_diffusion_tpu_torch.kernels import block_sparse_attention as bsa
+    from interpolated_diffusion_tpu_torch.kernels.sla import get_block_map
+
+    gen = torch.Generator(device=dev).manual_seed(20)
+    tag = f"[{card}]"
+    BH, L, D, Lk_cross = 2 * 12, 7800, 128, 512 + 5
+    scale = D ** -0.5
+    errs, out = {}, {}
+    saved = _train_counts()
+
+    def check(names, label, got, want):
+        for name, tensor, a, b in zip(names, ("dq", "dk", "dv"), got, want):
+            require(a.dtype == torch.bfloat16 and bool(torch.isfinite(a).all()),
+                    f"{name} {label}: {tensor} not finite bf16")
+            err, rel = _errors(a, b)
+            print(f"[wan bwd] {name} {label}: {tensor} max|d|={err:.3e} "
+                  f"max|d|/max|twin|={rel:.3e} (tol {BWD_TOL})", flush=True)
+            require(rel <= BWD_TOL, f"{name} {label}: {tensor} disagrees ({rel:.3e})")
+            errs[name] = max(errs.get(name, 0.0), err)
+
+    with torch.no_grad():
+        q, k, v = _wan_qkv(BH, L, D, gen, dev)
+        do = torch.randn((BH, L, D), generator=gen, device=dev).to(torch.bfloat16)
+        sla_names = ("sla_bwd_dq", "sla_bwd_dkdv", "sla_bwd_dkdv")
+        for block, dup in ((256, False), (128, False), (256, True)):
+            _, lut, topk = get_block_map(q, k, 0.1, block, block)
+            if dup:   # every second row repeats its first id in its last slot
+                lut[:, ::2, -1] = lut[:, ::2, 0]
+                lut = lut.contiguous()
+            o, lse = bsa.block_sparse_attention_fwd(q, k, v, lut, block, block)
+            got = bsa.block_sparse_attention_bwd(q, k, v, lut, o, lse, do, block, block)
+            want = bsa.block_sparse_attention_bwd(q, k, v, lut, o, lse, do, block, block,
+                                                  twin=True)
+            check(sla_names, f"[{BH},{L},{D}] block={block} topk={topk}"
+                  + (" duplicated ids" if dup else ""), got, want)
+            if block == 256 and not dup:
+                out["sla"] = (lut, o, lse, block)
+        kc, vc = (torch.randn((BH, Lk_cross, D), generator=gen, device=dev).to(torch.bfloat16)
+                  for _ in range(2))
+        flash_names = ("flash_bwd_dq", "flash_bwd_dkdv", "flash_bwd_dkdv")
+        for label, kk, vv in (("cross", kc, vc), ("self", k, v)):
+            o, lse = bsa.flash_attention_fwd(q, kk, vv)
+            got = bsa.flash_attention_bwd(q, kk, vv, o, lse, do)
+            want = bsa.flash_attention_bwd(q, kk, vv, o, lse, do, twin=True)
+            check(flash_names, f"{label} q [{BH},{L},{D}] k {kk.shape[1]} rows", got, want)
+            out[label] = (kk, vv, o, lse)
+        torch.cuda.synchronize()
+
+        # times at the same shapes: each kernel alone, the twin (dq, dk, dv at once)
+        times, bounds = {}, {}
+        lut, o, lse, block = out["sla"]
+        delta = bsa.attention_delta(o, do)
+        entries, pairs = _sla_work(lut, L, block)
+        rows = _nbytes(lse, delta)
+        times["sla_bwd_dq"] = _time_ms(lambda: bsa.sla_bwd_dq(
+            q, k, v, lut, do, lse, delta, block, block, scale), iters=10, warmup=2)
+        times["sla_bwd_dkdv"] = _time_ms(lambda: bsa.sla_bwd_dkdv(
+            q, k, v, lut, do, lse, delta, block, block, scale), iters=10, warmup=2)
+        times["sla_twin"] = _time_ms(lambda: bsa.block_sparse_attention_bwd(
+            q, k, v, lut, o, lse, do, block, block, twin=True), iters=2, warmup=1)
+        # dQ: S, dP, dS K (3 products); dK/dV: S^T, P^T dO, dP^T, dS^T Q (4)
+        bounds["sla_bwd_dq"] = bound_ms(_nbytes(q, k, v, do, lut) + rows + _nbytes(q),
+                                        6.0 * entries * D)
+        bounds["sla_bwd_dkdv"] = bound_ms(_nbytes(q, k, v, do, lut) + rows + _nbytes(k, v),
+                                          8.0 * pairs * D)
+        print(f"[timing] {tag} SLA backward [{BH},{L},{D}] block {block}: dQ kernel "
+              f"{times['sla_bwd_dq']:.4f} ms (bound {bounds['sla_bwd_dq'][0]:.4f} ms, "
+              f"{bounds['sla_bwd_dq'][1]}), dK/dV kernel {times['sla_bwd_dkdv']:.4f} ms (bound "
+              f"{bounds['sla_bwd_dkdv'][0]:.4f} ms, {bounds['sla_bwd_dkdv'][1]}), plain twin "
+              f"(dq, dk, dv) {times['sla_twin']:.4f} ms, library: none", flush=True)
+    for label in ("cross", "self"):
+        kk, vv, o, lse = out[label]
+        with torch.no_grad():
+            delta = bsa.attention_delta(o, do)
+            t_dq = _time_ms(lambda: bsa.flash_bwd_dq(q, kk, vv, do, lse, delta, scale),
+                            iters=5, warmup=1)
+            t_dkdv = _time_ms(lambda: bsa.flash_bwd_dkdv(q, kk, vv, do, lse, delta, scale),
+                              iters=5, warmup=1)
+            t_twin = _time_ms(lambda: bsa.flash_attention_bwd(q, kk, vv, o, lse, do, twin=True),
+                              iters=2, warmup=1)
+        # the library's backward: autograd through scaled_dot_product_attention
+        # (dq, dk, dv in one call), and its forward + backward together
+        leaves = [t[None].clone().requires_grad_() for t in (q, kk, vv)]
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        y = sdpa(*leaves)
+        t_lib_bwd = _time_ms(lambda: torch.autograd.grad(y, leaves, do[None], retain_graph=True),
+                             iters=5, warmup=1)
+
+        def fwd_bwd():
+            torch.autograd.grad(sdpa(*leaves), leaves, do[None])
+
+        t_lib_both = _time_ms(fwd_bwd, iters=5, warmup=1)
+        del y, leaves
+        Lk = kk.shape[1]
+        rows = 8 * BH * L   # lse and delta, f32 per query row
+        b_dq = bound_ms(_nbytes(q, kk, vv, do) + rows + _nbytes(q), 6.0 * BH * L * Lk * D)
+        b_dkdv = bound_ms(_nbytes(q, kk, vv, do) + rows + _nbytes(kk, vv), 8.0 * BH * L * Lk * D)
+        print(f"[timing] {tag} flash backward {label} q [{BH},{L},{D}] k {Lk} rows: dQ kernel "
+              f"{t_dq:.4f} ms (bound {b_dq[0]:.4f} ms, {b_dq[1]}), dK/dV kernel {t_dkdv:.4f} ms "
+              f"(bound {b_dkdv[0]:.4f} ms, {b_dkdv[1]}), plain twin (dq, dk, dv) {t_twin:.4f} ms, "
+              f"library (scaled_dot_product_attention) backward {t_lib_bwd:.4f} ms, forward + "
+              f"backward {t_lib_both:.4f} ms", flush=True)
+        if label == "cross":   # the shape every training mode gives the flash kernels
+            times.update(flash_bwd_dq=t_dq, flash_bwd_dkdv=t_dkdv, flash_twin=t_twin,
+                         flash_library=t_lib_bwd)
+            bounds.update(flash_bwd_dq=b_dq, flash_bwd_dkdv=b_dkdv)
+    _set_train_counts(saved)
+    return errs, times, bounds
+
+
+def phase_wan_train(dev, card, profile):
+    """Phase-1 LoRA training at the trainer's defaults, three attention modes."""
+    import torch
+    from interpolated_diffusion_tpu_torch.train import train_keypoints_wansynth as trainer
+    from interpolated_diffusion_tpu_torch.train.state import flatten_dict, tree_leaves
+    from interpolated_diffusion_tpu_torch.train.wansynth_common import (build_wan,
+                                                                        make_wansynth_loader)
+    from interpolated_diffusion_tpu_torch.ops.schedules import make_schedule
+    from interpolated_diffusion_tpu_torch.utils.prefetch import pinned_put
+
+    tag = f"[{card}]"
+    args = trainer.build_argparser().parse_args(["--num_samples", "16", "--seed", "21"])
+    require((args.wan_dim, args.wan_layers, args.wan_heads, args.wan_ffn, args.batch, args.K,
+             args.lora_rank, args.use_remat, args.bf16, args.attn_mode) ==
+            (1536, TRAIN_LAYERS, 12, 8960, 2, 5, 8, 1, 1, "sla"), "trainer defaults changed")
+    t0 = time.perf_counter()
+    # zero_init_scale: LoRA B, the SLA projection and the frame-cond output are
+    # non-zero, so that no trainable leaf's gradient is identically zero
+    wan, fc = build_wan(args, True, device=dev, zero_init_scale=1e-2,
+                        generator=torch.Generator(device=dev).manual_seed(args.seed))
+    loader = make_wansynth_loader(args, args.seed)
+    put = pinned_put(dev, keys=("latents", "text_embed"))
+    schedule = make_schedule(args.schedule, args.N_train, device=dev)
+    print(f"[wan train] WanDiT {args.wan_dim}d x {args.wan_layers} layers + FrameCondProjector "
+          f"built in {time.perf_counter() - t0:.1f} s; batch {args.batch}, "
+          f"L = {args.K * (args.latent_h // 2) * (args.latent_w // 2)}, remat on", flush=True)
+    launches = dict.fromkeys(TRAIN_KERNELS, 0)
+    results = {}
+    for mode in ("sla", "sage_sla", "dense"):
+        args.attn_mode = mode
+        wan.set_attn_mode(mode)
+        state, base, train_step, _, _ = trainer.make_trainer(args, dev, wan, fc)
+        names = list(flatten_dict(state.params))
+        leaves = tree_leaves(state.params)
+        require(all(p.dtype == torch.float32 and p.requires_grad for p in leaves)
+                and not any(p.requires_grad for p in base.values()),
+                f"train {mode}: trainable / frozen partition is wrong")
+        batch = put(next(loader))
+        torch.cuda.synchronize()
+        N = (args.latent_h // 2) * (args.latent_w // 2)
+        draws = trainer.draw_phase1(torch.Generator(device=dev).manual_seed(22), args,
+                                    args.batch, (args.batch, args.K, N, args.latent_c * 4))
+
+        # one loss + gradient from the same state, batch and draws on each path
+        def loss_and_grads():
+            loss, _ = trainer.phase1_loss(wan, fc, args, schedule, batch, draws)
+            return loss.detach(), torch.autograd.grad(loss, leaves)
+
+        loss_k, grads_k = loss_and_grads()
+        with wan_plain_twins():
+            loss_t, grads_t = loss_and_grads()
+        rel_loss = abs(loss_k.item() - loss_t.item()) / abs(loss_t.item())
+        worst = max((_errors(a, b)[1], n) for n, a, b in zip(names, grads_k, grads_t))
+        zero = [n for n, g in zip(names, grads_t) if not bool(g.abs().max() > 0)]
+        print(f"[wan train] attn_mode={mode} kernels vs plain twins, same state / batch / "
+              f"draws: loss {loss_k.item():.6f} vs {loss_t.item():.6f} (rel {rel_loss:.3e}, tol "
+              f"{TRAIN_LOSS_TOL}); {len(names)} trainable leaves, worst gradient "
+              f"max|d|/max|twin|={worst[0]:.3e} at {worst[1]} (tol {TRAIN_GRAD_TOL})",
+              flush=True)
+        require(not zero, f"train {mode}: identically zero gradients at {zero[:3]}")
+        require(rel_loss <= TRAIN_LOSS_TOL, f"train {mode}: loss disagrees ({rel_loss:.3e})")
+        require(worst[0] <= TRAIN_GRAD_TOL,
+                f"train {mode}: gradient of {worst[1]} disagrees ({worst[0]:.3e})")
+        del grads_k, grads_t
+
+        # the trainer's own step: counts set to 0 just before, read just after
+        before_leaves = [p.detach().clone() for p in leaves]
+        before_base = {n: p.detach().clone() for n, p in base.items()}
+        rng = torch.Generator(device=dev).manual_seed(23)
+        warm, timed = TRAIN_STEPS[mode]
+        torch.cuda.reset_peak_memory_stats()
+        _set_train_counts((0,) * len(TRAIN_KERNELS))
+        step_s = []
+        with count_twin_calls() as twin_calls:
+            for i in range(warm + timed):
+                nxt = put(next(loader))
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, metrics = train_step(state, base, batch, rng)
+                loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])
+                torch.cuda.synchronize()
+                step_s.append(time.perf_counter() - t0)
+                require(loss == loss and abs(loss) != float("inf") and gnorm == gnorm
+                        and abs(gnorm) != float("inf") and gnorm > 0,
+                        f"train {mode} step {i}: loss {loss} grad norm {gnorm}")
+                print(f"[wan train] attn_mode={mode} step {i}: loss {loss:.4f} grad_norm "
+                      f"{gnorm:.4e} {step_s[-1]:.3f} s", flush=True)
+                batch = nxt
+        counts = _train_counts()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        want = tuple(c * (warm + timed) for c in TRAIN_EXPECT[mode])
+        require(counts == want and twin_calls[0] == 0,
+                f"train {mode}: launches {dict(zip(TRAIN_KERNELS, counts))}, twin calls "
+                f"{twin_calls[0]}, expected {dict(zip(TRAIN_KERNELS, want))} and 0")
+        same = [n for n, a, b in zip(names, before_leaves, leaves) if torch.equal(a, b)]
+        require(not same, f"train {mode}: trainable leaves unchanged: {same[:3]}")
+        moved = [n for n, p in base.items() if not torch.equal(before_base[n], p)]
+        require(not moved, f"train {mode}: frozen base changed: {moved[:3]}")
+        require(all(bool(torch.isfinite(p).all()) for p in leaves),
+                f"train {mode}: non-finite parameters")
+        timed_s = step_s[warm:]
+        per = sum(timed_s) / len(timed_s)
+        print(f"[wan train] {tag} attn_mode={mode}: {per:.3f} s/step, {args.batch / per:.3f} "
+              f"samples/s ({len(timed_s)} timed step(s) after {warm} warm-up), peak memory "
+              f"{peak:.2f} GiB; launches per step {dict(zip(TRAIN_KERNELS, TRAIN_EXPECT[mode]))}, "
+              f"twin calls 0; all {len(names)} trainable leaves changed, frozen base "
+              f"({len(base)} tensors) bit-identical", flush=True)
+        for name, c in zip(TRAIN_KERNELS, counts):
+            launches[name] += c
+        results[mode] = per
+        del before_leaves, before_base
+        if profile and mode == "sla":
+            from torch.profiler import ProfilerActivity, profile as torch_profile
+
+            with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                state, _ = train_step(state, base, batch, rng)
+                torch.cuda.synchronize()
+            _print_profile(prof, tag, f"one sla-mode training step (batch {args.batch})")
+        del state, train_step
+    print(f"[wan train] launches in the main-path run: {launches}", flush=True)
+    return launches, results
 
 
 def main() -> int:
@@ -737,26 +1109,56 @@ def main() -> int:
         torch.cuda.empty_cache()
         wan_errs, wan_cases = phase_wan_kernels(dev)
         model, sampler, inputs, wan_launches = phase_wan_main(dev)
-        wan_times = phase_wan_timings(card, wan_cases, model, sampler, inputs,
-                                      "--profile" in sys.argv[1:])
+        profile = "--profile" in sys.argv[1:]
+        wan_times = phase_wan_timings(card, wan_cases, model, sampler, inputs, profile)
+        del model, sampler, inputs, wan_cases
+        torch.cuda.empty_cache()
+        bwd_errs, bwd_times, bwd_bounds = phase_wan_bwd_kernels(dev, card)
+        torch.cuda.empty_cache()
+        train_launches, _ = phase_wan_train(dev, card, profile)
     except SmokeFailure as e:
         print(f"FAIL: {e}", flush=True)
         return 1
 
+    # Bounds of the maze kernels at [B, L, D] = [1024, 64, 384], from the shapes:
+    # the block does the qkv, attention, output and two FFN products on bf16
+    # tensor cores and must move x, y, its weights and the FiLM vectors once.
+    B, L, D, H, F = 1024, 64, BENCH["d_model"], BENCH["n_heads"], BENCH["d_ff"]
+    block_flops = B * L * (2 * D * 3 * D + 4 * L * D + 2 * D * D + 4 * D * F)
+    block_bytes = 2 * (2 * B * L * D + 4 * B * D + 4 * D * D + 2 * D * F + 9 * D + F)
+    maze_bounds = {"fused_film_block": bound_ms(block_bytes, block_flops),
+                   "small_mha_packed": bound_ms(2 * 4 * B * L * D, 4.0 * B * L * L * D)}
     summary = []
-    for name, shape_key in (("fused_film_block", (1024, 64)), ("small_mha_packed", (1024, 64))):
+
+    def row(name, n_launches, err, ms, plain_ms, bound, library_ms, **extra):
         src, replaces = KERNEL_SOURCES[name]
-        err = max(c[1] for c in cases[name])
-        k_ms, p_ms = times[(name, *shape_key)]
         summary.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
-                        "launches": launches[name], "max_abs_err": err,
-                        "ms": k_ms, "plain_ms": p_ms})
-    for name in WAN_KERNELS:   # times at the anchor path's shapes (flash: cross-attention)
-        src, replaces = KERNEL_SOURCES[name]
-        k_ms, p_ms = wan_times[name if name != "flash_attention" else "flash_attention/cross"]
-        summary.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
-                        "launches": wan_launches[name], "max_abs_err": max(wan_errs[name]),
-                        "ms": k_ms, "plain_ms": p_ms})
+                        "launches": n_launches, "max_abs_err": err, "ms": ms,
+                        "plain_ms": plain_ms, "bound_ms": bound[0], "bound_by": bound[1],
+                        "library_ms": library_ms, **extra})
+
+    for name in ("fused_film_block", "small_mha_packed"):
+        k_ms, p_ms, lib_ms = times[(name, B, L)]
+        row(name, launches[name], max(c[1] for c in cases[name]), k_ms, p_ms, maze_bounds[name],
+            lib_ms)
+    # Wan forward kernels: times at the anchor path's shapes (flash: its
+    # cross-attention); `launches` from the sampler's run, `train_launches`
+    # from the trainer's
+    for name in WAN_KERNELS:
+        k_ms, p_ms, lib_ms = wan_times[name if name != "flash_attention"
+                                       else "flash_attention/cross"]
+        row(name, wan_launches[name], max(wan_errs[name]), k_ms, p_ms, wan_times["bounds"][name],
+            lib_ms, train_launches=train_launches[name])
+    # backward kernels: times at the trainer's shapes (flash: cross-attention);
+    # the twin and the library call compute dq, dk and dv in one call
+    for name in ("sla_bwd_dq", "sla_bwd_dkdv", "flash_bwd_dq", "flash_bwd_dkdv"):
+        kind = name.split("_")[0]
+        row(name, train_launches[name], bwd_errs[name], bwd_times[name],
+            bwd_times[f"{kind}_twin"], bwd_bounds[name], bwd_times.get(f"{kind}_library"))
+    idle = [r["name"] for r in summary if r["launches"] <= 0]
+    if idle:
+        print(f"FAIL: kernels never launched on their main path: {idle}", flush=True)
+        return 1
     print(json.dumps({"kernels": summary}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -40,19 +40,12 @@
 //  - P is rounded to bf16 for P.V (the TPU kernels' p.astype(v.dtype)), the
 //    row sum uses f32 P; o = acc / l rounded to bf16, lse = m + log2(l) (f32,
 //    base 2).
-#include <math.h>
-#include <stdint.h>
-
+#include "attention_common.cuh"
 #include "id_kernels.cuh"
 
 namespace {
 
-using bf16 = __nv_bfloat16;
-
-constexpr int kBM = 64;       // query rows per block (16 per warp)
-constexpr int kBN = 64;       // key rows per tile
-constexpr int kThreads = 128;
-constexpr int kMaxTiles = 1024;  // LUT tiles one query block may list
+using namespace id_attn;
 
 enum Mode { kSparse = 0, kSparseInt8 = 1, kDense = 2 };
 
@@ -86,81 +79,6 @@ struct Cfg {
   static constexpr int kOffS = kOffV + 2 * kVBytes;
   static constexpr int kOffList = kOffS + 2 * kSBytes;
 };
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
-               "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async4(void* smem, const void* gmem, bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(gmem),
-               "r"(valid ? 4 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// 64 rows [row0, row0 + 64) of a [rows, row_bytes] matrix into shared memory
-// with stride ld; rows outside [0, nrows) are zero-filled.
-__device__ __forceinline__ void load_rows(unsigned char* dst, int ld, const unsigned char* src,
-                                          int row_bytes, int row0, int nrows) {
-  const int chunks = row_bytes / 16;
-  for (int c = threadIdx.x; c < 64 * chunks; c += kThreads) {
-    const int r = c / chunks, off = (c % chunks) * 16;
-    const bool ok = row0 + r < nrows;
-    cp_async16(dst + r * ld + off, ok ? src + (long long)(row0 + r) * row_bytes + off : src, ok);
-  }
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                       uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t ld32(const unsigned char* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// two bf16 from two rows of V, lower-indexed key in the low half
-__device__ __forceinline__ uint32_t ld_pair(const unsigned char* p, int ld) {
-  const uint32_t lo = *reinterpret_cast<const uint16_t*>(p);
-  const uint32_t hi = *reinterpret_cast<const uint16_t*>(p + ld);
-  return lo | (hi << 16);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
 
 // Fragment layouts (PTX ISA, mma.m16n8k16 / m16n8k32): lane = 4 * g + t.
 // A rows g and g + 8; B column (key) g; C rows g and g + 8, columns 2t, 2t + 1.

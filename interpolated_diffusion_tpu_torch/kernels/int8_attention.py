@@ -1,5 +1,5 @@
-"""Int8-quantized block-sparse attention, forward (port of
-kernels/int8_attention.py): the SageSLA analogue.
+"""Int8-quantized block-sparse attention (port of kernels/int8_attention.py):
+the SageSLA analogue, with its straight-through backward.
 
 `quantize_rows` gives per-row symmetric int8 (absmax / 127, round half to
 even, clip to +-127). `int8_block_sparse_attention` quantizes Q, and K after
@@ -10,7 +10,12 @@ by the outer product of the row scales, bf16 P.V over the same LUT.
 On CUDA tensors the kernel is the hand-written sm_90a `kSparseInt8` entry of
 csrc/block_attention.cu (replacing the TPU kernel _fwd_kernel_int8, :48); on
 CPU tensors its plain twin `_torch_int8_attention`. A CUDA input the kernel
-does not take raises. Forward only.
+does not take raises.
+
+The backward is straight-through (the JAX package's bwd_recompute=True): it
+re-runs the bf16 SLA forward for a consistent (o, lse) and then the SLA
+backward kernels on the unquantized q, k, v (the quantized forward's lse
+would rescale every recomputed softmax row by exp2(lse_int8 - lse_bf16)).
 """
 from __future__ import annotations
 
@@ -21,8 +26,9 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
-from .block_sparse_attention import _check_lut, _stream, check_cuda_inputs
-from .block_sparse_reference import LOG2E
+from .block_sparse_attention import (_check_lut, _stream, block_sparse_attention_bwd,
+                                     block_sparse_attention_fwd, check_cuda_inputs)
+from .block_sparse_reference import LOG2E, block_sparse_attention_reference
 
 
 def quantize_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -116,16 +122,47 @@ def quantize_qk(q: torch.Tensor, k: torch.Tensor):
     return q_i8, k_i8, q_s, k_s
 
 
+class _Int8BlockSparseAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, lut, block_m, block_n, scale, twin):
+        q_i8, k_i8, q_s, k_s = quantize_qk(q, k)
+        fwd = _torch_int8_attention if twin else int8_attention_fwd
+        o, _ = fwd(q_i8, k_i8, v.to(torch.bfloat16), q_s, k_s, lut, block_m, block_n, scale)
+        ctx.save_for_backward(q, k, v, lut)
+        ctx.cfg = (block_m, block_n, scale, twin)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, lut = ctx.saved_tensors
+        block_m, block_n, scale, twin = ctx.cfg
+        bf = torch.bfloat16
+        qb, kb, vb = q.to(bf), k.to(bf), v.to(bf)
+        fwd = block_sparse_attention_reference if twin else block_sparse_attention_fwd
+        o, lse = fwd(qb, kb, vb, lut, block_m, block_n, scale)
+        if twin or q.device.type == "cpu":   # the twin takes the unquantized inputs as they are
+            qb, kb, vb = q, k, v
+        dq, dk, dv = block_sparse_attention_bwd(qb, kb, vb, lut, o, lse, do.to(o.dtype),
+                                                block_m, block_n, scale, twin)
+        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None, None, None, None
+
+
 def int8_block_sparse_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                 lut: torch.Tensor, block_m: int = 256, block_n: int = 256,
                                 scale: Optional[float] = None) -> torch.Tensor:
     """Quantized block-sparse attention: int8 Q/K (per-row scales), bf16 V.
     Same contract as block_sparse_attention; quantization happens inside.
-    Returns bf16 [BH, L, D]."""
+    Returns bf16 [BH, L, D]; differentiable in q, k, v (straight-through)."""
     scale = q.shape[-1] ** -0.5 if scale is None else scale
-    q_i8, k_i8, q_s, k_s = quantize_qk(q, k)
-    return int8_attention_fwd(q_i8, k_i8, v.to(torch.bfloat16), q_s, k_s, lut, block_m,
-                              block_n, scale)[0]
+    return _Int8BlockSparseAttention.apply(q, k, v, lut, block_m, block_n, scale, False)
 
 
 int8_block_sparse_attention.launches = 0
+
+
+def int8_block_sparse_attention_twin(q, k, v, lut, block_m: int = 256, block_n: int = 256,
+                                     scale: Optional[float] = None) -> torch.Tensor:
+    """int8_block_sparse_attention through the plain twins, forward and
+    backward, on any device: what the kernel path is compared with."""
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    return _Int8BlockSparseAttention.apply(q, k, v, lut, block_m, block_n, scale, True)

@@ -4,7 +4,8 @@ The block map (mean-pooled Q/K descriptors with smooth-k, pooled scores,
 per-row top-k LUT) and the linear-attention branch are plain PyTorch, as
 they are plain jnp in the JAX package. The sparse branch goes through the
 block-sparse kernels: kernels/block_sparse_attention (bf16) or
-kernels/int8_attention (quant="int8").
+kernels/int8_attention (quant="int8"). Gradients flow through the sparse
+branch (the backward kernels), the linear branch and `proj_l`.
 """
 from __future__ import annotations
 
@@ -90,7 +91,8 @@ class SparseLinearAttention(nn.Module):
     def forward(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
         B, H, L, D = q.shape
         qf, kf, vf = (t.reshape(B * H, L, D) for t in (q, k, v))
-        _, lut, _ = get_block_map(qf, kf, self.topk, self.block_q, self.block_k)
+        with torch.no_grad():   # the top-k indices carry no gradient
+            _, lut, _ = get_block_map(qf, kf, self.topk, self.block_q, self.block_k)
         bf = torch.bfloat16
         attend = int8_block_sparse_attention if self.quant == "int8" else block_sparse_attention
         o_s = attend(qf.to(bf).contiguous(), kf.to(bf).contiguous(), vf.to(bf).contiguous(),

@@ -1,10 +1,12 @@
-"""JAX (flax) params -> port state_dicts.
+"""JAX (flax) params -> port state_dicts, and the trainable leaves back.
 
 `params_to_state_dict` is the inverse of interpolated_diffusion_tpu/models/
 torch_import.py::convert_state_dict for the two maze denoisers;
 `wan_params_to_state_dict` converts a WanDiT (and FrameCondProjector) tree.
-Both take flax param trees with numpy (or array-like) leaves, so they need
-no JAX:
+`lora_to_params` / `frame_cond_to_params` go the other way for the leaves the
+Wan trainer updates (values or gradients), so that a test compares them with
+the JAX trees leaf by leaf. All take or give param trees with numpy (or
+array-like) leaves, so they need no JAX:
 
   Dense kernel [in, out]         -> Linear weight [out, in]
   Conv kernel [kh, kw, in, out]  -> Conv2d weight [out, in, kh, kw]
@@ -192,3 +194,45 @@ def wan_params_to_state_dict(params: Params, frame_cond: Optional[Params] = None
         for name, p in frame_cond.items():
             _linear(fc_sd, name, p)
     return sd, fc_sd
+
+
+def lora_to_params(lora: Dict[str, torch.Tensor], layer_mode: str = "loop") -> Params:
+    """The port's LoRA leaves ({"blocks.i.attn1.to_q.lora_A": [r, in], ...};
+    values or gradients) -> the JAX trainer's `lora` tree with numpy leaves:
+    block_{i}/self_attn/q_proj/lora_A [in, r], lora_B [r, out] (transposed
+    back), or under blocks/block stacked on axis 0 for layer_mode "scan"."""
+    names = {f"{pre}.{name}": (jax_pre, jax_name)
+             for pre, jax_pre in (("attn1", "self_attn"), ("attn2", "cross_attn"))
+             for jax_name, name in _WAN_ATTN}
+    names["ffn.net.0.proj"] = (None, "ffn_in")
+    names["ffn.net.2"] = (None, "ffn_out")
+    blocks: Dict[int, Params] = {}
+    for key, value in lora.items():
+        _, i, rest = key.split(".", 2)
+        module, leaf = rest.rsplit(".", 1)
+        group, jax_name = names[module]
+        node = blocks.setdefault(int(i), {})
+        if group is not None:
+            node = node.setdefault(group, {})
+        node.setdefault(jax_name, {})[leaf] = value.detach().cpu().float().numpy().T.copy()
+    if layer_mode != "scan":
+        return {f"block_{i}": blocks[i] for i in sorted(blocks)}
+
+    def stack(trees):
+        if isinstance(trees[0], dict):
+            return {k: stack([t[k] for t in trees]) for k in trees[0]}
+        return np.stack(trees)
+
+    return {"blocks": {"block": stack([blocks[i] for i in sorted(blocks)])}}
+
+
+def frame_cond_to_params(fc: Dict[str, torch.Tensor]) -> Params:
+    """The port's FrameCondProjector leaves ({"fc_0.weight": [out, in], ...})
+    -> the JAX tree {"fc_0": {"kernel": [in, out], "bias"}, ...}."""
+    out: Params = {}
+    for key, value in fc.items():
+        module, leaf = key.rsplit(".", 1)
+        a = value.detach().cpu().float().numpy()
+        out.setdefault(module, {})["kernel" if leaf == "weight" else "bias"] = (
+            a.T.copy() if leaf == "weight" else a.copy())
+    return out

@@ -1,10 +1,13 @@
-"""Wan2.1-style video DiT (port of models/wan_dit.py, inference).
+"""Wan2.1-style video DiT (port of models/wan_dit.py).
 
 Patch embed (1, 2, 2), adaLN-zero blocks with per-block scale-shift tables,
 RMS-normed q/k, 3D RoPE with the Wan t/h/w head-dim split (absolute-time
 frame indices as a forward argument), cross-attention to text (plus optional
 extra context tokens), runtime-form LoRA, and a head modulated by the time
-embedding. The compute dtype is the parameters' dtype.
+embedding. The compute dtype is the parameters' dtype unless
+`set_compute_dtype` names another: the trainer keeps the LoRA and
+frame-conditioning leaves as f32 masters and computes in bf16, casting them
+per call, so that their gradients arrive in f32.
 
 Attention dispatch is the JAX package's: attn_mode "sla" / "sage_sla" route
 self-attention through SparseLinearAttention (bf16 or int8 sparse kernel);
@@ -16,8 +19,9 @@ Module names follow the diffusers WanTransformer3DModel state dict
 checkpoint maps straight on. Leaves diffusers does not have sit under names
 of their own: `*.lora_A` / `*.lora_B` beside each adapted Linear,
 `attn1.sla.proj_l`, and `condition_embedder.extra_embedder` (the JAX
-package's extra_fc1/extra_fc2). One Python loop of blocks: the JAX package's
-scan layout, remat and FORA block caching (blocks_delta) are not ported.
+package's extra_fc1/extra_fc2). One Python loop of blocks, each under its own
+activation checkpoint with use_remat: the JAX package's scan layout,
+remat_group and FORA block caching (blocks_delta) are not ported.
 """
 from __future__ import annotations
 
@@ -27,6 +31,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..kernels.block_sparse_attention import flash_attention
 from ..kernels.sla import SparseLinearAttention
@@ -91,6 +96,20 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
 # modules
 # ---------------------------------------------------------------------------
 
+def set_compute_dtype(module: nn.Module, dtype: Optional[torch.dtype]) -> nn.Module:
+    """Make every LoRALinear, embedder MLP, FrameCondProjector and WanDiT under
+    `module` compute in `dtype` whatever its parameters' dtype (None: compute
+    in the parameters' dtype). Parameters are cast per call, never stored."""
+    for m in module.modules():
+        if hasattr(m, "compute_dtype"):
+            m.compute_dtype = dtype
+    return module
+
+
+def _linear(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    return F.linear(x, layer.weight.to(dtype), layer.bias.to(dtype))
+
+
 class LoRALinear(nn.Linear):
     """Linear with runtime low-rank adaptation: y = x W^T + b + (a/r)(x A^T) B^T.
 
@@ -101,6 +120,7 @@ class LoRALinear(nn.Linear):
     """
 
     zero_init_params = ("lora_B",)
+    compute_dtype: Optional[torch.dtype] = None
 
     def __init__(self, in_features: int, out_features: int, rank: int = 0,
                  alpha: float = 16.0):
@@ -118,9 +138,9 @@ class LoRALinear(nn.Linear):
             uniform_(self.lora_A, math.sqrt(3.0) / self.rank)  # std 1/r, as the JAX init
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        dtype = self.weight.dtype
-        x = x.to(dtype)
-        y = F.linear(x, self.weight, self.bias)
+        dtype = self.compute_dtype or self.weight.dtype
+        x = x.to(dtype)   # keep the residual stream in the compute dtype
+        y = _linear(self, x, dtype)
         if self.rank <= 0:
             return y
         delta = (x @ self.lora_A.to(dtype).t()) @ self.lora_B.to(dtype).t()
@@ -264,6 +284,8 @@ class WanBlock(nn.Module):
 
 
 class _MLP(nn.Module):
+    compute_dtype: Optional[torch.dtype] = None
+
     def __init__(self, d_in: int, d_out: int, act):
         super().__init__()
         self.linear_1 = nn.Linear(d_in, d_out)
@@ -271,7 +293,8 @@ class _MLP(nn.Module):
         self.act = act
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.linear_2(self.act(self.linear_1(x.to(self.linear_1.weight.dtype))))
+        dtype = self.compute_dtype or self.linear_1.weight.dtype
+        return _linear(self.linear_2, self.act(_linear(self.linear_1, x.to(dtype), dtype)), dtype)
 
 
 class WanConditionEmbedder(nn.Module):
@@ -293,6 +316,8 @@ class FrameCondProjector(nn.Module):
     [B, T, text_dim]; the output layer is zero-initialised so that an
     untrained projector leaves the cross-attention undisturbed."""
 
+    compute_dtype: Optional[torch.dtype] = None
+
     def __init__(self, feat_dim: int, text_dim: int, hidden_dim: int = 256, n_layers: int = 2):
         super().__init__()
         self.n_hidden = max(0, n_layers - 1)
@@ -302,10 +327,11 @@ class FrameCondProjector(nn.Module):
         self.out.zero_init = True
 
     def forward(self, feat: torch.Tensor) -> torch.Tensor:
-        h = feat.to(self.out.weight.dtype)
+        dtype = self.compute_dtype or self.out.weight.dtype
+        h = feat.to(dtype)
         for i in range(self.n_hidden):
-            h = _gelu(getattr(self, f"fc_{i}")(h))
-        return self.out(h)
+            h = _gelu(_linear(getattr(self, f"fc_{i}"), h, dtype))
+        return _linear(self.out, h, dtype)
 
 
 class WanDiT(nn.Module):
@@ -314,7 +340,12 @@ class WanDiT(nn.Module):
     Defaults are the Wan2.1-T2V-1.3B family (dim 1536, 30 blocks, 12 heads,
     ffn 8960, text dim 4096, patch (1, 2, 2), head dim 128). extra_context
     creates the extra-token MLP that FrameCondProjector's output goes through.
+    use_remat recomputes each block's forward in the backward pass (one
+    non-reentrant activation checkpoint per block), so that a training step
+    keeps one [B, L, dim] tensor per block instead of every intermediate.
     """
+
+    compute_dtype: Optional[torch.dtype] = None
 
     def __init__(self, dim: int = 1536, n_layers: int = 30, n_heads: int = 12,
                  ffn_dim: int = 8960, in_channels: int = 16, out_channels: int = 16,
@@ -322,9 +353,11 @@ class WanDiT(nn.Module):
                  max_seq_len: int = 1024, freq_dim: int = 256, attn_mode: str = "dense",
                  sla_topk: float = 0.1, sla_block: int = 256, lora_rank: int = 0,
                  lora_alpha: float = 16.0, lora_targets: str = "attn,ffn",
-                 ffn_mode: str = "dense", extra_context: bool = False):
+                 ffn_mode: str = "dense", extra_context: bool = False,
+                 use_remat: bool = False):
         super().__init__()
         self.dim, self.n_heads, self.out_channels = dim, n_heads, out_channels
+        self.use_remat = use_remat
         self.patch_size, self.max_seq_len = tuple(patch_size), max_seq_len
         # a Conv3d-shaped weight [dim, C, pt, ph, pw]; stride == kernel, so it
         # runs as reshape + linear (no convolution)
@@ -353,7 +386,7 @@ class WanDiT(nn.Module):
         """latents [B, C, T, H, W], t [B], context [B, L_text, text_dim],
         frame_indices [B, T] (absolute-time RoPE), extra_context
         [B, L_extra, text_dim] -> [B, C_out, T, H, W] float32."""
-        dtype = self.proj_out.weight.dtype
+        dtype = self.compute_dtype or self.proj_out.weight.dtype
         B, C, T, H, W = latents.shape
         pt, ph, pw = self.patch_size
         ppf, pph, ppw = T // pt, H // ph, W // pw
@@ -361,11 +394,11 @@ class WanDiT(nn.Module):
 
         z = latents.reshape(B, C, ppf, pt, pph, ph, ppw, pw).permute(0, 2, 4, 6, 1, 3, 5, 7)
         z = z.reshape(B, ppf * pph * ppw, C * pt * ph * pw)
-        x = F.linear(z.to(dtype), self.patch_embedding.weight.flatten(1),
-                     self.patch_embedding.bias)
+        x = F.linear(z.to(dtype), self.patch_embedding.weight.flatten(1).to(dtype),
+                     self.patch_embedding.bias.to(dtype))
 
         t_emb = ce.time_embedder(timestep_embedding(t, ce.freq_dim).to(dtype))
-        t_mod = ce.time_proj(F.silu(t_emb)).reshape(B, 6, self.dim)
+        t_mod = _linear(ce.time_proj, F.silu(t_emb), dtype).reshape(B, 6, self.dim)
         ctx = ce.text_embedder(context)
         if extra_context is not None:
             if ce.extra_embedder is None:
@@ -379,12 +412,18 @@ class WanDiT(nn.Module):
         rope = build_rope_freqs(tables, dims, ppf, pph, ppw, frame_indices)
 
         for block in self.blocks:
-            x = block(x, ctx, t_mod, rope)
+            if self.use_remat and torch.is_grad_enabled():
+                # non-reentrant: with only LoRA leaves training, the tokens
+                # entering block 0 require no gradient
+                x = checkpoint(block, x, ctx, t_mod, rope, use_reentrant=False,
+                               preserve_rng_state=False)
+            else:
+                x = block(x, ctx, t_mod, rope)
 
         # head: modulated by the time embedding itself (diffusers Wan semantics)
         mod = self.scale_shift_table.float() + t_emb[:, None].float()
         shift, scale = mod[:, 0][:, None].to(dtype), mod[:, 1][:, None].to(dtype)
-        x = self.proj_out(self.norm_out(x) * (1 + scale) + shift)
+        x = _linear(self.proj_out, self.norm_out(x) * (1 + scale) + shift, dtype)
         x = x.reshape(B, ppf, pph, ppw, self.out_channels, pt, ph, pw)
         x = x.permute(0, 4, 1, 5, 2, 6, 3, 7).reshape(B, self.out_channels, T, H, W)
         return x.float()

@@ -48,6 +48,55 @@ def _mask_from_idx(idx: torch.Tensor, T: int) -> torch.Tensor:
     return mask.scatter(1, idx.long(), True)
 
 
+def sample_fixed_k_indices_uniform_batch(
+    B: int, T: int, K: int, ensure_endpoints: bool = True, jitter: float = 0.0,
+    rand: Optional[torch.Tensor] = None, generator: Optional[torch.Generator] = None,
+    device: Optional[torch.device] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Uniformly spaced anchors with optional jitter; strictly increasing.
+
+    Returns (idx [B, K] int64, mask [B, T] bool). The jitter's uniform draw
+    [B, K] in [0, 1) is `rand` when given (a test hands in the JAX draw), else
+    drawn from `generator`. Forward and backward monotonic repair sweeps as in
+    the JAX package; positions and rounding (half to even) in f32.
+    """
+    if T <= 0 or K <= 0:
+        raise ValueError("T and K must be positive")
+    if ensure_endpoints and (T < 2 or K < 2):
+        raise ValueError("T and K must be >= 2 when ensure_endpoints is True")
+    K = min(K, T)
+    if rand is not None:
+        device = rand.device
+    base = torch.linspace(0.0, T - 1, K, device=device)
+    if jitter and K > 2 and T > 2:
+        spacing = float(T - 1) / float(K - 1)
+        max_jitter = spacing * float(jitter) * 0.5
+        if rand is None:
+            rand = torch.rand((B, K), generator=generator,
+                              device=generator.device if generator is not None else device)
+        noise = (rand.to(base) - 0.5) * 2.0 * max_jitter
+        noise[:, 0] = 0.0
+        noise[:, -1] = 0.0
+        pos = base[None, :] + noise
+    else:
+        pos = base[None, :].expand(B, K)
+    idx = torch.clamp(torch.round(pos).long(), 0, T - 1)
+    if ensure_endpoints and K >= 2:
+        idx[:, 0], idx[:, -1] = 0, T - 1
+    cols = [idx[:, k] for k in range(K)]
+    for k in range(1, K):
+        cols[k] = torch.maximum(cols[k], cols[k - 1] + 1)
+    # anchor the top end before the backward sweep: with large jitter the
+    # forward sweep can push past T - 1, and a later clip would duplicate anchors
+    cols[K - 1] = torch.clamp(cols[K - 1], max=T - 1)
+    for k in range(K - 2, -1, -1):
+        cols[k] = torch.minimum(cols[k], cols[k + 1] - 1)
+    idx = torch.clamp(torch.stack(cols, dim=1), 0, T - 1)
+    if ensure_endpoints and K >= 2:
+        idx[:, 0], idx[:, -1] = 0, T - 1
+    return idx, _mask_from_idx(idx, T)
+
+
 def _nested_from_order(order: torch.Tensor, T: int, K_list: Sequence[int]
                        ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
     """Nested masks/idx from a per-sample priority order [B, T]: the level-s

@@ -1,23 +1,166 @@
-"""Wan model construction and runtime-LoRA parameter plumbing (port of the
-model half of train/wansynth_common.py).
+"""Shared wansynth trainer plumbing (port of train/wansynth_common.py): the
+command-line arguments, the data loader, Wan / LoRA construction and the
+trainable / frozen partition, and the Phase-1 index helpers.
 
 `build_wan` makes the WanDiT (and FrameCondProjector) the wansynth trainers
 and the Phase-1 anchor precompute use, from the same argument names, with
-seeded parameters (models/init.py). `split_lora_state_dict` /
+seeded parameters (models/init.py). `init_wan_trainables` splits them into
+the trainable dict (LoRA leaves and the projector, f32 masters) and the
+frozen base (compute dtype). `split_lora_state_dict` /
 `join_lora_state_dict` / `merged_wan_params` are the runtime-form LoRA
-partition and join. The merge-form adapter tree, the Switch-MoE FFN and the
-data loaders are not ported yet.
+partition and join. The merge-form adapter tree, the Switch-MoE FFN, the
+scan parameter layout and pretrained-weight conversion are not ported yet.
 """
 from __future__ import annotations
 
+import argparse
+import warnings
 from typing import Dict, Optional, Tuple
 
 import torch
 
+from ..data.dataset import BatchLoader
+from ..data.wan_synth import SyntheticWanDataset, WanSynthTarDataset
 from ..models.init import build_model
-from ..models.wan_dit import FrameCondProjector, WanDiT
+from ..models.wan_dit import FrameCondProjector, WanDiT, set_compute_dtype
+from ..utils.memguard import add_memguard_args
 
 _LORA_LEAVES = ("lora_A", "lora_B")
+
+
+def add_wansynth_data_args(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--data", type=str, default="synthetic", choices=["synthetic", "tar"])
+    p.add_argument("--data_root", type=str, default=None)
+    p.add_argument("--anchors_root", type=str, default=None)
+    p.add_argument("--num_samples", type=int, default=1000)
+    p.add_argument("--T", type=int, default=21)
+    p.add_argument("--latent_c", type=int, default=16)
+    p.add_argument("--latent_h", type=int, default=60)
+    p.add_argument("--latent_w", type=int, default=104)
+    p.add_argument("--text_len", type=int, default=512)
+    p.add_argument("--text_dim", type=int, default=4096)
+    p.add_argument("--prefetch_depth", type=int, default=2,
+                   help="device-ready batches prefetched on a background "
+                        "thread (utils/prefetch.py); 0 disables")
+    add_memguard_args(p)
+
+
+def add_wan_model_args(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--use_wan", type=int, default=1)
+    p.add_argument("--wan_dim", type=int, default=1536)
+    p.add_argument("--wan_layers", type=int, default=30)
+    p.add_argument("--wan_heads", type=int, default=12)
+    p.add_argument("--wan_ffn", type=int, default=8960)
+    p.add_argument("--attn_mode", type=str, default="sla",
+                   choices=["dense", "sla", "sage_sla"],
+                   help="sage_sla: int8-quantized Q/K block-sparse kernel")
+    p.add_argument("--sla_topk", type=float, default=0.1)
+    p.add_argument("--sla_block", type=int, default=256)
+    p.add_argument("--lora_rank", type=int, default=8)
+    p.add_argument("--lora_alpha", type=float, default=16.0)
+    p.add_argument("--lora_targets", type=str, default="attn,ffn",
+                   help="comma set of {attn, ffn}")
+    p.add_argument("--lora_form", type=str, default="runtime",
+                   choices=["runtime", "merged"],
+                   help="runtime: y += (a/r)(x A)B inside each Linear, no merged "
+                        "weight copy; merged (W' = W + a/r A B) is not ported")
+    p.add_argument("--ffn_mode", type=str, default="dense", choices=["dense", "moe"],
+                   help="moe (Switch top-1 expert FFN) is not ported")
+    p.add_argument("--n_experts", type=int, default=8)
+    p.add_argument("--capacity_factor", type=float, default=1.25)
+    p.add_argument("--use_remat", type=int, default=1,
+                   help="recompute each block's forward in the backward pass")
+    p.add_argument("--layer_mode", type=str, default="scan", choices=["loop", "scan"],
+                   help="the JAX package's parameter layout; recorded in the meta. "
+                        "Here the blocks are one Python loop either way, and "
+                        "--use_remat bounds the saved activations to one tensor a block")
+    p.add_argument("--wan_pretrained", type=str, default=None,
+                   help="a diffusers Wan2.1 transformer checkpoint (not ported: "
+                        "needs models/wan_convert)")
+    p.add_argument("--frame_cond", type=int, default=1)
+    p.add_argument("--frame_cond_dim", type=int, default=5)
+    p.add_argument("--patch_size", type=int, default=2)
+
+
+def check_wan_args(args) -> None:
+    """Raise for the options whose code is not ported, naming what is missing."""
+    if str(getattr(args, "ffn_mode", "dense")) != "dense":
+        raise NotImplementedError("--ffn_mode moe: the Switch-MoE FFN (models/moe.py) is not "
+                                  "ported yet")
+    if int(args.lora_rank) > 0 and _lora_form(args) != "runtime":
+        raise NotImplementedError("--lora_form merged: the merge-form adapter tree "
+                                  "(models/lora.py) is not ported yet; use 'runtime'")
+    if getattr(args, "wan_pretrained", None):
+        raise NotImplementedError("--wan_pretrained: the diffusers checkpoint converter "
+                                  "(models/wan_convert.py) is not ported yet")
+
+
+class _StatefulIter:
+    """next()-able view of a BatchLoader that exposes its resume marker."""
+
+    def __init__(self, loader):
+        self._loader = loader
+        self._it = iter(loader)
+
+    @property
+    def state(self):
+        return self._loader.state
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        return next(self._it)
+
+
+def make_wansynth_loader(args, seed: int, state: Optional[dict] = None):
+    """The streaming batch loader; `state` (a previous loader's `.state`)
+    resumes the data stream where a checkpoint left it. Both iterator kinds
+    expose `.state` (JSON-able) for the checkpoint meta. With the device
+    prefetcher in front, the marker can run ahead of the consumed position by
+    the prefetch depth: resume then skips (never repeats) at most that many
+    batches."""
+    if args.data == "tar":
+        if not args.data_root:
+            raise ValueError("--data_root required for --data tar")
+        ds = WanSynthTarDataset(args.data_root, T=args.T, seed=seed,
+                                anchors_root=args.anchors_root)
+        return ds.batches(args.batch, state=state)
+    if getattr(args, "anchors_root", None):
+        raise ValueError("--anchors_root joins are defined over tar shards; write the synthetic "
+                         "data to tar shards first (data/wan_synth.write_tar_shard) and pass "
+                         "--data tar --data_root <dir>: otherwise anchors would be silently "
+                         "ignored")
+    ds = SyntheticWanDataset(n_samples=args.num_samples, T=args.T, C=args.latent_c,
+                             H=args.latent_h, W=args.latent_w, text_len=args.text_len,
+                             text_dim=args.text_dim, seed=seed)
+    return _StatefulIter(BatchLoader(ds, batch_size=args.batch, seed=seed,
+                                     start_batch=int((state or {}).get("batches", 0))))
+
+
+# WanDiT head-modulation semantics version. "t_emb": the final layer's
+# scale/shift table is modulated by the raw time embedding (diffusers-Wan
+# semantics, needed for pretrained weights). Checkpoints written before this
+# stamp existed were trained under the older t_mod[:, :2] semantics and would
+# be silently mis-evaluated by the current forward: check_wan_meta flags them.
+WAN_HEAD_MOD_VERSION = "t_emb"
+
+
+def check_wan_meta(meta: Dict) -> None:
+    """Warn when a Wan checkpoint predates the head-modulation change; raise
+    when its stamp names another version. Call on the meta of any checkpoint
+    trained with use_wan."""
+    if not meta.get("use_wan"):
+        return
+    ver = meta.get("wan_head_mod")
+    if ver is None:
+        warnings.warn("Wan checkpoint meta carries no 'wan_head_mod' stamp: it was trained "
+                      "before the head-modulation change (t_mod[:, :2] -> t_emb). Sampling with "
+                      "the current WanDiT forward will apply mismatched head-modulation "
+                      "semantics to this checkpoint.", stacklevel=2)
+    elif ver != WAN_HEAD_MOD_VERSION:
+        raise ValueError(f"Wan checkpoint head-modulation version {ver!r} is incompatible "
+                         f"with this build ({WAN_HEAD_MOD_VERSION!r}).")
 
 
 def _lora_form(args) -> str:
@@ -36,8 +179,7 @@ def build_wan(args, bf16: bool = True, *, generator: torch.Generator,
     package; zero_init_scale > 0 makes the zero-initialised leaves (lora_B,
     sla.proj_l, the projector's output) small and non-zero.
     """
-    if int(args.lora_rank) > 0 and _lora_form(args) != "runtime":
-        raise NotImplementedError("lora_form='merged' is not ported yet; use 'runtime'")
+    check_wan_args(args)
     frame_cond = bool(getattr(args, "frame_cond", 0))
     dtype = torch.bfloat16 if bf16 else torch.float32
     wan = build_model(
@@ -49,7 +191,8 @@ def build_wan(args, bf16: bool = True, *, generator: torch.Generator,
         sla_block=args.sla_block, lora_rank=int(args.lora_rank),
         lora_alpha=float(args.lora_alpha),
         lora_targets=str(getattr(args, "lora_targets", "attn,ffn")),
-        ffn_mode=str(getattr(args, "ffn_mode", "dense")), extra_context=frame_cond)
+        ffn_mode=str(getattr(args, "ffn_mode", "dense")), extra_context=frame_cond,
+        use_remat=bool(getattr(args, "use_remat", 0)))
     fc = None
     if frame_cond:
         fc = build_model(FrameCondProjector, generator=generator, device=device, dtype=dtype,
@@ -82,3 +225,64 @@ def merged_wan_params(params: Dict, base: Optional[Dict[str, torch.Tensor]], arg
             raise NotImplementedError("lora_form='merged' is not ported yet; use 'runtime'")
         return join_lora_state_dict(params["lora"], base)
     return params["wan"]
+
+
+def init_wan_trainables(args, wan: WanDiT, fc: Optional[FrameCondProjector],
+                        bf16: bool = True) -> Tuple[Dict, Optional[Dict[str, torch.Tensor]]]:
+    """(trainable, base): the partition the trainer differentiates and the
+    frozen rest, both as dicts of the modules' own parameters.
+
+    With lora_rank > 0 the LoRA leaves (`trainable["lora"]`) and the
+    projector (`trainable["frame_cond"]`) become f32 masters that require
+    gradients; every other WanDiT parameter is the frozen base, kept in the
+    compute dtype and requiring none. Both modules then compute in the
+    compute dtype (bf16 or f32), casting the masters per call. Without LoRA
+    the whole model trains (`trainable["wan"]`, base None); that needs f32
+    compute, since only the LoRA leaves, the projector and the embedder MLPs
+    separate their compute dtype from their parameters'.
+    """
+    check_wan_args(args)
+    compute = torch.bfloat16 if bf16 else torch.float32
+    trainable: Dict = {}
+    if fc is not None:
+        fc.float().requires_grad_(True)
+        set_compute_dtype(fc, compute)
+        trainable["frame_cond"] = dict(fc.named_parameters())
+    named = dict(wan.named_parameters())
+    if int(args.lora_rank) > 0:
+        lora, base = split_lora_state_dict(named)
+        for p in lora.values():
+            p.data = p.data.float()
+            p.requires_grad_(True)
+        for p in base.values():
+            p.data = p.data.to(compute)
+            p.requires_grad_(False)
+        trainable["lora"] = lora
+    else:
+        if bf16:
+            raise NotImplementedError(
+                "training every WanDiT weight (lora_rank 0) under bf16 needs f32 masters for "
+                "all modules, which is not ported; use --bf16 0 or --lora_rank > 0")
+        wan.float().requires_grad_(True)
+        trainable["wan"], base = named, None
+    set_compute_dtype(wan, compute)
+    return trainable, base
+
+
+def midpoint_indices(idx: torch.Tensor) -> torch.Tensor:
+    return (idx[:, :-1] + idx[:, 1:]) // 2
+
+
+def meanpool_between_anchors(tokens: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Mean of the strictly interior frames of each segment ([B, K-1, N, D]);
+    the midpoint frame where a gap has no interior. tokens [B, T, N, D]."""
+    csum = torch.cumsum(tokens, dim=1)
+    csum = torch.cat([torch.zeros_like(csum[:, :1]), csum], dim=1)     # [B, T+1, ...]
+    i, j = idx[:, :-1].long(), idx[:, 1:].long()
+    take = lambda x, at: torch.gather(x, 1, at[..., None, None].expand(-1, -1, *x.shape[2:]))
+    upper = take(csum, j)            # sum up to j - 1
+    lower = take(csum, i + 1)        # sum up to i
+    interior = (j - i - 1)[..., None, None].to(tokens.dtype)
+    mean = (upper - lower) / torch.clamp(interior, min=1.0)
+    mid = take(tokens, midpoint_indices(idx).long())
+    return torch.where(interior > 0, mean, mid)

@@ -8,7 +8,9 @@ mode). This file imports no JAX, so it also runs on a machine without it:
 (--noconftest: tests/conftest.py sets up JAX for the CPU suite.) Shapes are
 the bench's main path; tolerances are chip_smoke.py's, as max|kernel - twin|
 over max|twin| in bf16: 2e-2 for the block, 1e-2 for the attention kernels
-(o and lse), 0.08 for int8 SLA against the bf16 SLA twin.
+(o and lse), 0.08 for int8 SLA against the bf16 SLA twin, 2e-2 for the
+attention backward kernels (dq, dk, dv: bf16 outputs of f32 sums over
+products of twice-rounded bf16 factors).
 """
 import numpy as np
 import pytest
@@ -198,15 +200,86 @@ def test_attention_wrappers_raise_instead_of_falling_back(cuda):
         bsa.block_sparse_attention(q, k, v, lut.long(), 128, 128)
     with pytest.raises(ValueError):          # SLA block not a multiple of 64
         bsa.block_sparse_attention(q, k, v, get_block_map(q, k, 0.5, 32, 32)[1], 32, 32)
-    qg = q.clone().requires_grad_()
-    with pytest.raises(RuntimeError):        # forward only
-        bsa.block_sparse_attention(qg, k, v, lut, 128, 128)
-    with pytest.raises(RuntimeError):
-        bsa.flash_attention(qg, k, v)
-    with pytest.raises(RuntimeError):
-        int8_attention.int8_attention_fwd(*int8_attention.quantize_qk(q, k)[:2], qg,
-                                          *int8_attention.quantize_qk(q, k)[2:], lut, 128, 128,
-                                          1.0)
+    with pytest.raises(ValueError):          # f32 upstream gradient buffers: bf16 only
+        bsa.sla_bwd_dq(q, k, v, lut, q.float(), torch.zeros(q.shape[:2], device=cuda),
+                       torch.zeros(q.shape[:2], device=cuda), 128, 128, 1.0)
     qi, ki, qs, ks = int8_attention.quantize_qk(q, k)
     with pytest.raises(ValueError):          # f32 V: the int8 kernel takes bf16 V
         int8_attention.int8_attention_fwd(qi, ki, v.float(), qs, ks, lut, 128, 128, 1.0)
+
+
+BWD_TOL = 2e-2
+
+
+def _dup_lut(q, k, ratio, block):
+    """The block map's LUT with the last entry of every second row replaced
+    by a repeat of the first: duplicated ids, as padded rows have."""
+    _, lut, _ = get_block_map(q, k, ratio, block, block)
+    lut[:, ::2, -1] = lut[:, ::2, 0]
+    return lut.contiguous()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("L,d,block,ratio,dup", [
+    (1000, 128, 128, 0.4, False), (1000, 64, 128, 0.4, True),    # ragged: 1000 = 7 * 128 + 104
+    (1024, 128, 128, 0.4, True), (1024, 64, 256, 0.5, False),    # aligned
+    (1000, 128, 256, 0.5, True), (1000, 64, 256, 0.5, True),
+    (7800, 128, 256, 0.1, False), (7800, 128, 128, 0.1, True)])  # the Wan trainer's L
+def test_sla_bwd_kernels_match_twin(cuda, L, d, block, ratio, dup):
+    q, k, v = _qkv_bf16(6, L, d, cuda, L + d + block)
+    do = _qkv_bf16(6, L, d, cuda, 1)[0]
+    lut = _dup_lut(q, k, ratio, block) if dup else get_block_map(q, k, ratio, block, block)[1]
+    before = bsa.sla_bwd_dq.launches, bsa.sla_bwd_dkdv.launches
+    with torch.inference_mode():
+        o, lse = bsa.block_sparse_attention_fwd(q, k, v, lut, block, block)
+        got = bsa.block_sparse_attention_bwd(q, k, v, lut, o, lse, do, block, block)
+        ref = bsa.block_sparse_attention_bwd(q, k, v, lut, o, lse, do, block, block, twin=True)
+    torch.cuda.synchronize()
+    assert (bsa.sla_bwd_dq.launches, bsa.sla_bwd_dkdv.launches) == (before[0] + 1, before[1] + 1)
+    for name, a, b in zip(("dq", "dk", "dv"), got, ref):
+        assert a.dtype == torch.bfloat16 and torch.isfinite(a).all(), name
+        assert _rel(a, b) <= BWD_TOL, (name, _rel(a, b))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("Lq,Lk,d", [(1000, 517, 128), (1000, 70, 64), (333, 517, 64),
+                                     (1024, 1024, 128), (2048, 2048, 64)])
+def test_flash_bwd_kernels_match_twin(cuda, Lq, Lk, d):
+    q, k, v = _qkv_bf16(6, Lq, d, cuda, Lq + Lk + d, Lk=Lk)
+    do = _qkv_bf16(6, Lq, d, cuda, 2)[0]
+    before = bsa.flash_bwd_dq.launches, bsa.flash_bwd_dkdv.launches
+    with torch.inference_mode():
+        o, lse = bsa.flash_attention_fwd(q, k, v)
+        got = bsa.flash_attention_bwd(q, k, v, o, lse, do)
+        ref = bsa.flash_attention_bwd(q, k, v, o, lse, do, twin=True)
+    torch.cuda.synchronize()
+    assert (bsa.flash_bwd_dq.launches, bsa.flash_bwd_dkdv.launches) == (before[0] + 1,
+                                                                        before[1] + 1)
+    for name, a, b in zip(("dq", "dk", "dv"), got, ref):
+        assert a.dtype == torch.bfloat16 and torch.isfinite(a).all(), name
+        assert _rel(a, b) <= BWD_TOL, (name, _rel(a, b))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("which", ["sla", "int8", "flash"])
+def test_functions_kernel_path_matches_twin_path(cuda, which):
+    """The autograd Functions: gradients of a scalar loss through the kernel
+    path against the same Function through the twins (forward and backward)."""
+    L, d, block = 1000, 128, 128
+    q, k, v = _qkv_bf16(4, L, d, cuda, 5, Lk=517 if which == "flash" else None)
+    w = _qkv_bf16(4, L, d, cuda, 6)[0].float()
+    lut = _dup_lut(q, k, 0.4, block)
+    fns = {"sla": (bsa.block_sparse_attention, bsa.block_sparse_attention_twin),
+           "int8": (int8_attention.int8_block_sparse_attention,
+                    int8_attention.int8_block_sparse_attention_twin),
+           "flash": (bsa.flash_attention, bsa.flash_attention_twin)}[which]
+    grads = []
+    for fn in fns:
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        out = fn(*leaves) if which == "flash" else fn(*leaves, lut, block, block)
+        (out.float() * w).sum().backward()
+        grads.append([t.grad for t in leaves])
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dq", "dk", "dv"), *grads):
+        assert a is not None and a.dtype == torch.bfloat16 and torch.isfinite(a).all(), name
+        assert _rel(a, b) <= BWD_TOL, (name, _rel(a, b))

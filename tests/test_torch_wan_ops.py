@@ -137,8 +137,18 @@ def test_wan_port_import_pulls_in_no_jax():
     code = ("import sys; import chip_smoke, interpolated_diffusion_tpu_torch.sample.wan_anchors, "
             "interpolated_diffusion_tpu_torch.train.wansynth_common, "
             "interpolated_diffusion_tpu_torch.models.jax_import, "
-            "interpolated_diffusion_tpu_torch.kernels.sla; "
-            "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'flax')) "
+            "interpolated_diffusion_tpu_torch.kernels.sla, "
+            "interpolated_diffusion_tpu_torch.train.train_keypoints_wansynth, "
+            "interpolated_diffusion_tpu_torch.train.state, "
+            "interpolated_diffusion_tpu_torch.data.wan_synth, "
+            "interpolated_diffusion_tpu_torch.data.dataset, "
+            "interpolated_diffusion_tpu_torch.utils.checkpoint, "
+            "interpolated_diffusion_tpu_torch.utils.ema, "
+            "interpolated_diffusion_tpu_torch.utils.prefetch, "
+            "interpolated_diffusion_tpu_torch.utils.memguard, "
+            "interpolated_diffusion_tpu_torch.ops.video_keyframes; "
+            "bad = [m for m in sys.modules if m in ('jax', 'flax', 'optax') "
+            "or m.startswith(('jax.', 'flax.', 'optax.')) "
             "or m == 'interpolated_diffusion_tpu' or m.startswith('interpolated_diffusion_tpu.')]; "
             "print(bad); sys.exit(1 if bad else 0)")
     proc = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True,
