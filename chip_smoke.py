@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's sampling paths and its Wan trainer once on one GPU.
+"""Drive the PyTorch/CUDA port's sampling paths and its trainers once on one GPU.
 
     python3 chip_smoke.py [--profile]
 
@@ -15,6 +15,24 @@ Phases, each on its own lines; any failure exits non-zero:
                   "block" and B=64 under "fused"; invariants, launch counts,
                   and agreement of the kernel path with the plain-twin path
   5. timings      maze kernels vs twins (CUDA events) and pipeline samples/s
+  5a. maze grads  small_mha against its twin ([256, 64, 384] H=12 and the tiled
+                  case [64, 512, 128] H=2), then the three maze autograd
+                  Functions (small_mha, small_mha_packed, fused_film_block with
+                  f32 master parameters): kernel forward + twin-recompute
+                  backward against the twin path, output and every input's
+                  gradient, at the trainers' shapes ([256, 64, 384], [256, 8, 384])
+  5b. maze train  the Stage-1 and Stage-2 trainers (train/train_keypoints,
+                  train/train_interp_levels) at their defaults (384d x 12
+                  layers x 12 heads, T=64, K=8, levels 3, batch 256, bf16 compute
+                  over f32 masters) on ParticleMazeDataset: Stage 2 under
+                  attn_policy fused and block, Stage 1 under block; loss and every
+                  leaf's gradient of the kernel path against the twin path,
+                  1 warm-up + timed steps through the trainer's own step, launch
+                  counts, no forward twin call, every parameter changed, EMA
+                  moved; a 12-block TransformerBlock(use_small_mha=True) stack
+                  forward and backward; then both CLIs (main) for a few steps
+                  with a checkpoint and a resume, and the trained EMA weights
+                  through models/loading into make_pipeline
   6. wan kernels  the SLA, int8 SLA and flash kernels against their twins at
                   the Wan anchor path's shapes, at the 33k-token geometry of
                   scripts/bench_wan33k.py (blocks 128 and 256) and at a
@@ -44,7 +62,8 @@ Phases, each on its own lines; any failure exits non-zero:
 Every timing phase also times the one PyTorch library call that computes the
 same function, where there is one (scaled_dot_product_attention), as a
 yardstick that the port never calls. --profile adds torch.profiler tables of
-one sla-mode sampler call and one sla-mode training step. The line before the
+one maze Stage-2 training step, one sla-mode sampler call and one sla-mode
+Wan training step. The line before the
 last is a JSON summary of the kernels (time, bound, library time, launches);
 the last line is {"ok": true, "device": {...}}.
 """
@@ -55,6 +74,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -75,7 +95,25 @@ PIPE_TOL = 5e-2
 BENCH = dict(T=64, K=8, levels=3, K_min=8, ddim_steps=20, n_train=100,
              d_model=384, n_layers=12, n_heads=12, d_ff=1536, d_cond=128,
              maze_channels=(32, 64, 128, 128), grid=21, data_dim=2)
+# Gradients of an autograd Function (kernel forward, twin-recompute backward)
+# against the twin path, max|d| / max|twin| per input: both backwards
+# differentiate the same twin from the same saved inputs, so they differ only
+# where a test hands both the same upstream gradient (then not at all) or the
+# forward outputs feed later layers.
+GRAD_TOL = 2e-2
+# Maze training step, kernel path vs plain-twin path from the same weights,
+# batch and draws: relative difference of the loss, and max|d| / max|twin| of
+# every leaf's gradient (12 bf16 layers, forward and backward, between a
+# block's rounding differences and the leaf).
+MAZE_LOSS_TOL, MAZE_GRAD_TOL = 1e-2, 5e-2
+MAZE_TRAIN = (("stage2", "fused"), ("stage2", "block"), ("stage1", "block"))
+MAZE_STEPS = (1, 8)        # (warm-up, timed) steps through the trainer's own step
+MAZE_CLI_STEPS = (4, 6)    # CLI run: steps, then resumed to
+MAZE_SAMPLES = 2048        # --num_samples of the procedural dataset
+
 KERNEL_SOURCES = {
+    "small_mha": ("interpolated_diffusion_tpu_torch/csrc/small_mha.cu",
+                  "interpolated_diffusion_tpu/kernels/small_mha.py:54"),
     "fused_film_block": ("interpolated_diffusion_tpu_torch/csrc/fused_block.cu",
                          "interpolated_diffusion_tpu/kernels/fused_block.py:68"),
     "small_mha_packed": ("interpolated_diffusion_tpu_torch/csrc/small_mha.cu",
@@ -278,20 +316,65 @@ def phase_kernels(dev):
 
 @contextlib.contextmanager
 def plain_twins():
-    """Route the model's kernel calls to the plain twins (on CUDA tensors)."""
+    """Route the model's kernel calls to the plain twins (on CUDA tensors):
+    the twin as forward, and under autograd the same twin-recompute backward."""
     from interpolated_diffusion_tpu_torch.kernels import fused_block, small_mha
     from interpolated_diffusion_tpu_torch.models import transformer
 
-    saved = transformer.fused_film_block, transformer.small_mha_packed
-    transformer.fused_film_block = (
-        lambda x, *a, n_heads, group_b=8, use_film=True:
-        fused_block._torch_block(x, *a, n_heads=n_heads, use_film=use_film))
-    transformer.small_mha_packed = (
-        lambda q, k, v, n_heads, group_b=8: small_mha._torch_attention(q, k, v, n_heads))
+    saved = transformer.fused_film_block, transformer.small_mha_packed, transformer.small_mha
+    transformer.fused_film_block = fused_block.fused_film_block_twin
+    transformer.small_mha_packed = small_mha.small_mha_packed_twin
+    transformer.small_mha = small_mha.small_mha_twin
     try:
         yield
     finally:
-        transformer.fused_film_block, transformer.small_mha_packed = saved
+        (transformer.fused_film_block, transformer.small_mha_packed,
+         transformer.small_mha) = saved
+
+
+@contextlib.contextmanager
+def count_maze_twin_calls():
+    """Count calls of the maze kernels' plain twins: {"forward": n,
+    "backward": n}. The autograd Functions recompute the twin in backward by
+    design; a twin call in forward on a kernel path is a fault."""
+    from interpolated_diffusion_tpu_torch.kernels import fused_block, small_mha
+
+    calls = {"total": 0, "backward": 0}
+    targets = [(fused_block, "_torch_block", "total"), (small_mha, "_torch_attention", "total"),
+               (fused_block, "backward_twin", "backward"), (small_mha, "backward_twin", "backward")]
+    originals = [getattr(m, n) for m, n, _ in targets]
+
+    def counting(fn, key):
+        def wrapped(*a, **kw):
+            calls[key] += 1
+            return fn(*a, **kw)
+        return wrapped
+
+    for (m, n, key), fn in zip(targets, originals):
+        setattr(m, n, counting(fn, key))
+    try:
+        yield calls
+    finally:
+        for (m, n, _), fn in zip(targets, originals):
+            setattr(m, n, fn)
+        calls["forward"] = calls["total"] - calls["backward"]
+
+
+def _maze_counts():
+    from interpolated_diffusion_tpu_torch.kernels.fused_block import fused_film_block
+    from interpolated_diffusion_tpu_torch.kernels.small_mha import small_mha, small_mha_packed
+
+    return {"fused_film_block": fused_film_block.launches,
+            "small_mha_packed": small_mha_packed.launches, "small_mha": small_mha.launches}
+
+
+def _set_maze_counts(values):
+    from interpolated_diffusion_tpu_torch.kernels.fused_block import fused_film_block
+    from interpolated_diffusion_tpu_torch.kernels.small_mha import small_mha, small_mha_packed
+
+    fused_film_block.launches = values["fused_film_block"]
+    small_mha_packed.launches = values["small_mha_packed"]
+    small_mha.launches = values["small_mha"]
 
 
 def _requests(B, gen_cpu, device):
@@ -319,11 +402,7 @@ def _build_models(device):
                      device=device, dtype=torch.bfloat16, **w)
     it = build_model(InterpLevelDenoiser, generator=torch.Generator().manual_seed(2),
                      device=device, dtype=torch.bfloat16, mask_channels=2, **w)
-    # the zero-init Stage-2 head would make Stage 2 the identity
-    with torch.no_grad():
-        g = torch.Generator().manual_seed(3)
-        it.out.weight.copy_((torch.rand(it.out.weight.shape, generator=g) * 2 - 1) * 1e-2)
-        it.out.bias.copy_((torch.rand(it.out.bias.shape, generator=g) * 2 - 1) * 1e-2)
+    _nonzero_head(it)   # the zero-init Stage-2 head would make Stage 2 the identity
     return kp.eval(), it.eval()
 
 
@@ -477,6 +556,358 @@ def phase_timings(dev, card, kernel_cases, pipe, kp, it):
     return times
 
 
+def _grad_check(name, label, kernel_fn, twin_fn, inputs, cot, out_tol, errs):
+    """One autograd Function: kernel path vs twin path, output and the
+    gradient of every input that takes one."""
+    import torch
+
+    results = []
+    for fn in (kernel_fn, twin_fn):
+        leaves = [t.detach().clone().requires_grad_() for t in inputs]
+        out = fn(*leaves)
+        grads = torch.autograd.grad(out, leaves, cot, allow_unused=True)
+        results.append((out.detach(), grads, leaves))
+    torch.cuda.synchronize()
+    (out_k, grads_k, leaves), (out_t, grads_t, _) = results
+    err, rel = _errors(out_k, out_t)
+    require(rel <= out_tol, f"{name} {label}: output disagrees with the twin path ({rel:.3e})")
+    errs[name] = max(errs.get(name, 0.0), err)
+    worst = 0.0
+    for i, (gk, gt, leaf) in enumerate(zip(grads_k, grads_t, leaves)):
+        require((gk is None) == (gt is None), f"{name} {label}: gradient {i} present on one path")
+        if gk is None:
+            continue
+        require(gk.dtype == leaf.dtype and gk.shape == leaf.shape
+                and bool(torch.isfinite(gk).all()),
+                f"{name} {label}: gradient {i} is {gk.dtype} {tuple(gk.shape)} or not finite")
+        worst = max(worst, _errors(gk, gt)[1])
+    print(f"[maze grads] {name} {label}: output max|d|/max|twin|={rel:.3e} (tol {out_tol}), "
+          f"worst input gradient max|d|/max|twin|={worst:.3e} (tol {GRAD_TOL})", flush=True)
+    require(worst <= GRAD_TOL, f"{name} {label}: a gradient disagrees ({worst:.3e})")
+
+
+def phase_maze_autograd(dev, card):
+    """small_mha against its twin, its time beside its bound, the twin's and
+    the library's; then the three Functions under autograd."""
+    import torch
+    from interpolated_diffusion_tpu_torch.kernels import fused_block as fb
+    from interpolated_diffusion_tpu_torch.kernels import small_mha as sm
+
+    gen = torch.Generator(device=dev).manual_seed(30)
+    D, H, F = BENCH["d_model"], BENCH["n_heads"], BENCH["d_ff"]
+    tag = f"[{card}]"
+    saved = _maze_counts()
+    errs, times = {}, {}
+    with torch.inference_mode():
+        for B, L, dm, h in ((256, 64, D, H), (64, 512, 128, 2)):
+            qkv = torch.randn((B, L, 3 * dm), generator=gen, device=dev).to(torch.bfloat16)
+            q, k, v = qkv.split(dm, dim=-1)   # strided views, as the block passes them
+            out, ref = sm.small_mha(q, k, v, h), sm._torch_attention(q, k, v, h)
+            torch.cuda.synchronize()
+            require(bool(torch.isfinite(out).all()), "small_mha: non-finite output")
+            err, rel = _errors(out, ref)
+            print(f"[maze grads] small_mha [{B},{L},{dm}] H={h}: max|d|={err:.3e} "
+                  f"max|d|/max|plain|={rel:.3e} (tol {ATTN_TOL})", flush=True)
+            require(rel <= ATTN_TOL, f"small_mha [{B},{L},{dm}] disagrees: {rel:.3e}")
+            errs["small_mha"] = max(errs.get("small_mha", 0.0), err)
+            k_ms = _time_ms(lambda: sm.small_mha(q, k, v, h))
+            p_ms = _time_ms(lambda: sm._torch_attention(q, k, v, h))
+            heads = lambda t: t.reshape(B, L, h, dm // h).transpose(1, 2)
+            lib_ms = _time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                heads(q), heads(k), heads(v)))
+            bound = bound_ms(2 * 4 * B * L * dm, 4.0 * B * L * L * dm)
+            print(f"[timing] {tag} small_mha [{B},{L},{dm}] H={h}: kernel {k_ms:.4f} ms, bound "
+                  f"{bound[0]:.4f} ms ({bound[1]}), plain twin {p_ms:.4f} ms, library "
+                  f"(scaled_dot_product_attention) {lib_ms:.4f} ms", flush=True)
+            times[(B, L)] = (k_ms, p_ms, lib_ms, bound)
+
+    for B, L in ((256, 64), (256, 8)):
+        qkv = torch.randn((B, L, 3 * D), generator=gen, device=dev).to(torch.bfloat16)
+        cot = torch.randn((B, L, D), generator=gen, device=dev).to(torch.bfloat16)
+        for name in ("small_mha", "small_mha_packed"):
+            _grad_check(name, f"[{B},{L},{D}] H={H}",
+                        lambda t, f=getattr(sm, name): f(*t.split(D, dim=-1), H),
+                        lambda t, f=getattr(sm, name + "_twin"): f(*t.split(D, dim=-1), H),
+                        [qkv], cot, ATTN_TOL, errs)
+        x, args = _block_inputs(B, L, D, H, F, True, gen, dev)
+        # f32 master parameters, bf16 x and FiLM rows: the trainers' types
+        masters = tuple(a if i < 2 else a.float() for i, a in enumerate(args))
+        _grad_check("fused_film_block", f"[{B},{L},{D}] f32 masters",
+                    lambda *t: fb.fused_film_block(*t, n_heads=H),
+                    lambda *t: fb.fused_film_block_twin(*t, n_heads=H),
+                    [x, *masters], cot, BLOCK_TOL, errs)
+    # a tiled-kernel case under autograd
+    qkv = torch.randn((64, 512, 3 * 128), generator=gen, device=dev).to(torch.bfloat16)
+    cot = torch.randn((64, 512, 128), generator=gen, device=dev).to(torch.bfloat16)
+    _grad_check("small_mha", "[64,512,128] H=2 (tiled)",
+                lambda t: sm.small_mha(*t.split(128, dim=-1), 2),
+                lambda t: sm.small_mha_twin(*t.split(128, dim=-1), 2), [qkv], cot, ATTN_TOL, errs)
+    _set_maze_counts(saved)
+    return errs, times
+
+
+def _maze_trainer(stage):
+    from interpolated_diffusion_tpu_torch.train import train_interp_levels, train_keypoints
+
+    return train_keypoints if stage == "stage1" else train_interp_levels
+
+
+def _nonzero_head(model):
+    """Stage 2's zero-initialised head would give every other leaf a zero
+    gradient on the first steps: small seeded values instead."""
+    import torch
+
+    if getattr(model.out, "zero_init", False):
+        with torch.no_grad():
+            g = torch.Generator().manual_seed(3)
+            for p in (model.out.weight, model.out.bias):
+                p.copy_(((torch.rand(p.shape, generator=g) * 2 - 1) * 1e-2).to(p.device))
+
+
+def phase_maze_train(dev, card, profile):
+    """The two maze trainers at their defaults; see the module docstring."""
+    import numpy as np
+    import torch
+    from interpolated_diffusion_tpu_torch.models import transformer
+    from interpolated_diffusion_tpu_torch.models.init import init_parameters
+    from interpolated_diffusion_tpu_torch.models.loading import (load_interp_model,
+                                                                  load_keypoint_model)
+    from interpolated_diffusion_tpu_torch.ops.schedules import make_schedule
+    from interpolated_diffusion_tpu_torch.sample.generate import PipelineConfig, make_pipeline
+    from interpolated_diffusion_tpu_torch.train.common import (make_dataset, make_loader,
+                                                               to_device)
+
+    tag = f"[{card}]"
+    n_layers = BENCH["n_layers"]
+    launches = dict.fromkeys(("fused_film_block", "small_mha_packed", "small_mha"), 0)
+    results = {}
+    for stage, policy in MAZE_TRAIN:
+        trainer = _maze_trainer(stage)
+        args = trainer.build_argparser().parse_args(
+            ["--num_samples", str(MAZE_SAMPLES), "--attn_policy", policy, "--seed", "31"])
+        require((args.d_model, args.n_layers, args.n_heads, args.d_ff, args.d_cond, args.T,
+                 args.batch, args.bf16, args.maze_channels) ==
+                (384, n_layers, 12, 1536, 128, 64, 256, 1, "32,64,128,128"),
+                "maze trainer defaults changed")
+        args.steps_per_call = 1   # one step per call, so that each step is timed
+        ds, data_dim = make_dataset(args)
+        loader = iter(make_loader(ds, args))
+        model = trainer.build_model(args, data_dim, dev)
+        _nonzero_head(model)
+        state, train_step, _ = trainer.make_trainer(args, dev, data_dim, model)
+        names, leaves = list(state.params), list(state.params.values())
+        require(all(p.dtype == torch.float32 and p.requires_grad and p.is_cuda for p in leaves)
+                and model.dtype == torch.bfloat16,
+                f"{stage} {policy}: f32 masters / bf16 compute expected")
+        host_rng = np.random.RandomState(1)
+        if stage == "stage1":
+            make_host = lambda b, i: trainer.host_batch(args, b, trainer.device_policy_of(args),
+                                                        host_rng)
+            loss_fn = trainer.make_loss_fn(
+                model, args, make_schedule(args.schedule, args.N_train, device=dev),
+                trainer.device_policy_of(args))
+        else:
+            make_host = lambda b, i: trainer.host_batch(args, b, i, host_rng)
+            loss_fn = trainer.make_loss_fn(model, args)
+        batch = to_device(make_host(next(loader), 0), dev)
+
+        # one loss + gradients from the same weights, batch and draws on each path
+        def loss_and_grads():
+            rng = torch.Generator(device=dev).manual_seed(32)
+            loss, _ = loss_fn(None, batch, rng)
+            return loss.detach(), torch.autograd.grad(loss, leaves)
+
+        with count_maze_twin_calls() as calls:
+            loss_k, grads_k = loss_and_grads()
+        require(calls["forward"] == 0 and calls["backward"] == n_layers,
+                f"{stage} {policy}: twin calls {calls} in one kernel-path loss + gradient, "
+                f"expected 0 forward and {n_layers} backward")
+        with plain_twins():
+            loss_t, grads_t = loss_and_grads()
+        rel_loss = abs(loss_k.item() - loss_t.item()) / abs(loss_t.item())
+        worst = max((_errors(a, b)[1], n) for n, a, b in zip(names, grads_k, grads_t))
+        zero = [n for n, g in zip(names, grads_t) if not bool(g.abs().max() > 0)]
+        print(f"[maze train] {stage} policy={policy} kernels vs plain twins, same weights / "
+              f"batch / draws: loss {loss_k.item():.6f} vs {loss_t.item():.6f} (rel "
+              f"{rel_loss:.3e}, tol {MAZE_LOSS_TOL}); {len(names)} leaves, worst gradient "
+              f"max|d|/max|twin|={worst[0]:.3e} at {worst[1]} (tol {MAZE_GRAD_TOL}); twin calls "
+              f"forward 0, backward {n_layers}", flush=True)
+        require(not zero, f"{stage} {policy}: identically zero gradients at {zero[:3]}")
+        require(all(g.dtype == torch.float32 for g in grads_k),
+                f"{stage} {policy}: gradients of the f32 masters are not f32")
+        require(rel_loss <= MAZE_LOSS_TOL, f"{stage} {policy}: loss disagrees ({rel_loss:.3e})")
+        require(worst[0] <= MAZE_GRAD_TOL,
+                f"{stage} {policy}: gradient of {worst[1]} disagrees ({worst[0]:.3e})")
+        del grads_k, grads_t
+
+        # the trainer's own step: counts set to 0 just before, read just after
+        before = [p.detach().clone() for p in leaves]
+        ema0 = {n: p.clone() for n, p in state.ema_params.items()}
+        rng = torch.Generator(device=dev).manual_seed(33)
+        warm, timed = MAZE_STEPS
+        torch.cuda.reset_peak_memory_stats()
+        _set_maze_counts(dict.fromkeys(launches, 0))
+        step_s = []
+        with count_maze_twin_calls() as calls:
+            for i in range(warm + timed):
+                nxt = make_host(next(loader), i + 1)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, metrics = train_step(state, batch, rng)
+                loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])
+                torch.cuda.synchronize()
+                step_s.append(time.perf_counter() - t0)
+                require(loss == loss and abs(loss) != float("inf") and gnorm == gnorm
+                        and abs(gnorm) != float("inf") and gnorm > 0,
+                        f"{stage} {policy} step {i}: loss {loss} grad norm {gnorm}")
+                batch = to_device(nxt, dev)
+        counts = _maze_counts()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        per_step = {"fused_film_block": n_layers if policy == "block" else 0,
+                    "small_mha_packed": n_layers if (policy, stage) == ("fused", "stage2") else 0,
+                    "small_mha": 0}
+        want = {k: v * (warm + timed) for k, v in per_step.items()}
+        require(counts == want and calls["forward"] == 0
+                and calls["backward"] == n_layers * (warm + timed),
+                f"{stage} {policy}: launches {counts}, twin calls {calls}; expected {want}, "
+                f"0 forward and {n_layers} per step backward")
+        same = [n for n, a, b in zip(names, before, leaves) if torch.equal(a, b)]
+        require(not same, f"{stage} {policy}: parameters unchanged: {same[:3]}")
+        still = [n for n, p in state.ema_params.items() if torch.equal(p, ema0[n])]
+        require(not still, f"{stage} {policy}: EMA did not move: {still[:3]}")
+        require(all(bool(torch.isfinite(p).all()) for p in leaves),
+                f"{stage} {policy}: non-finite parameters")
+        per = sum(step_s[warm:]) / timed
+        print(f"[maze train] {tag} {stage} policy={policy}: loss {loss:.4f} grad_norm "
+              f"{gnorm:.3e} after {warm + timed} steps; {per:.4f} s/step, "
+              f"{args.batch / per:.1f} samples/s ({timed} timed steps after {warm} warm-up; "
+              f"steps {', '.join(f'{x:.3f}' for x in step_s)}), peak memory {peak:.2f} GiB; "
+              f"launches per step {per_step}, twin calls forward 0 / backward {n_layers} per "
+              f"step; all {len(names)} parameters changed, EMA moved", flush=True)
+        for k, v in counts.items():
+            launches[k] += v
+        results[(stage, policy)] = per
+        if profile and (stage, policy) == ("stage2", "fused"):
+            from torch.profiler import ProfilerActivity, profile as torch_profile
+
+            with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                state, _ = train_step(state, batch, rng)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            _print_profile(prof, tag, f"one maze Stage-2 training step (policy fused, batch "
+                                      f"{args.batch}, {wall * 1e3:.1f} ms wall under the profiler)")
+        del state, train_step, model, leaves, before, ema0
+
+    # TransformerBlock(use_small_mha=True): a stack of the trainers' width,
+    # forward and backward, kernel path against twin path
+    w = {k: BENCH[k] for k in ("d_model", "n_heads", "d_ff", "d_cond")}
+    with torch.device("meta"):
+        stack = torch.nn.ModuleList(transformer.TransformerBlock(use_small_mha=True, **w)
+                                    for _ in range(n_layers))
+    stack = init_parameters(stack.to_empty(device=dev),
+                            torch.Generator(device=dev).manual_seed(34))
+    transformer.set_compute_dtype(stack, torch.bfloat16)
+    gen = torch.Generator(device=dev).manual_seed(35)
+    x = torch.randn((256, BENCH["T"], w["d_model"]), generator=gen, device=dev)
+    cond = torch.randn((256, w["d_cond"]), generator=gen, device=dev)
+    params = list(stack.parameters())
+
+    def stack_grads():
+        h = x
+        for blk in stack:
+            h = blk(h, cond)
+        loss = h.float().square().mean()
+        return loss.detach(), torch.autograd.grad(loss, params)
+
+    _set_maze_counts(dict.fromkeys(launches, 0))
+    with count_maze_twin_calls() as calls:
+        loss_k, grads_k = stack_grads()
+        torch.cuda.synchronize()
+    counts = _maze_counts()
+    require(counts == {"fused_film_block": 0, "small_mha_packed": 0, "small_mha": n_layers}
+            and calls["forward"] == 0 and calls["backward"] == n_layers,
+            f"use_small_mha stack: launches {counts}, twin calls {calls}")
+    launches["small_mha"] += counts["small_mha"]
+    with plain_twins():
+        loss_t, grads_t = stack_grads()
+    rel_loss = abs(loss_k.item() - loss_t.item()) / abs(loss_t.item())
+    worst = max(_errors(a, b)[1] for a, b in zip(grads_k, grads_t))
+    ms = _time_ms(stack_grads, iters=5, warmup=1)
+    print(f"[maze train] {tag} TransformerBlock(use_small_mha=True) x {n_layers}, x [256, "
+          f"{BENCH['T']}, {w['d_model']}]: {n_layers} small_mha launches, twin calls forward 0 / "
+          f"backward {n_layers}; loss rel {rel_loss:.3e} (tol {MAZE_LOSS_TOL}), worst gradient "
+          f"max|d|/max|twin|={worst:.3e} (tol {MAZE_GRAD_TOL}); forward + backward {ms:.2f} ms",
+          flush=True)
+    require(rel_loss <= MAZE_LOSS_TOL and worst <= MAZE_GRAD_TOL,
+            f"use_small_mha stack: kernel path disagrees ({rel_loss:.3e}, {worst:.3e})")
+    del stack, params, grads_k, grads_t
+
+    # both CLIs as a user calls them: defaults, a few steps, a checkpoint, a
+    # resume; then the trained EMA weights through models/loading into the sampler
+    with tempfile.TemporaryDirectory() as tmp:
+        runs = {}
+        for stage, policy in (("stage1", "block"), ("stage2", "fused")):
+            trainer = _maze_trainer(stage)
+            out = os.path.join(tmp, stage)
+            flags = ["--num_samples", str(MAZE_SAMPLES), "--attn_policy", policy, "--out_dir", out,
+                     "--log_every", "1"]
+            if stage == "stage2":
+                flags += ["--bootstrap_ckpt", runs["stage1"], "--bootstrap_warmup_steps", "2",
+                          "--pos_clip", "1"]
+            first, total = MAZE_CLI_STEPS
+            before = _maze_counts()
+            with count_maze_twin_calls() as calls:
+                t0 = time.perf_counter()
+                trainer.main(flags + ["--steps", str(first), "--save_every", str(first)])
+                st = trainer.main(flags + ["--steps", str(total), "--save_every", str(total),
+                                           "--resume", out])
+                torch.cuda.synchronize()
+                took = time.perf_counter() - t0
+            delta = {k: v - before[k] for k, v in _maze_counts().items()}
+            for name in ("run_config.json", f"ckpt_{first}/meta.json", f"ckpt_{total}/params.pt",
+                         f"ckpt_{total}/ema.pt", f"ckpt_{total}/opt_state.pt"):
+                require(os.path.exists(os.path.join(out, name)), f"{stage} CLI: {name} missing")
+            key = "fused_film_block" if policy == "block" else "small_mha_packed"
+            # Stage 2's bootstrap sampler adds Stage-1 evaluations at K=8: under
+            # the fused policy they run plain attention (H*L = 96), no launch
+            require(st.step == total and st.opt_state.count == total
+                    and delta[key] == n_layers * total and calls["forward"] == 0,
+                    f"{stage} CLI: step {st.step}, launches {delta}, twin calls {calls}")
+            print(f"[maze train] {stage} CLI policy={policy}: {first} steps, checkpoint, resumed "
+                  f"to {total} in {took:.1f} s (dataset, model and both runs); launches {delta}, "
+                  f"forward twin calls 0", flush=True)
+            for k, v in delta.items():
+                launches[k] += v
+            runs[stage] = out
+        kp, kp_meta = load_keypoint_model(runs["stage1"], bf16=True, device=dev)
+        it, it_meta = load_interp_model(runs["stage2"], bf16=True, device=dev)
+    require(kp.dtype == torch.bfloat16 and kp.in_proj.weight.dtype == torch.float32,
+            "loaded model: f32 weights with bf16 compute expected")
+    cfg = PipelineConfig(T=BENCH["T"], K=BENCH["K"], levels=it_meta["levels"],
+                         K_min=it_meta["K_min"], ddim_steps=BENCH["ddim_steps"],
+                         stage2_mode=it_meta["mode"], clamp_policy="endpoints", pos_clip=True)
+    pipe = make_pipeline(kp, it, make_schedule(kp_meta["schedule"], kp_meta["N_train"], device=dev),
+                         cfg, kp_meta["data_dim"])
+    idx, cond = _requests(64, torch.Generator().manual_seed(36), dev)
+    for policy in ("block", "fused"):
+        kp.set_attn_policy(policy)
+        it.set_attn_policy(policy)
+        before = _maze_counts()
+        out = pipe(idx, cond, generator=torch.Generator(device=dev).manual_seed(37))
+        torch.cuda.synchronize()
+        _check_outputs(64, idx, cond, out)
+        delta = {k: v - before[k] for k, v in _maze_counts().items()}
+        require(delta["fused_film_block"] + delta["small_mha_packed"] > 0,
+                f"sampling the trained weights under {policy}: no kernel launch")
+        print(f"[maze train] trained EMA weights (f32, bf16 compute) through make_pipeline, "
+              f"policy={policy} B=64: shapes, anchors, endpoints, [0,1] ok; launches {delta}",
+              flush=True)
+    print(f"[maze train] launches in the main-path run: {launches}", flush=True)
+    return launches, results
+
+
+
 def _sla_work(lut, L, block):
     """(rows x keys summed over the LUT's entries, the same over its distinct
     (query block, key block) pairs): what this LUT makes the forward and dQ
@@ -501,7 +932,8 @@ def _print_profile(prof, tag, what):
     """The profiler's table by operator, and the device time by kind of kernel."""
     print(f"[profile] {tag} {what}:\n"
           f"{prof.key_averages().table(sort_by='cuda_time_total', row_limit=25)}", flush=True)
-    kinds = {"hand-written attention kernels": ("attn_fwd_kernel", "attn_bwd_"),
+    kinds = {"hand-written kernels": ("attn_fwd_kernel", "attn_bwd_", "small_mha_", "gemm_kernel<",
+                                      "ln_film_kernel"),
              "library GEMMs (cuBLAS)": ("gemm", "nvjet", "cutlass", "cublas", "sm90_xmma",
                                         "sm80_xmma")}
     sums, total = dict.fromkeys([*kinds, "PyTorch elementwise, reductions, copies, other"], 0.0), 0.0
@@ -1107,9 +1539,12 @@ def main() -> int:
         times = phase_timings(dev, card, cases, pipe, kp, it)
         del kp, it, pipe
         torch.cuda.empty_cache()
+        profile = "--profile" in sys.argv[1:]
+        grad_errs, mha_times = phase_maze_autograd(dev, card)
+        maze_train_launches, _ = phase_maze_train(dev, card, profile)
+        torch.cuda.empty_cache()
         wan_errs, wan_cases = phase_wan_kernels(dev)
         model, sampler, inputs, wan_launches = phase_wan_main(dev)
-        profile = "--profile" in sys.argv[1:]
         wan_times = phase_wan_timings(card, wan_cases, model, sampler, inputs, profile)
         del model, sampler, inputs, wan_cases
         torch.cuda.empty_cache()
@@ -1137,10 +1572,17 @@ def main() -> int:
                         "plain_ms": plain_ms, "bound_ms": bound[0], "bound_by": bound[1],
                         "library_ms": library_ms, **extra})
 
+    # `launches` from the sampling pipeline's run, `train_launches` from the
+    # maze trainers' run (steps, the CLIs, the use_small_mha stack)
     for name in ("fused_film_block", "small_mha_packed"):
         k_ms, p_ms, lib_ms = times[(name, B, L)]
-        row(name, launches[name], max(c[1] for c in cases[name]), k_ms, p_ms, maze_bounds[name],
-            lib_ms)
+        row(name, launches[name], max(grad_errs[name], *(c[1] for c in cases[name])), k_ms, p_ms,
+            maze_bounds[name], lib_ms, train_launches=maze_train_launches[name])
+    # small_mha at the Stage-2 trainer's shape [256, 64, 384]; its main path is
+    # the maze training phase (TransformerBlock(use_small_mha=True))
+    k_ms, p_ms, lib_ms, mha_bound = mha_times[(256, 64)]
+    row("small_mha", maze_train_launches["small_mha"], grad_errs["small_mha"], k_ms, p_ms,
+        mha_bound, lib_ms, train_launches=maze_train_launches["small_mha"])
     # Wan forward kernels: times at the anchor path's shapes (flash: its
     # cross-attention); `launches` from the sampler's run, `train_launches`
     # from the trainer's

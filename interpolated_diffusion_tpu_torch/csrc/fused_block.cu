@@ -29,9 +29,11 @@
 // Rounding points are those of the TPU kernel: h, qkv, p, o and the SiLU
 // output are bf16; the residual stream x2 stays f32 inside the block; y is
 // rounded to bf16 at the end. LayerNorm uses eps 1e-6 and E[x^2] - mu^2.
-// Every tensor is bf16, as the port's bf16 models hold them: weights in the
-// torch Linear layout [out, in], biases and LN parameters (read into f32,
-// which is exact), and the FiLM rows gb1/gb2 [B, 2D].
+// x, the FiLM rows gb1/gb2 [B, 2D] and the four weight matrices (torch Linear
+// layout [out, in]) are bf16. The four biases and the four LN vectors are
+// either all f32 (a model with f32 master parameters under bf16 compute, as
+// the trainers build it: the TPU kernel's types) or all bf16 (a model held in
+// bf16 throughout; read into f32, which is exact): `params_f32` says which.
 #include <mma.h>
 #include <stdint.h>
 
@@ -45,12 +47,18 @@ using namespace nvcuda;
 __device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ float to_f32(float v) { return v; }
 
+// Element i of a bias or LN vector that is f32 or bf16 (uniform per launch).
+__device__ __forceinline__ float param_at(const void* p, int i, int f32) {
+  return f32 ? static_cast<const float*>(p)[i]
+             : __bfloat162float(static_cast<const bf16*>(p)[i]);
+}
+
 // One warp per row: f32 mean and E[x^2], then (x - mu) * rsqrt(var + eps) *
 // scale + bias, then FiLM h * (1 + gamma) + beta with the row's sample b = row / L.
 template <typename T>
 __global__ void __launch_bounds__(256)
 ln_film_kernel(const T* __restrict__ x, const bf16* __restrict__ gb,
-               const bf16* __restrict__ scale, const bf16* __restrict__ bias,
+               const void* __restrict__ scale, const void* __restrict__ bias, int pf32,
                bf16* __restrict__ h, int M, int L, int D, int use_film, float eps) {
   const int row = blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
@@ -71,7 +79,7 @@ ln_film_kernel(const T* __restrict__ x, const bf16* __restrict__ gb,
   bf16* hr = h + (long long)row * D;
   for (int c = lane; c < D; c += 32) {
     float v = (to_f32(xr[c]) - mu) * r;
-    v = v * to_f32(scale[c]) + to_f32(bias[c]);
+    v = v * param_at(scale, c, pf32) + param_at(bias, c, pf32);
     if (use_film) v = v * (1.f + to_f32(g[c])) + to_f32(g[D + c]);
     hr[c] = __float2bfloat16(v);
   }
@@ -112,7 +120,7 @@ __device__ __forceinline__ void cp_async_wait() {
 template <class C, int EPI>
 __global__ void __launch_bounds__(C::THREADS)
 gemm_kernel(const bf16* __restrict__ A, const bf16* __restrict__ W,
-            const bf16* __restrict__ bias, const void* __restrict__ resid,
+            const void* __restrict__ bias, int pf32, const void* __restrict__ resid,
             void* __restrict__ out, int M, int N, int K) {
   extern __shared__ __align__(128) unsigned char gemm_smem[];
   bf16* As = reinterpret_cast<bf16*>(gemm_smem);                 // [STAGES][BM][LDS]
@@ -192,7 +200,7 @@ gemm_kernel(const bf16* __restrict__ A, const bf16* __restrict__ W,
       if (gr < M) {
         float v[8];
 #pragma unroll
-        for (int e = 0; e < 8; ++e) v[e] = cs[r * 16 + c0 + e] + to_f32(bias[gc + e]);
+        for (int e = 0; e < 8; ++e) v[e] = cs[r * 16 + c0 + e] + param_at(bias, gc + e, pf32);
         const long long off = (long long)gr * N + gc;
         if (EPI == EPI_RESID_F32) {
           const bf16* res = static_cast<const bf16*>(resid) + off;
@@ -224,8 +232,9 @@ gemm_kernel(const bf16* __restrict__ A, const bf16* __restrict__ W,
 }
 
 template <class C, int EPI>
-cudaError_t launch_gemm_cfg(const bf16* A, const bf16* W, const bf16* bias, const void* resid,
-                            void* out, int M, int N, int K, cudaStream_t stream) {
+cudaError_t launch_gemm_cfg(const bf16* A, const bf16* W, const void* bias, int pf32,
+                            const void* resid, void* out, int M, int N, int K,
+                            cudaStream_t stream) {
   if (N % C::BN || K % C::BK) return cudaErrorInvalidValue;
   static bool smem_opted_in = false;  // once per instantiation; a repeat is harmless
   if (C::SMEM > 48 * 1024 && !smem_opted_in) {
@@ -235,7 +244,8 @@ cudaError_t launch_gemm_cfg(const bf16* A, const bf16* W, const bf16* bias, cons
     smem_opted_in = true;
   }
   const dim3 grid(N / C::BN, (M + C::BM - 1) / C::BM);
-  gemm_kernel<C, EPI><<<grid, C::THREADS, C::SMEM, stream>>>(A, W, bias, resid, out, M, N, K);
+  gemm_kernel<C, EPI><<<grid, C::THREADS, C::SMEM, stream>>>(A, W, bias, pf32, resid, out, M, N,
+                                                             K);
   return cudaGetLastError();
 }
 
@@ -246,18 +256,19 @@ using GemmLarge = GemmCfg<128, 128, 64, 64, 64, 3>;  // N % 128 == 0, K % 64 == 
 using GemmSmall = GemmCfg<128, 64, 32, 64, 32, 2>;   // N % 64 == 0, K % 32 == 0
 
 template <int EPI>
-cudaError_t launch_gemm(const bf16* A, const bf16* W, const bf16* bias, const void* resid,
-                        void* out, int M, int N, int K, cudaStream_t stream) {
+cudaError_t launch_gemm(const bf16* A, const bf16* W, const void* bias, int pf32,
+                        const void* resid, void* out, int M, int N, int K, cudaStream_t stream) {
   if (N % GemmLarge::BN == 0 && K % GemmLarge::BK == 0)
-    return launch_gemm_cfg<GemmLarge, EPI>(A, W, bias, resid, out, M, N, K, stream);
-  return launch_gemm_cfg<GemmSmall, EPI>(A, W, bias, resid, out, M, N, K, stream);
+    return launch_gemm_cfg<GemmLarge, EPI>(A, W, bias, pf32, resid, out, M, N, K, stream);
+  return launch_gemm_cfg<GemmSmall, EPI>(A, W, bias, pf32, resid, out, M, N, K, stream);
 }
 
 template <typename T>
-cudaError_t launch_ln_film(const T* x, const bf16* gb, const bf16* scale, const bf16* bias,
-                           bf16* h, int M, int L, int D, int use_film, cudaStream_t stream) {
-  ln_film_kernel<T><<<(M + 7) / 8, 256, 0, stream>>>(x, gb, scale, bias, h, M, L, D, use_film,
-                                                     1e-6f);
+cudaError_t launch_ln_film(const T* x, const bf16* gb, const void* scale, const void* bias,
+                           int pf32, bf16* h, int M, int L, int D, int use_film,
+                           cudaStream_t stream) {
+  ln_film_kernel<T><<<(M + 7) / 8, 256, 0, stream>>>(x, gb, scale, bias, pf32, h, M, L, D,
+                                                     use_film, 1e-6f);
   return cudaGetLastError();
 }
 
@@ -272,35 +283,34 @@ cudaError_t launch_ln_film(const T* x, const bf16* gb, const bf16* scale, const 
 // One FiLM pre-norm block, y = block(x), on `stream`. The caller allocates
 // the scratch buffers h [M, D] bf16, qkv [M, 3D] bf16, o [M, D] bf16,
 // x2 [M, D] f32, f [M, F] bf16 and the output y [M, D] bf16 (M = B * L).
+// params_f32: the biases and LN vectors are f32 (else bf16).
 // Requires D % 64 == 0, F % 64 == 0, D / H in {32, 64}, L <= 256.
 extern "C" int id_fused_film_block(
     const void* x, const void* gb1, const void* gb2, const void* ln1s, const void* ln1b,
     const void* ln2s, const void* ln2b, const void* wqkv, const void* bqkv, const void* wout,
     const void* bout, const void* wff1, const void* bff1, const void* wff2, const void* bff2,
     void* h, void* qkv, void* o, void* x2, void* f, void* y, int B, int L, int D, int H,
-    int F, int use_film, float attn_scale, void* stream_ptr) {
+    int F, int use_film, int params_f32, float attn_scale, void* stream_ptr) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream_ptr);
-  const int M = B * L;
+  const int M = B * L, pf = params_f32;
   const bf16* xb = static_cast<const bf16*>(x);
   bf16* hb = static_cast<bf16*>(h);
   bf16* qkvb = static_cast<bf16*>(qkv);
   bf16* ob = static_cast<bf16*>(o);
-  ID_TRY(launch_ln_film<bf16>(xb, static_cast<const bf16*>(gb1),
-                              static_cast<const bf16*>(ln1s), static_cast<const bf16*>(ln1b),
-                              hb, M, L, D, use_film, s));
-  ID_TRY(launch_gemm<EPI_BIAS>(hb, static_cast<const bf16*>(wqkv),
-                               static_cast<const bf16*>(bqkv), nullptr, qkvb, M, 3 * D, D, s));
+  ID_TRY(launch_ln_film<bf16>(xb, static_cast<const bf16*>(gb1), ln1s, ln1b, pf, hb, M, L, D,
+                              use_film, s));
+  ID_TRY(launch_gemm<EPI_BIAS>(hb, static_cast<const bf16*>(wqkv), bqkv, pf, nullptr, qkvb, M,
+                               3 * D, D, s));
   ID_TRY(launch_small_mha(qkvb, qkvb + D, qkvb + 2 * D, ob, B, L, H, D / H, 3 * D, 3 * D, 3 * D,
                           D, attn_scale, s));
-  ID_TRY(launch_gemm<EPI_RESID_F32>(ob, static_cast<const bf16*>(wout),
-                                    static_cast<const bf16*>(bout), xb, x2, M, D, D, s));
+  ID_TRY(launch_gemm<EPI_RESID_F32>(ob, static_cast<const bf16*>(wout), bout, pf, xb, x2, M, D,
+                                    D, s));
   ID_TRY(launch_ln_film<float>(static_cast<const float*>(x2), static_cast<const bf16*>(gb2),
-                               static_cast<const bf16*>(ln2s), static_cast<const bf16*>(ln2b),
-                               hb, M, L, D, use_film, s));
-  ID_TRY(launch_gemm<EPI_BIAS_SILU>(hb, static_cast<const bf16*>(wff1),
-                                    static_cast<const bf16*>(bff1), nullptr, f, M, F, D, s));
+                               ln2s, ln2b, pf, hb, M, L, D, use_film, s));
+  ID_TRY(launch_gemm<EPI_BIAS_SILU>(hb, static_cast<const bf16*>(wff1), bff1, pf, nullptr, f, M,
+                                    F, D, s));
   ID_TRY(launch_gemm<EPI_RESID_OUT>(static_cast<const bf16*>(f),
-                                    static_cast<const bf16*>(wff2),
-                                    static_cast<const bf16*>(bff2), x2, y, M, D, F, s));
+                                    static_cast<const bf16*>(wff2), bff2, pf, x2, y, M, D, F,
+                                    s));
   return 0;
 }

@@ -1,13 +1,173 @@
-"""The batch loader feeding the train steps (own copy of `BatchLoader` from
-the JAX package's data/dataset.py; numpy only). The maze datasets come with
-the maze trainers."""
+"""Host-side datasets and the batch loader feeding the train steps (own copy
+of the JAX package's data/dataset.py; numpy only): ParticleMazeDataset
+(procedural mazes and paths, generated per seeded shard, with an npz shard
+cache), PreparedTrajectoryDataset (npz-backed prepared data) and BatchLoader.
+The numpy generator gives the JAX package's `use_native="never"` samples bit
+for bit; its C++ generator is not ported.
+"""
 from __future__ import annotations
 
+import collections
+import os
 import queue
 import threading
-from typing import Dict, Iterator
+from typing import Dict, Iterator, Optional
 
 import numpy as np
+
+from .maze import generate_maze, sdf_from_occupancy
+from .trajectories import path_to_trajectory
+
+
+
+def _cell_to_xy(cell, h: int, w: int) -> np.ndarray:
+    return np.array([(cell[1] + 0.5) / w, (cell[0] + 0.5) / h], dtype=np.float32)
+
+
+class ParticleMazeDataset:
+    """Procedural maze trajectories with per-shard seeded generation + caching."""
+
+    def __init__(
+        self,
+        num_samples: int = 100_000,
+        h: int = 21,
+        w: int = 21,
+        T: int = 64,
+        p_wall_min: float = 0.15,
+        p_wall_max: float = 0.30,
+        with_velocity: bool = False,
+        use_sdf: bool = False,
+        cache_dir: Optional[str] = None,
+        shard_size: int = 10_000,
+        seed: int = 123,
+        use_native: str = "auto",  # auto | never: numpy; always: not ported
+    ):
+        self.num_samples = num_samples
+        self.h, self.w, self.T = h, w, T
+        self.p_wall_min, self.p_wall_max = p_wall_min, p_wall_max
+        self.with_velocity = with_velocity
+        self.use_sdf = use_sdf
+        self.cache_dir = cache_dir
+        self.shard_size = shard_size
+        self.seed = seed
+        self.use_native = use_native
+        self.data_dim = 4 if with_velocity else 2
+        self._shard_cache: "collections.OrderedDict[int, Dict[str, np.ndarray]]" = (
+            collections.OrderedDict()
+        )
+        self._shard_cache_cap = 4
+        if cache_dir is not None:
+            os.makedirs(cache_dir, exist_ok=True)
+
+    def __len__(self) -> int:
+        return self.num_samples
+
+    # -- shard machinery -----------------------------------------------------
+    def _shard_path(self, shard_idx: int) -> str:
+        return os.path.join(self.cache_dir, f"shard_{shard_idx:05d}.npz")
+
+    def _generate_sample(self, rng: np.random.RandomState):
+        p_wall = rng.uniform(self.p_wall_min, self.p_wall_max)
+        occ, start, goal, path = generate_maze(rng, self.h, self.w, p_wall=p_wall)
+        x = path_to_trajectory(path, self.h, self.w, self.T, with_velocity=self.with_velocity)
+        sdf = sdf_from_occupancy(occ).astype(np.float32) if self.use_sdf else None
+        sg = np.concatenate(
+            [_cell_to_xy(start, self.h, self.w), _cell_to_xy(goal, self.h, self.w)]
+        ).astype(np.float32)
+        return x, occ.astype(np.float32), sdf, sg
+
+    def _build_shard(self, shard_idx: int) -> Dict[str, np.ndarray]:
+        rng = np.random.RandomState(self.seed + shard_idx)
+        lo = shard_idx * self.shard_size
+        hi = min(self.num_samples, lo + self.shard_size)
+        n = hi - lo
+        # The C++ generator (native/maze_gen.cpp of the JAX package) is not
+        # ported: "auto" and "never" build with numpy, "always" raises.
+        if self.use_native == "always":
+            raise NotImplementedError(
+                "use_native='always': the C++ maze generator (data/native.py, "
+                "native/maze_gen.cpp) is not ported yet")
+        x = np.zeros((n, self.T, self.data_dim), dtype=np.float32)
+        occ = np.zeros((n, 1, self.h, self.w), dtype=np.float32)
+        sdf = np.zeros((n, 1, self.h, self.w), dtype=np.float32) if self.use_sdf else None
+        sg = np.zeros((n, 4), dtype=np.float32)
+        for i in range(n):
+            xi, occi, sdfi, sgi = self._generate_sample(rng)
+            x[i], occ[i, 0], sg[i] = xi, occi, sgi
+            if sdf is not None:
+                sdf[i, 0] = sdfi
+        data = {"x": x, "occ": occ, "start_goal": sg}
+        if sdf is not None:
+            data["sdf"] = sdf
+        return data
+
+    def _load_shard(self, shard_idx: int) -> Dict[str, np.ndarray]:
+        if shard_idx in self._shard_cache:
+            self._shard_cache.move_to_end(shard_idx)
+            return self._shard_cache[shard_idx]
+        if self.cache_dir is not None:
+            path = self._shard_path(shard_idx)
+            if os.path.exists(path):
+                with np.load(path) as f:
+                    data = {k: f[k] for k in f.files}
+            else:
+                data = self._build_shard(shard_idx)
+                np.savez_compressed(path, **data)
+        else:
+            data = self._build_shard(shard_idx)
+        self._shard_cache[shard_idx] = data
+        if len(self._shard_cache) > self._shard_cache_cap:
+            self._shard_cache.popitem(last=False)
+        return data
+
+    def get(self, idx: int) -> Dict[str, np.ndarray]:
+        data = self._load_shard(idx // self.shard_size)
+        off = idx % self.shard_size
+        out = {
+            "x": data["x"][off],
+            "occ": data["occ"][off],
+            "start_goal": data["start_goal"][off],
+        }
+        if "sdf" in data:
+            out["sdf"] = data["sdf"][off]
+        return out
+
+    def get_batch(self, indices: np.ndarray) -> Dict[str, np.ndarray]:
+        """Dense batch gather, grouped by shard (each shard loaded once)."""
+        indices = np.asarray(indices)
+        shards = indices // self.shard_size
+        first = self._load_shard(int(shards[0]))
+        n = len(indices)
+        batch = {k: np.empty((n, *v.shape[1:]), dtype=v.dtype)
+                 for k, v in first.items()}
+        for sid in np.unique(shards):
+            data = self._load_shard(int(sid))
+            rows = np.where(shards == sid)[0]
+            offs = indices[rows] % self.shard_size
+            for k in batch:
+                batch[k][rows] = data[k][offs]
+        return batch
+
+
+class PreparedTrajectoryDataset:
+    """npz-backed prepared dataset (x, occ?, sdf?, start_goal, kp_idx?,
+    kp_feat?, kp_mask_levels?, difficulty?)."""
+
+    def __init__(self, path: str):
+        with np.load(path, allow_pickle=False) as f:
+            self.arrays = {k: f[k] for k in f.files}
+        if "x" not in self.arrays:
+            raise ValueError(f"prepared dataset {path} missing 'x'")
+        self.num_samples = self.arrays["x"].shape[0]
+        self.T = self.arrays["x"].shape[1]
+        self.data_dim = self.arrays["x"].shape[2]
+
+    def __len__(self) -> int:
+        return self.num_samples
+
+    def get_batch(self, indices: np.ndarray) -> Dict[str, np.ndarray]:
+        indices = np.asarray(indices)
+        return {k: v[indices] for k, v in self.arrays.items()}
 
 
 class BatchLoader:

@@ -9,11 +9,21 @@ CPU tensors it runs the plain twin `_torch_block`. There is no fallback
 between the two: a CUDA input the kernels do not take raises.
 
 Weights are in the torch Linear layout [out, in] (the JAX function takes the
-flax [in, out] kernels). On CUDA every tensor is bf16, as the port's bf16
-models hold them; the kernels read biases and LN parameters into f32, which
-is exact, as the plain twin does. What bounds the kernels on the H100, and
-what the design does about it, is in the header of csrc/fused_block.cu.
-Forward only: gradients come with training.
+flax [in, out] kernels). On CUDA x and the FiLM rows are bf16. The four
+weight matrices are bf16, or f32 masters that are cast to bf16 for the call
+(the TPU wrapper does the same cast). The four biases and four LN vectors are
+all f32 (masters, read as they are: the TPU kernel's types) or all bf16 (a
+model held in bf16 throughout; the kernels read them into f32, which is
+exact). The plain twin takes the same dtypes and rounds at the same points.
+
+`fused_film_block` is a `torch.autograd.Function` with the JAX package's
+split: the forward is the kernel chain, the backward recomputes the plain
+twin on the saved inputs and differentiates that (no backward kernel, as in
+the JAX custom_vjp), so gradients reach f32 masters in f32.
+`fused_film_block_twin` runs the twin forward as well, on any device.
+
+What bounds the kernels on the H100, and what the design does about it, is in
+the header of csrc/fused_block.cu.
 """
 from __future__ import annotations
 
@@ -23,7 +33,7 @@ from typing import Optional
 import torch
 
 from . import _build
-from .small_mha import MAX_L, check_no_grad
+from .small_mha import MAX_L, twin_backward
 
 LN_EPS = 1e-6
 
@@ -68,7 +78,87 @@ def _torch_block(x, gb1, gb2, ln1s, ln1b, ln2s, ln2b, wqkv, bqkv, wout, bout,
     return (x2 + lin(f, wff2, bff2)).to(x.dtype)
 
 
-_ARGTYPES = [ctypes.c_void_p] * 21 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 21 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
+_MATRICES = (6, 8, 10, 12)          # wqkv, wout, wff1, wff2 among the 14 tensors after x
+_VECTORS = (2, 3, 4, 5, 7, 9, 11, 13)  # LN scales / biases and the four biases
+
+
+def _launch_block(x, args, n_heads: int, use_film: bool) -> torch.Tensor:
+    """Checks, scratch buffers and one launch of the kernel chain."""
+    B, L, D = x.shape
+    F = args[10].shape[0]
+    dh = D // n_heads
+    if D % 64 or F % 64 or D != n_heads * dh or dh not in (32, 64) or L > MAX_L:
+        raise ValueError(f"fused_film_block: CUDA kernels need D and F multiples of 64, "
+                         f"head dim 32 or 64 and L <= {MAX_L} (got D={D}, F={F}, "
+                         f"H={n_heads}, L={L})")
+    if -(-B * L // 128) > 65535:
+        raise ValueError("fused_film_block: B*L too large for one launch")
+    bf, f32 = torch.bfloat16, torch.float32
+    vec_dtype = args[2].dtype
+    if vec_dtype not in (bf, f32):
+        raise ValueError(f"fused_film_block: biases and LN vectors are {vec_dtype}; the CUDA "
+                         "kernels take f32 or bf16")
+    shapes = {"x": (B, L, D), "gb1": (B, 2 * D), "gb2": (B, 2 * D), "ln1s": (D,),
+              "ln1b": (D,), "ln2s": (D,), "ln2b": (D,), "wqkv": (3 * D, D), "bqkv": (3 * D,),
+              "wout": (D, D), "bout": (D,), "wff1": (F, D), "bff1": (F,), "wff2": (D, F),
+              "bff2": (D,)}
+    ins = []
+    for i, ((name, shape), t) in enumerate(zip(shapes.items(), (x, *args))):
+        want = ((bf, f32) if i - 1 in _MATRICES else (vec_dtype,) if i - 1 in _VECTORS
+                else (bf,))
+        if tuple(t.shape) != shape or t.device != x.device or t.dtype not in want:
+            raise ValueError(f"fused_film_block: {name} is {t.dtype} {tuple(t.shape)} on "
+                             f"{t.device}; the CUDA kernels take {' or '.join(map(str, want))} "
+                             f"{shape} on {x.device} (biases and LN vectors all of one dtype)")
+        # f32 master matrices enter the kernels in bf16, as on the TPU
+        ins.append((t.detach().to(bf) if i - 1 in _MATRICES else t.detach()).contiguous())
+    M = B * L
+    empty = lambda *shape, dtype=bf: torch.empty(shape, dtype=dtype, device=x.device)
+    h, qkv, o = empty(M, D), empty(M, 3 * D), empty(M, D)
+    x2, f, y = empty(M, D, dtype=f32), empty(M, F), empty(B, L, D)
+    bufs = [h, qkv, o, x2, f, y]
+    if any(t.data_ptr() % 16 for t in ins + bufs):
+        raise ValueError("fused_film_block: CUDA kernels need 16-byte aligned tensors")
+    fn = _build.function("id_fused_film_block", _ARGTYPES)
+    err = fn(*[t.data_ptr() for t in ins + bufs], B, L, D, n_heads, F,
+             int(bool(use_film)), int(vec_dtype == f32), dh ** -0.5,
+             torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(err, "fused_film_block")
+    fused_film_block.launches += 1
+    return y
+
+
+def _forward(x, args, n_heads: int, use_film: bool, twin: bool) -> torch.Tensor:
+    if twin or x.device.type == "cpu":
+        return _torch_block(x, *args, n_heads=n_heads, use_film=use_film)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_film_block: unsupported device {x.device}")
+    return _launch_block(x, args, n_heads, use_film)
+
+
+def backward_twin(x, *args, n_heads: int, use_film: bool) -> torch.Tensor:
+    """The twin as the backward recomputes it (a name of its own, so that a
+    run can tell a recompute in backward from a twin call in forward)."""
+    return _torch_block(x, *args, n_heads=n_heads, use_film=use_film)
+
+
+class _FusedFilmBlock(torch.autograd.Function):
+    """Forward: the kernel chain (or the twin). Backward: the twin, recomputed."""
+
+    @staticmethod
+    def forward(ctx, n_heads, use_film, twin, x, *args):
+        ctx.save_for_backward(x, *args)
+        ctx.n_heads, ctx.use_film = n_heads, use_film
+        return _forward(x, args, n_heads, use_film, twin)
+
+    @staticmethod
+    def backward(ctx, dy):
+        n_heads, use_film = ctx.n_heads, ctx.use_film
+        grads = twin_backward(
+            lambda *a: backward_twin(*a, n_heads=n_heads, use_film=use_film),
+            ctx.saved_tensors, ctx.needs_input_grad[3:], dy)
+        return (None, None, None, *grads)
 
 
 def fused_film_block(x, gb1, gb2, ln1s, ln1b, ln2s, ln2b, wqkv, bqkv, wout, bout,
@@ -84,44 +174,13 @@ def fused_film_block(x, gb1, gb2, ln1s, ln1b, ln2s, ln2b, wqkv, bqkv, wout, bout
     """
     args = (gb1, gb2, ln1s, ln1b, ln2s, ln2b, wqkv, bqkv, wout, bout,
             wff1, bff1, wff2, bff2)
-    if x.device.type == "cpu":
-        return _torch_block(x, *args, n_heads=n_heads, use_film=use_film)
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_film_block: unsupported device {x.device}")
-    check_no_grad("fused_film_block", x, *args)
-    B, L, D = x.shape
-    F = wff1.shape[0]
-    dh = D // n_heads
-    if D % 64 or F % 64 or D != n_heads * dh or dh not in (32, 64) or L > MAX_L:
-        raise ValueError(f"fused_film_block: CUDA kernels need D and F multiples of 64, "
-                         f"head dim 32 or 64 and L <= {MAX_L} (got D={D}, F={F}, "
-                         f"H={n_heads}, L={L})")
-    if -(-B * L // 128) > 65535:
-        raise ValueError("fused_film_block: B*L too large for one launch")
-    shapes = {"x": (B, L, D), "gb1": (B, 2 * D), "gb2": (B, 2 * D), "ln1s": (D,),
-              "ln1b": (D,), "ln2s": (D,), "ln2b": (D,), "wqkv": (3 * D, D), "bqkv": (3 * D,),
-              "wout": (D, D), "bout": (D,), "wff1": (F, D), "bff1": (F,), "wff2": (D, F),
-              "bff2": (D,)}
-    for (name, shape), t in zip(shapes.items(), (x, *args)):
-        if tuple(t.shape) != shape or t.device != x.device or t.dtype != torch.bfloat16:
-            raise ValueError(f"fused_film_block: {name} is {t.dtype} {tuple(t.shape)} on "
-                             f"{t.device}; the CUDA kernels take bf16 {shape} on {x.device}")
-    ins = [t.contiguous() for t in (x, *args)]
-    M = B * L
-    empty = lambda *shape, dtype=torch.bfloat16: torch.empty(shape, dtype=dtype,
-                                                             device=x.device)
-    h, qkv, o = empty(M, D), empty(M, 3 * D), empty(M, D)
-    x2, f, y = empty(M, D, dtype=torch.float32), empty(M, F), empty(B, L, D)
-    bufs = [h, qkv, o, x2, f, y]
-    if any(t.data_ptr() % 16 for t in ins + bufs):
-        raise ValueError("fused_film_block: CUDA kernels need 16-byte aligned tensors")
-    fn = _build.function("id_fused_film_block", _ARGTYPES)
-    err = fn(*[t.data_ptr() for t in ins + bufs], B, L, D, n_heads, F,
-             int(bool(use_film)), dh ** -0.5,
-             torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(err, "fused_film_block")
-    fused_film_block.launches += 1
-    return y
+    return _FusedFilmBlock.apply(n_heads, use_film, False, x, *args)
+
+
+def fused_film_block_twin(x, *args, n_heads: int, group_b: int = 8,
+                          use_film: bool = True) -> torch.Tensor:
+    """`fused_film_block` with the plain twin as forward, on any device."""
+    return _FusedFilmBlock.apply(n_heads, use_film, True, x, *args)
 
 
 fused_film_block.launches = 0

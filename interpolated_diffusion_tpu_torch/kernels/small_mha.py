@@ -1,14 +1,21 @@
-"""Packed small-L multi-head attention (port of kernels/small_mha.py).
+"""Small-L multi-head attention (port of kernels/small_mha.py).
 
-`small_mha_packed` replaces the TPU kernel
-interpolated_diffusion_tpu/kernels/small_mha.py::_kernel_packed (public
-small_mha_packed). On CUDA tensors it launches the hand-written sm_90a kernel
-in csrc/small_mha.cu; on CPU tensors it runs the plain twin `_torch_attention`
+`small_mha` replaces the TPU kernel
+interpolated_diffusion_tpu/kernels/small_mha.py::_kernel (public small_mha),
+`small_mha_packed` replaces ::_kernel_packed (public small_mha_packed). On
+CUDA tensors each launches the hand-written sm_90a kernels of
+csrc/small_mha.cu; on CPU tensors each runs the plain twin `_torch_attention`
 (the same math in PyTorch). There is no fallback between the two: a CUDA
-input the kernel does not take raises.
+input the kernels do not take raises.
 
-What bounds the kernel on the H100, and what its design does about it, is in
-the header of csrc/small_mha.cu. Forward only: gradients come with training.
+Both entries are `torch.autograd.Function`s with the JAX package's split:
+the forward is the kernel, the backward recomputes the plain twin on the
+saved q, k, v and differentiates that (the JAX custom_vjp does the same with
+its XLA formulation; there is no backward kernel for these shapes). The
+`*_twin` entries run the twin forward as well, on any device, for comparisons.
+
+What bounds the kernels on the H100, and what their design does about it, is
+in the header of csrc/small_mha.cu.
 """
 from __future__ import annotations
 
@@ -18,7 +25,8 @@ import torch
 
 from . import _build
 
-MAX_L = 256
+MAX_L = 256                  # small_mha_packed and fused_film_block: L <= 256
+SMALL_MHA_MAX_ROWS = 1024    # small_mha: H * L <= 1024
 
 
 def _torch_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -38,20 +46,104 @@ def _torch_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o.transpose(1, 2).reshape(B, L, HD)
 
 
-def _rows(t: torch.Tensor) -> int:
+def twin_backward(fn, inputs, needs, grad_out):
+    """Gradients of the plain twin `fn(*inputs)`: recompute it under autograd
+    on detached copies and differentiate (the JAX package's custom_vjp
+    backward). `needs[i]` says whether input i wants a gradient; returns one
+    entry per input, None where none is wanted."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(True) if n else t for t, n in zip(inputs, needs)]
+        out = fn(*leaves)
+        grads = iter(torch.autograd.grad(out, [t for t, n in zip(leaves, needs) if n], grad_out,
+                                         allow_unused=True))
+    return tuple(next(grads) if n else None for n in needs)
+
+
+def _rows(t: torch.Tensor, name: str) -> int:
     """Row stride (elements) of a [B, L, C] view whose rows are evenly spaced
     and whose last dim is contiguous (e.g. a slice of a fused qkv tensor)."""
     if t.stride(-1) != 1 or t.stride(0) != t.shape[1] * t.stride(1):
-        raise ValueError("small_mha_packed: q/k/v rows must be evenly strided "
-                         "with a contiguous last dim")
+        raise ValueError(f"{name}: q/k/v rows must be evenly strided with a contiguous last dim")
     return t.stride(1)
 
 
-def check_no_grad(name: str, *tensors: torch.Tensor) -> None:
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise RuntimeError(f"{name}: the CUDA kernel is forward-only; run under "
-                           "torch.no_grad()/inference_mode() (backward comes "
-                           "with training)")
+def _launch(name: str, entry: str, q, k, v, n_heads: int) -> torch.Tensor:
+    """Checks shared by both entries, then one launch of the C entry `entry`."""
+    B, L, HD = q.shape
+    dh = HD // n_heads
+    if k.shape != q.shape or v.shape != q.shape or HD != n_heads * dh:
+        raise ValueError(f"{name}: bad shapes {q.shape} {k.shape} {v.shape}")
+    if any(t.dtype != torch.bfloat16 or t.device != q.device for t in (q, k, v)):
+        raise ValueError(f"{name}: the CUDA kernel takes bf16 q/k/v on one device")
+    if dh not in (32, 64):
+        raise ValueError(f"{name}: the CUDA kernel needs head dim 32 or 64 "
+                         f"(got q {tuple(q.shape)}, H={n_heads}, Dh={dh})")
+    o = torch.empty((B, L, HD), dtype=q.dtype, device=q.device)
+    lds = [_rows(t, name) for t in (q, k, v)]
+    if any(ld % 8 for ld in lds) or any(t.data_ptr() % 16 for t in (q, k, v, o)):
+        raise ValueError(f"{name}: the CUDA kernel needs 16-byte aligned rows")
+    fn = _build.function(entry, [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
+                         + [ctypes.c_longlong] * 4 + [ctypes.c_float, ctypes.c_void_p])
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+             B, L, n_heads, dh, *lds, HD,
+             dh ** -0.5, torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(err, name)
+    return o
+
+
+def _forward(q, k, v, n_heads: int, packed: bool, twin: bool) -> torch.Tensor:
+    name = "small_mha_packed" if packed else "small_mha"
+    if twin or q.device.type == "cpu":
+        return _torch_attention(q, k, v, n_heads)
+    if q.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {q.device}")
+    L = q.shape[1]
+    if packed:
+        if L > MAX_L:
+            raise ValueError(f"small_mha_packed: CUDA kernel needs L <= {MAX_L} "
+                             f"(got q {tuple(q.shape)})")
+        o = _launch(name, "id_small_mha_packed", q, k, v, n_heads)
+        small_mha_packed.launches += 1
+    else:
+        if n_heads * L > SMALL_MHA_MAX_ROWS or q.shape[0] * n_heads > 65535:
+            raise ValueError(f"small_mha: CUDA kernel needs H*L <= {SMALL_MHA_MAX_ROWS} and "
+                             f"B*H <= 65535 (got q {tuple(q.shape)}, H={n_heads})")
+        o = _launch(name, "id_small_mha", q, k, v, n_heads)
+        small_mha.launches += 1
+    return o
+
+
+class _SmallMHA(torch.autograd.Function):
+    """Forward: the kernel (or the twin). Backward: the twin, recomputed."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, n_heads, packed, twin):
+        ctx.save_for_backward(q, k, v)
+        ctx.n_heads = n_heads
+        return _forward(q, k, v, n_heads, packed, twin)
+
+    @staticmethod
+    def backward(ctx, do):
+        n_heads = ctx.n_heads
+        dq, dk, dv = twin_backward(lambda q, k, v: backward_twin(q, k, v, n_heads),
+                                   ctx.saved_tensors, ctx.needs_input_grad[:3], do)
+        return dq, dk, dv, None, None, None
+
+
+def backward_twin(q, k, v, n_heads: int) -> torch.Tensor:
+    """The twin as the backward recomputes it (a name of its own, so that a
+    run can tell a recompute in backward from a twin call in forward)."""
+    return _torch_attention(q, k, v, n_heads)
+
+
+def small_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, n_heads: int) -> torch.Tensor:
+    """Multi-head attention, no mask: q/k/v [B, L, H*Dh] -> [B, L, H*Dh].
+
+    The TPU kernel's window is H*L <= 1024; the CUDA kernels take it whole for
+    head dims 32 and 64 (L <= 256 in one block per head, longer sequences
+    tiled over queries and keys) and raise on other head dims.
+    """
+    return _SmallMHA.apply(q, k, v, n_heads, False, False)
 
 
 def small_mha_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -61,33 +153,18 @@ def small_mha_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     `group_b` is the TPU kernel's packing factor, kept for parity; attention
     per (sample, head) gives exactly its result, so the CUDA kernel ignores it.
     """
-    if q.device.type == "cpu":
-        return _torch_attention(q, k, v, n_heads)
-    if q.device.type != "cuda":
-        raise ValueError(f"small_mha_packed: unsupported device {q.device}")
-    check_no_grad("small_mha_packed", q, k, v)
-    B, L, HD = q.shape
-    dh = HD // n_heads
-    if k.shape != q.shape or v.shape != q.shape or HD != n_heads * dh:
-        raise ValueError(f"small_mha_packed: bad shapes {q.shape} {k.shape} {v.shape}")
-    if any(t.dtype != torch.bfloat16 or t.device != q.device for t in (q, k, v)):
-        raise ValueError("small_mha_packed: the CUDA kernel takes bf16 q/k/v on one device")
-    if L > MAX_L or dh not in (32, 64):
-        raise ValueError(f"small_mha_packed: CUDA kernel needs L <= {MAX_L} and "
-                         f"head dim 32 or 64 (got L={L}, Dh={dh})")
-    o = torch.empty((B, L, HD), dtype=q.dtype, device=q.device)
-    lds = [_rows(q), _rows(k), _rows(v)]
-    if any(ld % 8 for ld in lds) or any(t.data_ptr() % 16 for t in (q, k, v, o)):
-        raise ValueError("small_mha_packed: the CUDA kernel needs 16-byte aligned rows")
-    fn = _build.function("id_small_mha_packed", [ctypes.c_void_p] * 4
-                         + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 4
-                         + [ctypes.c_float, ctypes.c_void_p])
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-             B, L, n_heads, dh, *lds, HD,
-             dh ** -0.5, torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(err, "small_mha_packed")
-    small_mha_packed.launches += 1
-    return o
+    return _SmallMHA.apply(q, k, v, n_heads, True, False)
 
 
-small_mha_packed.launches = 0
+def small_mha_twin(q, k, v, n_heads: int) -> torch.Tensor:
+    """`small_mha` with the plain twin as forward, on any device."""
+    return _SmallMHA.apply(q, k, v, n_heads, False, True)
+
+
+def small_mha_packed_twin(q, k, v, n_heads: int, group_b: int = 8) -> torch.Tensor:
+    """`small_mha_packed` with the plain twin as forward, on any device."""
+    return _SmallMHA.apply(q, k, v, n_heads, True, True)
+
+
+small_mha.launches = 0          # launches through small_mha
+small_mha_packed.launches = 0   # launches through small_mha_packed

@@ -4,7 +4,10 @@
 Parameter names follow the original PyTorch reference's state_dict
 (in_proj, t_embed.{0,2}, level_emb, level_proj.{0,2}, cond_enc.*, cond_proj,
 transformer.layers.*, out). The compute dtype is the parameters' dtype
-(`model.to(torch.bfloat16)` for bf16); outputs are float32.
+(`model.to(torch.bfloat16)` holds a model in bf16 throughout) unless
+models/transformer.set_compute_dtype names another: the trainers keep f32
+master parameters and compute in bf16, as the JAX package does with
+`dtype=bfloat16`. Outputs are float32.
 """
 from __future__ import annotations
 
@@ -15,7 +18,7 @@ import torch
 from torch import nn
 
 from .encoders import MazeConditionEncoder
-from .transformer import TransformerEncoder
+from .transformer import Embedding, Linear, TransformerEncoder
 
 Cond = Optional[Dict[str, torch.Tensor]]
 
@@ -44,8 +47,14 @@ def continuous_time_embedding(t: torch.Tensor, dim: int) -> torch.Tensor:
 class _Denoiser(nn.Module):
     """Shared conditioning: the maze encoder (or a hoisted `cond_vec`)."""
 
+    compute_dtype: Optional[torch.dtype] = None
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.compute_dtype or self.in_proj.weight.dtype
+
     def _cond_vec(self, cond: Cond, B: int, device) -> torch.Tensor:
-        dtype = self.in_proj.weight.dtype
+        dtype = self.dtype
         if cond is not None and "cond_vec" in cond:
             return cond["cond_vec"].to(dtype)
         if cond is not None and "occ" in cond:
@@ -74,19 +83,19 @@ class KeypointDenoiser(_Denoiser):
         self.d_model, self.d_cond, self.kp_feat_dim = d_model, d_cond, kp_feat_dim
         self.pos_dim = pos_dim if pos_dim is not None else d_model // 2
         in_dim = data_dim + self.pos_dim + data_dim + kp_feat_dim
-        self.in_proj = nn.Linear(in_dim, d_model)
-        self.t_embed = nn.Sequential(nn.Linear(d_model, d_model), nn.SiLU(),
-                                     nn.Linear(d_model, d_model))
+        self.in_proj = Linear(in_dim, d_model)
+        self.t_embed = nn.Sequential(Linear(d_model, d_model), nn.SiLU(),
+                                     Linear(d_model, d_model))
         self.cond_enc = MazeConditionEncoder(use_sdf, d_cond, use_start_goal, maze_channels)
-        self.cond_proj = nn.Linear(d_cond, d_model)
+        self.cond_proj = Linear(d_cond, d_model)
         self.transformer = TransformerEncoder(d_model, n_layers, n_heads, d_ff, d_cond,
                                               True, attn_policy)
-        self.out = nn.Linear(d_model, data_dim)
+        self.out = Linear(d_model, data_dim)
 
     def forward(self, z_t: torch.Tensor, t: torch.Tensor, idx: torch.Tensor,
                 known_mask: torch.Tensor, cond: Cond, T: int) -> torch.Tensor:
         B, K, _ = z_t.shape
-        dtype = self.in_proj.weight.dtype
+        dtype = self.dtype
         pos = idx.float() / max(1.0, float(T - 1))
         pos_emb = continuous_time_embedding(pos, self.pos_dim)
         if self.kp_feat_dim > 0 and cond is not None and "kp_feat" in cond:
@@ -118,15 +127,15 @@ class InterpLevelDenoiser(_Denoiser):
                  attn_policy: str = "fused"):
         super().__init__()
         self.d_model, self.d_cond, self.mask_channels = d_model, d_cond, mask_channels
-        self.in_proj = nn.Linear(data_dim + mask_channels, d_model)
-        self.level_emb = nn.Embedding(max_levels + 1, d_model)
-        self.level_proj = nn.Sequential(nn.Linear(d_model, d_model), nn.SiLU(),
-                                        nn.Linear(d_model, d_model))
+        self.in_proj = Linear(data_dim + mask_channels, d_model)
+        self.level_emb = Embedding(max_levels + 1, d_model)
+        self.level_proj = nn.Sequential(Linear(d_model, d_model), nn.SiLU(),
+                                        Linear(d_model, d_model))
         self.cond_enc = MazeConditionEncoder(use_sdf, d_cond, use_start_goal, maze_channels)
-        self.cond_proj = nn.Linear(d_cond, d_model)
+        self.cond_proj = Linear(d_cond, d_model)
         self.transformer = TransformerEncoder(d_model, n_layers, n_heads, d_ff, d_cond,
                                               True, attn_policy)
-        self.out = nn.Linear(d_model, data_dim)
+        self.out = Linear(d_model, data_dim)
         self.out.zero_init = True
         nn.init.zeros_(self.out.weight)
         nn.init.zeros_(self.out.bias)
@@ -134,7 +143,7 @@ class InterpLevelDenoiser(_Denoiser):
     def forward(self, x_s: torch.Tensor, s: torch.Tensor, mask: torch.Tensor,
                 cond: Cond) -> torch.Tensor:
         B, T, _ = x_s.shape
-        dtype = self.in_proj.weight.dtype
+        dtype = self.dtype
         mask_in = (mask[..., None] if mask.ndim == 2 else mask).to(x_s.dtype)
         if mask_in.shape[-1] != self.mask_channels:
             raise ValueError(f"mask has {mask_in.shape[-1]} channels, "

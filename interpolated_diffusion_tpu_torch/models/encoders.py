@@ -12,6 +12,8 @@ from typing import Dict, Sequence
 import torch
 from torch import nn
 
+from .transformer import Conv2d, Linear
+
 
 class MazeEncoder(nn.Module):
     """Conv3x3+SiLU stack -> spatial mean -> linear."""
@@ -21,23 +23,23 @@ class MazeEncoder(nn.Module):
         super().__init__()
         layers, cin = [], in_channels
         for c in channels:
-            layers += [nn.Conv2d(cin, c, 3, padding=1), nn.SiLU()]
+            layers += [Conv2d(cin, c, 3, padding=1), nn.SiLU()]
             cin = c
         self.convs = nn.Sequential(*layers)
-        self.fc = nn.Linear(cin, d_cond)
+        self.fc = Linear(cin, d_cond)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.convs(x.to(self.fc.weight.dtype))
+        x = self.convs(x)
         return self.fc(x.mean(dim=(2, 3)))
 
 
 class StartGoalEncoder(nn.Module):
     def __init__(self, d_cond: int = 128):
         super().__init__()
-        self.mlp = nn.Sequential(nn.Linear(4, d_cond), nn.SiLU(), nn.Linear(d_cond, d_cond))
+        self.mlp = nn.Sequential(Linear(4, d_cond), nn.SiLU(), Linear(d_cond, d_cond))
 
     def forward(self, start_goal: torch.Tensor) -> torch.Tensor:
-        return self.mlp(start_goal.to(self.mlp[0].weight.dtype))
+        return self.mlp(start_goal)
 
 
 class MazeConditionEncoder(nn.Module):

@@ -10,6 +10,17 @@ lookup:
          when 256 < H*L and L <= 256 (JAX _use_fused_packed), plain otherwise;
   dense  plain PyTorch attention everywhere.
 
+A single `TransformerBlock(use_small_mha=True)` routes non-causal attention
+with H*L <= 1024 through kernels/small_mha.small_mha before the packed
+window is tried, as the JAX block does (an opt-in of the block alone: neither
+encoder passes it on).
+
+Parameters and compute dtype are separate, as in the JAX package
+(`dtype=bfloat16` over f32 parameters): `set_compute_dtype(model,
+torch.bfloat16)` makes every layer cast its f32 master parameters per call,
+so that the optimizer updates f32 masters and their gradients arrive in f32.
+With no compute dtype set a layer computes in its parameters' dtype.
+
 The JAX package's XLA packings (full / group / none) compute the same
 numbers as plain attention, so here they are plain attention. Parameter
 names follow the original PyTorch reference (norm1, attn.in_proj_weight,
@@ -24,7 +35,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..kernels.fused_block import fused_film_block
-from ..kernels.small_mha import small_mha_packed
+from ..kernels.small_mha import SMALL_MHA_MAX_ROWS, small_mha, small_mha_packed
 
 ATTN_POLICIES = ("fused", "block", "dense")
 FUSED_ROWS = 512  # batch-pack row target of the JAX kernels (group_b = 512 // L)
@@ -41,6 +52,45 @@ def _use_fused_block_policy(policy: str, H: int, L: int) -> bool:
 
 def _use_fused_packed(policy: str, H: int, L: int) -> bool:
     return policy == "fused" and 256 < H * L and L <= 256
+
+
+def set_compute_dtype(module: nn.Module, dtype: Optional[torch.dtype]) -> nn.Module:
+    """Make every layer under `module` that has a `compute_dtype` compute in
+    `dtype` whatever its parameters' dtype (None: in the parameters' dtype).
+    Parameters are cast per call, never stored."""
+    for m in module.modules():
+        if hasattr(m, "compute_dtype"):
+            m.compute_dtype = dtype
+    return module
+
+
+class Linear(nn.Linear):
+    """nn.Linear that casts its input and parameters to `compute_dtype`."""
+
+    compute_dtype: Optional[torch.dtype] = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype or self.weight.dtype
+        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+
+
+class Conv2d(nn.Conv2d):
+    """nn.Conv2d that casts its input and parameters to `compute_dtype`."""
+
+    compute_dtype: Optional[torch.dtype] = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype or self.weight.dtype
+        return self._conv_forward(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+
+
+class Embedding(nn.Embedding):
+    """nn.Embedding whose rows come out in `compute_dtype`."""
+
+    compute_dtype: Optional[torch.dtype] = None
+
+    def forward(self, idx: torch.Tensor) -> torch.Tensor:
+        return super().forward(idx).to(self.compute_dtype or self.weight.dtype)
 
 
 class LayerNorm(nn.Module):
@@ -78,7 +128,7 @@ class SelfAttentionParams(nn.Module):
         super().__init__()
         self.in_proj_weight = nn.Parameter(torch.empty(3 * d_model, d_model))
         self.in_proj_bias = nn.Parameter(torch.empty(3 * d_model))
-        self.out_proj = nn.Linear(d_model, d_model)
+        self.out_proj = Linear(d_model, d_model)
 
     def init_seeded(self, uniform_) -> None:
         bound = self.in_proj_weight.shape[1] ** -0.5
@@ -104,25 +154,30 @@ def _film(h: torch.Tensor, gb: torch.Tensor) -> torch.Tensor:
 
 
 class TransformerBlock(nn.Module):
+    compute_dtype: Optional[torch.dtype] = None
+
     def __init__(self, d_model: int, n_heads: int, d_ff: int, d_cond: int = 128,
-                 use_film: bool = True, attn_policy: str = "fused"):
+                 use_film: bool = True, attn_policy: str = "fused",
+                 use_small_mha: bool = False):
         super().__init__()
         if attn_policy not in ATTN_POLICIES:
             raise ValueError(f"attn_policy {attn_policy!r} not in {ATTN_POLICIES}")
         self.d_model, self.n_heads, self.use_film = d_model, n_heads, use_film
-        self.attn_policy = attn_policy
+        self.attn_policy, self.use_small_mha = attn_policy, use_small_mha
         self.norm1 = LayerNorm(d_model)
         self.norm2 = LayerNorm(d_model)
         self.attn = SelfAttentionParams(d_model)
-        self.ff = nn.Sequential(nn.Linear(d_model, d_ff), nn.SiLU(), nn.Linear(d_ff, d_model))
+        self.ff = nn.Sequential(Linear(d_model, d_ff), nn.SiLU(), Linear(d_ff, d_model))
         if use_film:
-            self.film1 = nn.Linear(d_cond, 2 * d_model)
-            self.film2 = nn.Linear(d_cond, 2 * d_model)
+            self.film1 = Linear(d_cond, 2 * d_model)
+            self.film2 = Linear(d_cond, 2 * d_model)
 
     def forward(self, x: torch.Tensor, cond: Optional[torch.Tensor] = None) -> torch.Tensor:
         B, L, D = x.shape
         H = self.n_heads
         film_on = self.use_film and cond is not None
+        dt = self.compute_dtype or self.attn.in_proj_weight.dtype
+        x = x.to(dt)
         if _use_fused_block_policy(self.attn_policy, H, L):
             # FiLM gamma/beta projections stay outside the kernel, as in JAX
             if film_on:
@@ -140,8 +195,11 @@ class TransformerBlock(nn.Module):
         h = self.norm1(x)
         if film_on:
             h = _film(h, self.film1(cond))
-        q, k, v = F.linear(h, self.attn.in_proj_weight, self.attn.in_proj_bias).split(D, dim=-1)
-        if _use_fused_packed(self.attn_policy, H, L):
+        q, k, v = F.linear(h, self.attn.in_proj_weight.to(dt),
+                           self.attn.in_proj_bias.to(dt)).split(D, dim=-1)
+        if self.use_small_mha and H * L <= SMALL_MHA_MAX_ROWS:
+            attn = small_mha(q, k, v, H)
+        elif _use_fused_packed(self.attn_policy, H, L):
             attn = small_mha_packed(q, k, v, H, fused_group_b(L))
         else:
             attn = dense_attention(q, k, v, H)

@@ -36,7 +36,7 @@ from torch.utils.checkpoint import checkpoint
 from ..kernels.block_sparse_attention import flash_attention
 from ..kernels.sla import SparseLinearAttention
 from .denoisers import timestep_embedding
-from .transformer import LayerNorm, dense_attention
+from .transformer import LayerNorm, dense_attention, set_compute_dtype  # noqa: F401
 
 ATTN_MODES = ("dense", "flash", "sla", "sage_sla")
 FLASH_MIN_L = 2048  # queries from which attention goes through the flash kernel
@@ -95,16 +95,6 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
 # ---------------------------------------------------------------------------
 # modules
 # ---------------------------------------------------------------------------
-
-def set_compute_dtype(module: nn.Module, dtype: Optional[torch.dtype]) -> nn.Module:
-    """Make every LoRALinear, embedder MLP, FrameCondProjector and WanDiT under
-    `module` compute in `dtype` whatever its parameters' dtype (None: compute
-    in the parameters' dtype). Parameters are cast per call, never stored."""
-    for m in module.modules():
-        if hasattr(m, "compute_dtype"):
-            m.compute_dtype = dtype
-    return module
-
 
 def _linear(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return F.linear(x, layer.weight.to(dtype), layer.bias.to(dtype))

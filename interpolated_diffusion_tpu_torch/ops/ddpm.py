@@ -1,4 +1,5 @@
-"""DDIM core math (port of ops/ddpm.py, sampling subset).
+"""DDPM forward noising and DDIM core math (port of ops/ddpm.py: q_sample and
+the sampling subset).
 
 The JAX reverse scan (`jax.lax.scan`) is a Python loop here. Only the
 deterministic DDIM solver without block caching is ported; the other solvers
@@ -6,7 +7,7 @@ raise NotImplementedError in `run_solver`.
 """
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -23,6 +24,20 @@ def _gather(table: torch.Tensor, t: torch.Tensor, ndim: int) -> torch.Tensor:
     while out.ndim < ndim:
         out = out[..., None]
     return out
+
+
+def q_sample(x0: torch.Tensor, t: torch.Tensor, schedule: DiffusionSchedule,
+             noise: Optional[torch.Tensor] = None,
+             generator: Optional[torch.Generator] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Forward noising: x_t = sqrt(a_bar_t) x0 + sqrt(1 - a_bar_t) eps.
+    Returns (x_t, eps); eps is `noise` when given, else drawn from `generator`."""
+    if noise is None:
+        if generator is None:
+            raise ValueError("q_sample needs either explicit noise or a generator")
+        noise = torch.randn(x0.shape, generator=generator, device=generator.device).to(x0)
+    sab = _gather(schedule.sqrt_alpha_bar, t, x0.ndim)
+    somab = _gather(schedule.sqrt_one_minus_alpha_bar, t, x0.ndim)
+    return sab * x0 + somab * noise, noise
 
 
 def predict_x0_from_eps(xt: torch.Tensor, eps: torch.Tensor, t: torch.Tensor,

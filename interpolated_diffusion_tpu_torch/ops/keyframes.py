@@ -48,6 +48,42 @@ def _mask_from_idx(idx: torch.Tensor, T: int) -> torch.Tensor:
     return mask.scatter(1, idx.long(), True)
 
 
+def sample_fixed_k_indices_batch(
+    B: int, T: int, K: int, ensure_endpoints: bool = True,
+    rand: Optional[torch.Tensor] = None, generator: Optional[torch.Generator] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K sorted random anchor indices per sample (endpoints forced by default).
+
+    Returns (idx [B, K] int64, mask [B, T] bool). The interior anchors are
+    the K - 2 lowest of a uniform draw [B, T - 2] ([B, T] without endpoints):
+    `rand` when given, else drawn from `generator`.
+    """
+    if T <= 0 or K <= 0:
+        raise ValueError("T and K must be positive")
+    if ensure_endpoints and (T < 2 or K < 2):
+        raise ValueError("T and K must be >= 2 when ensure_endpoints is True")
+    K = min(K, T)
+    interior = ensure_endpoints and T > 2 and K > 2
+    n = T - 2 if ensure_endpoints else T
+    if rand is None and (interior or not ensure_endpoints):
+        if generator is None:
+            raise ValueError("sample_fixed_k_indices_batch needs rand or a generator")
+        rand = torch.rand((B, n), generator=generator, device=generator.device)
+    if ensure_endpoints:
+        device = rand.device if rand is not None else (generator.device if generator else None)
+        ends = [torch.zeros((B, 1), dtype=torch.long, device=device),
+                torch.full((B, 1), T - 1, dtype=torch.long, device=device)]
+        if interior:
+            chosen = torch.argsort(rand, dim=1, stable=True)[:, :K - 2] + 1
+            idx = torch.cat([ends[0], chosen, ends[1]], dim=1)
+        else:
+            idx = torch.cat(ends, dim=1)
+    else:
+        idx = torch.argsort(rand, dim=1, stable=True)[:, :K]
+    idx = torch.sort(idx, dim=1).values
+    return idx, _mask_from_idx(idx, T)
+
+
 def sample_fixed_k_indices_uniform_batch(
     B: int, T: int, K: int, ensure_endpoints: bool = True, jitter: float = 0.0,
     rand: Optional[torch.Tensor] = None, generator: Optional[torch.Generator] = None,
@@ -108,6 +144,32 @@ def _nested_from_order(order: torch.Tensor, T: int, K_list: Sequence[int]
         idx_levels.append(idx_s)
         masks.append(_mask_from_idx(idx_s, T))
     return torch.stack(masks, dim=1), idx_levels
+
+
+def build_nested_masks_batch(
+    B: int, T: int, K_min: int, levels: int, *, k_schedule: str = "doubling",
+    k_geom_gamma: Optional[float] = None, rand: Optional[torch.Tensor] = None,
+    generator: Optional[torch.Generator] = None,
+) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+    """Random nested masks M_S within ... within M_0, endpoints always included.
+
+    The interior frames are ranked by a uniform draw [B, T - 2] (`rand`, or
+    drawn from `generator`); level s takes the endpoints and the first
+    K_s - 2 of that order. Returns (masks_levels [B, levels+1, T] bool,
+    idx_levels list of [B, K_s]).
+    """
+    if levels < 1:
+        raise ValueError("levels must be >= 1")
+    if T < 2:
+        raise ValueError("T must be >= 2 when using endpoints")
+    K_list = compute_k_schedule(T, K_min, levels, schedule=k_schedule, geom_gamma=k_geom_gamma)
+    if rand is None:
+        if generator is None:
+            raise ValueError("build_nested_masks_batch needs rand or a generator")
+        rand = torch.rand((B, T - 2), generator=generator, device=generator.device)
+    perm = torch.argsort(rand, dim=1, stable=True) + 1
+    ends = torch.tensor([0, T - 1], dtype=torch.long, device=rand.device).expand(B, 2)
+    return _nested_from_order(torch.cat([ends, perm], dim=1), T, K_list)
 
 
 def build_nested_masks_from_base(

@@ -1,8 +1,9 @@
 """Interpolation of video latents between anchors (port of the part of
 ops/video_keyframes.py that the Phase-1 trainer's `full` input mode uses):
 segment lerp with an optional smoothing refinement, anchors re-scattered
-exactly. The learned refinement and the level / adjacent-level corruption
-batches come with the Stage-2 trainers.
+exactly; and `distance_alpha`, the noise scale of the maze Stage-2 corruption.
+The learned refinement and the video level / adjacent-level corruption batches
+are not ported.
 """
 from __future__ import annotations
 
@@ -12,6 +13,19 @@ import torch
 import torch.nn.functional as F
 
 from .keyframes import interpolate_from_indices
+
+
+def distance_alpha(idx: torch.Tensor, T: int) -> torch.Tensor:
+    """[B, T, 1] noise scale: 0 at anchors, 1 at segment midpoints."""
+    idx = idx.long()
+    B, K = idx.shape
+    t_grid = torch.arange(T, dtype=torch.long, device=idx.device)
+    seg = torch.searchsorted(idx.contiguous(), t_grid.expand(B, T).contiguous(), right=True) - 1
+    seg = torch.clamp(seg, 0, K - 2)
+    left, right = torch.gather(idx, 1, seg), torch.gather(idx, 1, seg + 1)
+    gap = torch.clamp(right - left, min=1)
+    dist = torch.minimum(t_grid[None, :] - left, right - t_grid[None, :])
+    return torch.clamp(2.0 * dist.float() / gap.float(), 0, 1)[..., None]
 
 
 def smooth_latents(z: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:

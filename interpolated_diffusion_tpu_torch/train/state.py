@@ -1,5 +1,4 @@
-"""Training state, optimizer and the frozen-base train step (port of the
-parts of train/state.py that the Wan Phase-1 trainer uses).
+"""Training state, optimizer and the train steps (port of train/state.py).
 
 `make_optimizer` is AdamW behind a global-norm clip, held to optax's
 arithmetic: the clip scales by clip / max(norm, clip) (not torch's
@@ -8,15 +7,17 @@ the learning rate of update n (from 0) is schedule(n). `make_train_step_frozen`
 differentiates the loss with respect to the trainable dict only; the frozen
 base never requires a gradient. Parameters are updated in place (the
 modules own their tensors), so the state returned by a step aliases the one
-passed in. `make_train_step` with gradient accumulation and
-`make_train_multi_step` come with the maze trainers.
+passed in. `make_train_step` differentiates with respect to every leaf of
+state.params, with microbatch gradient accumulation; `make_train_multi_step`
+takes several steps per call from a stacked superbatch.
 """
 from __future__ import annotations
 
 import copy
 import math
-from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from ..utils.ema import ema_init, ema_update
@@ -148,3 +149,95 @@ def make_train_step_frozen(loss_fn, ema_decay: float = 0.999):
         return TrainState(state.step + 1, state.params, state.opt_state, ema), metrics
 
     return step_fn
+
+
+def _split_micro(batch: Dict, grad_accum: int) -> List[Dict]:
+    """The batch cut into grad_accum microbatches along the leading axis;
+    scalar entries are shared by all."""
+    def cut(x, i):
+        if not hasattr(x, "shape") or len(x.shape) == 0:
+            return x
+        n = x.shape[0] // grad_accum
+        return x[i * n:(i + 1) * n]
+
+    return [{k: cut(v, i) for k, v in batch.items()} for i in range(grad_accum)]
+
+
+def _rng_at(rng, i: int):
+    """The i-th of a sequence of rngs, or the one generator for all."""
+    return rng[i] if isinstance(rng, (list, tuple)) else rng
+
+
+def _grads(loss: torch.Tensor, leaves: List[torch.Tensor]) -> List[torch.Tensor]:
+    """d loss / d leaf for every leaf; zeros for a leaf the loss does not reach."""
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    return [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
+
+
+def _loss_and_grads(loss_fn, params, batch, rng, grad_accum: int):
+    """(loss, aux, grads), with microbatch accumulation when grad_accum > 1:
+    loss, gradients and aux metrics are means over the microbatches. `rng`
+    is then one generator, drawn from in turn, or one rng per microbatch."""
+    leaves = tree_leaves(params)
+    if grad_accum <= 1:
+        loss, aux = loss_fn(params, batch, rng)
+        return loss.detach(), aux, _grads(loss, leaves)
+    loss_sum, grads, auxes = 0.0, None, []
+    for i, mb in enumerate(_split_micro(batch, grad_accum)):
+        loss, aux = loss_fn(params, mb, _rng_at(rng, i))
+        g = _grads(loss, leaves)
+        grads = g if grads is None else [a + b for a, b in zip(grads, g)]
+        loss_sum = loss_sum + loss.detach()
+        auxes.append(aux if isinstance(aux, dict) else {})
+    aux = {k: sum(a[k] for a in auxes) / grad_accum for k in auxes[0]}
+    return loss_sum / grad_accum, aux, [g / grad_accum for g in grads]
+
+
+def make_train_step(loss_fn, ema_decay: float = 0.999, grad_accum: int = 1):
+    """step(state, batch, rng) -> (state, metrics) for
+    loss_fn(params, batch, rng) -> (loss, aux dict).
+
+    With grad_accum > 1 the batch's leading axis must be divisible by
+    grad_accum; the microbatches' gradients are averaged before the one
+    optimizer update. metrics: aux, then `loss` and the pre-clip `grad_norm`
+    (aux can never overwrite them)."""
+
+    def step_fn(state: TrainState, batch: Dict, rng) -> Tuple[TrainState, Dict]:
+        loss, aux, grads = _loss_and_grads(loss_fn, state.params, batch, rng, grad_accum)
+        grad_norm = state.opt_state.update(grads)
+        ema = (ema_update(state.ema_params, state.params, ema_decay)
+               if state.ema_params is not None else None)
+        metrics = dict(aux) if isinstance(aux, dict) else {}
+        metrics["loss"] = loss
+        metrics["grad_norm"] = grad_norm
+        return TrainState(state.step + 1, state.params, state.opt_state, ema), metrics
+
+    return step_fn
+
+
+def make_train_multi_step(loss_fn, ema_decay: float = 0.999, grad_accum: int = 1,
+                          steps_per_call: int = 1):
+    """S train steps per call over a superbatch whose entries have a leading
+    S axis (`stack_batches`): one transfer to the device and one host
+    synchronisation per S steps. Returns (state, metrics of the last step).
+    `rng` is one generator, or one rng per step. A superbatch with fewer than
+    S entries takes that many steps."""
+    step = make_train_step(loss_fn, ema_decay, grad_accum)
+    if steps_per_call <= 1:
+        return step
+
+    def multi_step(state: TrainState, superbatch: Dict, rng) -> Tuple[TrainState, Dict]:
+        n = min(steps_per_call, next(iter(superbatch.values())).shape[0])
+        metrics: Dict = {}
+        for i in range(n):
+            state, metrics = step(state, {k: v[i] for k, v in superbatch.items()},
+                                  _rng_at(rng, i))
+        return state, metrics
+
+    return multi_step
+
+
+def stack_batches(batches: Sequence[Dict]) -> Dict:
+    """List of S batch dicts of numpy arrays -> one superbatch dict with a
+    leading S axis."""
+    return {k: np.stack([b[k] for b in batches]) for k in batches[0]}

@@ -86,19 +86,121 @@ def test_small_mha_packed_matches_twin(cuda, L, h):
 
 @pytest.mark.gpu
 def test_cuda_wrappers_raise_instead_of_falling_back(cuda):
+    """A CUDA input the kernels do not take raises; an autograd input is taken
+    (the forward launches the kernel, the backward recomputes the twin)."""
     x = torch.randn((2, 8, D), device=cuda)
-    with pytest.raises(ValueError):          # f32 activations: the kernels take bf16
-        small_mha.small_mha_packed(x, x, x, H)
-    xb = x.to(torch.bfloat16).requires_grad_()
-    with pytest.raises(RuntimeError):        # forward only
-        small_mha.small_mha_packed(xb, xb, xb, H)
-    with pytest.raises(ValueError):          # head dim 384 / 4 = 96 is not 32 or 64
-        small_mha.small_mha_packed(xb.detach(), xb.detach(), xb.detach(), 4)
+    for entry in (small_mha.small_mha_packed, small_mha.small_mha):
+        with pytest.raises(ValueError):          # f32 activations: the kernels take bf16
+            entry(x, x, x, H)
+        xb = x.to(torch.bfloat16)
+        with pytest.raises(ValueError):          # head dim 384 / 4 = 96 is not 32 or 64
+            entry(xb, xb, xb, 4)
+        before = entry.launches
+        leaf = xb.clone().requires_grad_()
+        entry(leaf, leaf, leaf, H).float().sum().backward()   # autograd inputs: kernel forward
+        assert entry.launches == before + 1 and torch.isfinite(leaf.grad).all()
+    long = torch.zeros((1, 512, 128), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="512"):     # L > 256 is outside the packed window
+        small_mha.small_mha_packed(long, long, long, 2)
+    with pytest.raises(ValueError, match="512"):     # H * L = 2048 > 1024
+        small_mha.small_mha(long, long, long, 4)
     xb, args = _block_args(2, 8, True, cuda)
     with pytest.raises(ValueError):          # f32 activations
         fused_block.fused_film_block(xb.float(), *args, n_heads=H)
-    with pytest.raises(ValueError):          # f32 bias: the kernels take bf16 tensors
+    with pytest.raises(ValueError):          # one f32 bias among bf16 ones: mixed vectors
         fused_block.fused_film_block(xb, *args[:7], args[7].float(), *args[8:], n_heads=H)
+    with pytest.raises(ValueError):          # f32 FiLM rows
+        fused_block.fused_film_block(xb, args[0].float(), *args[1:], n_heads=H)
+
+
+def _masters(args):
+    """The block's parameters as f32 masters (FiLM rows stay bf16)."""
+    return tuple(a if i < 2 else a.float() for i, a in enumerate(args))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,L,h,dm", [
+    (256, 64, H, D), (64, 8, H, D), (64, 100, 6, D),        # L <= 256: one block per head
+    (64, 512, 2, 128), (16, 1024, 1, 64), (8, 300, 2, 64),  # tiled over queries and keys
+    (8, 333, 3, 96)])
+def test_small_mha_matches_twin(cuda, B, L, h, dm):
+    g = torch.Generator(device=cuda).manual_seed(L + h)
+    qkv = torch.randn((B, L, 3 * dm), generator=g, device=cuda).to(torch.bfloat16)
+    q, k, v = qkv.split(dm, dim=-1)
+    before = small_mha.small_mha.launches, small_mha.small_mha_packed.launches
+    with torch.inference_mode():
+        out = small_mha.small_mha(q, k, v, h)
+        ref = small_mha._torch_attention(q, k, v, h)
+    torch.cuda.synchronize()
+    assert (small_mha.small_mha.launches, small_mha.small_mha_packed.launches) == \
+        (before[0] + 1, before[1])
+    assert torch.isfinite(out).all() and _rel(out, ref) <= 1e-2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("entry,L", [("small_mha", 64), ("small_mha_packed", 64),
+                                     ("small_mha", 512), ("small_mha_packed", 8)])
+def test_small_mha_gradients_match_twin_path(cuda, entry, L):
+    """Kernel forward + twin-recompute backward against the twin path's
+    output and gradients (2e-2 of each gradient's max)."""
+    h, dm, B = (2, 128, 32) if L == 512 else (H, D, 256)
+    g = torch.Generator(device=cuda).manual_seed(L)
+    base = torch.randn((B, L, 3 * dm), generator=g, device=cuda).to(torch.bfloat16)
+    do = torch.randn((B, L, dm), generator=g, device=cuda).to(torch.bfloat16)
+    results = []
+    for fn in (getattr(small_mha, entry), getattr(small_mha, entry + "_twin")):
+        qkv = base.clone().requires_grad_()
+        q, k, v = qkv.split(dm, dim=-1)
+        out = fn(q, k, v, h)
+        out.backward(do)
+        results.append((out.detach(), qkv.grad))
+    torch.cuda.synchronize()
+    assert _rel(results[0][0], results[1][0]) <= 1e-2
+    assert _rel(results[0][1], results[1][1]) <= 2e-2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("L,film,masters", [(64, True, True), (8, True, True),
+                                            (64, False, True), (64, True, False)])
+def test_fused_film_block_gradients_match_twin_path(cuda, L, film, masters):
+    """Kernel forward + twin-recompute backward against the twin path: output
+    2e-2, every input's gradient 2e-2 of its max; f32 masters get f32
+    gradients."""
+    B = 256
+    x, args = _block_args(B, L, film, cuda, seed=L)
+    if masters:
+        args = _masters(args)
+    dy = torch.randn((B, L, D), device=cuda, generator=torch.Generator(device=cuda).manual_seed(1)
+                     ).to(torch.bfloat16)
+    results = []
+    before = fused_block.fused_film_block.launches
+    for fn in (fused_block.fused_film_block, fused_block.fused_film_block_twin):
+        leaves = [t.clone().requires_grad_() for t in (x, *args)]
+        out = fn(*leaves, n_heads=H, use_film=film)
+        grads = torch.autograd.grad(out, leaves, dy, allow_unused=not film)
+        results.append((out.detach(), grads, leaves))
+    torch.cuda.synchronize()
+    assert fused_block.fused_film_block.launches == before + 1
+    assert _rel(results[0][0], results[1][0]) <= 2e-2
+    for gk, gt, leaf in zip(results[0][1], results[1][1], results[0][2]):
+        if gt is None:
+            assert gk is None
+            continue
+        assert gk.dtype == leaf.dtype and gk.shape == leaf.shape
+        assert _rel(gk, gt) <= 2e-2
+
+
+@pytest.mark.gpu
+def test_fused_film_block_f32_masters_match_twin(cuda):
+    """The kernels read f32 biases and LN vectors as they are and cast f32
+    weight matrices to bf16, as the twin does."""
+    x, args = _block_args(64, 64, True, cuda, seed=5)
+    args = _masters(args)
+    with torch.inference_mode():
+        out = fused_block.fused_film_block(x, *args, n_heads=H)
+        ref = fused_block._torch_block(x, *args, n_heads=H, use_film=True)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.bfloat16 and _rel(out, ref) <= 2e-2
 
 
 def _qkv_bf16(bh, L, d, device, seed, Lk=None):

@@ -146,7 +146,18 @@ def test_wan_port_import_pulls_in_no_jax():
             "interpolated_diffusion_tpu_torch.utils.ema, "
             "interpolated_diffusion_tpu_torch.utils.prefetch, "
             "interpolated_diffusion_tpu_torch.utils.memguard, "
-            "interpolated_diffusion_tpu_torch.ops.video_keyframes; "
+            "interpolated_diffusion_tpu_torch.ops.video_keyframes, "
+            "interpolated_diffusion_tpu_torch.ops.normalize, "
+            "interpolated_diffusion_tpu_torch.kernels.small_mha, "
+            "interpolated_diffusion_tpu_torch.kernels.fused_block, "
+            "interpolated_diffusion_tpu_torch.models.loading, "
+            "interpolated_diffusion_tpu_torch.data.maze, "
+            "interpolated_diffusion_tpu_torch.data.astar, "
+            "interpolated_diffusion_tpu_torch.data.trajectories, "
+            "interpolated_diffusion_tpu_torch.train.batches, "
+            "interpolated_diffusion_tpu_torch.train.common, "
+            "interpolated_diffusion_tpu_torch.train.train_keypoints, "
+            "interpolated_diffusion_tpu_torch.train.train_interp_levels; "
             "bad = [m for m in sys.modules if m in ('jax', 'flax', 'optax') "
             "or m.startswith(('jax.', 'flax.', 'optax.')) "
             "or m == 'interpolated_diffusion_tpu' or m.startswith('interpolated_diffusion_tpu.')]; "
