@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's sampling paths and its trainers once on one GPU.
 
-    python3 chip_smoke.py [--profile]
+    python3 chip_smoke.py [--profile] [--kernels]
 
 Phases, each on its own lines; any failure exits non-zero:
   1. device       the card's name and power limit (nvidia-smi); CUDA required
@@ -16,7 +16,11 @@ Phases, each on its own lines; any failure exits non-zero:
                   and agreement of the kernel path with the plain-twin path
   5. timings      maze kernels vs twins (CUDA events) and pipeline samples/s
   5a. maze grads  small_mha against its twin ([256, 64, 384] H=12 and the tiled
-                  case [64, 512, 128] H=2), then the three maze autograd
+                  cases [64, 512, 128] H=2, [16, 1024, 64] H=1 and a ragged
+                  [8, 300, 64] H=2; the tiled kernel's device time also by
+                  replaying captured launches as a CUDA graph, since a loop of
+                  launches this short is paced by the host), then the three
+                  maze autograd
                   Functions (small_mha, small_mha_packed, fused_film_block with
                   f32 master parameters): kernel forward + twin-recompute
                   backward against the twin path, output and every input's
@@ -36,7 +40,8 @@ Phases, each on its own lines; any failure exits non-zero:
   6. wan kernels  the SLA, int8 SLA and flash kernels against their twins at
                   the Wan anchor path's shapes, at the 33k-token geometry of
                   scripts/bench_wan33k.py (blocks 128 and 256) and at a
-                  sentinel case
+                  sentinel case; the flash kernel also at head dim 64 and at
+                  shapes ragged in queries and keys
   7. wan main     Phase-1 anchor sampling (sample/wan_anchors) through
                   Wan2.1-1.3B at full width, 6 of 30 layers (1536d x 12
                   heads, ffn 8960, LoRA rank 8, frame conditioning, B=4,
@@ -58,14 +63,21 @@ Phases, each on its own lines; any failure exits non-zero:
                   through the trainer's own step; finite loss, every trainable leaf
                   changed, frozen base bit-identical, launch counts, no twin
                   call, and loss / gradients of the kernel path against the
-                  plain-twin path from the same state, batch and draws
+                  plain-twin path from the same state, batch and draws (the
+                  twin path replays the kernel path's SLA LUTs: the top-k
+                  block choice is discrete, so an ulp upstream can flip a
+                  block on one path only; how many rows its own choice
+                  differs in, and its reading on its own LUTs, are printed)
 Every timing phase also times the one PyTorch library call that computes the
 same function, where there is one (scaled_dot_product_attention), as a
 yardstick that the port never calls. --profile adds torch.profiler tables of
 one maze Stage-2 training step, one sla-mode sampler call and one sla-mode
 Wan training step. The line before the
 last is a JSON summary of the kernels (time, bound, library time, launches);
-the last line is {"ok": true, "device": {...}}.
+the last line is {"ok": true, "device": {...}}. --kernels runs only the phases
+that build, check and time the kernels alone (1-3, 5a, 6, the kernel times of
+8, and 9), drives no model and prints neither of the two JSON lines: a short
+first run for a changed kernel.
 """
 from __future__ import annotations
 
@@ -122,7 +134,7 @@ KERNEL_SOURCES = {
                                "interpolated_diffusion_tpu/kernels/block_sparse_attention.py:46"),
     "int8_block_sparse_attention": ("interpolated_diffusion_tpu_torch/csrc/block_attention.cu",
                                     "interpolated_diffusion_tpu/kernels/int8_attention.py:48"),
-    "flash_attention": ("interpolated_diffusion_tpu_torch/csrc/block_attention.cu",
+    "flash_attention": ("interpolated_diffusion_tpu_torch/csrc/flash_fwd_sm90.cu",
                         "interpolated_diffusion_tpu/kernels/block_sparse_attention.py:174"),
     "sla_bwd_dq": ("interpolated_diffusion_tpu_torch/csrc/block_attention_bwd.cu",
                    "interpolated_diffusion_tpu/kernels/block_sparse_attention.py:438"),
@@ -133,6 +145,15 @@ KERNEL_SOURCES = {
     "flash_bwd_dkdv": ("interpolated_diffusion_tpu_torch/csrc/block_attention_bwd.cu",
                        "interpolated_diffusion_tpu/kernels/block_sparse_attention.py:248"),
 }
+
+# Times of the two kernels that were redesigned (wgmma + TMA flash forward,
+# register-resident tiled small_mha), as this script measured their first
+# versions (mma.sync with a cp.async ring; WMMA with logits staged through
+# shared memory) on an NVIDIA H100 80GB HBM3 at a 700 W limit, in ms. Printed
+# on the [timing] lines beside the new times, so that one run shows before and
+# after; the JSON summary holds only what this run measured.
+BEFORE_REDESIGN_MS = {"flash_attention/cross": 0.737, "flash_attention/self": 8.974,
+                      "small_mha/tiled": 0.2134}
 
 # Published dense peaks of one H100 SXM (NVIDIA's data sheet), for the bounds:
 # the least time the card could take is the larger of operations over the peak
@@ -230,7 +251,8 @@ def phase_build():
     print(f"[build] {os.path.relpath(path, ROOT)} in {took:.1f} s "
           f"(nvcc {_build.build_seconds:.1f} s)", flush=True)
     for line in _build.build_log.splitlines():
-        if "registers" in line or "spill" in line or "error" in line:
+        # C7514: ptxas serialised a wgmma chain (a wgmma under a condition)
+        if any(word in line for word in ("registers", "spill", "error", "C7514")):
             print(f"[build] {line.strip()}", flush=True)
 
 
@@ -271,6 +293,20 @@ def _time_ms(fn, iters=20, warmup=3):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def _graph_ms(fn, launches=50):
+    """Device time of one call: `launches` calls captured into a CUDA graph and
+    replayed, so that the host's pace between launches does not count."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    return _time_ms(graph.replay, iters=10) / launches
 
 
 def phase_kernels(dev):
@@ -599,7 +635,7 @@ def phase_maze_autograd(dev, card):
     saved = _maze_counts()
     errs, times = {}, {}
     with torch.inference_mode():
-        for B, L, dm, h in ((256, 64, D, H), (64, 512, 128, 2)):
+        for B, L, dm, h in ((256, 64, D, H), (64, 512, 128, 2), (16, 1024, 64, 1), (8, 300, 64, 2)):
             qkv = torch.randn((B, L, 3 * dm), generator=gen, device=dev).to(torch.bfloat16)
             q, k, v = qkv.split(dm, dim=-1)   # strided views, as the block passes them
             out, ref = sm.small_mha(q, k, v, h), sm._torch_attention(q, k, v, h)
@@ -620,6 +656,14 @@ def phase_maze_autograd(dev, card):
                   f"{bound[0]:.4f} ms ({bound[1]}), plain twin {p_ms:.4f} ms, library "
                   f"(scaled_dot_product_attention) {lib_ms:.4f} ms", flush=True)
             times[(B, L)] = (k_ms, p_ms, lib_ms, bound)
+            if (B, L) == (64, 512):   # the tiled kernel's shape of record
+                g_ms = _graph_ms(lambda: sm.small_mha(q, k, v, h))
+                g_lib = _graph_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                    heads(q), heads(k), heads(v)))
+                print(f"[timing] {tag} small_mha [{B},{L},{dm}] H={h} (tiled): device time by graph "
+                      f"replay {g_ms:.4f} ms, library {g_lib:.4f} ms; before the redesign "
+                      f"{BEFORE_REDESIGN_MS['small_mha/tiled']:.4f} ms (event loop)", flush=True)
+                times["tiled_graph"] = (g_ms, g_lib)
 
     for B, L in ((256, 64), (256, 8)):
         qkv = torch.randn((B, L, 3 * D), generator=gen, device=dev).to(torch.bfloat16)
@@ -932,7 +976,8 @@ def _print_profile(prof, tag, what):
     """The profiler's table by operator, and the device time by kind of kernel."""
     print(f"[profile] {tag} {what}:\n"
           f"{prof.key_averages().table(sort_by='cuda_time_total', row_limit=25)}", flush=True)
-    kinds = {"hand-written kernels": ("attn_fwd_kernel", "attn_bwd_", "small_mha_", "gemm_kernel<",
+    kinds = {"hand-written kernels": ("attn_fwd_kernel", "flash_fwd_kernel", "attn_bwd_", "small_mha_",
+                                      "gemm_kernel<",
                                       "ln_film_kernel"),
              "library GEMMs (cuBLAS)": ("gemm", "nvjet", "cutlass", "cublas", "sm90_xmma",
                                         "sm80_xmma")}
@@ -1021,6 +1066,14 @@ def phase_wan_kernels(dev):
                         bsa.flash_attention_fwd(q, kk, vv), bsa._torch_flash(q, kk, vv, D ** -0.5, bn),
                         ATTN_TOL, errs)
             cases[f"flash_{label}"] = (q, kk, vv, bn)
+        # head dim 64, and shapes ragged in queries (128-row blocks) and keys
+        # (128-key tiles) at both head dims
+        for d, lq, lk in ((64, 1001, 389), (128, 129, 131), (64, 7800, Lk_cross)):
+            fq, fk, fv = _wan_qkv(12, lq, d, gen, dev, Lk=lk)
+            _check_pair("flash_attention", f"q [12,{lq},{d}] k [12,{lk},{d}]",
+                        bsa.flash_attention_fwd(fq, fk, fv),
+                        bsa._torch_flash(fq, fk, fv, d ** -0.5, 1024), ATTN_TOL, errs)
+        del fq, fk, fv
         # a sentinel case: ring SLA's primitive on the path's shapes
         block = WAN["sla_block"]
         _, lut, _ = get_block_map(q[:8], k[:8], WAN["sla_topk"], block, block)
@@ -1121,6 +1174,35 @@ def wan_plain_twins():
         sla.block_sparse_attention, sla.int8_block_sparse_attention, wan_dit.flash_attention = saved
 
 
+@contextlib.contextmanager
+def sla_luts(luts, replay=False):
+    """Record into `luts`, in call order, the LUT (top-k key blocks of each
+    query block) of every SLA call; with `replay`, hand those LUTs back in the
+    same order instead of the path's own. Yields [calls, rows, rows whose own
+    choice of blocks differs from the recorded one]."""
+    from interpolated_diffusion_tpu_torch.kernels import sla
+
+    own, stats = sla.get_block_map, [0, 0, 0]
+
+    def get_block_map(*a, **kw):
+        sparse_map, lut, topk = own(*a, **kw)
+        if not replay:
+            luts.append(lut)
+            return sparse_map, lut, topk
+        require(stats[0] < len(luts), "the twin path makes more SLA calls than the kernel path")
+        kept = luts[stats[0]]
+        stats[0] += 1
+        stats[1] += lut.shape[0] * lut.shape[1]
+        stats[2] += int((lut.sort(dim=-1).values != kept.sort(dim=-1).values).any(-1).sum())
+        return None, kept, topk
+
+    sla.get_block_map = get_block_map
+    try:
+        yield stats
+    finally:
+        sla.get_block_map = own
+
+
 def phase_wan_main(dev):
     import types
 
@@ -1192,7 +1274,7 @@ def phase_wan_main(dev):
     return model, sampler, inputs, launches
 
 
-def phase_wan_timings(card, cases, model, sampler, inputs, profile):
+def phase_wan_kernel_timings(card, cases):
     import torch
     from interpolated_diffusion_tpu_torch.kernels import block_sparse_attention as bsa
     from interpolated_diffusion_tpu_torch.kernels import int8_attention as i8
@@ -1241,15 +1323,23 @@ def phase_wan_timings(card, cases, model, sampler, inputs, profile):
             lib_ms = _time_ms(library[name], iters=10, warmup=2) if name in library else None
             lib = (f"library (scaled_dot_product_attention) {lib_ms:.4f} ms" if lib_ms
                    else "library: none")
+            was = (f", before the redesign {BEFORE_REDESIGN_MS[name]:.4f} ms"
+                   if name in BEFORE_REDESIGN_MS else "")
             print(f"[timing] {tag} {name} {shape}: kernel {k_ms:.4f} ms, bound "
-                  f"{bounds[name][0]:.4f} ms ({bounds[name][1]}), plain twin {p_ms:.4f} ms, {lib}",
-                  flush=True)
+                  f"{bounds[name][0]:.4f} ms ({bounds[name][1]}), plain twin {p_ms:.4f} ms, {lib}"
+                  f"{was}", flush=True)
             times[name] = (k_ms, p_ms, lib_ms)
         bounds["flash_attention"] = bounds["flash_attention/cross"]
         times["bounds"] = bounds
     _set_train_counts(saved)
+    return times
 
-    # sampler samples/s per mode, one call per run, kernels / twins in turns
+
+def phase_wan_sampler_timings(card, model, sampler, inputs, profile):
+    """Sampler samples/s per mode, one call per run, kernels / twins in turns."""
+    import torch
+
+    tag = f"[{card}]"
     for mode in WAN_MODES:
         model.set_attn_mode(mode)
         runs = {"kernels": [], "plain twins": []}
@@ -1272,7 +1362,6 @@ def phase_wan_timings(card, cases, model, sampler, inputs, profile):
             sampler(*inputs)
             torch.cuda.synchronize()
         _print_profile(prof, tag, f"one sla-mode sampler call (B={WAN_B})")
-    return times
 
 
 def phase_wan_bwd_kernels(dev, card):
@@ -1437,14 +1526,33 @@ def phase_wan_train(dev, card, profile):
             loss, _ = trainer.phase1_loss(wan, fc, args, schedule, batch, draws)
             return loss.detach(), torch.autograd.grad(loss, leaves)
 
-        loss_k, grads_k = loss_and_grads()
-        with wan_plain_twins():
+        # SLA's LUT is a discrete choice made in plain PyTorch on both paths: a
+        # one-ulp difference upstream can flip a marginal block on one path only,
+        # and the two then attend to other keys. The twin path is held to the
+        # kernels on the kernel path's LUTs; its run on its own LUTs is printed.
+        luts = []
+        with sla_luts(luts):
+            loss_k, grads_k = loss_and_grads()
+        if luts:
+            with wan_plain_twins():
+                _, grads_own = loss_and_grads()
+            own = max((_errors(a, b)[1], n) for n, a, b in zip(names, grads_k, grads_own))
+            del grads_own
+        with wan_plain_twins(), sla_luts(luts, replay=True) as lut_stats:
             loss_t, grads_t = loss_and_grads()
+        require(lut_stats[0] == len(luts), f"train {mode}: {lut_stats[0]} SLA calls on the twin "
+                f"path, {len(luts)} on the kernel path")
+        if luts:
+            print(f"[wan train] attn_mode={mode}: {len(luts)} SLA calls; the twin path's own "
+                  f"LUTs differ from the kernel path's in {lut_stats[2]} of {lut_stats[1]} rows; "
+                  f"on its own LUTs its worst gradient max|d|/max|twin|={own[0]:.3e} at {own[1]}",
+                  flush=True)
+        del luts
         rel_loss = abs(loss_k.item() - loss_t.item()) / abs(loss_t.item())
         worst = max((_errors(a, b)[1], n) for n, a, b in zip(names, grads_k, grads_t))
         zero = [n for n, g in zip(names, grads_t) if not bool(g.abs().max() > 0)]
         print(f"[wan train] attn_mode={mode} kernels vs plain twins, same state / batch / "
-              f"draws: loss {loss_k.item():.6f} vs {loss_t.item():.6f} (rel {rel_loss:.3e}, tol "
+              f"draws, same LUTs: loss {loss_k.item():.6f} vs {loss_t.item():.6f} (rel {rel_loss:.3e}, tol "
               f"{TRAIN_LOSS_TOL}); {len(names)} trainable leaves, worst gradient "
               f"max|d|/max|twin|={worst[0]:.3e} at {worst[1]} (tol {TRAIN_GRAD_TOL})",
               flush=True)
@@ -1534,18 +1642,28 @@ def main() -> int:
         # the plain twins are the f32 references: no TF32 in their products
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+        profile = "--profile" in sys.argv[1:]
         cases = phase_kernels(dev)
+        if "--kernels" in sys.argv[1:]:   # the kernels alone: no model, no summary
+            phase_maze_autograd(dev, card)
+            _, wan_cases = phase_wan_kernels(dev)
+            phase_wan_kernel_timings(card, wan_cases)
+            del wan_cases
+            torch.cuda.empty_cache()
+            phase_wan_bwd_kernels(dev, card)
+            print("[kernels] every kernel agrees with its plain twin", flush=True)
+            return 0
         kp, it, pipe, launches = phase_main(dev)
         times = phase_timings(dev, card, cases, pipe, kp, it)
         del kp, it, pipe
         torch.cuda.empty_cache()
-        profile = "--profile" in sys.argv[1:]
         grad_errs, mha_times = phase_maze_autograd(dev, card)
         maze_train_launches, _ = phase_maze_train(dev, card, profile)
         torch.cuda.empty_cache()
         wan_errs, wan_cases = phase_wan_kernels(dev)
         model, sampler, inputs, wan_launches = phase_wan_main(dev)
-        wan_times = phase_wan_timings(card, wan_cases, model, sampler, inputs, profile)
+        wan_times = phase_wan_kernel_timings(card, wan_cases)
+        phase_wan_sampler_timings(card, model, sampler, inputs, profile)
         del model, sampler, inputs, wan_cases
         torch.cuda.empty_cache()
         bwd_errs, bwd_times, bwd_bounds = phase_wan_bwd_kernels(dev, card)
@@ -1581,16 +1699,25 @@ def main() -> int:
     # small_mha at the Stage-2 trainer's shape [256, 64, 384]; its main path is
     # the maze training phase (TransformerBlock(use_small_mha=True))
     k_ms, p_ms, lib_ms, mha_bound = mha_times[(256, 64)]
+    t_ms, t_plain, t_lib, t_bound = mha_times[(64, 512)]   # the tiled kernel, [64, 512, 128] H=2
     row("small_mha", maze_train_launches["small_mha"], grad_errs["small_mha"], k_ms, p_ms,
-        mha_bound, lib_ms, train_launches=maze_train_launches["small_mha"])
+        mha_bound, lib_ms, train_launches=maze_train_launches["small_mha"],
+        tiled_ms=t_ms, tiled_plain_ms=t_plain, tiled_bound_ms=t_bound[0], tiled_library_ms=t_lib,
+        tiled_device_ms=mha_times["tiled_graph"][0],
+        tiled_library_device_ms=mha_times["tiled_graph"][1])
     # Wan forward kernels: times at the anchor path's shapes (flash: its
     # cross-attention); `launches` from the sampler's run, `train_launches`
     # from the trainer's
     for name in WAN_KERNELS:
         k_ms, p_ms, lib_ms = wan_times[name if name != "flash_attention"
                                        else "flash_attention/cross"]
+        extra = {}
+        if name == "flash_attention":   # its self-attention shape too
+            s_ms, s_plain, s_lib = wan_times["flash_attention/self"]
+            extra = dict(self_ms=s_ms, self_plain_ms=s_plain, self_library_ms=s_lib,
+                         self_bound_ms=wan_times["bounds"]["flash_attention/self"][0])
         row(name, wan_launches[name], max(wan_errs[name]), k_ms, p_ms, wan_times["bounds"][name],
-            lib_ms, train_launches=train_launches[name])
+            lib_ms, train_launches=train_launches[name], **extra)
     # backward kernels: times at the trainer's shapes (flash: cross-attention);
     # the twin and the library call compute dq, dk and dv in one call
     for name in ("sla_bwd_dq", "sla_bwd_dkdv", "flash_bwd_dq", "flash_bwd_dkdv"):

@@ -1,6 +1,7 @@
 // Device helpers shared by the attention kernels (block_attention.cu,
-// block_attention_bwd.cu): cp.async copies, 64-row tile loads, mma.sync
-// wrappers and fragment packing. Fragment layouts (PTX ISA, mma.m16n8k16 /
+// block_attention_bwd.cu, flash_fwd_sm90.cu, small_mha.cu): cp.async copies,
+// 64-row tile loads, mma.sync wrappers, fragment packing, quad reductions and
+// the fast exp2. Fragment layouts (PTX ISA, mma.m16n8k16 /
 // m16n8k32), with lane = 4 * g + t: A rows g and g + 8, k columns 2t, 2t + 1
 // (and + 8); B column n = g, k rows 2t, 2t + 1 (and + 8); C rows g and g + 8,
 // columns 2t, 2t + 1.
@@ -86,6 +87,13 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
+// 2^x on the special-function unit (ex2.approx: 2 ulp, -inf -> 0)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
 __device__ __forceinline__ float quad_max(float x) {
   x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
   return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
@@ -94,6 +102,18 @@ __device__ __forceinline__ float quad_max(float x) {
 __device__ __forceinline__ float quad_sum(float x) {
   x += __shfl_xor_sync(0xffffffffu, x, 1);
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// Four 8x8 bf16 matrices from shared memory as they are stored: lanes
+// 8i..8i+7 give the row addresses of matrix i, and every lane receives (row
+// g; columns 2t, 2t + 1) of each matrix. With the stored rows as n and the
+// stored columns as the contraction index this is the B fragment of
+// mma.m16n8k16 (matrices 0 and 1: columns 0-7 and 8-15 of one k-step).
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* smem_row) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem_row));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(s));
 }
 
 // Four 8x8 bf16 matrices from shared memory, transposed on the way: with the

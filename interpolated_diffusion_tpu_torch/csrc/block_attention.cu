@@ -1,13 +1,12 @@
-// Attention forward kernels for Hopper (sm_90a): block-sparse (SLA), int8
-// block-sparse (SageSLA) and dense flash attention, one online-softmax loop.
+// Block-sparse attention forward kernels for Hopper (sm_90a): SLA and int8
+// SLA (SageSLA), one online-softmax loop. (The dense flash forward, which
+// began as a third mode of this loop, is flash_fwd_sm90.cu.)
 //
-// Replaces three TPU kernels of interpolated_diffusion_tpu/kernels/:
+// Replaces two TPU kernels of interpolated_diffusion_tpu/kernels/:
 //   kSparse     block_sparse_attention.py::_fwd_kernel (_fwd_pallas; public
 //               block_sparse_attention, block_sparse_attention_lse)
 //   kSparseInt8 int8_attention.py::_fwd_kernel_int8 (_fwd_pallas_int8; public
 //               int8_block_sparse_attention)
-//   kDense      block_sparse_attention.py::_fwd_kernel_dense (_fwd_pallas_dense;
-//               public flash_attention)
 // The TPU kernels walk a sequential grid axis over key blocks and carry the
 // running max / sum / accumulator in VMEM scratch. Here one block of 4 warps
 // owns 64 query rows (16 per warp) and walks its key tiles in a loop, with
@@ -23,7 +22,10 @@
 // by the PTX ISA, so that S, P and O never leave registers: P is repacked from
 // the S accumulators straight into the A operand of P.V. K/V tiles of 64 rows
 // come through a two-stage cp.async ring, so the next tile loads while this
-// one is multiplied. wgmma, TMA and warp specialisation are later work.
+// one is multiplied. Each warp reads the whole K / V tile from shared memory
+// for its own 16 rows, so shared-memory traffic, not the tensor cores, is the
+// limit (PERF.md); the dense kernel's redesign (wgmma, TMA, warp
+// specialisation) has not been carried over to the LUT walk yet.
 //
 // Semantics, as the TPU kernels and the plain twins:
 //  - logits are scaled by scale * log2(e) and exponentiated with exp2; the int8
@@ -31,7 +33,7 @@
 //  - keys at positions >= kv_len get probability 0. K/V rows past the tensor
 //    are read as zeros (never uninitialised memory), and a tile lying wholly
 //    at or past kv_len is skipped: it would add nothing;
-//  - for the sparse modes the block-sparse LUT [BH, M, topk] names key blocks
+//  - the block-sparse LUT [BH, M, topk] names key blocks
 //    of block_n rows for each query block of block_m rows (both multiples of
 //    64); an id addressing positions >= kv_len (the sentinel of
 //    block_sparse_attention_lse) contributes nothing;
@@ -47,7 +49,7 @@ namespace {
 
 using namespace id_attn;
 
-enum Mode { kSparse = 0, kSparseInt8 = 1, kDense = 2 };
+enum Mode { kSparse = 0, kSparseInt8 = 1 };
 
 struct Params {
   const void* q;         // [BH, Lq, D] bf16, or int8 for kSparseInt8
@@ -57,7 +59,7 @@ struct Params {
   float* lse;            // [BH, Lq], base 2
   const float* q_scale;  // [BH, Lq] (int8 only)
   const float* k_scale;  // [BH, Lk] (int8 only)
-  const int* lut;        // [BH, m_blocks, topk] (sparse modes only)
+  const int* lut;        // [BH, m_blocks, topk]
   int Lq, Lk, kv_len, m_blocks, topk, block_m, block_n;
   float scale_log2;      // softmax scale * log2(e)
 };
@@ -99,29 +101,23 @@ attn_fwd_kernel(const Params p) {
   const float* ksg = C::kInt8 ? p.k_scale + (long long)bh * p.Lk : nullptr;
 
   // key tiles this query block visits, as key offsets
-  int n_tiles;
-  if (MODE == kDense) {
-    n_tiles = (p.kv_len + kBN - 1) / kBN;
-  } else {
-    if (threadIdx.x == 0) {
-      const int* lut = p.lut + ((long long)bh * p.m_blocks + row0 / p.block_m) * p.topk;
-      const int per = p.block_n / kBN;
-      int n = 0;
-      for (int j = 0; j < p.topk; ++j) {
-        const int id = lut[j];
-        for (int s = 0; s < per && id >= 0; ++s) {
-          const long long start = (long long)id * p.block_n + s * kBN;
-          if (start < p.kv_len && n < kMaxTiles) tiles[n++] = (int)start;
-        }
+  if (threadIdx.x == 0) {
+    const int* lut = p.lut + ((long long)bh * p.m_blocks + row0 / p.block_m) * p.topk;
+    const int per = p.block_n / kBN;
+    int n = 0;
+    for (int j = 0; j < p.topk; ++j) {
+      const int id = lut[j];
+      for (int s = 0; s < per && id >= 0; ++s) {
+        const long long start = (long long)id * p.block_n + s * kBN;
+        if (start < p.kv_len && n < kMaxTiles) tiles[n++] = (int)start;
       }
-      n_tiles_s = n;
     }
-    __syncthreads();
-    n_tiles = n_tiles_s;
+    n_tiles_s = n;
   }
-  auto tile_start = [&](int i) { return MODE == kDense ? i * kBN : tiles[i]; };
+  __syncthreads();
+  const int n_tiles = n_tiles_s;
   auto load_tile = [&](int i, int stage) {
-    const int key0 = tile_start(i);
+    const int key0 = tiles[i];
     load_rows(smem + C::kOffK + stage * C::kKBytes, C::kLdQK, kg, C::kQKRow, key0, p.Lk);
     load_rows(smem + C::kOffV + stage * C::kVBytes, C::kLdV, vg, 2 * D, key0, p.Lk);
     if (C::kInt8 && threadIdx.x < kBN) {
@@ -174,7 +170,7 @@ attn_fwd_kernel(const Params p) {
     const unsigned char* sK = smem + C::kOffK + stage * C::kKBytes;
     const unsigned char* sV = smem + C::kOffV + stage * C::kVBytes;
     const float* sKs = reinterpret_cast<const float*>(smem + C::kOffS + stage * C::kSBytes);
-    const int key0 = tile_start(it);
+    const int key0 = tiles[it];
 
     // S = Q K^T for the warp's 16 rows x 64 keys, in base-2 logits
     float s[8][4];
@@ -270,7 +266,7 @@ attn_fwd_kernel(const Params p) {
 template <int D, int MODE>
 cudaError_t launch(const Params& p, int BH, cudaStream_t stream) {
   using C = Cfg<D, MODE>;
-  const size_t smem = C::kOffList + (MODE == kDense ? 0 : kMaxTiles * sizeof(int));
+  const size_t smem = C::kOffList + kMaxTiles * sizeof(int);
   const cudaError_t e = cudaFuncSetAttribute(
       attn_fwd_kernel<D, MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
@@ -283,10 +279,9 @@ template <int MODE>
 int dispatch(const Params& p, int BH, int D, void* stream) {
   if (BH <= 0 || BH > 65535 || p.Lq <= 0 || p.Lk <= 0 || p.kv_len < 0)
     return (int)cudaErrorInvalidValue;
-  if (MODE != kDense && (p.block_m <= 0 || p.block_m % kBM || p.block_n <= 0 ||
-                         p.block_n % kBN || p.topk <= 0 ||
-                         p.m_blocks != (p.Lq + p.block_m - 1) / p.block_m ||
-                         (long long)p.topk * (p.block_n / kBN) > kMaxTiles))
+  if (p.block_m <= 0 || p.block_m % kBM || p.block_n <= 0 || p.block_n % kBN || p.topk <= 0 ||
+      p.m_blocks != (p.Lq + p.block_m - 1) / p.block_m ||
+      (long long)p.topk * (p.block_n / kBN) > kMaxTiles)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (D == 64) return (int)launch<64, MODE>(p, BH, s);
@@ -322,12 +317,4 @@ extern "C" int id_sla_int8_fwd(const void* q, const void* k, const void* v,
            block_m > 0 ? (Lq + block_m - 1) / block_m : 0, topk, block_m, block_n,
            scale_log2};
   return dispatch<kSparseInt8>(p, BH, D, stream);
-}
-
-// Dense flash attention forward: q bf16 [BH, Lq, D], k/v bf16 [BH, Lk, D].
-extern "C" int id_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
-                            int BH, int Lq, int Lk, int D, float scale_log2, void* stream) {
-  Params p{q, k, static_cast<const bf16*>(v), static_cast<bf16*>(o), static_cast<float*>(lse),
-           nullptr, nullptr, nullptr, Lq, Lk, Lk, 0, 0, 0, 0, scale_log2};
-  return dispatch<kDense>(p, BH, D, stream);
 }

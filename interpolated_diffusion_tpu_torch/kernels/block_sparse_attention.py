@@ -12,13 +12,14 @@ of kernels/block_sparse_attention.py).
                               _dkdv_kernel_dense (:248)
 
 On CUDA tensors each launches its hand-written sm_90a kernels
-(csrc/block_attention.cu forward, csrc/block_attention_bwd.cu backward); on
-CPU tensors it runs its plain twins (block_sparse_attention_reference,
+(csrc/block_attention.cu the SLA forward, csrc/flash_fwd_sm90.cu the flash
+forward on wgmma and TMA, csrc/block_attention_bwd.cu the backwards); on CPU
+tensors it runs its plain twins (block_sparse_attention_reference,
 `_torch_flash`, `_torch_sla_bwd`, `_torch_flash_bwd`). There is no fallback
 between the two: a CUDA input the kernels do not take raises. The `*_twin`
 entries run the twins on any device, for comparisons. What bounds the
 kernels on the H100, and what their design does about it, is in the headers
-of the two sources.
+of the sources.
 """
 from __future__ import annotations
 
@@ -470,7 +471,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     block_m / block_n are the TPU kernel's tiles. The math is exact for any
     tiling; the tiles only move where a bf16 P is rounded. The twin walks
     keys in tiles of block_n as the TPU kernel does; the CUDA kernels use
-    their own 64-row tiles.
+    their own tiles (128 keys in the forward, 64 in the backward).
     """
     return _FlashAttention.apply(q, k, v, scale, block_n, False)
 

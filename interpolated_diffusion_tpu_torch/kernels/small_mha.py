@@ -105,9 +105,9 @@ def _forward(q, k, v, n_heads: int, packed: bool, twin: bool) -> torch.Tensor:
         o = _launch(name, "id_small_mha_packed", q, k, v, n_heads)
         small_mha_packed.launches += 1
     else:
-        if n_heads * L > SMALL_MHA_MAX_ROWS or q.shape[0] * n_heads > 65535:
-            raise ValueError(f"small_mha: CUDA kernel needs H*L <= {SMALL_MHA_MAX_ROWS} and "
-                             f"B*H <= 65535 (got q {tuple(q.shape)}, H={n_heads})")
+        if n_heads * L > SMALL_MHA_MAX_ROWS:
+            raise ValueError(f"small_mha: CUDA kernel needs H*L <= {SMALL_MHA_MAX_ROWS} "
+                             f"(got q {tuple(q.shape)}, H={n_heads})")
         o = _launch(name, "id_small_mha", q, k, v, n_heads)
         small_mha.launches += 1
     return o
@@ -141,7 +141,9 @@ def small_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, n_heads: int) -
 
     The TPU kernel's window is H*L <= 1024; the CUDA kernels take it whole for
     head dims 32 and 64 (L <= 256 in one block per head, longer sequences
-    tiled over queries and keys) and raise on other head dims.
+    tiled over queries and keys with an online softmax, which rounds
+    P = exp(s - running max) to bf16 before the sum divides) and raise on
+    other head dims.
     """
     return _SmallMHA.apply(q, k, v, n_heads, False, False)
 

@@ -43,7 +43,10 @@ def _torch_vjp(fn, arrays, cot):
 
 
 @pytest.mark.parametrize("B,L,H,Dh", [(3, 64, 12, 8), (2, 8, 4, 16), (2, 300, 2, 8),
-                                      (1, 1024, 1, 16)])
+                                      (1, 1024, 1, 16),
+                                      # the CUDA path's tiled kernel begins at L = 257; the
+                                      # widest window is L = 1024 at H = 1
+                                      (2, 257, 2, 8), (1, 257, 1, 32), (1, 1024, 1, 32)])
 def test_small_mha_and_gradients_match_jax(B, L, H, Dh):
     q, k, v, do = _qkv(B, L, H * Dh, seed=L)
     out, grads = _torch_vjp(lambda a, b, c: small_mha.small_mha(a, b, c, H), (q, k, v), do)

@@ -122,8 +122,13 @@ def _masters(args):
 @pytest.mark.parametrize("B,L,h,dm", [
     (256, 64, H, D), (64, 8, H, D), (64, 100, 6, D),        # L <= 256: one block per head
     (64, 512, 2, 128), (16, 1024, 1, 64), (8, 300, 2, 64),  # tiled over queries and keys
-    (8, 333, 3, 96)])
+    (8, 333, 3, 96),
+    # the tiled kernel's edges: the first L past the one-block kernel, ragged
+    # last tiles, the widest window (L = 1024 at H = 1), head dims 32 and 64
+    (8, 257, 2, 64), (8, 257, 2, 128), (8, 300, 2, 128), (16, 512, 2, 64), (16, 1024, 1, 32),
+    (3, 449, 1, 64), (700, 260, 3, 96)])
 def test_small_mha_matches_twin(cuda, B, L, h, dm):
+    """q, k, v are strided views of one qkv tensor, as the block passes them."""
     g = torch.Generator(device=cuda).manual_seed(L + h)
     qkv = torch.randn((B, L, 3 * dm), generator=g, device=cuda).to(torch.bfloat16)
     q, k, v = qkv.split(dm, dim=-1)
@@ -139,11 +144,12 @@ def test_small_mha_matches_twin(cuda, B, L, h, dm):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("entry,L", [("small_mha", 64), ("small_mha_packed", 64),
-                                     ("small_mha", 512), ("small_mha_packed", 8)])
+                                     ("small_mha", 512), ("small_mha_packed", 8),
+                                     ("small_mha", 300)])
 def test_small_mha_gradients_match_twin_path(cuda, entry, L):
     """Kernel forward + twin-recompute backward against the twin path's
     output and gradients (2e-2 of each gradient's max)."""
-    h, dm, B = (2, 128, 32) if L == 512 else (H, D, 256)
+    h, dm, B = (2, 128, 32) if L > 256 else (H, D, 256)
     g = torch.Generator(device=cuda).manual_seed(L)
     base = torch.randn((B, L, 3 * dm), generator=g, device=cuda).to(torch.bfloat16)
     do = torch.randn((B, L, dm), generator=g, device=cuda).to(torch.bfloat16)
@@ -253,9 +259,14 @@ def test_sla_lse_kernel_sentinel(cuda):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("Lq,Lk,d", [(1000, 517, 128), (1000, 70, 128), (1000, 517, 64),
-                                     (333, 70, 64), (2048, 2048, 128)])
+@pytest.mark.parametrize("Lq,Lk,d", [
+    (1000, 517, 128), (1000, 70, 128), (1000, 517, 64), (333, 70, 64), (2048, 2048, 128),
+    # the edges of the 128-row query block and the 128-key tile (one row or
+    # key, one short of / exactly / one past a tile, the Wan path's 7800 and 517)
+    *[(lq, lk, d) for lq in (1, 127, 128, 129, 7800) for lk in (1, 5, 128, 129, 517)
+      for d in (64, 128)]])
 def test_flash_kernel_matches_twin(cuda, Lq, Lk, d):
+    """o and lse; a row written past Lq would land in the next head's rows."""
     q, k, v = _qkv_bf16(6, Lq, d, cuda, Lq + Lk + d, Lk=Lk)
     before = bsa.flash_attention.launches
     with torch.inference_mode():
@@ -345,7 +356,8 @@ def test_sla_bwd_kernels_match_twin(cuda, L, d, block, ratio, dup):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("Lq,Lk,d", [(1000, 517, 128), (1000, 70, 64), (333, 517, 64),
-                                     (1024, 1024, 128), (2048, 2048, 64)])
+                                     (1024, 1024, 128), (2048, 2048, 64),
+                                     (300, 133, 128)])   # ragged in both, through the forward's lse
 def test_flash_bwd_kernels_match_twin(cuda, Lq, Lk, d):
     q, k, v = _qkv_bf16(6, Lq, d, cuda, Lq + Lk + d, Lk=Lk)
     do = _qkv_bf16(6, Lq, d, cuda, 2)[0]

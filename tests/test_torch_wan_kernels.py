@@ -99,14 +99,25 @@ def test_sla_lse_sentinel_matches_jax():
     np.testing.assert_allclose(lse[:, rows].numpy(), np.log2(1e-30), rtol=1e-6)
 
 
-def test_flash_twin_matches_pallas_interpret():
-    q, k, v = _qkv(300, 8, Lk=70)
-    out = bsa.flash_attention(*map(torch.tensor, (q, k, v)), 128, 128)
-    ref = jbsa.flash_attention(*map(jnp.asarray, (q, k, v)), 128, 128, interpret=True)
+@pytest.mark.parametrize("Lq,Lk,block_n", [
+    (300, 70, 128),
+    # neither Lq nor Lk a multiple of the tiles: a ragged last key tile after
+    # full ones, fewer keys than one tile, one row past a query block
+    (136, 70, 128), (136, 70, 256), (64, 5, 128), (64, 5, 256), (300, 200, 128), (129, 131, 128),
+    (129, 131, 256)])
+def test_flash_twin_matches_pallas_interpret(Lq, Lk, block_n):
+    """o and lse (f32, base 2) of the twin against the TPU kernel in interpret
+    mode: rectangular Lq x Lk, keys past Lk at probability 0, rows past Lq not
+    produced. This is the contract the CUDA kernel is held to on the card."""
+    q, k, v = _qkv(Lq, 8, Lk=Lk)
+    out = bsa.flash_attention(*map(torch.tensor, (q, k, v)), 128, block_n)
+    ref = jbsa.flash_attention(*map(jnp.asarray, (q, k, v)), 128, block_n, interpret=True)
+    assert out.shape == (BH, Lq, D)
     close(out, ref)
-    _, lse = bsa.flash_attention_fwd(*map(torch.tensor, (q, k, v)))
-    _, jlse = jbsa._fwd_pallas_dense(*map(jnp.asarray, (q, k, v)), 128, 128, D ** -0.5,
+    _, lse = bsa.flash_attention_fwd(*map(torch.tensor, (q, k, v)), block_n=block_n)
+    _, jlse = jbsa._fwd_pallas_dense(*map(jnp.asarray, (q, k, v)), 128, block_n, D ** -0.5,
                                      interpret=True)
+    assert lse.shape == (BH, Lq)
     close(lse, jlse)
 
 
