@@ -1,20 +1,29 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's sampling paths and its trainers once on one GPU.
 
-    python3 chip_smoke.py [--profile] [--kernels]
+    python3 chip_smoke.py [--profile] [--kernels] [--gemm-ab]
 
 Phases, each on its own lines; any failure exits non-zero:
   1. device       the card's name and power limit (nvidia-smi); CUDA required
   2. build        nvcc builds csrc/*.cu (one process per source) into
                   build/kernels/<hash>/
   3. kernels      the maze kernels against their plain PyTorch twins, bf16, at
-                  the shapes the maze path gives them
+                  the shapes the maze path gives them: the block's GEMM alone
+                  (gemm_bias_act, each epilogue at the path's eight (M, N, K),
+                  at M = 8, at a ragged M and at a width served by the narrower
+                  tiles), the block, and small_mha_packed / small_mha over
+                  L in 1..256 at both head dims
   4. main         make_pipeline at the bench configuration (384d x 12 layers x
                   12 heads, T=64, K=8, DDIM-20, 3 levels, seeded random
                   weights): requests of B in {1, 64, 1024} under attn_policy
                   "block" and B=64 under "fused"; invariants, launch counts,
                   and agreement of the kernel path with the plain-twin path
-  5. timings      maze kernels vs twins (CUDA events) and pipeline samples/s
+  5. timings      maze kernels vs twins (CUDA events; short ones also by graph
+                  replay): the four products alone against F.linear, the block
+                  at [1024,64,384] and [1024,8,384] against the same block made
+                  of PyTorch's own calls (F.linear x 4,
+                  scaled_dot_product_attention, layer_norm, silu), small_mha_packed
+                  against scaled_dot_product_attention; then pipeline samples/s
   5a. maze grads  small_mha against its twin ([256, 64, 384] H=12 and the tiled
                   cases [64, 512, 128] H=2, [16, 1024, 64] H=1 and a ragged
                   [8, 300, 64] H=2; the tiled kernel's device time also by
@@ -69,15 +78,18 @@ Phases, each on its own lines; any failure exits non-zero:
                   block on one path only; how many rows its own choice
                   differs in, and its reading on its own LUTs, are printed)
 Every timing phase also times the one PyTorch library call that computes the
-same function, where there is one (scaled_dot_product_attention), as a
-yardstick that the port never calls. --profile adds torch.profiler tables of
-one maze Stage-2 training step, one sla-mode sampler call and one sla-mode
-Wan training step. The line before the
+same function, where there is one (scaled_dot_product_attention, F.linear,
+or for the block a chain of them), as a yardstick that the port never calls.
+--profile adds torch.profiler tables of one maze pipeline call (policy block,
+B=1024), one maze Stage-2 training step, one sla-mode sampler call and one
+sla-mode Wan training step. The line before the
 last is a JSON summary of the kernels (time, bound, library time, launches);
 the last line is {"ok": true, "device": {...}}. --kernels runs only the phases
-that build, check and time the kernels alone (1-3, 5a, 6, the kernel times of
-8, and 9), drives no model and prints neither of the two JSON lines: a short
-first run for a changed kernel.
+that build, check and time the kernels alone (1-3, the kernel times of 5, 5a,
+6, the kernel times of 8, and 9), drives no model and prints neither of the two JSON lines: a short
+first run for a changed kernel. --gemm-ab reads what the block GEMM's
+W-resident kernel buys: the maze part of phases 3 and 5 (--maze-kernels) in four
+processes, two on a build that sends every product to the streaming kernel.
 """
 from __future__ import annotations
 
@@ -146,14 +158,17 @@ KERNEL_SOURCES = {
                        "interpolated_diffusion_tpu/kernels/block_sparse_attention.py:248"),
 }
 
-# Times of the two kernels that were redesigned (wgmma + TMA flash forward,
-# register-resident tiled small_mha), as this script measured their first
-# versions (mma.sync with a cp.async ring; WMMA with logits staged through
-# shared memory) on an NVIDIA H100 80GB HBM3 at a 700 W limit, in ms. Printed
+# Times of the kernels that were redesigned (wgmma + TMA flash forward and
+# block GEMM, register-resident small_mha kernels), as this script measured
+# their first versions (mma.sync with a cp.async ring; WMMA with logits staged
+# through shared memory) on an NVIDIA H100 80GB HBM3 at a 700 W limit, in ms. Printed
 # on the [timing] lines beside the new times, so that one run shows before and
 # after; the JSON summary holds only what this run measured.
 BEFORE_REDESIGN_MS = {"flash_attention/cross": 0.737, "flash_attention/self": 8.974,
-                      "small_mha/tiled": 0.2134}
+                      "small_mha/tiled": 0.2134,
+                      # the WMMA GEMM chain and the shared-memory small_mha_kernel
+                      "fused_film_block/1024,64": 1.936, "small_mha_packed/1024,64": 0.308,
+                      "small_mha/256,64": 0.0901}
 
 # Published dense peaks of one H100 SXM (NVIDIA's data sheet), for the bounds:
 # the least time the card could take is the larger of operations over the peak
@@ -309,16 +324,89 @@ def _graph_ms(fn, launches=50):
     return _time_ms(graph.replay, iters=10) / launches
 
 
+# The four products of the block, in chain order: (epilogue, N, K) as multiples
+# of (D, F); at bench width (1152, 384), (384, 384), (1536, 384), (384, 1536).
+def _gemm_shapes(D, F):
+    return (("bias", 3 * D, D), ("resid_f32", D, D), ("bias_silu", F, D), ("resid_out", D, F))
+
+
+def _gemm_inputs(M, N, K, epilogue, bias_dtype, gen, device):
+    import torch
+
+    bf = torch.bfloat16
+    a = torch.randn((M, K), generator=gen, device=device).to(bf)
+    w = ((torch.rand((N, K), generator=gen, device=device) * 2 - 1) * K ** -0.5).to(bf)
+    # a bias at the products' own scale (a has unit variance and w's rows a
+    # norm of ~0.58, so a @ w^T is ~0.58 an element): one that is dropped or
+    # read from the wrong columns then costs far more than the tolerance
+    bias = torch.randn(N, generator=gen, device=device).to(bias_dtype)
+    resid = None
+    if epilogue.startswith("resid"):
+        resid = torch.randn((M, N), generator=gen, device=device)
+        resid = resid.to(bf) if epilogue == "resid_f32" else resid
+    return a, w, bias, resid
+
+
+def _library_block(x, args, n_heads, film):
+    """The block as PyTorch's own calls compute it (F.linear x 4,
+    scaled_dot_product_attention, layer_norm, FiLM, SiLU; bf16 with the f32
+    residual stream): the yardstick beside fused_film_block. Nothing on a
+    kernel path calls it."""
+    import torch
+    import torch.nn.functional as Fn
+
+    gb1, gb2, ln1s, ln1b, ln2s, ln2b, wqkv, bqkv, wout, bout, wff1, bff1, wff2, bff2 = args
+    B, L, D = x.shape
+    bf = x.dtype
+
+    def ln_film(t, scale, bias, gb):
+        h = Fn.layer_norm(t.float(), (D,), scale.float(), bias.float(), 1e-6).to(bf)
+        return h * (1.0 + gb[:, None, :D]) + gb[:, None, D:] if film else h
+
+    heads = lambda t: t.reshape(B, L, n_heads, D // n_heads).transpose(1, 2)
+    q, k, v = Fn.linear(ln_film(x, ln1s, ln1b, gb1), wqkv, bqkv).split(D, dim=-1)
+    o = Fn.scaled_dot_product_attention(heads(q), heads(k), heads(v))
+    x2 = x.float() + Fn.linear(o.transpose(1, 2).reshape(B, L, D), wout, bout)
+    f = Fn.silu(Fn.linear(ln_film(x2, ln2s, ln2b, gb2), wff1, bff1))
+    return (x2 + Fn.linear(f, wff2, bff2)).to(bf)
+
+
 def phase_kernels(dev):
     """Each kernel against its plain twin at the main path's shapes."""
     import torch
-    from interpolated_diffusion_tpu_torch.kernels.fused_block import _torch_block, fused_film_block
-    from interpolated_diffusion_tpu_torch.kernels.small_mha import _torch_attention, small_mha_packed
+    from interpolated_diffusion_tpu_torch.kernels.fused_block import (_torch_block, _torch_gemm,
+                                                                     fused_film_block,
+                                                                     gemm_bias_act)
+    from interpolated_diffusion_tpu_torch.kernels.small_mha import (_torch_attention, small_mha,
+                                                                   small_mha_packed)
 
     gen = torch.Generator(device=dev).manual_seed(0)
     D, H, F = BENCH["d_model"], BENCH["n_heads"], BENCH["d_ff"]
-    results = {"fused_film_block": [], "small_mha_packed": []}
+    results = {"fused_film_block": [], "small_mha_packed": [], "gemm": []}
     with torch.inference_mode():
+        # the GEMM alone: the path's four products at Stage 2's and Stage 1's
+        # row counts (B = 1024, L = 64 and 8), at M = 8, at an M that is no
+        # multiple of the tile, and at a width (320 / 1280) whose products run
+        # the 128- and 64-column instantiations
+        gemm_cases = [(M, D, F) for M in (1024 * 64, 1024 * 8, 8, 37 * 64)] + [(37 * 64, 320, 1280)]
+        for M, d, f in gemm_cases:
+            for epilogue, N, K in _gemm_shapes(d, f):
+                bias_dtype = torch.float32 if M in (1024 * 64, 8) else torch.bfloat16
+                a, w, bias, resid = _gemm_inputs(M, N, K, epilogue, bias_dtype, gen, dev)
+                out = gemm_bias_act(a, w, bias, epilogue, resid)
+                ref = _torch_gemm(a, w, bias, epilogue, resid)
+                torch.cuda.synchronize()
+                require(out.shape == ref.shape and out.dtype == ref.dtype,
+                        f"gemm_bias_act {epilogue}: {out.shape} {out.dtype}")
+                require(bool(torch.isfinite(out).all()), f"gemm_bias_act {epilogue}: non-finite")
+                err, rel = _errors(out, ref)
+                print(f"[kernels] gemm_bias_act {epilogue} M={M} N={N} K={K} bias "
+                      f"{str(bias_dtype).split('.')[-1]}: max|d|={err:.3e} "
+                      f"max|d|/max|plain|={rel:.3e} (tol {BLOCK_TOL})", flush=True)
+                require(rel <= BLOCK_TOL, f"gemm_bias_act {epilogue} M={M} N={N} K={K} "
+                                          f"disagrees: {rel:.3e}")
+                if d == D and M >= 1024 * 8:
+                    results["gemm"].append(((M, N, K, epilogue), err, a, w, bias, resid))
         for B, L, film in ((1024, 8, True), (1024, 64, True), (1, 8, True), (37, 64, True),
                            (37, 8, False)):
             x, args = _block_inputs(B, L, D, H, F, film, gen, dev)
@@ -334,6 +422,11 @@ def phase_kernels(dev):
                   f"max|d|={err:.3e} max|d|/max|plain|={rel:.3e} (tol {BLOCK_TOL})",
                   flush=True)
             require(rel <= BLOCK_TOL, f"fused_film_block B={B} L={L} disagrees: {rel:.3e}")
+            if B == 1024:
+                lib = _library_block(x, args, H, film)
+                print(f"[kernels] fused_film_block B={B} L={L}: the library chain (the "
+                      f"yardstick) differs from the twin by "
+                      f"{_errors(lib, ref)[1]:.3e} of max|plain|", flush=True)
             results["fused_film_block"].append(((B, L, film), err, x, args))
         for B, L in ((1024, 64), (1024, 8)):
             qkv = torch.randn((B, L, 3 * D), generator=gen, device=dev).to(torch.bfloat16)
@@ -347,6 +440,26 @@ def phase_kernels(dev):
                   f"max|d|/max|plain|={rel:.3e} (tol {ATTN_TOL})", flush=True)
             require(rel <= ATTN_TOL, f"small_mha_packed B={B} L={L} disagrees: {rel:.3e}")
             results["small_mha_packed"].append(((B, L), err, q, k, v))
+        # small_mha_kernel over its window: every strip length, a single row,
+        # ragged lengths, both head dims, and head counts that leave the last
+        # group of heads short (5 heads of 32, 3 of 64)
+        worst = 0.0
+        for L in (1, 8, 17, 64, 200, 256):
+            for dh, heads in ((32, 12), (64, 6), (32, 5), (64, 3)):
+                for entry in (small_mha_packed, small_mha):
+                    h = heads if entry is small_mha_packed else min(heads, 1024 // L)
+                    qkv = torch.randn((67, L, 3 * h * dh), generator=gen,
+                                      device=dev).to(torch.bfloat16)
+                    q, k, v = qkv.split(h * dh, dim=-1)
+                    out, ref = entry(q, k, v, h), _torch_attention(q, k, v, h)
+                    torch.cuda.synchronize()
+                    rel = _errors(out, ref)[1]
+                    require(bool(torch.isfinite(out).all()) and rel <= ATTN_TOL,
+                            f"{entry.__name__} [67,{L},{h * dh}] H={h} disagrees: {rel:.3e}")
+                    worst = max(worst, rel)
+        print(f"[kernels] small_mha_packed / small_mha at L in (1, 8, 17, 64, 200, 256), head "
+              f"dims 32 and 64, whole and short head groups: worst max|d|/max|plain|="
+              f"{worst:.3e} (tol {ATTN_TOL})", flush=True)
     return results
 
 
@@ -477,16 +590,22 @@ def phase_main(dev):
     n_evals = len(range(BENCH["ddim_steps"] - 1))
     per_block_call = (n_evals + BENCH["levels"]) * BENCH["n_layers"]     # 264
     per_fused_call = BENCH["levels"] * BENCH["n_layers"]                 # 36: Stage 2 only
+    # a block-policy call by sequence length: Stage 2's levels at T, Stage 1's
+    # evaluations at K
+    per_block_by_len = {BENCH["T"]: per_fused_call, BENCH["K"]: n_evals * BENCH["n_layers"]}
     gen_cpu = torch.Generator().manual_seed(4)
     plan = [("block", 1), ("block", 64), ("block", 1024), ("fused", 64)]
     reqs = {(p, B): _requests(B, gen_cpu, dev) for p, B in plan}
 
     fused_film_block.launches = small_mha_packed.launches = 0
+    by_len = fused_film_block.launches_by_len
+    by_len.clear()
     outs = {}
     for policy, B in plan:
         kp.set_attn_policy(policy)
         it.set_attn_policy(policy)
         before = (fused_film_block.launches, small_mha_packed.launches)
+        before_len = dict(by_len)
         idx, cond = reqs[(policy, B)]
         t0 = time.perf_counter()
         out = pipe(idx, cond, generator=torch.Generator(device=dev).manual_seed(B))
@@ -499,13 +618,21 @@ def phase_main(dev):
         require((d_blk, d_mha) == want,
                 f"{policy} B={B}: launches fused_film_block={d_blk} small_mha_packed={d_mha}, "
                 f"expected {want}")
+        d_len = {L: n - before_len.get(L, 0) for L, n in by_len.items() if n > before_len.get(L, 0)}
+        want_len = per_block_by_len if policy == "block" else {}
+        require(d_len == want_len, f"{policy} B={B}: fused_film_block launches by sequence "
+                                   f"length {d_len}, expected {want_len}")
         print(f"[main] policy={policy} B={B}: {took:.3f} s (first call includes warm-up), "
-              f"launches fused_film_block +{d_blk} small_mha_packed +{d_mha}; "
+              f"launches fused_film_block +{d_blk} (by sequence length {d_len}) "
+              f"small_mha_packed +{d_mha}; "
               f"shapes {tuple(out[0].shape)} {tuple(out[1].shape)} {tuple(out[2].shape)}; "
               f"anchors, endpoints, [0,1] ok", flush=True)
         outs[(policy, B)] = out
     launches = {"fused_film_block": fused_film_block.launches,
-                "small_mha_packed": small_mha_packed.launches}
+                "small_mha_packed": small_mha_packed.launches,
+                # the block's launches of this run as the wrapper counted them by shape
+                "fused_film_block/by_shape": {f"[B,{L},{BENCH['d_model']}]": n
+                                              for L, n in sorted(by_len.items(), reverse=True)}}
     print(f"[main] launches in the main-path run: {launches}", flush=True)
 
     # kernel path vs plain-twin path, same inputs and draws
@@ -523,34 +650,114 @@ def phase_main(dev):
     return kp, it, pipe, launches
 
 
-def phase_timings(dev, card, kernel_cases, pipe, kp, it):
+def phase_timings(dev, card, kernel_cases):
+    """The maze kernels alone: CUDA-event times beside the plain twins', the
+    library's and the bounds; short kernels also by CUDA-graph replay."""
     import torch
-    from interpolated_diffusion_tpu_torch.kernels.fused_block import _torch_block, fused_film_block
+    import torch.nn.functional as Fn
+    from interpolated_diffusion_tpu_torch.kernels.fused_block import (_torch_block, _torch_gemm,
+                                                                     fused_film_block,
+                                                                     gemm_bias_act)
     from interpolated_diffusion_tpu_torch.kernels.small_mha import _torch_attention, small_mha_packed
 
     D, H = BENCH["d_model"], BENCH["n_heads"]
     tag = f"[{card}]"
-    times = {}
+    times = {"gemm": []}
     with torch.inference_mode():
-        saved = fused_film_block.launches, small_mha_packed.launches
+        saved = fused_film_block.launches, small_mha_packed.launches, gemm_bias_act.launches
+        # the four products alone, against F.linear on the same bf16 operands
+        # (the library without bias or epilogue); at 8192 rows a launch is
+        # shorter than the host's pace, so the device time by graph replay too
+        for (M, N, K, epilogue), _, a, w, bias, resid in kernel_cases["gemm"]:
+            k_ms = _time_ms(lambda: gemm_bias_act(a, w, bias, epilogue, resid))
+            lib_ms = _time_ms(lambda: Fn.linear(a, w))
+            p_ms = _time_ms(lambda: _torch_gemm(a, w, bias, epilogue, resid), iters=5)
+            out_bytes = M * N * (4 if epilogue == "resid_f32" else 2)
+            resid_bytes = 0 if resid is None else resid.numel() * resid.element_size()
+            bound = bound_ms(2 * (M * K + N * K) + bias.numel() * bias.element_size()
+                             + out_bytes + resid_bytes, 2.0 * M * N * K)
+            entry = {"M": M, "N": N, "K": K, "epilogue": epilogue, "ms": k_ms,
+                     "tflops": 2.0 * M * N * K / k_ms / 1e9, "plain_ms": p_ms,
+                     "library_ms": lib_ms, "bound_ms": bound[0], "bound_by": bound[1]}
+            line = (f"[timing] {tag} gemm_bias_act {epilogue} M={M} N={N} K={K}: kernel "
+                    f"{k_ms:.4f} ms ({entry['tflops']:.0f} TFLOP/s), bound {bound[0]:.4f} ms "
+                    f"({bound[1]}), plain twin {p_ms:.4f} ms, library (F.linear) {lib_ms:.4f} ms")
+            if M < 65536:
+                entry["device_ms"] = _graph_ms(lambda: gemm_bias_act(a, w, bias, epilogue, resid))
+                entry["library_device_ms"] = _graph_ms(lambda: Fn.linear(a, w))
+                line += (f"; device time by graph replay {entry['device_ms']:.4f} ms, library "
+                         f"{entry['library_device_ms']:.4f} ms")
+            print(line, flush=True)
+            times["gemm"].append(entry)
         for (B, L, film), _, x, args in kernel_cases["fused_film_block"]:
             k_ms = _time_ms(lambda: fused_film_block(x, *args, n_heads=H, use_film=film))
             p_ms = _time_ms(lambda: _torch_block(x, *args, n_heads=H, use_film=film))
-            print(f"[timing] {tag} fused_film_block [{B},{L},{D}] film={film}: "
-                  f"kernel {k_ms:.4f} ms, plain twin {p_ms:.4f} ms", flush=True)
-            times[("fused_film_block", B, L)] = (k_ms, p_ms, None)
+            lib_ms = _time_ms(lambda: _library_block(x, args, H, film))
+            line = (f"[timing] {tag} fused_film_block [{B},{L},{D}] film={film}: "
+                    f"kernel {k_ms:.4f} ms, plain twin {p_ms:.4f} ms, library chain (F.linear x 4, "
+                    f"scaled_dot_product_attention, layer_norm, silu) {lib_ms:.4f} ms")
+            before = BEFORE_REDESIGN_MS.get(f"fused_film_block/{B},{L}")
+            if before:
+                line += f"; before the redesign {before:.4f} ms"
+            print(line, flush=True)
+            times[("fused_film_block", B, L)] = (k_ms, p_ms, lib_ms)
+        # Small batches are paced by the host: a call's time here is the
+        # wrapper's and the C entry's host work (checks, scratch, eight tensor
+        # maps, seven launches). f32 master matrices add four casts a call.
+        gen = torch.Generator(device=dev).manual_seed(7)
+        for B in (1, 64):
+            x, args = _block_inputs(B, 8, D, H, BENCH["d_ff"], True, gen, dev)
+            masters = tuple(a if i < 2 else a.float() for i, a in enumerate(args))
+            bf_ms = _time_ms(lambda: fused_film_block(x, *args, n_heads=H), iters=100)
+            f32_ms = _time_ms(lambda: fused_film_block(x, *masters, n_heads=H), iters=100)
+            print(f"[timing] {tag} fused_film_block [{B},8,{D}] (host-paced): bf16 parameters "
+                  f"{bf_ms:.4f} ms a call, f32 masters (four casts a call) {f32_ms:.4f} ms",
+                  flush=True)
+            times[("fused_film_block/host", B)] = (bf_ms, f32_ms)
         for (B, L), _, q, k, v in kernel_cases["small_mha_packed"]:
             k_ms = _time_ms(lambda: small_mha_packed(q, k, v, H))
             p_ms = _time_ms(lambda: _torch_attention(q, k, v, H))
             heads = lambda t: t.reshape(B, L, H, D // H).transpose(1, 2)
-            lib_ms = _time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-                heads(q), heads(k), heads(v)))
-            print(f"[timing] {tag} small_mha_packed [{B},{L},{D}]: kernel {k_ms:.4f} ms, "
-                  f"plain twin {p_ms:.4f} ms, library (scaled_dot_product_attention) "
-                  f"{lib_ms:.4f} ms", flush=True)
+            lib = lambda: Fn.scaled_dot_product_attention(heads(q), heads(k), heads(v))
+            lib_ms = _time_ms(lib)
+            g_ms, g_lib = _graph_ms(lambda: small_mha_packed(q, k, v, H)), _graph_ms(lib)
+            line = (f"[timing] {tag} small_mha_packed [{B},{L},{D}]: kernel {k_ms:.4f} ms, "
+                    f"plain twin {p_ms:.4f} ms, library (scaled_dot_product_attention) "
+                    f"{lib_ms:.4f} ms; device time by graph replay {g_ms:.4f} ms, library "
+                    f"{g_lib:.4f} ms")
+            before = BEFORE_REDESIGN_MS.get(f"small_mha_packed/{B},{L}")
+            if before:
+                line += f"; before the redesign {before:.4f} ms (event loop)"
+            print(line, flush=True)
             times[("small_mha_packed", B, L)] = (k_ms, p_ms, lib_ms)
-        fused_film_block.launches, small_mha_packed.launches = saved
+            times[("small_mha_packed/graph", B, L)] = (g_ms, g_lib)
+        (fused_film_block.launches, small_mha_packed.launches,
+         gemm_bias_act.launches) = saved
+    return times
 
+
+def phase_pipeline_timings(dev, card, pipe, kp, it, profile):
+    """Pipeline samples/s and ms per request: the end-to-end reading."""
+    import torch
+
+    tag = f"[{card}]"
+    if profile:   # where one block-policy call at B=1024 spends its device time
+        from torch.profiler import ProfilerActivity, profile as torch_profile
+
+        kp.set_attn_policy("block")
+        it.set_attn_policy("block")
+        pidx, pcond = _requests(1024, torch.Generator().manual_seed(5), dev)
+        pipe(pidx, pcond, generator=torch.Generator(device=dev).manual_seed(0))
+        torch.cuda.synchronize()
+        with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            pipe(pidx, pcond, generator=torch.Generator(device=dev).manual_seed(0))
+            torch.cuda.synchronize()
+        what = "one maze pipeline call (policy block, B=1024)"
+        _print_profile(prof, tag, what)
+        for family in ("gemm_resident_kernel", "gemm_stream_kernel", "small_mha_kernel",
+                       "ln_film_kernel"):
+            ms = sum(_device_us(evt) for evt in prof.key_averages() if family in evt.key) / 1e3
+            print(f"[profile] {tag} {what}: {family}: {ms:.1f} ms", flush=True)
     # pipeline samples/s at B=1024, kernel path vs plain-twin path, timed in
     # the order kernels, twins, twins, kernels so that clock drift cancels
     B, iters = 1024, 5
@@ -589,7 +796,6 @@ def phase_timings(dev, card, kernel_cases, pipe, kp, it):
             print(f"[timing] {tag} pipeline B={B} policy={policy} {path}: "
                   f"{sum(vals) / len(vals):.1f} samples/s (runs of {iters} calls: "
                   f"{', '.join(f'{v:.1f}' for v in vals)})", flush=True)
-    return times
 
 
 def _grad_check(name, label, kernel_fn, twin_fn, inputs, cot, out_tol, errs):
@@ -664,6 +870,14 @@ def phase_maze_autograd(dev, card):
                       f"replay {g_ms:.4f} ms, library {g_lib:.4f} ms; before the redesign "
                       f"{BEFORE_REDESIGN_MS['small_mha/tiled']:.4f} ms (event loop)", flush=True)
                 times["tiled_graph"] = (g_ms, g_lib)
+            if (B, L) == (256, 64):   # small_mha_kernel at the Stage-2 trainer's shape
+                g_ms = _graph_ms(lambda: sm.small_mha(q, k, v, h))
+                g_lib = _graph_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                    heads(q), heads(k), heads(v)))
+                print(f"[timing] {tag} small_mha [{B},{L},{dm}] H={h}: device time by graph "
+                      f"replay {g_ms:.4f} ms, library {g_lib:.4f} ms; before the redesign "
+                      f"{BEFORE_REDESIGN_MS['small_mha/256,64']:.4f} ms (event loop)", flush=True)
+                times["small_graph"] = (g_ms, g_lib)
 
     for B, L in ((256, 64), (256, 8)):
         qkv = torch.randn((B, L, 3 * D), generator=gen, device=dev).to(torch.bfloat16)
@@ -972,21 +1186,27 @@ def _nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+def _device_us(evt):
+    """Device time of a profiler row that is a kernel (0 for an operator row:
+    its device time is its kernels')."""
+    if "cuda" not in str(getattr(evt, "device_type", "")).lower():
+        return 0.0
+    us = getattr(evt, "self_device_time_total", None)
+    return getattr(evt, "self_cuda_time_total", 0.0) if us is None else us
+
+
 def _print_profile(prof, tag, what):
     """The profiler's table by operator, and the device time by kind of kernel."""
     print(f"[profile] {tag} {what}:\n"
           f"{prof.key_averages().table(sort_by='cuda_time_total', row_limit=25)}", flush=True)
     kinds = {"hand-written kernels": ("attn_fwd_kernel", "flash_fwd_kernel", "attn_bwd_", "small_mha_",
-                                      "gemm_kernel<",
+                                      "gemm_resident_kernel", "gemm_stream_kernel",
                                       "ln_film_kernel"),
              "library GEMMs (cuBLAS)": ("gemm", "nvjet", "cutlass", "cublas", "sm90_xmma",
                                         "sm80_xmma")}
     sums, total = dict.fromkeys([*kinds, "PyTorch elementwise, reductions, copies, other"], 0.0), 0.0
     for evt in prof.key_averages():
-        if "cuda" not in str(getattr(evt, "device_type", "")).lower():
-            continue   # operator rows: their device time is their kernels'
-        us = getattr(evt, "self_device_time_total", None)
-        us = getattr(evt, "self_cuda_time_total", 0.0) if us is None else us
+        us = _device_us(evt)
         kind = next((k for k, pats in kinds.items() if any(p in evt.key for p in pats)),
                     "PyTorch elementwise, reductions, copies, other")
         sums[kind] += us
@@ -1620,6 +1840,39 @@ def phase_wan_train(dev, card, profile):
     return launches, results
 
 
+def gemm_ab(card) -> int:
+    """`--gemm-ab`: what the W-resident GEMM kernel buys over the streaming one.
+    Four runs of this script's `--maze-kernels` part in processes of their own,
+    in the order default, stream-only, stream-only, default: the second build
+    sends every product to the streaming kernel (-DID_GEMM_STREAM_ONLY, through
+    kernels/_build.py's ID_KERNELS_NVCC_FLAGS). Each run holds its build against
+    the plain twins first. ff2 (K = 1536) streams in both and reads the spread."""
+    runs = []
+    for variant in ("default", "stream-only", "stream-only", "default"):
+        env = dict(os.environ)
+        env.pop("ID_KERNELS_NVCC_FLAGS", None)
+        if variant == "stream-only":
+            env["ID_KERNELS_NVCC_FLAGS"] = "-DID_GEMM_STREAM_ONLY"
+        child = subprocess.run([sys.executable, os.path.abspath(__file__), "--maze-kernels"],
+                               env=env, capture_output=True, text=True, timeout=600)
+        if child.returncode != 0:
+            print(child.stdout[-4000:] + child.stderr[-4000:], flush=True)
+            print(f"FAIL: the {variant} build's run exited {child.returncode}", flush=True)
+            return 1
+        runs.append((variant, json.loads(child.stdout.strip().splitlines()[-1])))
+    tag = f"[{card}]"
+    for i, entry in enumerate(runs[0][1]["gemm"]):
+        what = f"{entry['epilogue']} M={entry['M']} N={entry['N']} K={entry['K']}"
+        key = "device_ms" if "device_ms" in entry else "ms"
+        cells = ", ".join(f"{variant} {run['gemm'][i][key]:.4f}" for variant, run in runs)
+        print(f"[gemm-ab] {tag} gemm_bias_act {what} "
+              f"({'graph replay' if key == 'device_ms' else 'events'}), ms: {cells}", flush=True)
+    for shape in runs[0][1]["block"]:
+        cells = ", ".join(f"{variant} {run['block'][shape]:.4f}" for variant, run in runs)
+        print(f"[gemm-ab] {tag} fused_film_block {shape}, ms: {cells}", flush=True)
+    return 0
+
+
 def main() -> int:
     try:
         import torch
@@ -1637,6 +1890,8 @@ def main() -> int:
         return 1
     try:
         card = phase_device()
+        if "--gemm-ab" in sys.argv[1:]:
+            return gemm_ab(card)
         phase_build()
         dev = torch.device("cuda")
         # the plain twins are the f32 references: no TF32 in their products
@@ -1644,7 +1899,16 @@ def main() -> int:
         torch.backends.cudnn.allow_tf32 = False
         profile = "--profile" in sys.argv[1:]
         cases = phase_kernels(dev)
+        if "--maze-kernels" in sys.argv[1:]:   # one run of --gemm-ab: checks, times, one JSON line
+            times = phase_timings(dev, card, cases)
+            print(json.dumps({"gemm": times["gemm"], "block": {
+                f"[{k[1]},{k[2]},{BENCH['d_model']}]": v[0] for k, v in times.items()
+                if k[0] == "fused_film_block" and k[1] == 1024}}), flush=True)
+            return 0
         if "--kernels" in sys.argv[1:]:   # the kernels alone: no model, no summary
+            phase_timings(dev, card, cases)
+            del cases
+            torch.cuda.empty_cache()
             phase_maze_autograd(dev, card)
             _, wan_cases = phase_wan_kernels(dev)
             phase_wan_kernel_timings(card, wan_cases)
@@ -1654,7 +1918,11 @@ def main() -> int:
             print("[kernels] every kernel agrees with its plain twin", flush=True)
             return 0
         kp, it, pipe, launches = phase_main(dev)
-        times = phase_timings(dev, card, cases, pipe, kp, it)
+        times = phase_timings(dev, card, cases)
+        # the summary needs the GEMM cases' errors only: free their 0.6 GB of
+        # operands, so that the trainers' peak memory reads as it would alone
+        cases["gemm"] = [case[:2] for case in cases["gemm"]]
+        phase_pipeline_timings(dev, card, pipe, kp, it, profile)
         del kp, it, pipe
         torch.cuda.empty_cache()
         grad_errs, mha_times = phase_maze_autograd(dev, card)
@@ -1673,13 +1941,19 @@ def main() -> int:
         print(f"FAIL: {e}", flush=True)
         return 1
 
-    # Bounds of the maze kernels at [B, L, D] = [1024, 64, 384], from the shapes:
-    # the block does the qkv, attention, output and two FFN products on bf16
-    # tensor cores and must move x, y, its weights and the FiLM vectors once.
-    B, L, D, H, F = 1024, 64, BENCH["d_model"], BENCH["n_heads"], BENCH["d_ff"]
-    block_flops = B * L * (2 * D * 3 * D + 4 * L * D + 2 * D * D + 4 * D * F)
-    block_bytes = 2 * (2 * B * L * D + 4 * B * D + 4 * D * D + 2 * D * F + 9 * D + F)
-    maze_bounds = {"fused_film_block": bound_ms(block_bytes, block_flops),
+    # Bounds of the maze kernels at [B, L, D] = [1024, 64, 384] (Stage 2) and
+    # [1024, 8, 384] (Stage 1), from the shapes: the block does the qkv,
+    # attention, output and two FFN products on bf16 tensor cores and must move
+    # x, y, its weights and the FiLM vectors once. (The chain's intermediates,
+    # which a one-kernel block would not move, are not in the bound.)
+    B, D, H, F = 1024, BENCH["d_model"], BENCH["n_heads"], BENCH["d_ff"]
+
+    def block_bound(L):
+        flops = B * L * (2 * D * 3 * D + 4 * L * D + 2 * D * D + 4 * D * F)
+        return bound_ms(2 * (2 * B * L * D + 4 * B * D + 4 * D * D + 2 * D * F + 9 * D + F), flops)
+
+    L = 64
+    maze_bounds = {"fused_film_block": block_bound(L),
                    "small_mha_packed": bound_ms(2 * 4 * B * L * D, 4.0 * B * L * L * D)}
     summary = []
 
@@ -1691,17 +1965,33 @@ def main() -> int:
                         "library_ms": library_ms, **extra})
 
     # `launches` from the sampling pipeline's run, `train_launches` from the
-    # maze trainers' run (steps, the CLIs, the use_small_mha stack)
+    # maze trainers' run (steps, the CLIs, the use_small_mha stack). The block's
+    # row also holds its Stage-1 shape, the same run's launches by shape as the
+    # wrapper counted them (three block-policy calls), and its four products
+    # alone; small_mha_packed's its time by graph replay.
+    s1_ms, s1_plain, s1_lib = times[("fused_film_block", B, 8)]
+    g_ms, g_lib = times[("small_mha_packed/graph", B, L)]
+    extras = {"fused_film_block": dict(
+                  stage1_ms=s1_ms, stage1_plain_ms=s1_plain, stage1_library_ms=s1_lib,
+                  stage1_bound_ms=block_bound(8)[0],
+                  launches_by_shape=launches["fused_film_block/by_shape"],
+                  host_paced_ms={f"[{b},8,384]": dict(zip(("bf16_parameters", "f32_masters"),
+                                                          times[("fused_film_block/host", b)]))
+                                 for b in (1, 64)},
+                  gemm=times["gemm"],
+                  gemm_max_abs_err=max(c[1] for c in cases["gemm"])),
+              "small_mha_packed": dict(device_ms=g_ms, library_device_ms=g_lib)}
     for name in ("fused_film_block", "small_mha_packed"):
         k_ms, p_ms, lib_ms = times[(name, B, L)]
         row(name, launches[name], max(grad_errs[name], *(c[1] for c in cases[name])), k_ms, p_ms,
-            maze_bounds[name], lib_ms, train_launches=maze_train_launches[name])
+            maze_bounds[name], lib_ms, train_launches=maze_train_launches[name], **extras[name])
     # small_mha at the Stage-2 trainer's shape [256, 64, 384]; its main path is
     # the maze training phase (TransformerBlock(use_small_mha=True))
     k_ms, p_ms, lib_ms, mha_bound = mha_times[(256, 64)]
     t_ms, t_plain, t_lib, t_bound = mha_times[(64, 512)]   # the tiled kernel, [64, 512, 128] H=2
     row("small_mha", maze_train_launches["small_mha"], grad_errs["small_mha"], k_ms, p_ms,
         mha_bound, lib_ms, train_launches=maze_train_launches["small_mha"],
+        device_ms=mha_times["small_graph"][0], library_device_ms=mha_times["small_graph"][1],
         tiled_ms=t_ms, tiled_plain_ms=t_plain, tiled_bound_ms=t_bound[0], tiled_library_ms=t_lib,
         tiled_device_ms=mha_times["tiled_graph"][0],
         tiled_library_device_ms=mha_times["tiled_graph"][1])

@@ -8,24 +8,39 @@
 // the batch padding nor the -1e30 mask. _kernel (launched by _fwd_pallas,
 // public small_mha) is attention per (sample, head) with no mask to begin
 // with, so the two entries share this file's device code: small_mha_kernel
-// for L <= 256 (both entries), small_mha_tiled_kernel for 256 < L (small_mha
-// alone, whose window is H*L <= 1024; see below).
+// for L <= 256 (both entries, and the attention inside fused_film_block),
+// small_mha_tiled_kernel for 256 < L (small_mha alone, whose window is
+// H*L <= 1024; see below).
 //
 // What bounds it on the H100: at the maze Stage-2 shape (B=1024, L=64, H=12,
 // Dh=32) the QK^T and P.V products are ~6.4 GFLOP while q/k/v/o move ~200 MB
 // (counted from the shapes), so the kernel should be bound by device-memory
-// bytes. One block per (sample, head) reads its q/k/v tiles once into shared
-// memory (16-byte loads), runs both products on the tensor cores (WMMA bf16
-// 16x16x16, f32 accumulate; a first CUDA-core version was bound by
-// shared-memory loads), takes each row's softmax on two lanes (a warp-wide
-// reduction per row serialised the warp on shuffle latency), keeps logits
-// and probabilities on chip, and writes o once in the packed [B, L, H*Dh]
-// layout with no head transpose. It is still latency-bound, several times
-// above its byte bound (PERF.md). L is padded to a multiple of 16 inside the
-// block; padded keys get probability 0 and padded query rows are not written.
+// bytes. A first version (one block per (sample, head), WMMA, logits through
+// a shared f32 strip that was read back a scalar at a time three times over,
+// P and O staged through shared memory again) was bound by latency at five
+// times its byte bound. small_mha_kernel now is the register-resident form of
+// the tiled kernel below, with two differences that its contract forces:
+//  - a warp holds the logits of its 16 query rows for ALL keys in registers
+//    (L / 2 floats a thread: 32 at L = 64, 128 at L = 256; the kernel is
+//    instantiated for strips of 16, 32, 64, 128 and 256 keys), so each row's
+//    full max and sum are known before P = exp2(s - max) / sum is rounded to
+//    bf16: the TPU kernel's rounding point, with no online rescale;
+//  - a block takes several neighbouring heads of one sample: as many as make
+//    128 columns (4 heads of 32, 2 of 64), so that its cp.async loads are
+//    256-byte runs of the q / k / v rows instead of 64-byte pieces and the
+//    grid is B * H / 4 blocks of 48 KB tiles rather than B * H of 4 KB; fewer
+//    heads when L is long, so that the tiles stay within 64 KB and 2-4 blocks
+//    share an SM, whose loads then run under each other's products. The four
+//    warps of a block share out the (head, 16 query rows) items.
+// S's accumulators (mma.sync m16n8k16) are packed in place into the A
+// fragments of P.V, K and V fragments come by ldmatrix (V transposed on the
+// way), the scale is folded into exp2, and O goes from registers straight
+// into the packed [B, L, H * Dh] layout with no head transpose. L is padded
+// to a multiple of 16 inside the block; padded keys get probability 0 and
+// padded query rows are not written. PERF.md has its time beside the bound.
 //
-// Above L = 256 one (sample, head) no longer fits q, k, v and a [16, L] f32
-// logits strip per warp in one block's shared memory. small_mha_tiled_kernel
+// Above L = 256 a warp's logits strip no longer fits its registers.
+// small_mha_tiled_kernel
 // gives each block (8 warps) 128 query rows of one (sample, head) and walks
 // the keys once in tiles of 64 with an online softmax. At its shapes
 // (L <= 1024, one or two heads: [64, 512, 128] H=2 is 8.6 GFLOP and 33.5 MB,
@@ -52,7 +67,6 @@
 // softmax in f32 (max-subtracted exp, divide by the sum), P rounded to bf16,
 // P.V with f32 accumulation, output rounded to bf16.
 #include <math.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include "attention_common.cuh"
@@ -61,128 +75,203 @@
 namespace {
 
 using bf16 = __nv_bfloat16;
-using namespace nvcuda;
 
-constexpr int kMaxWarps = 4;
 constexpr int kMaxL = 256;
+constexpr int kSmallThreads = 128;   // 4 warps, each 16 query rows of one head at a time
+constexpr int kGroupCols = 128;      // columns (heads x head dim) a block loads at most
 
-struct Layout {  // shared-memory carve-up, byte offsets (each 128-aligned)
-  int Lp, ldx, lds, ldp;
-  size_t q, k, v, s, p, o, total;
-};
-
-__host__ __device__ inline size_t align128(size_t x) { return (x + 127) & ~size_t(127); }
-
-__host__ __device__ inline Layout make_layout(int L, int Dh, int warps) {
-  Layout t;
-  t.Lp = (L + 15) / 16 * 16;
-  t.ldx = Dh + 8;      // q/k/v rows, bf16
-  t.lds = t.Lp + 4;    // per-warp logits, f32
-  t.ldp = t.Lp + 8;    // per-warp probabilities, bf16
-  size_t off = 0;
-  const size_t tile = align128((size_t)t.Lp * t.ldx * sizeof(bf16));
-  t.q = off; off += tile;
-  t.k = off; off += tile;
-  t.v = off; off += tile;
-  t.s = off; off += align128((size_t)warps * 16 * t.lds * sizeof(float));
-  t.p = off; off += align128((size_t)warps * 16 * t.ldp * sizeof(bf16));
-  t.o = off; off += align128((size_t)warps * 16 * 16 * sizeof(float));
-  t.total = off;
-  return t;
+// Heads a block of small_mha_kernel takes: as many as make 128 columns (a
+// 256-byte run of every q / k / v row), fewer while the three tiles would not
+// fit 64 KB (so that a few blocks share an SM), never more than H.
+__host__ __device__ inline int heads_per_block(int Lp, int Dh, int H) {
+  int hg = kGroupCols / Dh;
+  while (hg > 1 && 3 * Lp * (2 * hg * Dh + 16) > 64 * 1024) hg /= 2;
+  return hg < H ? hg : H;
 }
 
-// Rows [0, L) of one head's [L, Dh] slice into shared memory (16-byte
-// chunks), rows [L, Lp) zero.
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, long long ld, int L,
-                                          int Lp, int Dh, int ldx) {
-  const int chunks = Dh / 8;
-  for (int c = threadIdx.x; c < Lp * chunks; c += blockDim.x) {
-    const int r = c / chunks, d = (c % chunks) * 8;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (r < L) val = *reinterpret_cast<const uint4*>(src + r * ld + d);
-    *reinterpret_cast<uint4*>(dst + r * ldx + d) = val;
+// Rows [0, Lp) of `heads` neighbouring heads' [L, heads * DH] slice (row stride
+// ld elements) into shared memory rows of `lds` bytes by cp.async; rows at or
+// past L are zero-filled.
+template <int DH>
+__device__ __forceinline__ void load_group(unsigned char* dst, int lds, const bf16* src,
+                                           long long ld, int L, int Lp, int heads) {
+  const int chunks = heads * DH / 8;   // 16-byte pieces a row
+  for (int c = threadIdx.x; c < Lp * chunks; c += kSmallThreads) {
+    const int r = c / chunks, off = (c % chunks) * 16;
+    const bool ok = r < L;
+    const unsigned char* row = reinterpret_cast<const unsigned char*>(src + (long long)r * ld);
+    id_attn::cp_async16(dst + r * lds + off,
+                        ok ? row + off : reinterpret_cast<const unsigned char*>(src), ok);
   }
 }
 
-__global__ void small_mha_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                                 const bf16* __restrict__ v, bf16* __restrict__ o, int L,
-                                 int H, int Dh, long long ldq, long long ldk, long long ldv,
-                                 long long ldo, float scale) {
+// Attention of one sample and `hg` neighbouring heads per block, L <= LMAX <=
+// 256. grid (B * ceil(H / hg)), 128 threads. A warp takes one (head, 16 query
+// rows) item at a time; its logits for all L keys (LMAX / 2 floats a thread),
+// the probabilities and the output accumulator never leave registers.
+// Fragment layouts as in attention_common.cuh: lane = 4 * g + t; the warp's
+// rows g and g + 8.
+template <int DH, int LMAX>
+__global__ void __launch_bounds__(kSmallThreads, LMAX <= 64 ? 4 : LMAX <= 128 ? 2 : 1)
+small_mha_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                 const bf16* __restrict__ v, bf16* __restrict__ o, int L, int H, int hg,
+                 int groups, long long ldq, long long ldk, long long ldv, long long ldo,
+                 float scale_log2) {
+  using namespace id_attn;
   extern __shared__ __align__(128) unsigned char smem[];
-  const int warps = blockDim.x / 32;
-  const Layout t = make_layout(L, Dh, warps);
-  bf16* Qs = reinterpret_cast<bf16*>(smem + t.q);
-  bf16* Ks = reinterpret_cast<bf16*>(smem + t.k);
-  bf16* Vs = reinterpret_cast<bf16*>(smem + t.v);
-
-  const int b = blockIdx.x / H, h = blockIdx.x % H;
+  const int b = blockIdx.x / groups, h0 = (blockIdx.x % groups) * hg;
+  const int heads = H - h0 < hg ? H - h0 : hg;   // the last group may be short
+  const int Lp = (L + 15) / 16 * 16;
+  // shared rows hold hg heads and 16 bytes of padding, so that the 8 rows one
+  // fragment load touches fall in distinct banks
+  const int lds = 2 * hg * DH + 16;
+  unsigned char* sQ = smem;
+  unsigned char* sK = sQ + Lp * lds;
+  unsigned char* sV = sK + Lp * lds;
   const long long row0 = (long long)b * L;
-  const int col0 = h * Dh;
-  load_tile(Qs, q + row0 * ldq + col0, ldq, L, t.Lp, Dh, t.ldx);
-  load_tile(Ks, k + row0 * ldk + col0, ldk, L, t.Lp, Dh, t.ldx);
-  load_tile(Vs, v + row0 * ldv + col0, ldv, L, t.Lp, Dh, t.ldx);
+  const int col0 = h0 * DH;
+  load_group<DH>(sQ, lds, q + row0 * ldq + col0, ldq, L, Lp, heads);
+  load_group<DH>(sK, lds, k + row0 * ldk + col0, ldk, L, Lp, heads);
+  load_group<DH>(sV, lds, v + row0 * ldv + col0, ldv, L, Lp, heads);
+  cp_async_commit();
+  cp_async_wait<0>();
   __syncthreads();
 
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  float* S = reinterpret_cast<float*>(smem + t.s) + warp * 16 * t.lds;
-  bf16* P = reinterpret_cast<bf16*>(smem + t.p) + warp * 16 * t.ldp;
-  float* Ostage = reinterpret_cast<float*>(smem + t.o) + warp * 16 * 16;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t4 = lane % 4;
+  constexpr int kNb = LMAX / 8;   // 8-key column blocks of S
+  constexpr int kNd = DH / 8;     // 8-wide output column blocks
+  constexpr int kKs = DH / 16;    // k-steps of Q K^T
+  const int row_blocks = Lp / 16;
 
-  for (int r0 = warp * 16; r0 < t.Lp; r0 += warps * 16) {
-    // S[16, Lp] = Q[r0:r0+16] K^T (f32 accumulate)
-    for (int n0 = 0; n0 < t.Lp; n0 += 16) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::fill_fragment(acc, 0.f);
-      for (int k0 = 0; k0 < Dh; k0 += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> bk;
-        wmma::load_matrix_sync(a, Qs + r0 * t.ldx + k0, t.ldx);
-        wmma::load_matrix_sync(bk, Ks + n0 * t.ldx + k0, t.ldx);
-        wmma::mma_sync(acc, a, bk, acc);
-      }
-      wmma::store_matrix_sync(S + n0, acc, t.lds, wmma::mem_row_major);
-    }
-    __syncwarp();
-    // row softmax over the L real keys, two lanes per row (a warp-wide
-    // reduction per row would serialise 16 shuffle chains); padded keys get 0
-    {
-      const int r = lane / 2, half = lane % 2;
-      const float* srow = S + r * t.lds;
-      float m = -INFINITY;
-      for (int j = half; j < L; j += 2) m = fmaxf(m, srow[j] * scale);
-      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
-      float sum = 0.f;
-      for (int j = half; j < L; j += 2) sum += expf(srow[j] * scale - m);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      bf16* prow = P + r * t.ldp;
-      for (int j = half; j < t.Lp; j += 2)
-        prow[j] = __float2bfloat16(j < L ? expf(srow[j] * scale - m) / sum : 0.f);
-    }
-    __syncwarp();
-    // O[16, Dh] = P[16, Lp] V[Lp, Dh] (f32 accumulate), rows < L written as bf16
-    for (int d0 = 0; d0 < Dh; d0 += 16) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::fill_fragment(acc, 0.f);
-      for (int k0 = 0; k0 < t.Lp; k0 += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bv;
-        wmma::load_matrix_sync(a, P + k0, t.ldp);
-        wmma::load_matrix_sync(bv, Vs + k0 * t.ldx + d0, t.ldx);
-        wmma::mma_sync(acc, a, bv, acc);
-      }
-      wmma::store_matrix_sync(Ostage, acc, 16, wmma::mem_row_major);
-      __syncwarp();
-      const int r = lane / 2, c = (lane % 2) * 8;
-      if (r0 + r < L) {
-        __align__(16) bf16 packed[8];
+  for (int item = warp; item < heads * row_blocks; item += kSmallThreads / 32) {
+    const int hh = item / row_blocks, r0 = (item % row_blocks) * 16;
+    const int hcol = hh * DH * 2;   // the head's byte offset inside a shared row
+
+    uint32_t qf[kKs][4];
+    const unsigned char* qa = sQ + (r0 + g) * lds + hcol;
 #pragma unroll
-        for (int e = 0; e < 8; ++e) packed[e] = __float2bfloat16(Ostage[r * 16 + c + e]);
-        *reinterpret_cast<uint4*>(o + (row0 + r0 + r) * ldo + col0 + d0 + c) =
-            *reinterpret_cast<const uint4*>(packed);
+    for (int ks = 0; ks < kKs; ++ks) {
+      const int c0 = (ks * 16 + t4 * 2) * 2;
+      qf[ks][0] = ld32(qa + c0);
+      qf[ks][1] = ld32(qa + 8 * lds + c0);
+      qf[ks][2] = ld32(qa + c0 + 16);
+      qf[ks][3] = ld32(qa + 8 * lds + c0 + 16);
+    }
+
+    // S = Q K^T for the warp's 16 rows and every key, in base-2 logits; keys
+    // at or past L get -inf (key 0 is real, so every row's max is finite)
+    float s[kNb][4];
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int nb = 0; nb < kNb; ++nb) {
+      if (nb * 8 < Lp) {
+        // K fragments of two k-steps a load: lanes 8i..8i+7 address key rows
+        // nb * 8 .. + 7 at dims 8i .. 8i + 7 of the pair
+        const unsigned char* kb = sK + (nb * 8 + (lane & 7)) * lds + hcol + (lane >> 3) * 16;
+        float sf[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int ks = 0; ks < kKs; ks += 2) {
+          uint32_t bk[4];
+          ldmatrix_x4(bk, kb + ks * 32);
+          mma_bf16(sf, qf[ks], bk[0], bk[1]);
+          mma_bf16(sf, qf[ks + 1], bk[2], bk[3]);
+        }
+        const int key = nb * 8 + 2 * t4;
+        s[nb][0] = key < L ? sf[0] * scale_log2 : -INFINITY;
+        s[nb][1] = key + 1 < L ? sf[1] * scale_log2 : -INFINITY;
+        s[nb][2] = key < L ? sf[2] * scale_log2 : -INFINITY;
+        s[nb][3] = key + 1 < L ? sf[3] * scale_log2 : -INFINITY;
+        mx[0] = fmaxf(mx[0], fmaxf(s[nb][0], s[nb][1]));
+        mx[1] = fmaxf(mx[1], fmaxf(s[nb][2], s[nb][3]));
       }
-      __syncwarp();
+    }
+
+    // the row's whole softmax before P is rounded: exp2(s - max) / sum
+    float sum[2] = {0.f, 0.f};
+    mx[0] = quad_max(mx[0]);
+    mx[1] = quad_max(mx[1]);
+#pragma unroll
+    for (int nb = 0; nb < kNb; ++nb) {
+      if (nb * 8 < Lp) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[nb][e] = ex2(s[nb][e] - mx[e / 2]);
+          sum[e / 2] += s[nb][e];
+        }
+      }
+    }
+    const float inv[2] = {1.f / quad_sum(sum[0]), 1.f / quad_sum(sum[1])};
+
+    // O = P V: P (bf16) from the S registers as the A operand, 16 keys a step;
+    // V fragments by ldmatrix.trans, two column blocks a load
+    float acc[kNd][4];
+#pragma unroll
+    for (int nd = 0; nd < kNd; ++nd) acc[nd][0] = acc[nd][1] = acc[nd][2] = acc[nd][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < kNb / 2; ++kk) {
+      if (kk * 16 < Lp) {
+        const uint32_t pa[4] = {
+            pack_bf16(s[2 * kk][0] * inv[0], s[2 * kk][1] * inv[0]),
+            pack_bf16(s[2 * kk][2] * inv[1], s[2 * kk][3] * inv[1]),
+            pack_bf16(s[2 * kk + 1][0] * inv[0], s[2 * kk + 1][1] * inv[0]),
+            pack_bf16(s[2 * kk + 1][2] * inv[1], s[2 * kk + 1][3] * inv[1])};
+        const unsigned char* vb = sV + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * lds +
+                                  hcol + ((lane >> 4) & 1) * 16;
+#pragma unroll
+        for (int nd = 0; nd < kNd; nd += 2) {
+          uint32_t bv[4];
+          ldmatrix_x4_trans(bv, vb + nd * 16);
+          mma_bf16(acc[nd], pa, bv[0], bv[1]);
+          mma_bf16(acc[nd + 1], pa, bv[2], bv[3]);
+        }
+      }
+    }
+
+    // o straight from registers into the packed [B, L, H * DH] layout
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = r0 + g + 8 * r;
+      if (row >= L) continue;
+      bf16* orow = o + (row0 + row) * ldo + col0 + hh * DH;
+#pragma unroll
+      for (int nd = 0; nd < kNd; ++nd)
+        *reinterpret_cast<uint32_t*>(orow + nd * 8 + 2 * t4) =
+            pack_bf16(acc[nd][2 * r], acc[nd][2 * r + 1]);
     }
   }
+}
+
+template <int DH, int LMAX>
+cudaError_t launch_small(const bf16* q, const bf16* k, const bf16* v, bf16* o, int B, int L,
+                         int H, long long ldq, long long ldk, long long ldv, long long ldo,
+                         float scale, cudaStream_t stream) {
+  const int Lp = (L + 15) / 16 * 16;
+  const int hg = heads_per_block(Lp, DH, H), groups = (H + hg - 1) / hg;
+  const int smem = 3 * Lp * (2 * hg * DH + 16);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        small_mha_kernel<DH, LMAX>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+  }
+  const long long blocks = (long long)B * groups;
+  if (blocks > 2147483647LL) return cudaErrorInvalidValue;
+  small_mha_kernel<DH, LMAX><<<(unsigned)blocks, kSmallThreads, smem, stream>>>(
+      q, k, v, o, L, H, hg, groups, ldq, ldk, ldv, ldo, scale * 1.4426950408889634f);
+  return cudaGetLastError();
+}
+
+// The instantiation whose register-resident logits strip (LMAX keys) is the
+// shortest that holds L.
+template <int DH>
+cudaError_t launch_small_dh(const bf16* q, const bf16* k, const bf16* v, bf16* o, int B, int L,
+                            int H, long long ldq, long long ldk, long long ldv, long long ldo,
+                            float scale, cudaStream_t stream) {
+  if (L <= 16) return launch_small<DH, 16>(q, k, v, o, B, L, H, ldq, ldk, ldv, ldo, scale, stream);
+  if (L <= 32) return launch_small<DH, 32>(q, k, v, o, B, L, H, ldq, ldk, ldv, ldo, scale, stream);
+  if (L <= 64) return launch_small<DH, 64>(q, k, v, o, B, L, H, ldq, ldk, ldv, ldo, scale, stream);
+  if (L <= 128)
+    return launch_small<DH, 128>(q, k, v, o, B, L, H, ldq, ldk, ldv, ldo, scale, stream);
+  return launch_small<DH, 256>(q, k, v, o, B, L, H, ldq, ldk, ldv, ldo, scale, stream);
 }
 
 constexpr int kTile = 64;        // keys per tile
@@ -390,20 +479,11 @@ cudaError_t launch_small_mha(const __nv_bfloat16* q, const __nv_bfloat16* k,
                              int B, int L, int H, int Dh,
                              long long ldq, long long ldk, long long ldv,
                              long long ldo, float scale, cudaStream_t stream) {
-  if (B <= 0 || L <= 0 || L > kMaxL || (Dh != 32 && Dh != 64) || ldq % 8 || ldk % 8 ||
+  if (B <= 0 || H <= 0 || L <= 0 || L > kMaxL || (Dh != 32 && Dh != 64) || ldq % 8 || ldk % 8 ||
       ldv % 8 || ldo % 8)
     return cudaErrorInvalidValue;
-  const int Lp = (L + 15) / 16 * 16;
-  const int warps = Lp / 16 < kMaxWarps ? Lp / 16 : kMaxWarps;
-  const size_t smem = make_layout(L, Dh, warps).total;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        small_mha_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
-  }
-  small_mha_kernel<<<B * H, warps * 32, smem, stream>>>(q, k, v, o, L, H, Dh, ldq, ldk, ldv,
-                                                        ldo, scale);
-  return cudaGetLastError();
+  if (Dh == 32) return launch_small_dh<32>(q, k, v, o, B, L, H, ldq, ldk, ldv, ldo, scale, stream);
+  return launch_small_dh<64>(q, k, v, o, B, L, H, ldq, ldk, ldv, ldo, scale, stream);
 }
 
 extern "C" int id_small_mha_packed(const void* q, const void* k, const void* v, void* o,
@@ -417,8 +497,8 @@ extern "C" int id_small_mha_packed(const void* q, const void* k, const void* v, 
 }
 
 // small_mha: any L (the Python wrapper holds it to the TPU kernel's window
-// H * L <= 1024). L <= 256 runs the one-block-per-head kernel above, longer
-// sequences the tiled one.
+// H * L <= 1024). L <= 256 runs small_mha_kernel, longer sequences the tiled
+// one.
 extern "C" int id_small_mha(const void* q, const void* k, const void* v, void* o, int B, int L,
                             int H, int Dh, long long ldq, long long ldk, long long ldv,
                             long long ldo, float scale, void* stream) {

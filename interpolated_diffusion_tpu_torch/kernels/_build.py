@@ -11,6 +11,11 @@ source, all started together, then one link:
 The library goes to `build/kernels/<hash of sources and flags>/` at the root
 of the checkout, so a changed source rebuilds and an unchanged one loads the
 existing library. Nothing here runs at import time.
+
+`ID_KERNELS_NVCC_FLAGS` (environment, read at build time) appends flags to
+every compile, for an A/B measurement of a compile-time switch of a source
+(`-DID_GEMM_STREAM_ONLY`, csrc/fused_block.cu); they are part of the hash, so
+each setting has a library of its own.
 """
 from __future__ import annotations
 
@@ -48,13 +53,17 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
+def _flags() -> tuple:
+    return (*NVCC_FLAGS, *os.environ.get("ID_KERNELS_NVCC_FLAGS", "").split())
+
+
 def _sources() -> list:
     return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
 
 
 def library_path() -> Path:
     """Where the library for the current sources lives (built or not)."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(_flags()).encode())
     for src in _sources():
         h.update(src.name.encode())
         h.update(src.read_bytes())
@@ -76,7 +85,7 @@ def build() -> Path:
         obj = out.with_name(f"{src.stem}.{tag}.o")
         objs.append(obj)
         procs.append((src.name, subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
+            [nvcc, *_flags(), "-c", str(src), "-o", str(obj)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     logs, failed = [], []
     for name, proc in procs:

@@ -79,12 +79,19 @@ def _torch_block(x, gb1, gb2, ln1s, ln1b, ln2s, ln2b, wqkv, bqkv, wout, bout,
 
 
 _ARGTYPES = [ctypes.c_void_p] * 21 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
-_MATRICES = (6, 8, 10, 12)          # wqkv, wout, wff1, wff2 among the 14 tensors after x
-_VECTORS = (2, 3, 4, 5, 7, 9, 11, 13)  # LN scales / biases and the four biases
+_NAMES = ("x", "gb1", "gb2", "ln1s", "ln1b", "ln2s", "ln2b", "wqkv", "bqkv", "wout", "bout",
+          "wff1", "bff1", "wff2", "bff2")
+# what each of the 15 tensors is: an activation (x and the FiLM rows: bf16), a
+# weight matrix (bf16, or an f32 master that is cast), a bias or LN vector
+_ACT, _MAT, _VEC = 0, 1, 2
+_KINDS = (_ACT, _ACT, _ACT, _VEC, _VEC, _VEC, _VEC, _MAT, _VEC, _MAT, _VEC, _MAT, _VEC, _MAT, _VEC)
 
 
-def _launch_block(x, args, n_heads: int, use_film: bool) -> torch.Tensor:
-    """Checks, scratch buffers and one launch of the kernel chain."""
+def _check_block(x, args, n_heads: int) -> list:
+    """The 15 tensors as the CUDA chain takes them (contiguous; f32 master
+    matrices cast to bf16, as on the TPU), or ValueError for what it does not
+    take. Needs no card. Runs once a block call on a host-bound path, so it
+    builds its message only when it raises."""
     B, L, D = x.shape
     F = args[10].shape[0]
     dh = D // n_heads
@@ -92,41 +99,121 @@ def _launch_block(x, args, n_heads: int, use_film: bool) -> torch.Tensor:
         raise ValueError(f"fused_film_block: CUDA kernels need D and F multiples of 64, "
                          f"head dim 32 or 64 and L <= {MAX_L} (got D={D}, F={F}, "
                          f"H={n_heads}, L={L})")
-    if -(-B * L // 128) > 65535:
-        raise ValueError("fused_film_block: B*L too large for one launch")
     bf, f32 = torch.bfloat16, torch.float32
     vec_dtype = args[2].dtype
     if vec_dtype not in (bf, f32):
         raise ValueError(f"fused_film_block: biases and LN vectors are {vec_dtype}; the CUDA "
                          "kernels take f32 or bf16")
-    shapes = {"x": (B, L, D), "gb1": (B, 2 * D), "gb2": (B, 2 * D), "ln1s": (D,),
-              "ln1b": (D,), "ln2s": (D,), "ln2b": (D,), "wqkv": (3 * D, D), "bqkv": (3 * D,),
-              "wout": (D, D), "bout": (D,), "wff1": (F, D), "bff1": (F,), "wff2": (D, F),
-              "bff2": (D,)}
+    shapes = ((B, L, D), (B, 2 * D), (B, 2 * D), (D,), (D,), (D,), (D,), (3 * D, D), (3 * D,),
+              (D, D), (D,), (F, D), (F,), (D, F), (D,))
+    wants = ((bf,), (bf, f32), (vec_dtype,))
     ins = []
-    for i, ((name, shape), t) in enumerate(zip(shapes.items(), (x, *args))):
-        want = ((bf, f32) if i - 1 in _MATRICES else (vec_dtype,) if i - 1 in _VECTORS
-                else (bf,))
-        if tuple(t.shape) != shape or t.device != x.device or t.dtype not in want:
+    for name, kind, shape, t in zip(_NAMES, _KINDS, shapes, (x, *args)):
+        if t.shape != shape or t.device != x.device or t.dtype not in wants[kind]:
             raise ValueError(f"fused_film_block: {name} is {t.dtype} {tuple(t.shape)} on "
-                             f"{t.device}; the CUDA kernels take {' or '.join(map(str, want))} "
-                             f"{shape} on {x.device} (biases and LN vectors all of one dtype)")
-        # f32 master matrices enter the kernels in bf16, as on the TPU
-        ins.append((t.detach().to(bf) if i - 1 in _MATRICES else t.detach()).contiguous())
+                             f"{t.device}; the CUDA kernels take "
+                             f"{' or '.join(map(str, wants[kind]))} {shape} on {x.device} "
+                             "(biases and LN vectors all of one dtype)")
+        if t.dtype != bf and kind == _MAT:
+            t = t.to(bf)
+        ins.append(t if t.is_contiguous() else t.contiguous())
+    return ins
+
+
+def _launch_block(x, args, n_heads: int, use_film: bool) -> torch.Tensor:
+    """Checks, scratch buffers and one launch of the kernel chain."""
+    ins = _check_block(x, args, n_heads)
+    B, L, D = x.shape
+    F = args[10].shape[0]
+    bf, f32 = torch.bfloat16, torch.float32
     M = B * L
     empty = lambda *shape, dtype=bf: torch.empty(shape, dtype=dtype, device=x.device)
     h, qkv, o = empty(M, D), empty(M, 3 * D), empty(M, D)
     x2, f, y = empty(M, D, dtype=f32), empty(M, F), empty(B, L, D)
-    bufs = [h, qkv, o, x2, f, y]
-    if any(t.data_ptr() % 16 for t in ins + bufs):
+    ptrs = [t.data_ptr() for t in (*ins, h, qkv, o, x2, f, y)]
+    if any(p % 16 for p in ptrs):
         raise ValueError("fused_film_block: CUDA kernels need 16-byte aligned tensors")
     fn = _build.function("id_fused_film_block", _ARGTYPES)
-    err = fn(*[t.data_ptr() for t in ins + bufs], B, L, D, n_heads, F,
-             int(bool(use_film)), int(vec_dtype == f32), dh ** -0.5,
-             torch.cuda.current_stream(x.device).cuda_stream)
+    err = fn(*ptrs, B, L, D, n_heads, F, int(bool(use_film)), int(args[2].dtype == f32),
+             (D // n_heads) ** -0.5, torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "fused_film_block")
     fused_film_block.launches += 1
+    by_len = fused_film_block.launches_by_len
+    by_len[L] = by_len.get(L, 0) + 1
     return y
+
+
+EPILOGUES = ("bias", "bias_silu", "resid_f32", "resid_out")   # csrc: enum Epilogue
+
+
+def _torch_gemm(a, w, bias, epilogue: str, resid=None) -> torch.Tensor:
+    """Plain twin of the GEMM: epilogue(a @ w^T + bias), rounded as the kernel
+    rounds. The product runs in f32 on operands rounded to a.dtype; the bias is
+    added in f32. "bias" rounds that to a.dtype; "bias_silu" applies SiLU in
+    f32 first; "resid_f32" adds it to resid (a.dtype) and stays f32;
+    "resid_out" adds it to resid (f32) and rounds to a.dtype."""
+    cdt = a.dtype
+    v = a.float() @ w.to(cdt).float().t() + bias.float()
+    if epilogue == "bias":
+        return v.to(cdt)
+    if epilogue == "bias_silu":
+        return (v * torch.sigmoid(v)).to(cdt)
+    if epilogue == "resid_f32":
+        return resid.float() + v
+    if epilogue == "resid_out":
+        return (resid + v).to(cdt)
+    raise ValueError(f"gemm_bias_act: unknown epilogue {epilogue!r}; one of {EPILOGUES}")
+
+
+def _check_gemm(a, w, bias, epilogue: str, resid) -> None:
+    """The shapes and types the CUDA GEMM takes (needs no card to check)."""
+    bf, f32 = torch.bfloat16, torch.float32
+    if epilogue not in EPILOGUES:
+        raise ValueError(f"gemm_bias_act: unknown epilogue {epilogue!r}; one of {EPILOGUES}")
+    if a.dim() != 2 or w.dim() != 2 or a.shape[1] != w.shape[1] or a.shape[0] < 1:
+        raise ValueError(f"gemm_bias_act: a {tuple(a.shape)} and w {tuple(w.shape)} must be "
+                         "[M, K] and [N, K]")
+    (M, K), N = a.shape, w.shape[0]
+    if N % 64 or K % 64:
+        raise ValueError(f"gemm_bias_act: the CUDA kernel needs N and K multiples of 64 "
+                         f"(got N={N}, K={K})")
+    if a.dtype != bf or w.dtype != bf or bias.dtype not in (bf, f32) or tuple(bias.shape) != (N,):
+        raise ValueError(f"gemm_bias_act: the CUDA kernel takes bf16 a and w and an f32 or "
+                         f"bf16 bias [{N}] (got {a.dtype}, {w.dtype}, {bias.dtype} "
+                         f"{tuple(bias.shape)})")
+    want = {"resid_f32": bf, "resid_out": f32}.get(epilogue)
+    if (resid is None) != (want is None) or (want is not None and (
+            resid.dtype != want or tuple(resid.shape) != (M, N))):
+        raise ValueError(f"gemm_bias_act: epilogue {epilogue!r} takes "
+                         f"{'no resid' if want is None else f'a {want} resid [{M}, {N}]'}")
+    tensors = [a, w, bias] + ([resid] if resid is not None else [])
+    if any(t.device != a.device or not t.is_contiguous() or t.data_ptr() % 16 for t in tensors):
+        raise ValueError("gemm_bias_act: the CUDA kernel needs contiguous, 16-byte aligned "
+                         "tensors on one device")
+
+
+def gemm_bias_act(a, w, bias, epilogue: str = "bias", resid=None) -> torch.Tensor:
+    """epilogue(a [M, K] @ w [N, K]^T + bias [N]): the GEMM of the block chain
+    alone. On CUDA tensors one launch of the wgmma + TMA kernel (bf16 a and w,
+    f32 or bf16 bias, N and K multiples of 64; anything else raises); on CPU
+    tensors the plain twin. Output bf16 [M, N], f32 for "resid_f32"."""
+    if a.device.type == "cpu":
+        return _torch_gemm(a, w, bias, epilogue, resid)
+    if a.device.type != "cuda":
+        raise ValueError(f"gemm_bias_act: unsupported device {a.device}")
+    _check_gemm(a, w, bias, epilogue, resid)
+    (M, K), N = a.shape, w.shape[0]
+    out = torch.empty((M, N), device=a.device,
+                      dtype=torch.float32 if epilogue == "resid_f32" else torch.bfloat16)
+    fn = _build.function("id_gemm_bias_act", [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+                         + [ctypes.c_void_p])
+    err = fn(a.data_ptr(), w.data_ptr(), bias.data_ptr(),
+             resid.data_ptr() if resid is not None else None, out.data_ptr(), M, N, K,
+             EPILOGUES.index(epilogue), int(bias.dtype == torch.float32),
+             torch.cuda.current_stream(a.device).cuda_stream)
+    _build.check(err, "gemm_bias_act")
+    gemm_bias_act.launches += 1
+    return out
 
 
 def _forward(x, args, n_heads: int, use_film: bool, twin: bool) -> torch.Tensor:
@@ -184,3 +271,5 @@ def fused_film_block_twin(x, *args, n_heads: int, group_b: int = 8,
 
 
 fused_film_block.launches = 0
+fused_film_block.launches_by_len = {}   # the same launches by sequence length L: {L: count}
+gemm_bias_act.launches = 0      # launches of the GEMM alone (not those inside the chain)

@@ -49,23 +49,38 @@ class PipelineConfig:
     # knobs of the JAX pipeline that are not ported yet (NotImplementedError
     # unless left at these values)
     anchor_conf: bool = False
+    anchor_conf_anneal_mode: str = "none"
+    anchor_conf_teacher: float = 0.95
+    anchor_conf_endpoints: float = 1.0
+    anchor_conf_missing: float = 0.0
     soft_anchor_clamp: bool = False
+    soft_clamp_schedule: str = "linear"
+    soft_clamp_max: float = 0.5
     s2_noise_mode: str = "none"
+    s2_noise_sigma: float = 0.0
+    s2_noise_scale: float = 1.0
+    s2_sigma_min: float = 0.0
+    s2_sigma_pow: float = 1.0
     logit_space: bool = False
+    logit_eps: float = 1e-5
     stage2_mask_policy: str = "base"
     collect_steps: bool = False
     stage1_cache_interval: int = 1
     stage1_solver: str = "ddim"
     stage1_objective: str = "eps"
     stage1_best_of: int = 1
+    stage1_best_of_mode: str = "set"
     kp_feat_dim: int = 0
     s2_delta_smooth: int = 0
 
 
-_UNPORTED = ("anchor_conf", "soft_anchor_clamp", "s2_noise_mode", "logit_space",
+_UNPORTED = ("anchor_conf", "anchor_conf_anneal_mode", "anchor_conf_teacher",
+             "anchor_conf_endpoints", "anchor_conf_missing", "soft_anchor_clamp",
+             "soft_clamp_schedule", "soft_clamp_max", "s2_noise_mode", "s2_noise_sigma",
+             "s2_noise_scale", "s2_sigma_min", "s2_sigma_pow", "logit_space", "logit_eps",
              "stage2_mask_policy", "collect_steps", "stage1_cache_interval",
-             "stage1_solver", "stage1_objective", "stage1_best_of", "kp_feat_dim",
-             "s2_delta_smooth")
+             "stage1_solver", "stage1_objective", "stage1_best_of", "stage1_best_of_mode",
+             "kp_feat_dim", "s2_delta_smooth")
 
 
 def _default(name: str):

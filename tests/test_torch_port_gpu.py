@@ -7,7 +7,7 @@ mode). This file imports no JAX, so it also runs on a machine without it:
 
 (--noconftest: tests/conftest.py sets up JAX for the CPU suite.) Shapes are
 the bench's main path; tolerances are chip_smoke.py's, as max|kernel - twin|
-over max|twin| in bf16: 2e-2 for the block, 1e-2 for the attention kernels
+over max|twin| in bf16: 2e-2 for the block and its GEMM alone, 1e-2 for the attention kernels
 (o and lse), 0.08 for int8 SLA against the bf16 SLA twin, 2e-2 for the
 attention backward kernels (dq, dk, dv: bf16 outputs of f32 sums over
 products of twice-rounded bf16 factors).
@@ -53,25 +53,105 @@ def _rel(out, ref):
 @pytest.mark.parametrize("B,L,film,d,h,f", [
     (1024, 8, True, D, H, F), (1024, 64, True, D, H, F), (1, 8, True, D, H, F),
     (37, 64, True, D, H, F), (37, 8, False, D, H, F),
-    # widths the 128-wide GEMM tile does not divide (N = 320, 960) and Dh = 64
+    # widths the 192-wide GEMM tile does not divide (N = 320, 1280: the 64- and
+    # 128-column instantiations) and Dh = 64
     (64, 64, True, 320, 10, 1280), (64, 64, True, 384, 6, 1536)])
 def test_fused_film_block_matches_twin(cuda, B, L, film, d, h, f):
     x, args = _block_args(B, L, film, cuda, D=d, F=f)
     before = fused_block.fused_film_block.launches
+    before_len = dict(fused_block.fused_film_block.launches_by_len)
     with torch.inference_mode():
         out = fused_block.fused_film_block(x, *args, n_heads=h, use_film=film)
         ref = fused_block._torch_block(x, *args, n_heads=h, use_film=film)
     torch.cuda.synchronize()
     assert fused_block.fused_film_block.launches == before + 1
+    before_len[L] = before_len.get(L, 0) + 1   # the same launch, counted by its length
+    assert fused_block.fused_film_block.launches_by_len == before_len
     assert out.shape == (B, L, d) and out.dtype == torch.bfloat16
     assert torch.isfinite(out).all()
     assert _rel(out, ref) <= 2e-2
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("M", [65536, 8192, 2368, 8])
+@pytest.mark.parametrize("epilogue,N,K", [
+    ("bias", 3 * D, D), ("resid_f32", D, D), ("bias_silu", F, D), ("resid_out", D, F),
+    # widths the narrower tiles serve: 128 columns (N = 1280), 64 (N = 320)
+    ("bias_silu", 1280, 320), ("resid_out", 320, 1280)])
+def test_gemm_bias_act_matches_twin(cuda, M, epilogue, N, K):
+    """The block's GEMM alone, each epilogue at its product of the path (M =
+    65536 and 8192 are Stage 2's and Stage 1's rows at B = 1024), at a ragged M
+    and at M = 8; f32 bias at the large M, bf16 at the others."""
+    g = torch.Generator(device=cuda).manual_seed(M + N)
+    bf = torch.bfloat16
+    a = torch.randn((M, K), generator=g, device=cuda).to(bf)
+    w = (torch.randn((N, K), generator=g, device=cuda) * K ** -0.5).to(bf)
+    bias = 0.1 * torch.randn(N, generator=g, device=cuda)
+    bias = bias if M == 65536 else bias.to(bf)
+    resid = {"resid_f32": torch.randn((M, N), generator=g, device=cuda).to(bf),
+             "resid_out": torch.randn((M, N), generator=g, device=cuda)}.get(epilogue)
+    before = fused_block.gemm_bias_act.launches
+    with torch.inference_mode():
+        out = fused_block.gemm_bias_act(a, w, bias, epilogue, resid)
+        ref = fused_block._torch_gemm(a, w, bias, epilogue, resid)
+    torch.cuda.synchronize()
+    assert fused_block.gemm_bias_act.launches == before + 1
+    assert out.shape == ref.shape and out.dtype == ref.dtype and torch.isfinite(out).all()
+    assert _rel(out, ref) <= 2e-2
+
+
+@pytest.mark.gpu
+def test_gemm_bias_act_raises_instead_of_falling_back(cuda):
+    bf = torch.bfloat16
+    a, w = torch.zeros((16, 128), dtype=bf, device=cuda), torch.zeros((64, 128), dtype=bf, device=cuda)
+    bias = torch.zeros(64, device=cuda)
+    with pytest.raises(ValueError):          # f32 activations: the kernel takes bf16
+        fused_block.gemm_bias_act(a.float(), w, bias)
+    with pytest.raises(ValueError):          # N = 96 is no multiple of 64
+        fused_block.gemm_bias_act(a, w.new_zeros((96, 128)), bias.new_zeros(96))
+    with pytest.raises(ValueError):          # the residual epilogue without its residual
+        fused_block.gemm_bias_act(a, w, bias, "resid_out")
+    with pytest.raises(ValueError):          # bias on another device
+        fused_block.gemm_bias_act(a, w, bias.cpu())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("L", [1, 8, 17, 64, 200, 256])
+@pytest.mark.parametrize("h,dm", [(12, 384), (6, 384), (5, 160), (3, 192)])
+def test_small_mha_kernel_window(cuda, L, h, dm):
+    """small_mha_kernel over its window through both entries: every strip
+    length, one row, ragged lengths, head dims 32 and 64, and head counts that
+    leave a block's last group of heads short (5 heads of 32, 3 of 64)."""
+    g = torch.Generator(device=cuda).manual_seed(L + h)
+    for entry, heads in ((small_mha.small_mha_packed, h),
+                         (small_mha.small_mha, min(h, 1024 // L))):
+        width = heads * (dm // h)
+        qkv = torch.randn((67, L, 3 * width), generator=g, device=cuda).to(torch.bfloat16)
+        q, k, v = qkv.split(width, dim=-1)
+        with torch.inference_mode():
+            out, ref = entry(q, k, v, heads), small_mha._torch_attention(q, k, v, heads)
+        torch.cuda.synchronize()
+        assert torch.isfinite(out).all() and _rel(out, ref) <= 1e-2
+
+
+@pytest.mark.gpu
+def test_small_mha_packed_many_blocks(cuda):
+    """B * H beyond 65535 (24000 samples x 6 heads of 64, two heads a block:
+    72000 blocks): the grid is one-dimensional."""
+    g = torch.Generator(device=cuda).manual_seed(1)
+    qkv = torch.randn((24000, 8, 3 * D), generator=g, device=cuda).to(torch.bfloat16)
+    q, k, v = qkv.split(D, dim=-1)
+    with torch.inference_mode():
+        out, ref = small_mha.small_mha_packed(q, k, v, 6), small_mha._torch_attention(q, k, v, 6)
+    torch.cuda.synchronize()
+    assert _rel(out, ref) <= 1e-2
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("L,h", [(8, H), (64, H), (100, H), (256, H), (64, 6), (256, 6)])
 def test_small_mha_packed_matches_twin(cuda, L, h):
-    """h = 6 gives head dim 64; L = 256 with it is the largest shared-memory case."""
+    """h = 6 gives head dim 64; L = 256 with it holds the longest logits strip
+    (128 floats a thread) beside the widest accumulator."""
     g = torch.Generator(device=cuda).manual_seed(L)
     qkv = torch.randn((64, L, 3 * D), generator=g, device=cuda).to(torch.bfloat16)
     q, k, v = qkv.split(D, dim=-1)
@@ -120,7 +200,7 @@ def _masters(args):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("B,L,h,dm", [
-    (256, 64, H, D), (64, 8, H, D), (64, 100, 6, D),        # L <= 256: one block per head
+    (256, 64, H, D), (64, 8, H, D), (64, 100, 6, D),        # L <= 256: small_mha_kernel
     (64, 512, 2, 128), (16, 1024, 1, 64), (8, 300, 2, 64),  # tiled over queries and keys
     (8, 333, 3, 96),
     # the tiled kernel's edges: the first L past the one-block kernel, ragged

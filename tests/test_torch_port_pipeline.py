@@ -122,9 +122,36 @@ def test_pipeline_generator_draws_are_reproducible(setup):
     ("anchor_conf", True), ("soft_anchor_clamp", True), ("s2_noise_mode", "level"),
     ("logit_space", True), ("stage2_mask_policy", "selector"), ("collect_steps", True),
     ("stage1_cache_interval", 2), ("stage1_solver", "pfdiff"), ("stage1_objective", "rf"),
-    ("stage1_best_of", 4), ("kp_feat_dim", 5), ("s2_delta_smooth", 2)])
+    ("stage1_best_of", 4), ("kp_feat_dim", 5), ("s2_delta_smooth", 2),
+    ("anchor_conf_anneal_mode", "linear"), ("anchor_conf_teacher", 0.5),
+    ("anchor_conf_endpoints", 0.9), ("anchor_conf_missing", 0.1),
+    ("soft_clamp_schedule", "cosine"), ("soft_clamp_max", 0.25), ("s2_noise_sigma", 0.1),
+    ("s2_noise_scale", 0.5), ("s2_sigma_min", 0.01), ("s2_sigma_pow", 2.0),
+    ("logit_eps", 1e-4), ("stage1_best_of_mode", "dp")])
 def test_unported_knobs_raise(setup, knob, value):
     cfg = generate.PipelineConfig(**CFG, **{knob: value})
     with pytest.raises(NotImplementedError, match=knob):
         generate.make_pipeline(setup["kp_t"], setup["adj"][2], make_schedule("linear", 100),
                                cfg, 2)
+
+
+def test_pipeline_config_has_the_jax_fields_and_defaults():
+    """Every keyword of the JAX PipelineConfig exists in the port's with the
+    same default (a caller's config then builds in both packages), and the
+    port adds none of its own."""
+    import dataclasses
+    import inspect
+
+    params = inspect.signature(jgen.PipelineConfig.__init__).parameters
+    jax_fields = {n: p.default for n, p in params.items() if n != "self"}
+    port_fields = {f.name: f.default for f in dataclasses.fields(generate.PipelineConfig)}
+    assert set(port_fields) == set(jax_fields)
+    for name, default in jax_fields.items():
+        want = dataclasses.MISSING if default is inspect.Parameter.empty else default
+        assert port_fields[name] == want and type(port_fields[name]) is type(want), name
+    # each field is either a ported knob or raises when it leaves its default
+    ported = {"T", "K", "levels", "K_min", "ddim_steps", "time_spacing", "k_schedule",
+              "stage2_mode", "clamp_endpoints", "clamp_policy", "clamp_dims", "pos_clip",
+              "pos_clip_min", "pos_clip_max", "recompute_vel", "x0_clip"}
+    assert ported | set(generate._UNPORTED) == set(port_fields)
+    assert not ported & set(generate._UNPORTED)
