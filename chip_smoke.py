@@ -63,7 +63,9 @@ Phases, each on its own lines; any failure exits non-zero:
   9. wan bwd      the SLA and flash backward kernels (dQ, dK/dV) against their
                   twins at the trainer's shapes ([24, 7800, 128]; SLA blocks
                   256 and 128, one LUT with duplicated ids; flash cross
-                  7800 x 517 and self 7800 x 7800), with CUDA-event times
+                  7800 x 517 and self 7800 x 7800; flash also at head dim 64,
+                  ragged lengths, fewer than 64 keys, and two calls bit for
+                  bit), with CUDA-event times
   10. wan train   Phase-1 LoRA training (train/train_keypoints_wansynth) at
                   the trainer's defaults: Wan2.1-1.3B at full width and depth,
                   batch 2, L=7800, bf16, LoRA rank 8, frame conditioning,
@@ -152,23 +154,30 @@ KERNEL_SOURCES = {
                    "interpolated_diffusion_tpu/kernels/block_sparse_attention.py:438"),
     "sla_bwd_dkdv": ("interpolated_diffusion_tpu_torch/csrc/block_attention_bwd.cu",
                      "interpolated_diffusion_tpu/kernels/block_sparse_attention.py:473"),
-    "flash_bwd_dq": ("interpolated_diffusion_tpu_torch/csrc/block_attention_bwd.cu",
+    "flash_bwd_dq": ("interpolated_diffusion_tpu_torch/csrc/flash_bwd_sm90.cu",
                      "interpolated_diffusion_tpu/kernels/block_sparse_attention.py:214"),
-    "flash_bwd_dkdv": ("interpolated_diffusion_tpu_torch/csrc/block_attention_bwd.cu",
+    "flash_bwd_dkdv": ("interpolated_diffusion_tpu_torch/csrc/flash_bwd_sm90.cu",
                        "interpolated_diffusion_tpu/kernels/block_sparse_attention.py:248"),
 }
 
 # Times of the kernels that were redesigned (wgmma + TMA flash forward and
-# block GEMM, register-resident small_mha kernels), as this script measured
-# their first versions (mma.sync with a cp.async ring; WMMA with logits staged
-# through shared memory) on an NVIDIA H100 80GB HBM3 at a 700 W limit, in ms. Printed
-# on the [timing] lines beside the new times, so that one run shows before and
-# after; the JSON summary holds only what this run measured.
+# backward and block GEMM, register-resident small_mha kernels), as this script
+# measured their first versions (mma.sync with a cp.async ring; WMMA with logits
+# staged through shared memory) on an NVIDIA H100 80GB HBM3 at a 700 W limit, in
+# ms. Printed on the [timing] lines beside the new times, so that one run shows
+# before and after; the JSON summary holds only what this run measured.
 BEFORE_REDESIGN_MS = {"flash_attention/cross": 0.737, "flash_attention/self": 8.974,
                       "small_mha/tiled": 0.2134,
                       # the WMMA GEMM chain and the shared-memory small_mha_kernel
                       "fused_film_block/1024,64": 1.936, "small_mha_packed/1024,64": 0.308,
-                      "small_mha/256,64": 0.0901}
+                      "small_mha/256,64": 0.0901,
+                      # the mma.sync flash backward, q [24,7800,128] x k 517 / 7800
+                      "flash_bwd_dq/cross": 0.377, "flash_bwd_dkdv/cross": 0.544,
+                      "flash_bwd_dq/self": 4.601, "flash_bwd_dkdv/self": 6.312}
+# Flash backward cases beside the trainer's shapes, (BH, Lq, Lk, Dh): head
+# dim 64, query lengths ragged against the 128-row blocks and 64-row tiles,
+# key lengths ragged against both and one under a 64-key tile.
+FLASH_BWD_EXTRA = ((24, 1000, 517, 64), (6, 129, 65, 128), (6, 300, 40, 64), (4, 333, 133, 128))
 
 # Published dense peaks of one H100 SXM (NVIDIA's data sheet), for the bounds:
 # the least time the card could take is the larger of operations over the peak
@@ -266,8 +275,9 @@ def phase_build():
     print(f"[build] {os.path.relpath(path, ROOT)} in {took:.1f} s "
           f"(nvcc {_build.build_seconds:.1f} s)", flush=True)
     for line in _build.build_log.splitlines():
-        # C7514: ptxas serialised a wgmma chain (a wgmma under a condition)
-        if any(word in line for word in ("registers", "spill", "error", "C7514")):
+        # C7514 / C7512: ptxas serialised a wgmma chain (a wgmma under a
+        # condition / too few registers for what is in flight)
+        if any(word in line for word in ("registers", "spill", "error", "C7514", "C7512")):
             print(f"[build] {line.strip()}", flush=True)
 
 
@@ -1634,6 +1644,19 @@ def phase_wan_bwd_kernels(dev, card):
             want = bsa.flash_attention_bwd(q, kk, vv, o, lse, do, twin=True)
             check(flash_names, f"{label} q [{BH},{L},{D}] k {kk.shape[1]} rows", got, want)
             out[label] = (kk, vv, o, lse)
+            if label == "cross":   # deterministic: every output row has one writer
+                again = bsa.flash_attention_bwd(q, kk, vv, o, lse, do)
+                same = all(torch.equal(a, b) for a, b in zip(got, again))
+                print(f"[wan bwd] flash backward {label}: two calls bit-identical: {same}",
+                      flush=True)
+                require(same, "flash backward: two calls differ")
+        for bh, lq, lk, d in FLASH_BWD_EXTRA:
+            fq, fk, fv = _wan_qkv(bh, lq, d, gen, dev, Lk=lk)
+            fdo = torch.randn((bh, lq, d), generator=gen, device=dev).to(torch.bfloat16)
+            o, lse = bsa.flash_attention_fwd(fq, fk, fv)
+            got = bsa.flash_attention_bwd(fq, fk, fv, o, lse, fdo)
+            want = bsa.flash_attention_bwd(fq, fk, fv, o, lse, fdo, twin=True)
+            check(flash_names, f"q [{bh},{lq},{d}] k {lk} rows", got, want)
         torch.cuda.synchronize()
 
         # times at the same shapes: each kernel alone, the twin (dq, dk, dv at once)
@@ -1686,14 +1709,20 @@ def phase_wan_bwd_kernels(dev, card):
         b_dq = bound_ms(_nbytes(q, kk, vv, do) + rows + _nbytes(q), 6.0 * BH * L * Lk * D)
         b_dkdv = bound_ms(_nbytes(q, kk, vv, do) + rows + _nbytes(kk, vv), 8.0 * BH * L * Lk * D)
         print(f"[timing] {tag} flash backward {label} q [{BH},{L},{D}] k {Lk} rows: dQ kernel "
-              f"{t_dq:.4f} ms (bound {b_dq[0]:.4f} ms, {b_dq[1]}), dK/dV kernel {t_dkdv:.4f} ms "
-              f"(bound {b_dkdv[0]:.4f} ms, {b_dkdv[1]}), plain twin (dq, dk, dv) {t_twin:.4f} ms, "
-              f"library (scaled_dot_product_attention) backward {t_lib_bwd:.4f} ms, forward + "
-              f"backward {t_lib_both:.4f} ms", flush=True)
+              f"{t_dq:.4f} ms (bound {b_dq[0]:.4f} ms, {b_dq[1]}; before the redesign "
+              f"{BEFORE_REDESIGN_MS[f'flash_bwd_dq/{label}']:.4f} ms), dK/dV kernel "
+              f"{t_dkdv:.4f} ms (bound {b_dkdv[0]:.4f} ms, {b_dkdv[1]}; before the redesign "
+              f"{BEFORE_REDESIGN_MS[f'flash_bwd_dkdv/{label}']:.4f} ms), plain twin (dq, dk, dv) "
+              f"{t_twin:.4f} ms, library (scaled_dot_product_attention) backward "
+              f"{t_lib_bwd:.4f} ms, forward + backward {t_lib_both:.4f} ms", flush=True)
         if label == "cross":   # the shape every training mode gives the flash kernels
             times.update(flash_bwd_dq=t_dq, flash_bwd_dkdv=t_dkdv, flash_twin=t_twin,
                          flash_library=t_lib_bwd)
             bounds.update(flash_bwd_dq=b_dq, flash_bwd_dkdv=b_dkdv)
+        else:                  # the dense mode's self-attention shape
+            times.update(flash_bwd_dq_self=t_dq, flash_bwd_dkdv_self=t_dkdv,
+                         flash_twin_self=t_twin, flash_library_self=t_lib_bwd)
+            bounds.update(flash_bwd_dq_self=b_dq, flash_bwd_dkdv_self=b_dkdv)
     _set_train_counts(saved)
     return errs, times, bounds
 
@@ -2008,12 +2037,20 @@ def main() -> int:
                          self_bound_ms=wan_times["bounds"]["flash_attention/self"][0])
         row(name, wan_launches[name], max(wan_errs[name]), k_ms, p_ms, wan_times["bounds"][name],
             lib_ms, train_launches=train_launches[name], **extra)
-    # backward kernels: times at the trainer's shapes (flash: cross-attention);
-    # the twin and the library call compute dq, dk and dv in one call
+    # backward kernels: times at the trainer's shapes (flash: cross-attention,
+    # and its self-attention shape too); the twin and the library call compute
+    # dq, dk and dv in one call
     for name in ("sla_bwd_dq", "sla_bwd_dkdv", "flash_bwd_dq", "flash_bwd_dkdv"):
         kind = name.split("_")[0]
+        extra = {}
+        if kind == "flash":
+            extra = dict(self_ms=bwd_times[f"{name}_self"],
+                         self_plain_ms=bwd_times["flash_twin_self"],
+                         self_library_ms=bwd_times["flash_library_self"],
+                         self_bound_ms=bwd_bounds[f"{name}_self"][0])
         row(name, train_launches[name], bwd_errs[name], bwd_times[name],
-            bwd_times[f"{kind}_twin"], bwd_bounds[name], bwd_times.get(f"{kind}_library"))
+            bwd_times[f"{kind}_twin"], bwd_bounds[name], bwd_times.get(f"{kind}_library"),
+            **extra)
     idle = [r["name"] for r in summary if r["launches"] <= 0]
     if idle:
         print(f"FAIL: kernels never launched on their main path: {idle}", flush=True)

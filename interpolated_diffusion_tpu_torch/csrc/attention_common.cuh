@@ -1,7 +1,7 @@
 // Device helpers shared by the attention kernels (block_attention.cu,
-// block_attention_bwd.cu, flash_fwd_sm90.cu, small_mha.cu): cp.async copies,
-// 64-row tile loads, mma.sync wrappers, fragment packing, quad reductions and
-// the fast exp2. Fragment layouts (PTX ISA, mma.m16n8k16 /
+// block_attention_bwd.cu, flash_fwd_sm90.cu, flash_bwd_sm90.cu, small_mha.cu):
+// cp.async copies, 64-row tile loads, mma.sync wrappers, fragment packing,
+// quad reductions and the fast exp2. Fragment layouts (PTX ISA, mma.m16n8k16 /
 // m16n8k32), with lane = 4 * g + t: A rows g and g + 8, k columns 2t, 2t + 1
 // (and + 8); B column n = g, k rows 2t, 2t + 1 (and + 8); C rows g and g + 8,
 // columns 2t, 2t + 1.

@@ -1,12 +1,10 @@
-// Attention backward kernels for Hopper (sm_90a): block-sparse (SLA) and dense
-// flash attention, dQ and dK/dV.
+// Block-sparse (SLA) attention backward for Hopper (sm_90a): dQ and dK/dV.
+// (The dense flash backward is flash_bwd_sm90.cu.)
 //
-// Replaces four TPU kernels of
+// Replaces two TPU kernels of
 // interpolated_diffusion_tpu/kernels/block_sparse_attention.py:
-//   attn_bwd_dq_kernel<D, true>     _dq_kernel          (_bwd_pallas)
-//   attn_bwd_dkdv_kernel<D, true>   _dkdv_kernel        (_bwd_pallas)
-//   attn_bwd_dq_kernel<D, false>    _dq_kernel_dense    (_bwd_pallas_dense)
-//   attn_bwd_dkdv_kernel<D, false>  _dkdv_kernel_dense  (_bwd_pallas_dense)
+//   attn_bwd_dq_kernel<D>     _dq_kernel    (_bwd_pallas)
+//   attn_bwd_dkdv_kernel<D>   _dkdv_kernel  (_bwd_pallas)
 // The TPU kernels walk a sequential grid axis (key blocks for dQ, query blocks
 // for dK/dV) and carry their f32 sums in VMEM scratch. Here a block of 4 warps
 // owns 64 query rows (dQ) or 64 key rows (dK/dV), walks the tiles of the other
@@ -14,10 +12,9 @@
 // written by exactly one block: no atomics, the same bits every run.
 //
 // What bounds them on the H100: at the Wan2.1-1.3B training shapes (BH = 24,
-// L = 7800, Dh = 128, 3 key blocks of 256 per query block) the two SLA kernels
-// do ~184 GFLOP of products over ~0.25 GB of q/k/v/do/dq/dk/dv traffic, and
-// the dense pair ~1.9 TFLOP over the same bytes: both far above the bf16
-// ridge, so the tensor-core rate bounds them. All five products (Q K^T,
+// L = 7800, Dh = 128, 3 key blocks of 256 per query block) the two kernels do
+// ~184 GFLOP of products over ~0.25 GB of q/k/v/do/dq/dk/dv traffic: far
+// above the bf16 ridge, so the tensor-core rate bounds them. All five products (Q K^T,
 // dO V^T, dS K, P^T dO, dS^T Q) run on the tensor cores through mma.sync
 // (bf16 m16n8k16, f32 accumulate). S, P, dP and dS never leave registers: the
 // accumulator fragments of S are repacked as the A operand of the next
@@ -57,7 +54,7 @@ struct BwdParams {
   const bf16* dout;    // [BH, Lq, D]
   const float* lse;    // [BH, Lq], base 2
   const float* delta;  // [BH, Lq]
-  const int* lut;      // [BH, m_blocks, topk] (sparse only)
+  const int* lut;      // [BH, m_blocks, topk]
   bf16* dq;            // [BH, Lq, D] (dQ kernel)
   bf16* dk;            // [BH, Lk, D] (dK/dV kernel)
   bf16* dv;            // [BH, Lk, D]
@@ -105,9 +102,8 @@ __device__ __forceinline__ void mma_rows(float (&acc)[D / 8][4], const uint32_t 
 
 // ---------------------------------------------------------------------------
 // dQ: one block per 64 query rows, loop over the key tiles of its LUT row
-// (sparse) or over all key tiles (dense)
 // ---------------------------------------------------------------------------
-template <int D, bool SPARSE>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
 attn_bwd_dq_kernel(const BwdParams p) {
   using C = BCfg<D>;
@@ -127,29 +123,23 @@ attn_bwd_dq_kernel(const BwdParams p) {
   const unsigned char* kg = reinterpret_cast<const unsigned char*>(p.k + (long long)bh * p.Lk * D);
   const unsigned char* vg = reinterpret_cast<const unsigned char*>(p.v + (long long)bh * p.Lk * D);
 
-  int n_tiles;
-  if (!SPARSE) {
-    n_tiles = (p.kv_len + kBN - 1) / kBN;
-  } else {
-    if (threadIdx.x == 0) {
-      const int* lut = p.lut + ((long long)bh * p.m_blocks + row0 / p.block_m) * p.topk;
-      const int per = p.block_n / kBN;
-      int n = 0;
-      for (int j = 0; j < p.topk; ++j) {
-        const int id = lut[j];
-        for (int s = 0; s < per && id >= 0; ++s) {
-          const long long start = (long long)id * p.block_n + s * kBN;
-          if (start < p.kv_len && n < kMaxTiles) tiles[n++] = (int)start;
-        }
+  if (threadIdx.x == 0) {
+    const int* lut = p.lut + ((long long)bh * p.m_blocks + row0 / p.block_m) * p.topk;
+    const int per = p.block_n / kBN;
+    int n = 0;
+    for (int j = 0; j < p.topk; ++j) {
+      const int id = lut[j];
+      for (int s = 0; s < per && id >= 0; ++s) {
+        const long long start = (long long)id * p.block_n + s * kBN;
+        if (start < p.kv_len && n < kMaxTiles) tiles[n++] = (int)start;
       }
-      n_tiles_s = n;
     }
-    __syncthreads();
-    n_tiles = n_tiles_s;
+    n_tiles_s = n;
   }
-  auto tile_start = [&](int i) { return SPARSE ? tiles[i] : i * kBN; };
+  __syncthreads();
+  const int n_tiles = n_tiles_s;
   auto load_tile = [&](int i, int stage) {
-    const int key0 = tile_start(i);
+    const int key0 = tiles[i];
     load_rows(sK + stage * C::kTile, C::kLd, kg, C::kRow, key0, p.Lk);
     load_rows(sV + stage * C::kTile, C::kLd, vg, C::kRow, key0, p.Lk);
   };
@@ -182,7 +172,7 @@ attn_bwd_dq_kernel(const BwdParams p) {
     __syncthreads();
     const unsigned char* tK = sK + stage * C::kTile;
     const unsigned char* tV = sV + stage * C::kTile;
-    const int key0 = tile_start(it);
+    const int key0 = tiles[it];
 
     // S = Q K^T and dP = dO V^T for the warp's 16 rows x 64 keys
     float s[8][4], dp[8][4];
@@ -246,11 +236,10 @@ attn_bwd_dq_kernel(const BwdParams p) {
 }
 
 // ---------------------------------------------------------------------------
-// dK, dV: one block per 64 key rows, loop over the query tiles that attend to
-// them (sparse: those whose LUT row names this key block, weighted by how
-// often) or over all query tiles (dense)
+// dK, dV: one block per 64 key rows, loop over the query tiles whose LUT row
+// names this key block, weighted by how often
 // ---------------------------------------------------------------------------
-template <int D, bool SPARSE>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
 attn_bwd_dkdv_kernel(const BwdParams p, int n_qtiles_max) {
   using C = BCfg<D>;
@@ -263,7 +252,7 @@ attn_bwd_dkdv_kernel(const BwdParams p, int n_qtiles_max) {
   float* sDelta = sLse + 2 * kBM;                                // [2][64]
   int* q_rows = reinterpret_cast<int*>(sDelta + 2 * kBM);        // first row of each query tile
   int* q_cnts = q_rows + n_qtiles_max;                           // its weight
-  int* m_cnts = q_cnts + n_qtiles_max;                           // [m_blocks] (sparse)
+  int* m_cnts = q_cnts + n_qtiles_max;                           // [m_blocks]
   __shared__ int n_tiles_s;
 
   const int bh = blockIdx.y, key0 = blockIdx.x * kBN;
@@ -276,40 +265,34 @@ attn_bwd_dkdv_kernel(const BwdParams p, int n_qtiles_max) {
   const float* lseg = p.lse + (long long)bh * p.Lq;
   const float* deltag = p.delta + (long long)bh * p.Lq;
 
-  int n_tiles;
-  if (!SPARSE) {
-    n_tiles = (p.Lq + kBM - 1) / kBM;
-  } else {
-    // how often each query block's LUT row names this key block
-    const int n = key0 / p.block_n;
-    const int* lut = p.lut + (long long)bh * p.m_blocks * p.topk;
-    for (int m = threadIdx.x; m < p.m_blocks; m += kThreads) {
-      int c = 0;
-      for (int j = 0; j < p.topk; ++j) c += lut[m * p.topk + j] == n;
-      m_cnts[m] = c;
-    }
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      const int per = p.block_m / kBM;
-      int nt = 0;
-      for (int m = 0; m < p.m_blocks; ++m) {
-        if (m_cnts[m] == 0) continue;
-        for (int s = 0; s < per; ++s) {
-          const int row = m * p.block_m + s * kBM;
-          if (row < p.Lq && nt < n_qtiles_max) {
-            q_rows[nt] = row;
-            q_cnts[nt++] = m_cnts[m];
-          }
+  // how often each query block's LUT row names this key block
+  const int nb = key0 / p.block_n;
+  const int* lut = p.lut + (long long)bh * p.m_blocks * p.topk;
+  for (int m = threadIdx.x; m < p.m_blocks; m += kThreads) {
+    int c = 0;
+    for (int j = 0; j < p.topk; ++j) c += lut[m * p.topk + j] == nb;
+    m_cnts[m] = c;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    const int per = p.block_m / kBM;
+    int nt = 0;
+    for (int m = 0; m < p.m_blocks; ++m) {
+      if (m_cnts[m] == 0) continue;
+      for (int s = 0; s < per; ++s) {
+        const int row = m * p.block_m + s * kBM;
+        if (row < p.Lq && nt < n_qtiles_max) {
+          q_rows[nt] = row;
+          q_cnts[nt++] = m_cnts[m];
         }
       }
-      n_tiles_s = nt;
     }
-    __syncthreads();
-    n_tiles = n_tiles_s;
+    n_tiles_s = nt;
   }
-  auto tile_row = [&](int i) { return SPARSE ? q_rows[i] : i * kBM; };
+  __syncthreads();
+  const int n_tiles = n_tiles_s;
   auto load_tile = [&](int i, int stage) {
-    const int row0 = tile_row(i);
+    const int row0 = q_rows[i];
     load_rows(sQ + stage * C::kTile, C::kLd, qg, C::kRow, row0, p.Lq);
     load_rows(sdO + stage * C::kTile, C::kLd, dog, C::kRow, row0, p.Lq);
     if (threadIdx.x < kBM) {
@@ -347,7 +330,7 @@ attn_bwd_dkdv_kernel(const BwdParams p, int n_qtiles_max) {
     const unsigned char* tdO = sdO + stage * C::kTile;
     const float* tLse = sLse + stage * kBM;
     const float* tDelta = sDelta + stage * kBM;
-    const float cnt = SPARSE ? (float)q_cnts[it] : 1.f;
+    const float cnt = (float)q_cnts[it];
 
 #pragma unroll 1   // the halves share registers; unrolled they would not fit in 255
     for (int half = 0; half < 2; ++half) {   // 32 query rows at a time
@@ -435,56 +418,53 @@ attn_bwd_dkdv_kernel(const BwdParams p, int n_qtiles_max) {
 
 constexpr size_t kMaxSmem = 227 * 1024;
 
-bool bad_shapes(const BwdParams& p, int BH, bool sparse) {
+bool bad_shapes(const BwdParams& p, int BH) {
   if (BH <= 0 || BH > 65535 || p.Lq <= 0 || p.Lk <= 0 || p.kv_len < 0 || p.kv_len > p.Lk)
     return true;
-  if (!sparse) return false;
   return p.block_m <= 0 || p.block_m % kBM || p.block_n <= 0 || p.block_n % kBN ||
          p.topk <= 0 || p.m_blocks != (p.Lq + p.block_m - 1) / p.block_m ||
          (long long)p.topk * (p.block_n / kBN) > kMaxTiles;
 }
 
-template <int D, bool SPARSE>
+template <int D>
 cudaError_t launch_dq(const BwdParams& p, int BH, cudaStream_t stream) {
-  const size_t smem = 6 * BCfg<D>::kTile + (SPARSE ? kMaxTiles * sizeof(int) : 0);
+  const size_t smem = 6 * BCfg<D>::kTile + kMaxTiles * sizeof(int);
   const cudaError_t e = cudaFuncSetAttribute(
-      attn_bwd_dq_kernel<D, SPARSE>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      attn_bwd_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
   const dim3 grid((p.Lq + kBM - 1) / kBM, BH);
-  attn_bwd_dq_kernel<D, SPARSE><<<grid, kThreads, smem, stream>>>(p);
+  attn_bwd_dq_kernel<D><<<grid, kThreads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
-template <int D, bool SPARSE>
+template <int D>
 cudaError_t launch_dkdv(const BwdParams& p, int BH, cudaStream_t stream) {
   // room for the query-tile list: every query block expands into block_m / 64 tiles
-  const int n_qtiles_max = SPARSE ? p.m_blocks * (p.block_m / kBM) : 0;
+  const int n_qtiles_max = p.m_blocks * (p.block_m / kBM);
   const size_t smem = 6 * BCfg<D>::kTile + 4 * kBM * sizeof(float) +
-                      (2 * (size_t)n_qtiles_max + (SPARSE ? p.m_blocks : 0)) * sizeof(int);
+                      (2 * (size_t)n_qtiles_max + p.m_blocks) * sizeof(int);
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
   const cudaError_t e = cudaFuncSetAttribute(
-      attn_bwd_dkdv_kernel<D, SPARSE>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      attn_bwd_dkdv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
   const dim3 grid((p.Lk + kBN - 1) / kBN, BH);
-  attn_bwd_dkdv_kernel<D, SPARSE><<<grid, kThreads, smem, stream>>>(p, n_qtiles_max);
+  attn_bwd_dkdv_kernel<D><<<grid, kThreads, smem, stream>>>(p, n_qtiles_max);
   return cudaGetLastError();
 }
 
-template <bool SPARSE>
 int dispatch_dq(const BwdParams& p, int BH, int D, void* stream) {
-  if (bad_shapes(p, BH, SPARSE)) return (int)cudaErrorInvalidValue;
+  if (bad_shapes(p, BH)) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D == 64) return (int)launch_dq<64, SPARSE>(p, BH, s);
-  if (D == 128) return (int)launch_dq<128, SPARSE>(p, BH, s);
+  if (D == 64) return (int)launch_dq<64>(p, BH, s);
+  if (D == 128) return (int)launch_dq<128>(p, BH, s);
   return (int)cudaErrorInvalidValue;
 }
 
-template <bool SPARSE>
 int dispatch_dkdv(const BwdParams& p, int BH, int D, void* stream) {
-  if (bad_shapes(p, BH, SPARSE)) return (int)cudaErrorInvalidValue;
+  if (bad_shapes(p, BH)) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D == 64) return (int)launch_dkdv<64, SPARSE>(p, BH, s);
-  if (D == 128) return (int)launch_dkdv<128, SPARSE>(p, BH, s);
+  if (D == 64) return (int)launch_dkdv<64>(p, BH, s);
+  if (D == 128) return (int)launch_dkdv<128>(p, BH, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -509,9 +489,9 @@ extern "C" int id_sla_bwd_dq(const void* q, const void* k, const void* v, const 
                              const void* lse, const void* delta, const void* lut, void* dq,
                              int BH, int Lq, int Lk, int D, int kv_len, int topk, int block_m,
                              int block_n, float scale_log2, float scale, void* stream) {
-  return dispatch_dq<true>(make_params(q, k, v, dout, lse, delta, lut, dq, nullptr, nullptr, Lq,
-                                       Lk, kv_len, topk, block_m, block_n, scale_log2, scale),
-                           BH, D, stream);
+  return dispatch_dq(make_params(q, k, v, dout, lse, delta, lut, dq, nullptr, nullptr, Lq, Lk,
+                                 kv_len, topk, block_m, block_n, scale_log2, scale),
+                     BH, D, stream);
 }
 
 // SLA backward, dK and dV: as id_sla_bwd_dq -> dk, dv bf16 [BH, Lk, D].
@@ -520,26 +500,7 @@ extern "C" int id_sla_bwd_dkdv(const void* q, const void* k, const void* v, cons
                                void* dv, int BH, int Lq, int Lk, int D, int kv_len, int topk,
                                int block_m, int block_n, float scale_log2, float scale,
                                void* stream) {
-  return dispatch_dkdv<true>(make_params(q, k, v, dout, lse, delta, lut, nullptr, dk, dv, Lq, Lk,
-                                         kv_len, topk, block_m, block_n, scale_log2, scale),
-                             BH, D, stream);
-}
-
-// Flash backward, dQ: q/dout bf16 [BH, Lq, D], k/v bf16 [BH, Lk, D].
-extern "C" int id_flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
-                               const void* lse, const void* delta, void* dq, int BH, int Lq,
-                               int Lk, int D, float scale_log2, float scale, void* stream) {
-  return dispatch_dq<false>(make_params(q, k, v, dout, lse, delta, nullptr, dq, nullptr, nullptr,
-                                        Lq, Lk, Lk, 0, 0, 0, scale_log2, scale),
-                            BH, D, stream);
-}
-
-// Flash backward, dK and dV.
-extern "C" int id_flash_bwd_dkdv(const void* q, const void* k, const void* v, const void* dout,
-                                 const void* lse, const void* delta, void* dk, void* dv, int BH,
-                                 int Lq, int Lk, int D, float scale_log2, float scale,
-                                 void* stream) {
-  return dispatch_dkdv<false>(make_params(q, k, v, dout, lse, delta, nullptr, nullptr, dk, dv, Lq,
-                                          Lk, Lk, 0, 0, 0, scale_log2, scale),
-                              BH, D, stream);
+  return dispatch_dkdv(make_params(q, k, v, dout, lse, delta, lut, nullptr, dk, dv, Lq, Lk,
+                                   kv_len, topk, block_m, block_n, scale_log2, scale),
+                       BH, D, stream);
 }

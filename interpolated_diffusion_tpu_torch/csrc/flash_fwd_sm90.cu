@@ -90,30 +90,8 @@ struct Smem {
   static constexpr int kBytes = kOffBar + kBars * 8 + 1024;
 };
 
-// mbarriers, named barriers, TMA loads, descriptors and the shared-memory
-// wgmma come from sm90_common.cuh; what only this kernel uses follows.
-
-// d[64 x 128] += A[64 x 16] B[16 x 128], A (bf16 pairs) in registers, B
-// MN-major in shared memory (the last immediate, trans-b = 1; scale-d is a
-// predicate, here always true: the accumulator starts at zero).
-__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{" ID_REGS_0_31 ", " ID_REGS_32_63 "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : ID_F32(d, 0), ID_F32(d, 32)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-// The same for a 64-wide output (Dh = 64).
-__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{" ID_REGS_0_31 "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : ID_F32(d, 0)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
+// mbarriers, named barriers, TMA loads, descriptors and the wgmma forms come
+// from sm90_common.cuh; what only this kernel uses follows.
 
 // One 64 x 128 tile of raw logits (this thread's 2 rows x 32 columns) ->
 // P = exp2(s * scale_log2 - new running max) in place; updates the running
@@ -150,17 +128,6 @@ __device__ __forceinline__ void softmax_tile(float (&s)[64], float (&m_run)[2], 
   }
 #pragma unroll
   for (int r = 0; r < 2; ++r) l_run[r] = l_run[r] * alpha[r] + rowsum[r];
-}
-
-// P (bf16) from the registers of S: 16 keys a k-step of the next wgmma.
-__device__ __forceinline__ void pack_p(uint32_t (&p)[8][4], const float (&s)[64]) {
-#pragma unroll
-  for (int kk = 0; kk < 8; ++kk) {
-    p[kk][0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
-    p[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
-    p[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
-    p[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
-  }
 }
 
 // grid (min(SMs, work items)), 384 threads; a work item is 128 query rows of
@@ -299,7 +266,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constan
       fence_regs(s);
       release(empty_k(kv % kStages));
       softmax_tile(s, m_run, l_run, alpha, scale_log2, 0, Lk, t4);   // acc is 0: alpha unused
-      pack_p(p, s);
+      pack_a(p, s);   // P (bf16) from the registers of S, 16 keys a k-step
       for (int it = 0; it + 1 < n_tiles; ++it) {
         named_sync(1 + wg);
         wgmma_fence();
@@ -315,7 +282,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constan
         release(empty_v((kv + it) % kStages));
 #pragma unroll
         for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i % 4) / 2];
-        pack_p(p, s);
+        pack_a(p, s);
       }
       release(q_empty);    // every S of this item is complete: Q may be overwritten
       wgmma_fence();
@@ -339,15 +306,6 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constan
       }
     }
   }
-}
-
-// [BH, L, D] bf16, contiguous, as a 3-D map with [1, 128, 64] boxes in the
-// 128-byte swizzle; out-of-range rows are filled with zeros.
-bool make_map(CUtensorMap* map, const void* ptr, int BH, int L, int D) {
-  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)L, (cuuint64_t)BH};
-  const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)L * D * 2};
-  const cuuint32_t box[3] = {kBox, kBM, 1};
-  return make_bf16_map(map, ptr, 3, dims, strides, box);
 }
 
 template <int D>
@@ -377,8 +335,8 @@ extern "C" int id_flash_fwd(const void* q, const void* k, const void* v, void* o
   if (BH <= 0 || Lq <= 0 || Lk <= 0 || (D != 64 && D != 128))
     return (int)cudaErrorInvalidValue;
   CUtensorMap mq, mk, mv;
-  if (!make_map(&mq, q, BH, Lq, D) || !make_map(&mk, k, BH, Lk, D) ||
-      !make_map(&mv, v, BH, Lk, D))
+  if (!make_heads_map(&mq, q, BH, Lq, D, kBM) || !make_heads_map(&mk, k, BH, Lk, D, kBN) ||
+      !make_heads_map(&mv, v, BH, Lk, D, kBN))
     return (int)cudaErrorInvalidValue;
   bf16* ob = static_cast<bf16*>(o);
   float* lb = static_cast<float*>(lse);

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) primitives shared by the wgmma + TMA kernels of the port
-// (flash_fwd_sm90.cu, fused_block.cu): mbarriers, named barriers, TMA tile
-// loads, the shared-memory matrix descriptor of the 128-byte swizzle, wgmma
-// with both operands in shared memory, the tensor-map encoder (an entry of
+// (flash_fwd_sm90.cu, flash_bwd_sm90.cu, fused_block.cu): mbarriers, named
+// barriers, TMA tile loads, the shared-memory matrix descriptor of the
+// 128-byte swizzle, wgmma with both operands in shared memory and with A in
+// registers, the accumulator -> A fragment pack, the tensor-map encoder (an entry of
 // libcuda that the runtime hands out, so nothing new is linked) and the SM
 // count.
 #pragma once
@@ -11,6 +12,8 @@
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "attention_common.cuh"
 
 namespace id_sm90 {
 
@@ -158,6 +161,46 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[96], uint64_t a, uint64_t b,
       : "l"(a), "l"(b), "r"(acc));
 }
 
+// d[64 x 128] += A[64 x 16] B[16 x 128], A (bf16 pairs) in registers, B
+// MN-major in shared memory (the last immediate, trans-b = 1; scale-d is a
+// predicate, here always true: the accumulator starts at zero).
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{" ID_REGS_0_31 ", " ID_REGS_32_63 "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : ID_F32(d, 0), ID_F32(d, 32)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// The same for a 64-wide output (Dh = 64).
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{" ID_REGS_0_31 "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : ID_F32(d, 0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// A fragments of the next wgmma (16 columns a k-step) from the f32
+// accumulator of a 64 x 16K product, packed to bf16 in place. Accumulator
+// layout of wgmma m64nN (PTX ISA), lane = 4 g + t of warp w of the
+// warpgroup: register 4 j + e holds row 16 w + g + 8 (e / 2), column
+// 8 j + 2 t + e % 2; the A fragment of m64k16 holds rows g, g + 8 and columns
+// 2t, 2t + 1 (+ 8) in the same order, so two neighbouring column blocks pack
+// into one k-step.
+template <int K>
+__device__ __forceinline__ void pack_a(uint32_t (&a)[K][4], const float (&s)[8 * K]) {
+#pragma unroll
+  for (int kk = 0; kk < K; ++kk) {
+    a[kk][0] = id_attn::pack_bf16(s[8 * kk], s[8 * kk + 1]);
+    a[kk][1] = id_attn::pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+    a[kk][2] = id_attn::pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+    a[kk][3] = id_attn::pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+  }
+}
+
 // --- host side -----------------------------------------------------------------
 
 // cuTensorMapEncodeTiled is an entry of libcuda, which this library does not
@@ -198,6 +241,16 @@ inline bool make_bf16_map(CUtensorMap* map, const void* ptr, int rank, const cuu
                 strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// [BH, L, D] bf16, contiguous, as a 3-D map with [1, rows, 64] boxes in the
+// 128-byte swizzle (a box never crosses a head); out-of-range rows are filled
+// with zeros.
+inline bool make_heads_map(CUtensorMap* map, const void* ptr, int BH, int L, int D, int rows) {
+  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)L, (cuuint64_t)BH};
+  const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)L * D * 2};
+  const cuuint32_t box[3] = {64, (cuuint32_t)rows, 1};
+  return make_bf16_map(map, ptr, 3, dims, strides, box);
 }
 
 // SMs of the current device (a persistent grid's size), asked on every call: a

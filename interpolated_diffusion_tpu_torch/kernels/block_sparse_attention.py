@@ -12,8 +12,9 @@ of kernels/block_sparse_attention.py).
                               _dkdv_kernel_dense (:248)
 
 On CUDA tensors each launches its hand-written sm_90a kernels
-(csrc/block_attention.cu the SLA forward, csrc/flash_fwd_sm90.cu the flash
-forward on wgmma and TMA, csrc/block_attention_bwd.cu the backwards); on CPU
+(csrc/block_attention.cu the SLA forward, csrc/block_attention_bwd.cu the
+SLA backward, csrc/flash_fwd_sm90.cu and csrc/flash_bwd_sm90.cu the flash
+forward and backward on wgmma and TMA); on CPU
 tensors it runs its plain twins (block_sparse_attention_reference,
 `_torch_flash`, `_torch_sla_bwd`, `_torch_flash_bwd`). There is no fallback
 between the two: a CUDA input the kernels do not take raises. The `*_twin`
@@ -470,8 +471,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     block_m / block_n are the TPU kernel's tiles. The math is exact for any
     tiling; the tiles only move where a bf16 P is rounded. The twin walks
-    keys in tiles of block_n as the TPU kernel does; the CUDA kernels use
-    their own tiles (128 keys in the forward, 64 in the backward).
+    keys in tiles of block_n as the TPU kernel does; the CUDA forward uses
+    its own 128-key tiles (the backward rounds no P per tile).
     """
     return _FlashAttention.apply(q, k, v, scale, block_n, False)
 

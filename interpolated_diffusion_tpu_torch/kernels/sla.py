@@ -37,8 +37,10 @@ def get_block_map(q: torch.Tensor, k: torch.Tensor, topk_ratio: float,
     """q/k [BH, L, D] -> (sparse_map [BH, M, N] int8, lut [BH, M, topk] int32, topk).
 
     topk = max(1, min(N, int(ratio * N))); the LUT lists each query block's
-    highest-scoring key blocks, best first. torch.topk and jax.lax.top_k may
-    order exact ties differently.
+    highest-scoring key blocks, best first, and the lower block index first
+    among equal scores, as jax.lax.top_k does (a stable descending sort, on
+    any device). Equal scores are real: padding blocks and constant latents
+    pool to the same value.
     """
     arg_k = k - k.mean(dim=-2, keepdim=True)  # smooth-k
     pq = mean_pool_blocks(q, block_q)
@@ -46,7 +48,7 @@ def get_block_map(q: torch.Tensor, k: torch.Tensor, topk_ratio: float,
     score = pq.float() @ pk.float().transpose(-1, -2)
     n_blocks = score.shape[-1]
     topk = max(1, min(n_blocks, int(topk_ratio * n_blocks)))
-    lut = torch.topk(score, topk, dim=-1).indices
+    lut = torch.sort(score, dim=-1, descending=True, stable=True).indices[..., :topk]
     sparse_map = F.one_hot(lut, n_blocks).sum(dim=-2).to(torch.int8)
     return sparse_map, lut.to(torch.int32), topk
 

@@ -3,8 +3,8 @@ of models/loading.py: the two maze denoisers).
 
 Reads the port's own checkpoint format (utils/checkpoint.py): the meta dict
 rebuilds the model, `ema.pt` (by default) or `params.pt` fills it. Models
-come back with f32 parameters on `device`, computing in bf16 under
-`bf16=True`, in eval mode. The selector and segment-cost loaders and the JAX
+come back with f32 parameters on `device` (the card unless the caller asks
+for the CPU), computing in bf16 under `bf16=True`, in eval mode. The selector and segment-cost loaders and the JAX
 package's msgpack / reference-PyTorch checkpoints are not ported.
 """
 from __future__ import annotations
@@ -52,7 +52,7 @@ def _fill(model, path: str, bf16: bool, use_ema: bool, device):
     return model.to(device).eval().requires_grad_(False)
 
 
-def load_keypoint_model(path: str, bf16: bool = True, use_ema: bool = True, device="cpu"):
+def load_keypoint_model(path: str, bf16: bool = True, use_ema: bool = True, device="cuda"):
     """(model, meta) of a Stage-1 checkpoint (or the newest under a run dir)."""
     path = resolve_ckpt(path)
     _, meta = read_meta(path)
@@ -65,7 +65,7 @@ def load_keypoint_model(path: str, bf16: bool = True, use_ema: bool = True, devi
     return _fill(model, path, bf16, use_ema, device), meta
 
 
-def load_interp_model(path: str, bf16: bool = True, use_ema: bool = True, device="cpu"):
+def load_interp_model(path: str, bf16: bool = True, use_ema: bool = True, device="cuda"):
     """(model, meta) of a Stage-2 checkpoint (or the newest under a run dir)."""
     path = resolve_ckpt(path)
     _, meta = read_meta(path)

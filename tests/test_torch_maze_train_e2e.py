@@ -6,6 +6,7 @@ checkpoints through models/loading.py into the port's make_pipeline. No JAX
 is needed here: parity with the JAX trainers is in
 tests/test_torch_maze_train_trainers.py.
 """
+import inspect
 import json
 import os
 
@@ -117,14 +118,14 @@ def test_stage2_bootstrap_then_pipeline(runs):
         "--mode", "adj", "--bootstrap_ckpt", kp, "--bootstrap_ddim_steps", "3",
         "--bootstrap_warmup_steps", "1", "--pos_clip", "1",
         "--steps", "2", "--save_every", "2", "--out_dir", out])
-    kp_model, kp_meta = load_keypoint_model(kp, bf16=False)
-    it_model, it_meta = load_interp_model(out, bf16=False)
+    kp_model, kp_meta = load_keypoint_model(kp, bf16=False, device="cpu")
+    it_model, it_meta = load_interp_model(out, bf16=False, device="cpu")
     assert kp_meta["stage"] == "keypoints" and it_meta["stage"] == "interp_levels"
     assert not any(p.requires_grad for p in kp_model.parameters()) and not kp_model.training
     # EMA by default: the loaded weights are ema.pt, not params.pt
     _, payload = load_checkpoint(resolve_ckpt(out))
     assert torch.equal(it_model.state_dict()["in_proj.weight"], payload["ema"]["in_proj.weight"])
-    raw, _ = load_interp_model(out, bf16=False, use_ema=False)
+    raw, _ = load_interp_model(out, bf16=False, use_ema=False, device="cpu")
     assert torch.equal(raw.state_dict()["in_proj.weight"], payload["params"]["in_proj.weight"])
 
     T, K, B = kp_meta["T"], kp_meta["K"], 5
@@ -148,7 +149,7 @@ def test_stage2_bootstrap_then_pipeline(runs):
 def test_loaders_refuse_the_wrong_stage_and_unported_metas(runs, tmp_path):
     root, kp, _ = runs
     with pytest.raises(ValueError, match="interp_levels"):
-        load_interp_model(kp)
+        load_interp_model(kp, device="cpu")
     with pytest.raises(FileNotFoundError):
         resolve_ckpt(str(tmp_path))
     from interpolated_diffusion_tpu_torch.utils.checkpoint import read_meta, save_checkpoint
@@ -156,7 +157,14 @@ def test_loaders_refuse_the_wrong_stage_and_unported_metas(runs, tmp_path):
     _, meta = read_meta(resolve_ckpt(kp))
     save_checkpoint(str(tmp_path / "ckpt_1"), {}, None, 1, None, dict(meta, use_kp_feat=1))
     with pytest.raises(NotImplementedError, match="selection"):
-        load_keypoint_model(str(tmp_path))
+        load_keypoint_model(str(tmp_path), device="cpu")
+
+
+def test_loaders_default_to_the_card():
+    """Like every other entry point of the port, the loaders put the model on
+    the card unless the caller asks for the CPU."""
+    for loader in (load_keypoint_model, load_interp_model):
+        assert inspect.signature(loader).parameters["device"].default == "cuda", loader.__name__
 
 
 def test_bf16_compute_keeps_f32_masters(tmp_path):
@@ -169,6 +177,6 @@ def test_bf16_compute_keeps_f32_masters(tmp_path):
     assert all(p.dtype == torch.float32 for p in state.params.values())
     adam = state.opt_state.adamw.state_dict()["state"]
     assert all(s["exp_avg"].dtype == torch.float32 for s in adam.values())
-    model, _ = load_keypoint_model(out, bf16=True)
+    model, _ = load_keypoint_model(out, bf16=True, device="cpu")
     assert model.dtype == torch.bfloat16 and model.in_proj.weight.dtype == torch.float32
     assert model.transformer.layers[0].compute_dtype == torch.bfloat16

@@ -435,12 +435,16 @@ def test_sla_bwd_kernels_match_twin(cuda, L, d, block, ratio, dup):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("Lq,Lk,d", [(1000, 517, 128), (1000, 70, 64), (333, 517, 64),
-                                     (1024, 1024, 128), (2048, 2048, 64),
-                                     (300, 133, 128)])   # ragged in both, through the forward's lse
-def test_flash_bwd_kernels_match_twin(cuda, Lq, Lk, d):
-    q, k, v = _qkv_bf16(6, Lq, d, cuda, Lq + Lk + d, Lk=Lk)
-    do = _qkv_bf16(6, Lq, d, cuda, 2)[0]
+@pytest.mark.parametrize("Lq,Lk,d,bh", [
+    (1000, 517, 128, 6), (1000, 70, 64, 6), (333, 517, 64, 6), (1024, 1024, 128, 6),
+    (2048, 2048, 64, 6),
+    (300, 133, 128, 6),     # ragged in both, through the forward's lse
+    (129, 65, 128, 6),      # one row / key past the 128-row blocks and 64-row tiles
+    (7800, 517, 128, 24),   # the Wan trainer's cross-attention
+    (200, 40, 64, 6)])      # fewer keys than one 64-key tile
+def test_flash_bwd_kernels_match_twin(cuda, Lq, Lk, d, bh):
+    q, k, v = _qkv_bf16(bh, Lq, d, cuda, Lq + Lk + d, Lk=Lk)
+    do = _qkv_bf16(bh, Lq, d, cuda, 2)[0]
     before = bsa.flash_bwd_dq.launches, bsa.flash_bwd_dkdv.launches
     with torch.inference_mode():
         o, lse = bsa.flash_attention_fwd(q, k, v)
@@ -452,6 +456,22 @@ def test_flash_bwd_kernels_match_twin(cuda, Lq, Lk, d):
     for name, a, b in zip(("dq", "dk", "dv"), got, ref):
         assert a.dtype == torch.bfloat16 and torch.isfinite(a).all(), name
         assert _rel(a, b) <= BWD_TOL, (name, _rel(a, b))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("Lq,Lk,d", [(1000, 517, 128), (300, 40, 64)])
+def test_flash_bwd_kernels_are_deterministic(cuda, Lq, Lk, d):
+    """Every output row is written by one block, without atomics: two calls
+    give the same bits."""
+    q, k, v = _qkv_bf16(6, Lq, d, cuda, 3, Lk=Lk)
+    do = _qkv_bf16(6, Lq, d, cuda, 4)[0]
+    with torch.inference_mode():
+        o, lse = bsa.flash_attention_fwd(q, k, v)
+        first = bsa.flash_attention_bwd(q, k, v, o, lse, do)
+        second = bsa.flash_attention_bwd(q, k, v, o, lse, do)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dq", "dk", "dv"), first, second):
+        assert torch.equal(a, b), name
 
 
 @pytest.mark.gpu

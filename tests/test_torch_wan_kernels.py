@@ -187,6 +187,37 @@ def test_mean_pool_and_block_map_match_jax():
         np.testing.assert_array_equal(smap.numpy(), np.asarray(jsmap))
 
 
+def _tied_qk(seed, n_blocks=32, block=32, d=2):
+    """q, k [3, n_blocks * block, d] whose pooled block scores are small
+    integers, many of them equal: every block holds one row repeated, q's rows
+    in {0, 1}^d, k's blocks b and -b in pairs (so smooth-k subtracts zero)."""
+    r = np.random.default_rng(seed)
+    qb = r.integers(0, 2, size=(3, n_blocks, d)).astype(np.float32)
+    kb = r.integers(0, 2, size=(3, n_blocks // 2, d)).astype(np.float32)
+    kb = np.concatenate([kb, -kb], axis=1)
+    return np.repeat(qb, block, axis=1), np.repeat(kb, block, axis=1)
+
+
+@pytest.mark.parametrize("case", ["zero_q", "integer_ties", "random"])
+@pytest.mark.parametrize("ratio", [0.1, 0.2, 0.5])
+def test_block_map_breaks_ties_as_jax(case, ratio):
+    """The LUT (in order) and the sparse map equal JAX's exactly, also where
+    pooled scores tie: jax.lax.top_k puts the lower block index first."""
+    if case == "random":
+        q, k, _ = _qkv(32 * 31, 8, bh=3)
+    else:
+        q, k = _tied_qk(7)
+        if case == "zero_q":   # every score 0: the first topk blocks
+            q = np.zeros_like(q)
+    smap, lut, topk = sla.get_block_map(torch.tensor(q), torch.tensor(k), ratio, 32, 32)
+    jsmap, jlut, jtopk = jsla.get_block_map(jnp.asarray(q), jnp.asarray(k), ratio, 32, 32)
+    assert topk == jtopk
+    np.testing.assert_array_equal(lut.numpy(), np.asarray(jlut))
+    np.testing.assert_array_equal(smap.numpy(), np.asarray(jsmap))
+    if case == "zero_q":
+        np.testing.assert_array_equal(lut.numpy(), np.broadcast_to(np.arange(topk), lut.shape))
+
+
 @pytest.mark.parametrize("fmap", ["softmax", "elu", "relu"])
 def test_linear_attention_matches_jax(fmap):
     q, k, v = _qkv(150, 13)
