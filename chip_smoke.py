@@ -58,7 +58,8 @@ Phases, each on its own lines; any failure exits non-zero:
                   evaluations, seeded random weights) under attn_mode sla,
                   sage_sla and flash; shapes, finiteness, launch counts and
                   agreement of the kernel path with the plain-twin path
-  8. wan timings  Wan kernels vs twins (CUDA events) and sampler samples/s
+  8. wan timings  Wan kernels vs twins (CUDA events; the SLA and int8 SLA
+                  forward also by graph replay) and sampler samples/s
                   per mode (kernels, twins, twins, kernels)
   9. wan bwd      the SLA and flash backward kernels (dQ, dK/dV) against their
                   twins at the trainer's shapes ([24, 7800, 128]; SLA blocks
@@ -97,6 +98,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import os
 import subprocess
 import sys
@@ -144,9 +146,9 @@ KERNEL_SOURCES = {
                          "interpolated_diffusion_tpu/kernels/fused_block.py:68"),
     "small_mha_packed": ("interpolated_diffusion_tpu_torch/csrc/small_mha.cu",
                          "interpolated_diffusion_tpu/kernels/small_mha.py:125"),
-    "block_sparse_attention": ("interpolated_diffusion_tpu_torch/csrc/block_attention.cu",
+    "block_sparse_attention": ("interpolated_diffusion_tpu_torch/csrc/sla_fwd_sm90.cu",
                                "interpolated_diffusion_tpu/kernels/block_sparse_attention.py:46"),
-    "int8_block_sparse_attention": ("interpolated_diffusion_tpu_torch/csrc/block_attention.cu",
+    "int8_block_sparse_attention": ("interpolated_diffusion_tpu_torch/csrc/sla_fwd_sm90.cu",
                                     "interpolated_diffusion_tpu/kernels/int8_attention.py:48"),
     "flash_attention": ("interpolated_diffusion_tpu_torch/csrc/flash_fwd_sm90.cu",
                         "interpolated_diffusion_tpu/kernels/block_sparse_attention.py:174"),
@@ -161,7 +163,7 @@ KERNEL_SOURCES = {
 }
 
 # Times of the kernels that were redesigned (wgmma + TMA flash forward and
-# backward and block GEMM, register-resident small_mha kernels), as this script
+# backward, SLA forward and block GEMM, register-resident small_mha kernels), as this script
 # measured their first versions (mma.sync with a cp.async ring; WMMA with logits
 # staged through shared memory) on an NVIDIA H100 80GB HBM3 at a 700 W limit, in
 # ms. Printed on the [timing] lines beside the new times, so that one run shows
@@ -173,7 +175,9 @@ BEFORE_REDESIGN_MS = {"flash_attention/cross": 0.737, "flash_attention/self": 8.
                       "small_mha/256,64": 0.0901,
                       # the mma.sync flash backward, q [24,7800,128] x k 517 / 7800
                       "flash_bwd_dq/cross": 0.377, "flash_bwd_dkdv/cross": 0.544,
-                      "flash_bwd_dq/self": 4.601, "flash_bwd_dkdv/self": 6.312}
+                      "flash_bwd_dq/self": 4.601, "flash_bwd_dkdv/self": 6.312,
+                      # the mma.sync SLA and int8 SLA forward, [48,7800,128] block 128
+                      "block_sparse_attention": 0.968, "int8_block_sparse_attention": 0.744}
 # Flash backward cases beside the trainer's shapes, (BH, Lq, Lk, Dh): head
 # dim 64, query lengths ragged against the 128-row blocks and 64-row tiles,
 # key lengths ragged against both and one under a 64-key tile.
@@ -1209,7 +1213,8 @@ def _print_profile(prof, tag, what):
     """The profiler's table by operator, and the device time by kind of kernel."""
     print(f"[profile] {tag} {what}:\n"
           f"{prof.key_averages().table(sort_by='cuda_time_total', row_limit=25)}", flush=True)
-    kinds = {"hand-written kernels": ("attn_fwd_kernel", "flash_fwd_kernel", "attn_bwd_", "small_mha_",
+    kinds = {"hand-written kernels": ("sla_fwd_kernel", "flash_fwd_kernel", "flash_bwd_",
+                                      "attn_bwd_", "small_mha_",
                                       "gemm_resident_kernel", "gemm_stream_kernel",
                                       "ln_film_kernel"),
              "library GEMMs (cuBLAS)": ("gemm", "nvjet", "cutlass", "cublas", "sm90_xmma",
@@ -1251,6 +1256,16 @@ def _check_pair(name, label, got, want, tol, errs):
     errs.setdefault(name, []).append(err)
 
 
+# Edges of the SLA forward kernels' LUT walk beside the path shapes, as
+# (BH, L, Dh, block_m, block_n, top-k ratio): blocks of 64 and 192 (the two
+# 64-row halves of a 128-row work item follow different LUT rows, and the last
+# 128-key tile of an id is half masked), block_m != block_n both ways, and the
+# int8 kernel at head dim 64 (64-byte rows, the 64-byte swizzle).
+SLA_EDGES = ((12, 1000, 128, 64, 64, 0.3), (12, 1000, 128, 192, 192, 0.3),
+             (12, 1000, 64, 192, 64, 0.3), (12, 1000, 128, 128, 256, 0.5),
+             (12, 1000, 64, 256, 128, 0.3), (12, 1000, 64, 256, 256, 0.5))
+
+
 def phase_wan_kernels(dev):
     """The three Wan attention kernels against their twins, on bf16 inputs."""
     import torch
@@ -1266,29 +1281,45 @@ def phase_wan_kernels(dev):
     L = WAN_ANCHORS["K"] * (WAN_ANCHORS["latent_h"] // 2) * (WAN_ANCHORS["latent_w"] // 2)
     BH, Lk_cross = WAN_B * H, WAN_TEXT_LEN + WAN_ANCHORS["K"]
 
-    def sla_and_int8(q, k, v, block, label, keep=False):
-        _, lut, topk = get_block_map(q, k, WAN["sla_topk"], block, block)
-        ref = sla_twin(q, k, v, lut, block, block)
-        _check_pair("block_sparse_attention", f"{label} block={block} topk={topk}",
-                    bsa.block_sparse_attention_fwd(q, k, v, lut, block, block), ref,
-                    ATTN_TOL, errs)
+    def sla_and_int8(q, k, v, bm, bn, label, ratio=WAN["sla_topk"], dup=False, keep=None):
+        """Both kernels on the block map's LUT (dup: every second row repeats
+        its first id in its last slot) against their twins, int8 also
+        against the bf16 twin; two calls of each compared bit for bit."""
+        _, lut, topk = get_block_map(q, k, ratio, bm, bn)
+        if dup:
+            lut[:, ::2, -1] = lut[:, ::2, 0]
+            lut = lut.contiguous()
+        label = f"{label} block={bm}x{bn} topk={topk}" + (" duplicated ids" if dup else "")
+        d = q.shape[-1]
+        ref = sla_twin(q, k, v, lut, bm, bn)
+        got = bsa.block_sparse_attention_fwd(q, k, v, lut, bm, bn)
+        _check_pair("block_sparse_attention", label, got, ref, ATTN_TOL, errs)
+        again = bsa.block_sparse_attention_fwd(q, k, v, lut, bm, bn)
+        require(all(torch.equal(a, b) for a, b in zip(got, again)),
+                f"block_sparse_attention {label}: two calls differ")
         qi, ki, qs, ks = i8.quantize_qk(q, k)
-        got = i8.int8_attention_fwd(qi, ki, v, qs, ks, lut, block, block, D ** -0.5)
-        _check_pair("int8_block_sparse_attention", f"{label} block={block} vs int8 twin", got,
-                    i8._torch_int8_attention(qi, ki, v, qs, ks, lut, block, block, D ** -0.5),
+        got8 = i8.int8_attention_fwd(qi, ki, v, qs, ks, lut, bm, bn, d ** -0.5)
+        _check_pair("int8_block_sparse_attention", f"{label} vs int8 twin", got8,
+                    i8._torch_int8_attention(qi, ki, v, qs, ks, lut, bm, bn, d ** -0.5),
                     ATTN_TOL, errs)
-        _, rel = _errors(got[0], ref[0])
-        print(f"[wan kernels] int8_block_sparse_attention {label} block={block} vs bf16 SLA "
-              f"twin: max|d|/max|twin|={rel:.3e} (tol {INT8_VS_BF16_TOL})", flush=True)
+        again = i8.int8_attention_fwd(qi, ki, v, qs, ks, lut, bm, bn, d ** -0.5)
+        require(all(torch.equal(a, b) for a, b in zip(got8, again)),
+                f"int8_block_sparse_attention {label}: two calls differ")
+        _, rel = _errors(got8[0], ref[0])
+        print(f"[wan kernels] int8_block_sparse_attention {label} vs bf16 SLA twin: "
+              f"max|d|/max|twin|={rel:.3e} (tol {INT8_VS_BF16_TOL}); both kernels: two calls "
+              f"bit-identical", flush=True)
         require(rel <= INT8_VS_BF16_TOL, f"int8 vs bf16 SLA {label} disagrees: {rel:.3e}")
         if keep:
-            cases["sla"] = (q, k, v, lut, block)
-            cases["int8"] = (qi, ki, v, qs, ks, lut, block)
+            cases[f"sla/{keep}"] = (q, k, v, lut, bm)
+            cases[f"int8/{keep}"] = (qi, ki, v, qs, ks, lut, bm)
 
     with torch.inference_mode():
         # the anchor path's shapes: BH = 4 x 12, L = 7800, Dh = 128
         q, k, v = _wan_qkv(BH, L, D, gen, dev)
-        sla_and_int8(q, k, v, WAN["sla_block"], f"path [{BH},{L},{D}]", keep=True)
+        block = WAN["sla_block"]
+        sla_and_int8(q, k, v, block, block, f"path [{BH},{L},{D}]", keep="sampler")
+        sla_and_int8(q, k, v, block, block, f"path [{BH},{L},{D}]", dup=True)
         kc, vc = (torch.randn((BH, Lk_cross, D), generator=gen, device=dev).to(torch.bfloat16)
                   for _ in range(2))
         for label, kk, vv, bn in (("cross", kc, vc, 640), ("self", k, v, 1024)):
@@ -1296,6 +1327,9 @@ def phase_wan_kernels(dev):
                         bsa.flash_attention_fwd(q, kk, vv), bsa._torch_flash(q, kk, vv, D ** -0.5, bn),
                         ATTN_TOL, errs)
             cases[f"flash_{label}"] = (q, kk, vv, bn)
+        # the dense kernel on as many keys as SLA's rows see (6 x 128): a
+        # yardstick of what the same products cost without the LUT walk
+        cases["flash_768"] = (q, k[:, :768].contiguous(), v[:, :768].contiguous(), 1024)
         # head dim 64, and shapes ragged in queries (128-row blocks) and keys
         # (128-key tiles) at both head dims
         for d, lq, lk in ((64, 1001, 389), (128, 129, 131), (64, 7800, Lk_cross)):
@@ -1305,7 +1339,6 @@ def phase_wan_kernels(dev):
                         bsa._torch_flash(fq, fk, fv, d ** -0.5, 1024), ATTN_TOL, errs)
         del fq, fk, fv
         # a sentinel case: ring SLA's primitive on the path's shapes
-        block = WAN["sla_block"]
         _, lut, _ = get_block_map(q[:8], k[:8], WAN["sla_topk"], block, block)
         sentinel = -(-L // block)
         lut[:, 1::3, -1] = sentinel
@@ -1318,12 +1351,41 @@ def phase_wan_kernels(dev):
                     ATTN_TOL, errs)
         rows = torch.arange(L, device=dev) // block % 7 == 2
         require(bool((got[0][:, rows] == 0).all()), "sentinel rows: o is not 0")
-        del q, k, v, kc, vc
+        # kv_len < Lk (keys kv_len..Lk hold data and must not count), a LUT
+        # from the first kv_len keys with sentinels, and query blocks whose
+        # every entry is a sentinel (o = 0, lse = log2(1e-30))
+        kv_len = 700
+        sq_, sk_, sv_ = _wan_qkv(6, 1000, D, gen, dev)
+        for bm, bn in ((128, 128), (192, 64)):
+            _, lut, _ = get_block_map(sq_, sk_[:, :kv_len], 0.5, bm, bn)
+            sentinel = -(-kv_len // bn)
+            lut[:, 1::2, -1] = sentinel
+            lut[:, 2, :] = sentinel
+            lut = lut.contiguous()
+            got = bsa.block_sparse_attention_fwd(sq_, sk_, sv_, lut, bm, bn, kv_len=kv_len,
+                                                 kv_pad_blocks=1)
+            _check_pair("block_sparse_attention", f"kv_len {kv_len} of [6,1000,{D}] block={bm}x{bn} "
+                        "with sentinels", got,
+                        sla_twin(sq_, sk_, sv_, lut, bm, bn, kv_len=kv_len, kv_pad_blocks=1),
+                        ATTN_TOL, errs)
+            rows = slice(2 * bm, 3 * bm)
+            require(bool((got[0][:, rows] == 0).all()) and
+                    (got[1][:, rows] - math.log2(1e-30)).abs().max().item() <= 1e-4,
+                    "all-sentinel rows: o is not 0 or lse is not log2(1e-30)")
+        del sq_, sk_, sv_
+        # the LUT walk's edges beside the path shapes
+        for bh, l, d, bm, bn, ratio in SLA_EDGES:
+            eq, ek, ev = _wan_qkv(bh, l, d, gen, dev)
+            sla_and_int8(eq, ek, ev, bm, bn, f"[{bh},{l},{d}]", ratio=ratio)
+        del eq, ek, ev, q, k, v, kc, vc
+        # the trainer's shape: BH = 2 x 12, L = 7800, block 256 (topk 3 of 31)
+        q, k, v = _wan_qkv(24, L, D, gen, dev)
+        sla_and_int8(q, k, v, 256, 256, f"trainer [24,{L},{D}]", keep="trainer")
         # scripts/bench_wan33k.py geometry: BH 12, L 32760, Dh 128, topk 0.1
         bh33, l33 = WAN_33K
         q, k, v = _wan_qkv(bh33, l33, D, gen, dev)
         for block in (128, 256):
-            sla_and_int8(q, k, v, block, f"33k [{bh33},{l33},{D}]")
+            sla_and_int8(q, k, v, block, block, f"33k [{bh33},{l33},{D}]")
         o, lse = bsa.flash_attention_fwd(q, k, v)   # the twin's logits would be 51 GB:
         rows = slice(0, 2048)                       # compare the first 2048 rows
         _check_pair("flash_attention", f"33k rows 0:2048 of [{bh33},{l33},{D}]",
@@ -1512,41 +1574,47 @@ def phase_wan_kernel_timings(card, cases):
         block_sparse_attention_reference)
 
     tag = f"[{card}]"
-    times = {}
+    times, bounds = {}, {}
     saved = _train_counts()
+    sdpa = torch.nn.functional.scaled_dot_product_attention
     with torch.inference_mode():
-        q, k, v, lut, block = cases["sla"]
-        qi, ki, vi, qs, ks, lut8, _ = cases["int8"]
-        scale = q.shape[-1] ** -0.5
-        plan = [
-            ("block_sparse_attention", f"[{q.shape[0]},{q.shape[1]},{q.shape[2]}] block {block}",
-             lambda: bsa.block_sparse_attention_fwd(q, k, v, lut, block, block),
-             lambda: block_sparse_attention_reference(q, k, v, lut, block, block)),
-            ("int8_block_sparse_attention", "same shape, pre-quantized q/k",
-             lambda: i8.int8_attention_fwd(qi, ki, vi, qs, ks, lut8, block, block, scale),
-             lambda: i8._torch_int8_attention(qi, ki, vi, qs, ks, lut8, block, block, scale))]
-        for label in ("cross", "self"):
-            fq, fk, fv, bn = cases[f"flash_{label}"]
-            plan.append((f"flash_attention/{label}",
-                         f"q [{fq.shape[0]},{fq.shape[1]},{fq.shape[2]}] k {fk.shape[1]} rows",
-                         lambda fq=fq, fk=fk, fv=fv: bsa.flash_attention_fwd(fq, fk, fv),
-                         lambda fq=fq, fk=fk, fv=fv, bn=bn: bsa._torch_flash(fq, fk, fv, scale, bn)))
-        sdpa = torch.nn.functional.scaled_dot_product_attention
-        library = {f"flash_attention/{label}":
-                   (lambda c=cases[f"flash_{label}"]: sdpa(c[0][None], c[1][None], c[2][None]))
-                   for label in ("cross", "self")}
-        BH, L, D = q.shape
-        entries, _ = _sla_work(lut, L, block)
-        o_lse = _nbytes(q) + 4 * BH * L   # o like q (bf16), lse f32 per row
-        bounds = {
-            "block_sparse_attention": bound_ms(_nbytes(q, k, v, lut) + o_lse, 4.0 * entries * D),
+        plan, library = [], {}
+        # rows 4 and 8 at the sampler's shape (block 128) and the trainer's
+        # (block 256); the JSON line holds the sampler's, the trainer's beside
+        for where, suffix in (("sampler", ""), ("trainer", "/train")):
+            q, k, v, lut, block = cases[f"sla/{where}"]
+            qi, ki, vi, qs, ks, lut8, _ = cases[f"int8/{where}"]
+            BH, L, D = q.shape
+            scale = D ** -0.5
+            shape = f"[{BH},{L},{D}] block {block} topk {lut.shape[-1]}"
+            plan += [
+                (f"block_sparse_attention{suffix}", shape,
+                 lambda q=q, k=k, v=v, lut=lut, b=block: bsa.block_sparse_attention_fwd(
+                     q, k, v, lut, b, b),
+                 lambda q=q, k=k, v=v, lut=lut, b=block: block_sparse_attention_reference(
+                     q, k, v, lut, b, b)),
+                (f"int8_block_sparse_attention{suffix}", f"{shape}, pre-quantized q/k",
+                 lambda a=(qi, ki, vi, qs, ks, lut8, block, block, scale): i8.int8_attention_fwd(*a),
+                 lambda a=(qi, ki, vi, qs, ks, lut8, block, block, scale):
+                     i8._torch_int8_attention(*a))]
+            entries, _ = _sla_work(lut, L, block)
+            o_lse = _nbytes(q) + 4 * BH * L   # o like q (bf16), lse f32 per row
+            bounds[f"block_sparse_attention{suffix}"] = bound_ms(
+                _nbytes(q, k, v, lut) + o_lse, 4.0 * entries * D)
             # int8 Q K^T at the int8 rate, bf16 P V at the bf16 rate
-            "int8_block_sparse_attention": bound_ms(
-                _nbytes(qi, ki, vi, qs, ks, lut8) + o_lse, 2.0 * entries * D, 2.0 * entries * D)}
-        for label in ("cross", "self"):
-            fq, fk, fv, _ = cases[f"flash_{label}"]
-            bounds[f"flash_attention/{label}"] = bound_ms(_nbytes(fq, fk, fv) + o_lse,
-                                                          4.0 * BH * L * fk.shape[1] * D)
+            bounds[f"int8_block_sparse_attention{suffix}"] = bound_ms(
+                _nbytes(qi, ki, vi, qs, ks, lut8) + o_lse, 2.0 * entries * D, 2.0 * entries * D)
+        for label in ("cross", "self", "768"):
+            fq, fk, fv, bn = cases[f"flash_{label}"]
+            name = f"flash_attention/{label}"
+            plan.append((name, f"q [{fq.shape[0]},{fq.shape[1]},{fq.shape[2]}] k {fk.shape[1]} rows",
+                         lambda fq=fq, fk=fk, fv=fv: bsa.flash_attention_fwd(fq, fk, fv),
+                         lambda fq=fq, fk=fk, fv=fv, bn=bn: bsa._torch_flash(
+                             fq, fk, fv, fq.shape[-1] ** -0.5, bn)))
+            library[name] = lambda fq=fq, fk=fk, fv=fv: sdpa(fq[None], fk[None], fv[None])
+            BH, L, D = fq.shape
+            bounds[name] = bound_ms(_nbytes(fq, fk, fv, fq) + 4 * BH * L,
+                                    4.0 * BH * L * fk.shape[1] * D)
         for name, shape, kernel, twin in plan:
             k_ms = _time_ms(kernel, iters=10, warmup=2)
             p_ms = _time_ms(twin, iters=3, warmup=1)
@@ -1555,7 +1623,11 @@ def phase_wan_kernel_timings(card, cases):
                    else "library: none")
             was = (f", before the redesign {BEFORE_REDESIGN_MS[name]:.4f} ms"
                    if name in BEFORE_REDESIGN_MS else "")
-            print(f"[timing] {tag} {name} {shape}: kernel {k_ms:.4f} ms, bound "
+            # rows 4 and 8 also by graph replay: each call's host work (three
+            # tensor maps, the checks) can pace a loop of 0.3 ms launches
+            graph = ("" if name.startswith("flash")
+                     else f" (by graph replay {_graph_ms(kernel, launches=20):.4f})")
+            print(f"[timing] {tag} {name} {shape}: kernel {k_ms:.4f} ms{graph}, bound "
                   f"{bounds[name][0]:.4f} ms ({bounds[name][1]}), plain twin {p_ms:.4f} ms, {lib}"
                   f"{was}", flush=True)
             times[name] = (k_ms, p_ms, lib_ms)
@@ -2025,16 +2097,22 @@ def main() -> int:
         tiled_device_ms=mha_times["tiled_graph"][0],
         tiled_library_device_ms=mha_times["tiled_graph"][1])
     # Wan forward kernels: times at the anchor path's shapes (flash: its
-    # cross-attention); `launches` from the sampler's run, `train_launches`
-    # from the trainer's
+    # cross-attention; SLA and int8 SLA also at the trainer's); `launches`
+    # from the sampler's run, `train_launches` from the trainer's
     for name in WAN_KERNELS:
         k_ms, p_ms, lib_ms = wan_times[name if name != "flash_attention"
                                        else "flash_attention/cross"]
-        extra = {}
-        if name == "flash_attention":   # its self-attention shape too
+        if name == "flash_attention":   # its self-attention shape, and q x 768 keys
             s_ms, s_plain, s_lib = wan_times["flash_attention/self"]
+            y_ms, y_plain, y_lib = wan_times["flash_attention/768"]
             extra = dict(self_ms=s_ms, self_plain_ms=s_plain, self_library_ms=s_lib,
-                         self_bound_ms=wan_times["bounds"]["flash_attention/self"][0])
+                         self_bound_ms=wan_times["bounds"]["flash_attention/self"][0],
+                         k768_ms=y_ms, k768_plain_ms=y_plain, k768_library_ms=y_lib,
+                         k768_bound_ms=wan_times["bounds"]["flash_attention/768"][0])
+        else:                           # the trainer's shape too
+            t_ms, t_plain, _ = wan_times[f"{name}/train"]
+            extra = dict(train_ms=t_ms, train_plain_ms=t_plain,
+                         train_bound_ms=wan_times["bounds"][f"{name}/train"][0])
         row(name, wan_launches[name], max(wan_errs[name]), k_ms, p_ms, wan_times["bounds"][name],
             lib_ms, train_launches=train_launches[name], **extra)
     # backward kernels: times at the trainer's shapes (flash: cross-attention,

@@ -1,10 +1,10 @@
-// Device helpers shared by the attention kernels (block_attention.cu,
-// block_attention_bwd.cu, flash_fwd_sm90.cu, flash_bwd_sm90.cu, small_mha.cu):
-// cp.async copies, 64-row tile loads, mma.sync wrappers, fragment packing,
-// quad reductions and the fast exp2. Fragment layouts (PTX ISA, mma.m16n8k16 /
-// m16n8k32), with lane = 4 * g + t: A rows g and g + 8, k columns 2t, 2t + 1
-// (and + 8); B column n = g, k rows 2t, 2t + 1 (and + 8); C rows g and g + 8,
-// columns 2t, 2t + 1.
+// Device helpers shared by the attention kernels (block_attention_bwd.cu,
+// flash_fwd_sm90.cu, flash_bwd_sm90.cu, sla_fwd_sm90.cu, small_mha.cu):
+// cp.async copies, 64-row tile loads, the mma.sync wrapper, fragment packing,
+// quad reductions and the fast exp2. Fragment layouts (PTX ISA, mma.m16n8k16),
+// with lane = 4 * g + t: A rows g and g + 8, k columns 2t, 2t + 1 (and + 8);
+// B column n = g, k rows 2t, 2t + 1 (and + 8); C rows g and g + 8, columns
+// 2t, 2t + 1.
 #pragma once
 
 #include <math.h>
@@ -62,24 +62,8 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                       uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 __device__ __forceinline__ uint32_t ld32(const unsigned char* p) {
   return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// two bf16 from two rows of V, lower-indexed key in the low half
-__device__ __forceinline__ uint32_t ld_pair(const unsigned char* p, int ld) {
-  const uint32_t lo = *reinterpret_cast<const uint16_t*>(p);
-  const uint32_t hi = *reinterpret_cast<const uint16_t*>(p + ld);
-  return lo | (hi << 16);
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {

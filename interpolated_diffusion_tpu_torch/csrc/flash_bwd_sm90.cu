@@ -120,12 +120,6 @@ struct DkdvSmem : Tiles<D> {
   static constexpr int kBytes = kOffBar + kBars * 8 + 1024;
 };
 
-// Arrives on `bar` once every cp.async this thread has started is complete
-// (.noinc: the arrival is one of the barrier's expected count).
-__device__ __forceinline__ void cp_async_mbar_arrive(uint32_t bar) {
-  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(bar) : "memory");
-}
-
 // descriptor of k-step ks (16 columns) of a K-major operand whose boxes are
 // `box` bytes apart
 __device__ __forceinline__ uint64_t kmajor(uint32_t addr, int ks, int box) {

@@ -46,7 +46,7 @@
 // Semantics, as the TPU kernel and the plain twin (_torch_flash): logits are
 // scaled by scale * log2(e) and exponentiated with exp2; f32 running max and
 // sum, the sum from f32 P; P rounded to bf16 for P.V with f32 accumulation;
-// o = acc / l rounded to bf16; lse = m + log2(l) (f32, base 2). Rectangular
+// o = acc * (1 / l) rounded to bf16; lse = m + log2(l) (f32, base 2). Rectangular
 // Lq x Lk; keys at positions >= Lk get probability 0 (their logits are set to
 // -inf before the max: a zero-filled key is not a masked key); rows >= Lq are
 // not written. P is rounded per 128-key tile.

@@ -1,10 +1,11 @@
 // Hopper (sm_90a) primitives shared by the wgmma + TMA kernels of the port
-// (flash_fwd_sm90.cu, flash_bwd_sm90.cu, fused_block.cu): mbarriers, named
-// barriers, TMA tile loads, the shared-memory matrix descriptor of the
-// 128-byte swizzle, wgmma with both operands in shared memory and with A in
-// registers, the accumulator -> A fragment pack, the tensor-map encoder (an entry of
-// libcuda that the runtime hands out, so nothing new is linked) and the SM
-// count.
+// (flash_fwd_sm90.cu, flash_bwd_sm90.cu, sla_fwd_sm90.cu, fused_block.cu):
+// mbarriers, named barriers, TMA tile loads, cp.async counted on an mbarrier,
+// the shared-memory matrix descriptors of the 128- and 64-byte swizzles, wgmma
+// (bf16 with both operands in shared memory and with A in registers; s8 with
+// both in shared memory), the accumulator -> A fragment pack, the tensor-map
+// encoders (an entry of libcuda that the runtime hands out, so nothing new is
+// linked) and the SM count.
 #pragma once
 
 #include <stdint.h>
@@ -55,6 +56,12 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
   } while (!done);
 }
 
+// Arrives on `bar` once every cp.async this thread has started is complete
+// (.noinc: the arrival is one of the barrier's expected count).
+__device__ __forceinline__ void cp_async_mbar_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(bar) : "memory");
+}
+
 // Named barriers 1 and 2 (0 is __syncthreads) between two warpgroups that take
 // turns: 256 = one warpgroup that waits and one that arrives.
 __device__ __forceinline__ void named_sync(int id) {
@@ -99,6 +106,13 @@ __device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint3
          ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
 }
 
+// The same for the 64-byte swizzle (rows of 64 bytes): sbo = 512 (the next 8
+// rows), layout type 2.
+__device__ __forceinline__ uint64_t smem_desc_sw64(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (2ull << 62);
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -117,11 +131,20 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
+template <int N>
+__device__ __forceinline__ void fence_regs(int (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
 
 #define ID_F8(d, i)                                                                     \
   "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]),           \
       "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
 #define ID_F32(d, i) ID_F8(d, i), ID_F8(d, i + 8), ID_F8(d, i + 16), ID_F8(d, i + 24)
+#define ID_R8(d, i)                                                                     \
+  "+r"(d[i]), "+r"(d[i + 1]), "+r"(d[i + 2]), "+r"(d[i + 3]), "+r"(d[i + 4]),           \
+      "+r"(d[i + 5]), "+r"(d[i + 6]), "+r"(d[i + 7])
+#define ID_R32(d, i) ID_R8(d, i), ID_R8(d, i + 8), ID_R8(d, i + 16), ID_R8(d, i + 24)
 #define ID_REGS_0_31                                                                    \
   "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "              \
   "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
@@ -158,6 +181,18 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[96], uint64_t a, uint64_t b,
       "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
       "{" ID_REGS_0_31 ", " ID_REGS_32_63 ", " ID_REGS_64_95 "}, %96, %97, p, 1, 1, 0, 0;\n}\n"
       : ID_F32(d, 0), ID_F32(d, 32), ID_F32(d, 64)
+      : "l"(a), "l"(b), "r"(acc));
+}
+
+// d[64 x 128] (+)= A[64 x 32] B[128 x 32]^T in s8 with s32 sums, A and B
+// K-major in shared memory (integer wgmma takes no transpose and no scales).
+// The accumulator layout is that of the f32 forms.
+__device__ __forceinline__ void wgmma_s8(int (&d)[64], uint64_t a, uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{" ID_REGS_0_31 ", " ID_REGS_32_63 "}, %64, %65, p;\n}\n"
+      : ID_R32(d, 0), ID_R32(d, 32)
       : "l"(a), "l"(b), "r"(acc));
 }
 
@@ -251,6 +286,23 @@ inline bool make_heads_map(CUtensorMap* map, const void* ptr, int BH, int L, int
   const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)L * D * 2};
   const cuuint32_t box[3] = {64, (cuuint32_t)rows, 1};
   return make_bf16_map(map, ptr, 3, dims, strides, box);
+}
+
+// [BH, L, D] int8, contiguous, as a 3-D map with [1, rows, D] boxes: one box
+// holds whole rows, in the 128-byte swizzle at D = 128 and the 64-byte swizzle
+// at D = 64; out-of-range rows are filled with zeros.
+inline bool make_i8_heads_map(CUtensorMap* map, const void* ptr, int BH, int L, int D, int rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (!encode || (D != 64 && D != 128)) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)L, (cuuint64_t)BH};
+  const cuuint64_t strides[2] = {(cuuint64_t)D, (cuuint64_t)L * D};
+  const cuuint32_t box[3] = {(cuuint32_t)D, (cuuint32_t)rows, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3, const_cast<void*>(ptr), dims, strides,
+                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                D == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 // SMs of the current device (a persistent grid's size), asked on every call: a

@@ -12,9 +12,9 @@ of kernels/block_sparse_attention.py).
                               _dkdv_kernel_dense (:248)
 
 On CUDA tensors each launches its hand-written sm_90a kernels
-(csrc/block_attention.cu the SLA forward, csrc/block_attention_bwd.cu the
-SLA backward, csrc/flash_fwd_sm90.cu and csrc/flash_bwd_sm90.cu the flash
-forward and backward on wgmma and TMA); on CPU
+(csrc/sla_fwd_sm90.cu the SLA forward, csrc/block_attention_bwd.cu the SLA
+backward, csrc/flash_fwd_sm90.cu and csrc/flash_bwd_sm90.cu the flash
+forward and backward; all but the SLA backward on wgmma and TMA); on CPU
 tensors it runs its plain twins (block_sparse_attention_reference,
 `_torch_flash`, `_torch_sla_bwd`, `_torch_flash_bwd`). There is no fallback
 between the two: a CUDA input the kernels do not take raises. The `*_twin`
@@ -35,8 +35,8 @@ from .block_sparse_reference import (LOG2E, bh_chunks, block_sparse_attention_re
                                      gather_blocks)
 
 HEAD_DIMS = (64, 128)  # head dims the CUDA kernels take
-TILE = 64              # the kernels' row tile: SLA block sizes must be multiples
-MAX_LUT_TILES = 1024   # topk * block_n / TILE per query block (csrc kMaxTiles)
+TILE = 64              # SLA block sizes must be multiples of this
+MAX_LUT_TILES = 1024   # topk * block_n / TILE per query block (the kernels' bound)
 
 
 def check_cuda_inputs(name: str, tensors, dtypes, D: int) -> None:

@@ -7,10 +7,10 @@ subtracting its per-channel mean (smooth-k, softmax-invariant), in plain
 PyTorch as the JAX package does, then runs the kernel: int32 Q K^T rescaled
 by the outer product of the row scales, bf16 P.V over the same LUT.
 
-On CUDA tensors the kernel is the hand-written sm_90a `kSparseInt8` entry of
-csrc/block_attention.cu (replacing the TPU kernel _fwd_kernel_int8, :48); on
-CPU tensors its plain twin `_torch_int8_attention`. A CUDA input the kernel
-does not take raises.
+On CUDA tensors the kernel is the hand-written sm_90a `sla_fwd_kernel<D,
+true>` of csrc/sla_fwd_sm90.cu (s8 wgmma for Q K^T; replacing the TPU kernel
+_fwd_kernel_int8, :48); on CPU tensors its plain twin
+`_torch_int8_attention`. A CUDA input the kernel does not take raises.
 
 The backward is straight-through (the JAX package's bwd_recompute=True): it
 re-runs the bf16 SLA forward for a consistent (o, lse) and then the SLA

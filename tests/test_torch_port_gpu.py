@@ -297,18 +297,37 @@ def _qkv_bf16(bh, L, d, device, seed, Lk=None):
     return q, k, v
 
 
+# (BH, L, Dh, block_m, block_n, top-k ratio, duplicated ids) of the SLA
+# forward kernels' cases: ragged last blocks, the Wan sampler's and trainer's
+# shapes, blocks of 64 and 192 (the two 64-row halves of a 128-row work item
+# follow different LUT rows, and the last 128-key tile of an id is half
+# masked), block_m != block_n both ways, and LUTs with duplicated ids.
+SLA_CASES = [
+    (6, 1000, 128, 128, 128, 0.3, False), (6, 1000, 64, 128, 128, 0.3, False),
+    (6, 1000, 128, 256, 256, 0.5, False), (6, 1000, 64, 256, 256, 0.5, False),
+    (6, 7800, 128, 128, 128, 0.1, False), (24, 7800, 128, 256, 256, 0.1, False),
+    (6, 1000, 128, 64, 64, 0.3, False), (6, 1000, 64, 192, 192, 0.3, False),
+    (6, 1000, 128, 192, 64, 0.3, False), (6, 1000, 128, 128, 256, 0.5, False),
+    (6, 1000, 64, 256, 128, 0.3, False), (6, 1000, 128, 128, 128, 0.4, True),
+    (6, 1000, 64, 192, 192, 0.4, True), (6, 1000, 128, 256, 256, 0.5, True)]
+
+
+def _sla_lut(q, k, ratio, bm, bn, dup):
+    _, lut, _ = get_block_map(q, k, ratio, bm, bn)
+    if dup:   # every second row repeats its first id in its last slot
+        lut[:, ::2, -1] = lut[:, ::2, 0]
+    return lut.contiguous()
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("L,d,block,ratio", [
-    (1000, 128, 128, 0.3), (1000, 64, 128, 0.3),   # last block 104 of 128 rows
-    (1000, 128, 256, 0.5), (1000, 64, 256, 0.5),   # last block 232 of 256 rows
-    (7800, 128, 128, 0.1)])                        # the Wan path's L, topk 6 of 61
-def test_sla_kernel_matches_twin(cuda, L, d, block, ratio):
-    q, k, v = _qkv_bf16(6, L, d, cuda, L + d + block)
-    _, lut, _ = get_block_map(q, k, ratio, block, block)
+@pytest.mark.parametrize("bh,L,d,bm,bn,ratio,dup", SLA_CASES)
+def test_sla_kernel_matches_twin(cuda, bh, L, d, bm, bn, ratio, dup):
+    q, k, v = _qkv_bf16(bh, L, d, cuda, L + d + bm + bn)
+    lut = _sla_lut(q, k, ratio, bm, bn, dup)
     before = bsa.block_sparse_attention.launches
     with torch.inference_mode():
-        o, lse = bsa.block_sparse_attention_fwd(q, k, v, lut, block, block)
-        ro, rlse = block_sparse_attention_reference(q, k, v, lut, block, block)
+        o, lse = bsa.block_sparse_attention_fwd(q, k, v, lut, bm, bn)
+        ro, rlse = block_sparse_attention_reference(q, k, v, lut, bm, bn)
     torch.cuda.synchronize()
     assert bsa.block_sparse_attention.launches == before + 1
     assert o.dtype == torch.bfloat16 and torch.isfinite(o).all() and torch.isfinite(lse).all()
@@ -339,6 +358,53 @@ def test_sla_lse_kernel_sentinel(cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("bm,bn,d", [(128, 128, 128), (192, 64, 64), (256, 128, 128)])
+def test_sla_kernel_kv_len_below_lk(cuda, bm, bn, d):
+    """kv_len < Lk: keys kv_len..Lk hold data and get probability 0; LUT ids
+    from the first kv_len keys, sentinels among them, and a query block whose
+    every entry is a sentinel (o = 0, lse = log2(1e-30))."""
+    L, kv_len = 1000, 700
+    q, k, v = _qkv_bf16(6, L, d, cuda, bm + bn + d)
+    _, lut, _ = get_block_map(q, k[:, :kv_len], 0.5, bm, bn)
+    sentinel = -(-kv_len // bn)
+    lut[:, 1::2, -1] = sentinel
+    lut[:, 2, :] = sentinel
+    lut = lut.contiguous()
+    with torch.inference_mode():
+        o, lse = bsa.block_sparse_attention_fwd(q, k, v, lut, bm, bn, kv_len=kv_len,
+                                                kv_pad_blocks=1)
+        ro, rlse = block_sparse_attention_reference(q, k, v, lut, bm, bn, kv_len=kv_len,
+                                                    kv_pad_blocks=1)
+    torch.cuda.synchronize()
+    assert torch.isfinite(o).all() and torch.isfinite(lse).all()
+    assert _rel(o, ro) <= 1e-2 and _rel(lse, rlse) <= 1e-2
+    rows = slice(2 * bm, 3 * bm)
+    assert (o[:, rows] == 0).all()
+    torch.testing.assert_close(lse[:, rows], torch.full_like(lse[:, rows], float(np.log2(1e-30))))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("which", ["sla", "int8"])
+@pytest.mark.parametrize("bm,bn", [(128, 128), (192, 64)])
+def test_sla_kernels_are_deterministic(cuda, which, bm, bn):
+    """Every output row has one writer and no atomics: two calls give the
+    same bits."""
+    q, k, v = _qkv_bf16(6, 1000, 128, cuda, 8)
+    lut = _sla_lut(q, k, 0.4, bm, bn, True)
+    qi, ki, qs, ks = int8_attention.quantize_qk(q, k)
+    with torch.inference_mode():
+        if which == "sla":
+            first, second = (bsa.block_sparse_attention_fwd(q, k, v, lut, bm, bn)
+                             for _ in range(2))
+        else:
+            first, second = (int8_attention.int8_attention_fwd(qi, ki, v, qs, ks, lut, bm, bn,
+                                                               128 ** -0.5) for _ in range(2))
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("Lq,Lk,d", [
     (1000, 517, 128), (1000, 70, 128), (1000, 517, 64), (333, 70, 64), (2048, 2048, 128),
     # the edges of the 128-row query block and the 128-key tile (one row or
@@ -358,19 +424,24 @@ def test_flash_kernel_matches_twin(cuda, Lq, Lk, d):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("L,d,block", [(1000, 128, 128), (1000, 64, 128), (1000, 128, 256),
-                                       (7800, 128, 128)])
-def test_int8_kernel_matches_twins(cuda, L, d, block):
-    q, k, v = _qkv_bf16(6, L, d, cuda, 7 * L + d + block)
-    _, lut, _ = get_block_map(q, k, 0.3, block, block)
+@pytest.mark.parametrize("bh,L,d,bm,bn,ratio,dup", [
+    (6, 1000, 128, 128, 128, 0.3, False), (6, 1000, 64, 128, 128, 0.3, False),
+    (6, 1000, 128, 256, 256, 0.3, False), (6, 7800, 128, 128, 128, 0.3, False),
+    (24, 7800, 128, 256, 256, 0.1, False),   # the Wan trainer's shape
+    (6, 1000, 64, 256, 256, 0.5, False),     # head dim 64: 64-byte rows
+    (6, 1000, 64, 64, 64, 0.3, False), (6, 1000, 128, 192, 192, 0.3, True),
+    (6, 1000, 128, 128, 256, 0.5, False), (6, 1000, 64, 192, 64, 0.3, True)])
+def test_int8_kernel_matches_twins(cuda, bh, L, d, bm, bn, ratio, dup):
+    q, k, v = _qkv_bf16(bh, L, d, cuda, 7 * L + d + bm + bn)
+    lut = _sla_lut(q, k, ratio, bm, bn, dup)
     qi, ki, qs, ks = int8_attention.quantize_qk(q, k)
     before = int8_attention.int8_block_sparse_attention.launches
     with torch.inference_mode():
-        o, lse = int8_attention.int8_attention_fwd(qi, ki, v, qs, ks, lut, block, block, d ** -0.5)
-        ro, rlse = int8_attention._torch_int8_attention(qi, ki, v, qs, ks, lut, block, block,
+        o, lse = int8_attention.int8_attention_fwd(qi, ki, v, qs, ks, lut, bm, bn, d ** -0.5)
+        ro, rlse = int8_attention._torch_int8_attention(qi, ki, v, qs, ks, lut, bm, bn,
                                                         d ** -0.5)
-        bo, _ = block_sparse_attention_reference(q, k, v, lut, block, block)
-        pub = int8_attention.int8_block_sparse_attention(q, k, v, lut, block, block)
+        bo, _ = block_sparse_attention_reference(q, k, v, lut, bm, bn)
+        pub = int8_attention.int8_block_sparse_attention(q, k, v, lut, bm, bn)
     torch.cuda.synchronize()
     assert int8_attention.int8_block_sparse_attention.launches == before + 2
     assert _rel(o, ro) <= 1e-2 and _rel(lse, rlse) <= 1e-2
