@@ -59,14 +59,21 @@ Phases, each on its own lines; any failure exits non-zero:
                   sage_sla and flash; shapes, finiteness, launch counts and
                   agreement of the kernel path with the plain-twin path
   8. wan timings  Wan kernels vs twins (CUDA events; the SLA and int8 SLA
-                  forward also by graph replay) and sampler samples/s
-                  per mode (kernels, twins, twins, kernels)
+                  forward also by graph replay; the SLA forward beside
+                  scaled_dot_product_attention under the LUT as a mask) and
+                  sampler samples/s per mode (kernels, twins, twins, kernels)
   9. wan bwd      the SLA and flash backward kernels (dQ, dK/dV) against their
                   twins at the trainer's shapes ([24, 7800, 128]; SLA blocks
-                  256 and 128, one LUT with duplicated ids; flash cross
-                  7800 x 517 and self 7800 x 7800; flash also at head dim 64,
+                  256 and 128, one LUT with duplicated ids, one with a key
+                  block no query block names (dk = dv = 0 exactly), the LUT
+                  walks' edges of SLA_EDGES (blocks 64 and 192, block_m !=
+                  block_n, head dim 64), the 33k-token geometry (blocks 128
+                  and 256), every SLA case also two calls bit for bit, and
+                  the histogram of query tiles per dK/dV work item; flash
+                  cross 7800 x 517 and self 7800 x 7800, also at head dim 64,
                   ragged lengths, fewer than 64 keys, and two calls bit for
-                  bit), with CUDA-event times
+                  bit), with CUDA-event times (SLA also by graph replay) and
+                  the library's backward
   10. wan train   Phase-1 LoRA training (train/train_keypoints_wansynth) at
                   the trainer's defaults: Wan2.1-1.3B at full width and depth,
                   batch 2, L=7800, bf16, LoRA rank 8, frame conditioning,
@@ -81,8 +88,9 @@ Phases, each on its own lines; any failure exits non-zero:
                   block on one path only; how many rows its own choice
                   differs in, and its reading on its own LUTs, are printed)
 Every timing phase also times the one PyTorch library call that computes the
-same function, where there is one (scaled_dot_product_attention, F.linear,
-or for the block a chain of them), as a yardstick that the port never calls.
+same function, where there is one (scaled_dot_product_attention, for SLA
+under the LUT as a mask; F.linear; or for the block a chain of them), as a
+yardstick that the port never calls.
 --profile adds torch.profiler tables of one maze pipeline call (policy block,
 B=1024), one maze Stage-2 training step, one sla-mode sampler call and one
 sla-mode Wan training step. The line before the
@@ -152,9 +160,9 @@ KERNEL_SOURCES = {
                                     "interpolated_diffusion_tpu/kernels/int8_attention.py:48"),
     "flash_attention": ("interpolated_diffusion_tpu_torch/csrc/flash_fwd_sm90.cu",
                         "interpolated_diffusion_tpu/kernels/block_sparse_attention.py:174"),
-    "sla_bwd_dq": ("interpolated_diffusion_tpu_torch/csrc/block_attention_bwd.cu",
+    "sla_bwd_dq": ("interpolated_diffusion_tpu_torch/csrc/sla_bwd_sm90.cu",
                    "interpolated_diffusion_tpu/kernels/block_sparse_attention.py:438"),
-    "sla_bwd_dkdv": ("interpolated_diffusion_tpu_torch/csrc/block_attention_bwd.cu",
+    "sla_bwd_dkdv": ("interpolated_diffusion_tpu_torch/csrc/sla_bwd_sm90.cu",
                      "interpolated_diffusion_tpu/kernels/block_sparse_attention.py:473"),
     "flash_bwd_dq": ("interpolated_diffusion_tpu_torch/csrc/flash_bwd_sm90.cu",
                      "interpolated_diffusion_tpu/kernels/block_sparse_attention.py:214"),
@@ -163,7 +171,8 @@ KERNEL_SOURCES = {
 }
 
 # Times of the kernels that were redesigned (wgmma + TMA flash forward and
-# backward, SLA forward and block GEMM, register-resident small_mha kernels), as this script
+# backward, SLA forward and backward and block GEMM, register-resident
+# small_mha kernels), as this script
 # measured their first versions (mma.sync with a cp.async ring; WMMA with logits
 # staged through shared memory) on an NVIDIA H100 80GB HBM3 at a 700 W limit, in
 # ms. Printed on the [timing] lines beside the new times, so that one run shows
@@ -177,7 +186,9 @@ BEFORE_REDESIGN_MS = {"flash_attention/cross": 0.737, "flash_attention/self": 8.
                       "flash_bwd_dq/cross": 0.377, "flash_bwd_dkdv/cross": 0.544,
                       "flash_bwd_dq/self": 4.601, "flash_bwd_dkdv/self": 6.312,
                       # the mma.sync SLA and int8 SLA forward, [48,7800,128] block 128
-                      "block_sparse_attention": 0.968, "int8_block_sparse_attention": 0.744}
+                      "block_sparse_attention": 0.968, "int8_block_sparse_attention": 0.744,
+                      # the mma.sync SLA backward, [24,7800,128] block 256 top-k 3
+                      "sla_bwd_dq": 0.468, "sla_bwd_dkdv": 0.832}
 # Flash backward cases beside the trainer's shapes, (BH, Lq, Lk, Dh): head
 # dim 64, query lengths ragged against the 128-row blocks and 64-row tiles,
 # key lengths ragged against both and one under a 64-key tile.
@@ -1196,6 +1207,75 @@ def _sla_work(lut, L, block):
     return int(work.sum().item()), int((work * first).sum().item())
 
 
+def _dkdv_item_tiles(lut, Lq, Lk, block_m, block_n):
+    """[BH, ceil(Lk / 128)]: the 64-row query tiles each work item of the SLA
+    dK/dV kernel walks (128 keys; a query block is walked if its LUT row names
+    the key block of either 64-key half)."""
+    import torch
+
+    BH, M, _ = lut.shape
+    N = -(-Lk // block_n)
+    ids = lut.long()
+    named = torch.zeros((BH, M, N + 1), dtype=torch.bool, device=lut.device)
+    named.scatter_(2, torch.where((ids < 0) | (ids >= N), N, ids), True)
+    rows = torch.clamp(Lq - torch.arange(M, device=lut.device) * block_m, max=block_m)
+    key0 = torch.arange(0, Lk, 128, device=lut.device)
+    nb0 = key0 // block_n
+    nb1 = torch.where(key0 + 64 < Lk, (key0 + 64) // block_n, nb0)
+    walked = named[:, :, nb0] | named[:, :, nb1]
+    return (walked * ((rows + 63) // 64)[None, :, None]).sum(dim=1)
+
+
+def _print_dkdv_histogram(label, lut, L, block):
+    tiles = _dkdv_item_tiles(lut, L, L, block, block).float()
+    print(f"[wan bwd] SLA dK/dV work {label} block={block} topk={lut.shape[-1]}: query tiles "
+          f"per 128-key item min {tiles.min().item():.0f} mean {tiles.mean().item():.2f} max "
+          f"{tiles.max().item():.0f}, items with none {int((tiles == 0).sum().item())} of "
+          f"{tiles.numel()}", flush=True)
+
+
+def _lut_bias(lut, Lq, Lk, block_m, block_n, dtype):
+    """The LUT as an additive [BH, Lq, Lk] mask (0 where a query block names
+    the key block, -inf elsewhere): with no duplicated id in a row, attention
+    under it is the SLA function, which one scaled_dot_product_attention call
+    then computes. Built once, outside any timed call (a boolean mask would be
+    turned into this bias inside every call)."""
+    import torch
+
+    BH, M, _ = lut.shape
+    N = -(-Lk // block_n)
+    named = torch.zeros((BH, M, N), dtype=torch.bool, device=lut.device)
+    named.scatter_(2, lut.long(), True)
+    full = named.repeat_interleave(block_m, 1)[:, :Lq].repeat_interleave(block_n, 2)[:, :, :Lk]
+    bias = torch.zeros((BH, Lq, Lk), dtype=dtype, device=lut.device)
+    return bias.masked_fill_(~full, float("-inf"))
+
+
+def _sdpa_masked(q, k, v, bias):
+    """(callable, backend name) of scaled_dot_product_attention on [1, BH, L,
+    D] inputs under `bias`, with the first backend that takes it, or (None,
+    why) if none does."""
+    import torch
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    try:
+        from torch.nn.attention import SDPBackend, sdpa_kernel
+    except ImportError:   # an older torch: its own choice, not named
+        return (lambda: sdpa(q, k, v, attn_mask=bias)), "default"
+    why = []
+    for backend in (SDPBackend.EFFICIENT_ATTENTION, SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
+        def call(backend=backend):
+            with sdpa_kernel(backend):
+                return sdpa(q, k, v, attn_mask=bias)
+        try:
+            call()
+            torch.cuda.synchronize()
+            return call, backend.name
+        except RuntimeError as e:
+            why.append(f"{backend.name}: {str(e).splitlines()[0][:80]}")
+    return None, "; ".join(why)
+
+
 def _nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
@@ -1214,7 +1294,7 @@ def _print_profile(prof, tag, what):
     print(f"[profile] {tag} {what}:\n"
           f"{prof.key_averages().table(sort_by='cuda_time_total', row_limit=25)}", flush=True)
     kinds = {"hand-written kernels": ("sla_fwd_kernel", "flash_fwd_kernel", "flash_bwd_",
-                                      "attn_bwd_", "small_mha_",
+                                      "sla_bwd_", "small_mha_",
                                       "gemm_resident_kernel", "gemm_stream_kernel",
                                       "ln_film_kernel"),
              "library GEMMs (cuBLAS)": ("gemm", "nvjet", "cutlass", "cublas", "sm90_xmma",
@@ -1578,9 +1658,12 @@ def phase_wan_kernel_timings(card, cases):
     saved = _train_counts()
     sdpa = torch.nn.functional.scaled_dot_product_attention
     with torch.inference_mode():
-        plan, library = [], {}
+        plan, library, lib_names = [], {}, {}
         # rows 4 and 8 at the sampler's shape (block 128) and the trainer's
-        # (block 256); the JSON line holds the sampler's, the trainer's beside
+        # (block 256); the JSON line holds the sampler's, the trainer's beside.
+        # Row 4's library call: scaled_dot_product_attention under the LUT as
+        # a mask (these LUTs hold no duplicated id); row 8 has none, since no
+        # PyTorch call takes int8 Q K^T.
         for where, suffix in (("sampler", ""), ("trainer", "/train")):
             q, k, v, lut, block = cases[f"sla/{where}"]
             qi, ki, vi, qs, ks, lut8, _ = cases[f"int8/{where}"]
@@ -1597,6 +1680,12 @@ def phase_wan_kernel_timings(card, cases):
                  lambda a=(qi, ki, vi, qs, ks, lut8, block, block, scale): i8.int8_attention_fwd(*a),
                  lambda a=(qi, ki, vi, qs, ks, lut8, block, block, scale):
                      i8._torch_int8_attention(*a))]
+            bias = _lut_bias(lut, L, L, block, block, q.dtype)[None]
+            fn, backend = _sdpa_masked(q[None], k[None], v[None], bias)
+            name = f"block_sparse_attention{suffix}"
+            if fn is not None:
+                library[name] = fn
+            lib_names[name] = backend
             entries, _ = _sla_work(lut, L, block)
             o_lse = _nbytes(q) + 4 * BH * L   # o like q (bf16), lse f32 per row
             bounds[f"block_sparse_attention{suffix}"] = bound_ms(
@@ -1619,8 +1708,11 @@ def phase_wan_kernel_timings(card, cases):
             k_ms = _time_ms(kernel, iters=10, warmup=2)
             p_ms = _time_ms(twin, iters=3, warmup=1)
             lib_ms = _time_ms(library[name], iters=10, warmup=2) if name in library else None
-            lib = (f"library (scaled_dot_product_attention) {lib_ms:.4f} ms" if lib_ms
-                   else "library: none")
+            how = f", {lib_names[name]} backend, LUT as a mask" if name in lib_names else ""
+            lib = (f"library (scaled_dot_product_attention{how}) {lib_ms:.4f} ms" if lib_ms
+                   else "library: none" + (f" ({lib_names[name]})" if name in lib_names
+                                           else " (no PyTorch call takes int8 Q K^T)"
+                                           if name.startswith("int8") else ""))
             was = (f", before the redesign {BEFORE_REDESIGN_MS[name]:.4f} ms"
                    if name in BEFORE_REDESIGN_MS else "")
             # rows 4 and 8 also by graph replay: each call's host work (three
@@ -1633,6 +1725,7 @@ def phase_wan_kernel_timings(card, cases):
             times[name] = (k_ms, p_ms, lib_ms)
         bounds["flash_attention"] = bounds["flash_attention/cross"]
         times["bounds"] = bounds
+        del library, bias
     _set_train_counts(saved)
     return times
 
@@ -1690,23 +1783,59 @@ def phase_wan_bwd_kernels(dev, card):
             require(rel <= BWD_TOL, f"{name} {label}: {tensor} disagrees ({rel:.3e})")
             errs[name] = max(errs.get(name, 0.0), err)
 
+    sla_names = ("sla_bwd_dq", "sla_bwd_dkdv", "sla_bwd_dkdv")
+
+    def sla_case(label, q, k, v, do, lut, bm, bn, unnamed=None):
+        """Both SLA kernels against the twin and two calls bit for bit; with
+        `unnamed` (a key block that no LUT row names) its dk and dv exactly 0."""
+        label = f"{label} block={bm}x{bn} topk={lut.shape[-1]}"
+        o, lse = bsa.block_sparse_attention_fwd(q, k, v, lut, bm, bn)
+        got = bsa.block_sparse_attention_bwd(q, k, v, lut, o, lse, do, bm, bn)
+        check(sla_names, label, got,
+              bsa.block_sparse_attention_bwd(q, k, v, lut, o, lse, do, bm, bn, twin=True))
+        again = bsa.block_sparse_attention_bwd(q, k, v, lut, o, lse, do, bm, bn)
+        require(all(torch.equal(a, b) for a, b in zip(got, again)),
+                f"SLA backward {label}: two calls differ")
+        note = "two calls bit-identical"
+        if unnamed is not None:
+            keys = slice(unnamed * bn, (unnamed + 1) * bn)
+            require(all(bool((t[:, keys] == 0).all()) for t in got[1:]),
+                    f"SLA backward {label}: dk / dv of unnamed key block {unnamed} not 0")
+            note += f", dk and dv of the unnamed key block {unnamed} exactly 0"
+        print(f"[wan bwd] SLA backward {label}: {note}", flush=True)
+        return o, lse
+
     with torch.no_grad():
         q, k, v = _wan_qkv(BH, L, D, gen, dev)
         do = torch.randn((BH, L, D), generator=gen, device=dev).to(torch.bfloat16)
-        sla_names = ("sla_bwd_dq", "sla_bwd_dkdv", "sla_bwd_dkdv")
         for block, dup in ((256, False), (128, False), (256, True)):
             _, lut, topk = get_block_map(q, k, 0.1, block, block)
             if dup:   # every second row repeats its first id in its last slot
                 lut[:, ::2, -1] = lut[:, ::2, 0]
                 lut = lut.contiguous()
-            o, lse = bsa.block_sparse_attention_fwd(q, k, v, lut, block, block)
-            got = bsa.block_sparse_attention_bwd(q, k, v, lut, o, lse, do, block, block)
-            want = bsa.block_sparse_attention_bwd(q, k, v, lut, o, lse, do, block, block,
-                                                  twin=True)
-            check(sla_names, f"[{BH},{L},{D}] block={block} topk={topk}"
-                  + (" duplicated ids" if dup else ""), got, want)
+            o, lse = sla_case(f"[{BH},{L},{D}]" + (" duplicated ids" if dup else ""),
+                              q, k, v, do, lut, block, block)
+            if not dup:
+                _print_dkdv_histogram(f"trainer [{BH},{L},{D}]", lut, L, block)
             if block == 256 and not dup:
                 out["sla"] = (lut, o, lse, block)
+        # a key block that no query block names (5 becomes 6 wherever it
+        # appears): the kernel skips nothing it must write
+        lut = out["sla"][0]
+        sla_case(f"[{BH},{L},{D}] key block 5 unnamed", q, k, v, do,
+                 torch.where(lut == 5, 6, lut).contiguous(), 256, 256, unnamed=5)
+        # the LUT walks' edges beside the path shapes (SLA_EDGES): blocks of
+        # 64 and 192, block_m != block_n both ways, head dim 64; the last key
+        # block unnamed
+        for bh, l, d, bm, bn, ratio in SLA_EDGES:
+            eq, ek, ev = _wan_qkv(bh, l, d, gen, dev)
+            edo = torch.randn((bh, l, d), generator=gen, device=dev).to(torch.bfloat16)
+            _, lut, _ = get_block_map(eq, ek, ratio, bm, bn)
+            last = -(-l // bn) - 1
+            sla_case(f"[{bh},{l},{d}]", eq, ek, ev, edo, lut, bm, bn)
+            sla_case(f"[{bh},{l},{d}] last key block unnamed", eq, ek, ev, edo,
+                     torch.where(lut == last, 0, lut).contiguous(), bm, bn, unnamed=last)
+        del eq, ek, ev, edo
         kc, vc = (torch.randn((BH, Lk_cross, D), generator=gen, device=dev).to(torch.bfloat16)
                   for _ in range(2))
         flash_names = ("flash_bwd_dq", "flash_bwd_dkdv", "flash_bwd_dkdv")
@@ -1729,6 +1858,16 @@ def phase_wan_bwd_kernels(dev, card):
             got = bsa.flash_attention_bwd(fq, fk, fv, o, lse, fdo)
             want = bsa.flash_attention_bwd(fq, fk, fv, o, lse, fdo, twin=True)
             check(flash_names, f"q [{bh},{lq},{d}] k {lk} rows", got, want)
+        del fq, fk, fv, fdo
+        # scripts/bench_wan33k.py geometry: BH 12, L 32760, Dh 128, top-k 0.1
+        bh33, l33 = WAN_33K
+        sq, sk, sv = _wan_qkv(bh33, l33, D, gen, dev)
+        sdo = torch.randn((bh33, l33, D), generator=gen, device=dev).to(torch.bfloat16)
+        for block in (128, 256):
+            _, lut, _ = get_block_map(sq, sk, WAN["sla_topk"], block, block)
+            sla_case(f"33k [{bh33},{l33},{D}]", sq, sk, sv, sdo, lut, block, block)
+            _print_dkdv_histogram(f"33k [{bh33},{l33},{D}]", lut, l33, block)
+        del sq, sk, sv, sdo
         torch.cuda.synchronize()
 
         # times at the same shapes: each kernel alone, the twin (dq, dk, dv at once)
@@ -1737,22 +1876,62 @@ def phase_wan_bwd_kernels(dev, card):
         delta = bsa.attention_delta(o, do)
         entries, pairs = _sla_work(lut, L, block)
         rows = _nbytes(lse, delta)
-        times["sla_bwd_dq"] = _time_ms(lambda: bsa.sla_bwd_dq(
-            q, k, v, lut, do, lse, delta, block, block, scale), iters=10, warmup=2)
-        times["sla_bwd_dkdv"] = _time_ms(lambda: bsa.sla_bwd_dkdv(
-            q, k, v, lut, do, lse, delta, block, block, scale), iters=10, warmup=2)
+        kernels = {"sla_bwd_dq": lambda: bsa.sla_bwd_dq(
+                       q, k, v, lut, do, lse, delta, block, block, scale),
+                   "sla_bwd_dkdv": lambda: bsa.sla_bwd_dkdv(
+                       q, k, v, lut, do, lse, delta, block, block, scale)}
+        for name, fn in kernels.items():
+            times[name] = _time_ms(fn, iters=10, warmup=2)
+            times[f"{name}_graph"] = _graph_ms(fn, launches=20)
         times["sla_twin"] = _time_ms(lambda: bsa.block_sparse_attention_bwd(
             q, k, v, lut, o, lse, do, block, block, twin=True), iters=2, warmup=1)
+        # what the skew of the LUT's inverse costs dK/dV: the same shapes on a
+        # LUT that names every key block equally often (row m: m + j M / topk)
+        M, topk = lut.shape[1:]
+        rows_m = torch.arange(M, device=dev)[:, None] + (M // topk) * torch.arange(topk, device=dev)
+        even = (rows_m % M).to(torch.int32).expand(BH, M, topk).contiguous()
+        o_e, lse_e = bsa.block_sparse_attention_fwd(q, k, v, even, block, block)
+        delta_e = bsa.attention_delta(o_e, do)
+        times["sla_bwd_dkdv_even"] = _graph_ms(lambda: bsa.sla_bwd_dkdv(
+            q, k, v, even, do, lse_e, delta_e, block, block, scale), launches=20)
+        work = [_dkdv_item_tiles(x, L, L, block, block).float().mean().item() for x in (lut, even)]
+        print(f"[timing] {tag} SLA dK/dV by graph replay: the path's LUT "
+              f"{times['sla_bwd_dkdv_graph']:.4f} ms at {work[0]:.2f} query tiles an item, a "
+              f"LUT naming every key block equally often {times['sla_bwd_dkdv_even']:.4f} ms "
+              f"at {work[1]:.2f}: at equal work the skew costs "
+              f"{100 * (times['sla_bwd_dkdv_graph'] / work[0] / (times['sla_bwd_dkdv_even'] / work[1]) - 1):.1f}%",
+              flush=True)
+        del o_e, lse_e, delta_e
         # dQ: S, dP, dS K (3 products); dK/dV: S^T, P^T dO, dP^T, dS^T Q (4)
         bounds["sla_bwd_dq"] = bound_ms(_nbytes(q, k, v, do, lut) + rows + _nbytes(q),
                                         6.0 * entries * D)
         bounds["sla_bwd_dkdv"] = bound_ms(_nbytes(q, k, v, do, lut) + rows + _nbytes(k, v),
                                           8.0 * pairs * D)
-        print(f"[timing] {tag} SLA backward [{BH},{L},{D}] block {block}: dQ kernel "
-              f"{times['sla_bwd_dq']:.4f} ms (bound {bounds['sla_bwd_dq'][0]:.4f} ms, "
-              f"{bounds['sla_bwd_dq'][1]}), dK/dV kernel {times['sla_bwd_dkdv']:.4f} ms (bound "
-              f"{bounds['sla_bwd_dkdv'][0]:.4f} ms, {bounds['sla_bwd_dkdv'][1]}), plain twin "
-              f"(dq, dk, dv) {times['sla_twin']:.4f} ms, library: none", flush=True)
+    # the library's backward: autograd through scaled_dot_product_attention
+    # under the LUT as a mask (this LUT holds no duplicated id), dq, dk, dv in
+    # one call
+    leaves = [t[None].clone().requires_grad_() for t in (q, k, v)]
+    bias = _lut_bias(lut, L, L, block, block, q.dtype)[None]
+    fn, backend = _sdpa_masked(*leaves, bias)
+    if fn is not None:
+        y = fn()
+        times["sla_library"] = _time_ms(
+            lambda: torch.autograd.grad(y, leaves, do[None], retain_graph=True), iters=5, warmup=1)
+        lib = (f"library (scaled_dot_product_attention, {backend} backend, LUT as a mask) "
+               f"backward {times['sla_library']:.4f} ms")
+        del y
+    else:
+        lib = f"library: none ({backend})"
+    del leaves, bias, fn
+    print(f"[timing] {tag} SLA backward [{BH},{L},{D}] block {block} topk {lut.shape[-1]}: "
+          f"dQ kernel {times['sla_bwd_dq']:.4f} ms (by graph replay "
+          f"{times['sla_bwd_dq_graph']:.4f}; bound {bounds['sla_bwd_dq'][0]:.4f} ms, "
+          f"{bounds['sla_bwd_dq'][1]}; before the redesign {BEFORE_REDESIGN_MS['sla_bwd_dq']:.4f} "
+          f"ms), dK/dV kernel {times['sla_bwd_dkdv']:.4f} ms (by graph replay "
+          f"{times['sla_bwd_dkdv_graph']:.4f}; bound {bounds['sla_bwd_dkdv'][0]:.4f} ms, "
+          f"{bounds['sla_bwd_dkdv'][1]}; before the redesign "
+          f"{BEFORE_REDESIGN_MS['sla_bwd_dkdv']:.4f} ms), plain twin (dq, dk, dv) "
+          f"{times['sla_twin']:.4f} ms, {lib}", flush=True)
     for label in ("cross", "self"):
         kk, vv, o, lse = out[label]
         with torch.no_grad():
@@ -2110,17 +2289,21 @@ def main() -> int:
                          k768_ms=y_ms, k768_plain_ms=y_plain, k768_library_ms=y_lib,
                          k768_bound_ms=wan_times["bounds"]["flash_attention/768"][0])
         else:                           # the trainer's shape too
-            t_ms, t_plain, _ = wan_times[f"{name}/train"]
-            extra = dict(train_ms=t_ms, train_plain_ms=t_plain,
+            t_ms, t_plain, t_lib = wan_times[f"{name}/train"]
+            extra = dict(train_ms=t_ms, train_plain_ms=t_plain, train_library_ms=t_lib,
                          train_bound_ms=wan_times["bounds"][f"{name}/train"][0])
         row(name, wan_launches[name], max(wan_errs[name]), k_ms, p_ms, wan_times["bounds"][name],
             lib_ms, train_launches=train_launches[name], **extra)
     # backward kernels: times at the trainer's shapes (flash: cross-attention,
-    # and its self-attention shape too); the twin and the library call compute
-    # dq, dk and dv in one call
+    # and its self-attention shape too; SLA also by graph replay); the twin and
+    # the library call compute dq, dk and dv in one call
     for name in ("sla_bwd_dq", "sla_bwd_dkdv", "flash_bwd_dq", "flash_bwd_dkdv"):
         kind = name.split("_")[0]
         extra = {}
+        if kind == "sla":     # also by graph replay (dK/dV also on an even LUT)
+            extra = dict(device_ms=bwd_times[f"{name}_graph"])
+            if name == "sla_bwd_dkdv":
+                extra["even_lut_device_ms"] = bwd_times["sla_bwd_dkdv_even"]
         if kind == "flash":
             extra = dict(self_ms=bwd_times[f"{name}_self"],
                          self_plain_ms=bwd_times["flash_twin_self"],

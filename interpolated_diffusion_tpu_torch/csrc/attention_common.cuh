@@ -1,10 +1,9 @@
-// Device helpers shared by the attention kernels (block_attention_bwd.cu,
-// flash_fwd_sm90.cu, flash_bwd_sm90.cu, sla_fwd_sm90.cu, small_mha.cu):
-// cp.async copies, 64-row tile loads, the mma.sync wrapper, fragment packing,
-// quad reductions and the fast exp2. Fragment layouts (PTX ISA, mma.m16n8k16),
-// with lane = 4 * g + t: A rows g and g + 8, k columns 2t, 2t + 1 (and + 8);
-// B column n = g, k rows 2t, 2t + 1 (and + 8); C rows g and g + 8, columns
-// 2t, 2t + 1.
+// Device helpers shared by the attention kernels (flash_fwd_sm90.cu,
+// flash_bwd_sm90.cu, sla_fwd_sm90.cu, sla_bwd_sm90.cu, small_mha.cu): cp.async
+// copies, the mma.sync wrapper, fragment packing, quad reductions and the fast
+// exp2. Fragment layouts (PTX ISA, mma.m16n8k16), with lane = 4 * g + t: A
+// rows g and g + 8, k columns 2t, 2t + 1 (and + 8); B column n = g, k rows
+// 2t, 2t + 1 (and + 8); C rows g and g + 8, columns 2t, 2t + 1.
 #pragma once
 
 #include <math.h>
@@ -17,10 +16,7 @@ namespace id_attn {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kBM = 64;       // query rows per block (16 per warp)
-constexpr int kBN = 64;       // key rows per tile
-constexpr int kThreads = 128;
-constexpr int kMaxTiles = 1024;  // LUT tiles one query block may list
+constexpr int kMaxTiles = 1024;  // 64-key LUT tiles one query block may list
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
@@ -39,18 +35,6 @@ __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commi
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// 64 rows [row0, row0 + 64) of a [rows, row_bytes] matrix into shared memory
-// with stride ld; rows outside [0, nrows) are zero-filled.
-__device__ __forceinline__ void load_rows(unsigned char* dst, int ld, const unsigned char* src,
-                                          int row_bytes, int row0, int nrows) {
-  const int chunks = row_bytes / 16;
-  for (int c = threadIdx.x; c < 64 * chunks; c += kThreads) {
-    const int r = c / chunks, off = (c % chunks) * 16;
-    const bool ok = row0 + r < nrows;
-    cp_async16(dst + r * ld + off, ok ? src + (long long)(row0 + r) * row_bytes + off : src, ok);
-  }
 }
 
 __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,

@@ -120,18 +120,6 @@ struct DkdvSmem : Tiles<D> {
   static constexpr int kBytes = kOffBar + kBars * 8 + 1024;
 };
 
-// descriptor of k-step ks (16 columns) of a K-major operand whose boxes are
-// `box` bytes apart
-__device__ __forceinline__ uint64_t kmajor(uint32_t addr, int ks, int box) {
-  return smem_desc(addr + (ks / 4) * box + (ks % 4) * 32, 16, 1024);
-}
-
-// descriptor of k-step kk (16 rows) of an MN-major operand (the contraction
-// index runs over the rows of a tile whose 64-column boxes are `box` apart)
-__device__ __forceinline__ uint64_t mnmajor(uint32_t addr, int kk, int box) {
-  return smem_desc(addr + kk * (16 * 128), box, 1024);
-}
-
 // ---------------------------------------------------------------------------
 // dQ. grid (min(SMs, work items)), 384 threads; a work item is 128 query rows
 // of one (batch, head), and a block takes items blockIdx.x, + gridDim.x, ...

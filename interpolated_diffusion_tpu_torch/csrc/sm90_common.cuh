@@ -1,7 +1,9 @@
 // Hopper (sm_90a) primitives shared by the wgmma + TMA kernels of the port
-// (flash_fwd_sm90.cu, flash_bwd_sm90.cu, sla_fwd_sm90.cu, fused_block.cu):
+// (flash_fwd_sm90.cu, flash_bwd_sm90.cu, sla_fwd_sm90.cu, sla_bwd_sm90.cu,
+// fused_block.cu):
 // mbarriers, named barriers, TMA tile loads, cp.async counted on an mbarrier,
-// the shared-memory matrix descriptors of the 128- and 64-byte swizzles, wgmma
+// the shared-memory matrix descriptors of the 128- and 64-byte swizzles (and
+// the K-major / MN-major k-step descriptors of the backward kernels), wgmma
 // (bf16 with both operands in shared memory and with A in registers; s8 with
 // both in shared memory), the accumulator -> A fragment pack, the tensor-map
 // encoders (an entry of libcuda that the runtime hands out, so nothing new is
@@ -111,6 +113,19 @@ __device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint3
 __device__ __forceinline__ uint64_t smem_desc_sw64(uint32_t addr, uint32_t lbo, uint32_t sbo) {
   return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
          ((uint64_t)(sbo >> 4) << 32) | (2ull << 62);
+}
+
+// Descriptor of k-step ks (16 columns) of a bf16 K-major operand stored as
+// 64-column boxes `box` bytes apart (128-byte swizzle).
+__device__ __forceinline__ uint64_t kmajor(uint32_t addr, int ks, int box) {
+  return smem_desc(addr + (ks / 4) * box + (ks % 4) * 32, 16, 1024);
+}
+
+// Descriptor of k-step kk (16 rows) of a bf16 MN-major operand: the
+// contraction index runs over the rows of a tile whose 64-column boxes are
+// `box` bytes apart.
+__device__ __forceinline__ uint64_t mnmajor(uint32_t addr, int kk, int box) {
+  return smem_desc(addr + kk * (16 * 128), box, 1024);
 }
 
 __device__ __forceinline__ void wgmma_fence() {

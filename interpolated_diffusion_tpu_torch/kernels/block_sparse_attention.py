@@ -11,10 +11,10 @@ of kernels/block_sparse_attention.py).
                               (:174), _dq_kernel_dense (:214) and
                               _dkdv_kernel_dense (:248)
 
-On CUDA tensors each launches its hand-written sm_90a kernels
-(csrc/sla_fwd_sm90.cu the SLA forward, csrc/block_attention_bwd.cu the SLA
+On CUDA tensors each launches its hand-written sm_90a kernels, all on wgmma
+and TMA (csrc/sla_fwd_sm90.cu and csrc/sla_bwd_sm90.cu the SLA forward and
 backward, csrc/flash_fwd_sm90.cu and csrc/flash_bwd_sm90.cu the flash
-forward and backward; all but the SLA backward on wgmma and TMA); on CPU
+forward and backward); on CPU
 tensors it runs its plain twins (block_sparse_attention_reference,
 `_torch_flash`, `_torch_sla_bwd`, `_torch_flash_bwd`). There is no fallback
 between the two: a CUDA input the kernels do not take raises. The `*_twin`
@@ -192,8 +192,10 @@ _SLA_BWD_ARGS = [ctypes.c_void_p] * 7
 
 def sla_bwd_dq(q, k, v, lut, do, lse, delta, block_m: int, block_n: int, scale: float
                ) -> torch.Tensor:
-    """dQ of block-sparse attention on CUDA tensors (the sm_90a kernel that
-    replaces the TPU _dq_kernel): bf16 q/k/v/do, f32 lse (base 2) / delta."""
+    """dQ of block-sparse attention on CUDA tensors (csrc/sla_bwd_sm90.cu,
+    the sm_90a kernel that replaces the TPU _dq_kernel: each 128-row work
+    item walks its LUT row's key tiles): bf16 q/k/v/do, f32 lse (base 2) /
+    delta."""
     BH, Lq, D = q.shape
     _bwd_args("sla_bwd_dq", q, k, v, do, lse, delta, D)
     check_cuda_inputs("sla_bwd_dq", (lut,), (torch.int32,), D)
@@ -214,8 +216,10 @@ sla_bwd_dq.launches = 0
 
 def sla_bwd_dkdv(q, k, v, lut, do, lse, delta, block_m: int, block_n: int, scale: float
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(dK, dV) of block-sparse attention on CUDA tensors (the sm_90a kernel
-    that replaces the TPU _dkdv_kernel)."""
+    """(dK, dV) of block-sparse attention on CUDA tensors (csrc/sla_bwd_sm90.cu,
+    the sm_90a kernel that replaces the TPU _dkdv_kernel: each 128-key work
+    item walks the query tiles whose LUT row names its key block, weighted by
+    how often)."""
     BH, Lq, D = q.shape
     _bwd_args("sla_bwd_dkdv", q, k, v, do, lse, delta, D)
     check_cuda_inputs("sla_bwd_dkdv", (lut,), (torch.int32,), D)

@@ -488,21 +488,56 @@ def _dup_lut(q, k, ratio, block):
     (1000, 128, 128, 0.4, False), (1000, 64, 128, 0.4, True),    # ragged: 1000 = 7 * 128 + 104
     (1024, 128, 128, 0.4, True), (1024, 64, 256, 0.5, False),    # aligned
     (1000, 128, 256, 0.5, True), (1000, 64, 256, 0.5, True),
-    (7800, 128, 256, 0.1, False), (7800, 128, 128, 0.1, True)])  # the Wan trainer's L
+    (7800, 128, 256, 0.1, False), (7800, 128, 128, 0.1, True),   # the Wan trainer's L
+    # block (block_m, block_n): 192, and block_m != block_n both ways (the two
+    # 64-row halves of a work item in different query or key blocks)
+    (1000, 128, 192, 0.3, False), (1000, 64, (192, 64), 0.3, True),
+    (1000, 128, (128, 256), 0.5, False), (1111, 64, (64, 192), 0.4, False),
+    # dup "unnamed": one key block appears in no LUT row; its dk, dv are 0
+    (1000, 128, (256, 128), 0.3, "unnamed"), (7800, 128, 256, 0.1, "unnamed")])
 def test_sla_bwd_kernels_match_twin(cuda, L, d, block, ratio, dup):
-    q, k, v = _qkv_bf16(6, L, d, cuda, L + d + block)
+    bm, bn = block if isinstance(block, tuple) else (block, block)
+    q, k, v = _qkv_bf16(6, L, d, cuda, L + d + bm + bn)
     do = _qkv_bf16(6, L, d, cuda, 1)[0]
-    lut = _dup_lut(q, k, ratio, block) if dup else get_block_map(q, k, ratio, block, block)[1]
+    lut = get_block_map(q, k, ratio, bm, bn)[1]
+    if dup is True:
+        lut[:, ::2, -1] = lut[:, ::2, 0]
+    unnamed = 2
+    if dup == "unnamed":
+        lut = torch.where(lut == unnamed, unnamed + 1, lut)
+    lut = lut.contiguous()
     before = bsa.sla_bwd_dq.launches, bsa.sla_bwd_dkdv.launches
     with torch.inference_mode():
-        o, lse = bsa.block_sparse_attention_fwd(q, k, v, lut, block, block)
-        got = bsa.block_sparse_attention_bwd(q, k, v, lut, o, lse, do, block, block)
-        ref = bsa.block_sparse_attention_bwd(q, k, v, lut, o, lse, do, block, block, twin=True)
+        o, lse = bsa.block_sparse_attention_fwd(q, k, v, lut, bm, bn)
+        got = bsa.block_sparse_attention_bwd(q, k, v, lut, o, lse, do, bm, bn)
+        ref = bsa.block_sparse_attention_bwd(q, k, v, lut, o, lse, do, bm, bn, twin=True)
     torch.cuda.synchronize()
     assert (bsa.sla_bwd_dq.launches, bsa.sla_bwd_dkdv.launches) == (before[0] + 1, before[1] + 1)
     for name, a, b in zip(("dq", "dk", "dv"), got, ref):
         assert a.dtype == torch.bfloat16 and torch.isfinite(a).all(), name
         assert _rel(a, b) <= BWD_TOL, (name, _rel(a, b))
+    if dup == "unnamed":
+        keys = slice(unnamed * bn, (unnamed + 1) * bn)
+        assert all(bool((t[:, keys] == 0).all()) for t in got[1:])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("L,d,block", [(7800, 128, 256), (1000, 64, (192, 64)),
+                                       (1000, 128, (128, 256))])
+def test_sla_bwd_kernels_are_deterministic(cuda, L, d, block):
+    """Every output row is written by one block, without atomics on data (the
+    dK/dV ticket counter only picks the SM): two calls give the same bits."""
+    bm, bn = block if isinstance(block, tuple) else (block, block)
+    q, k, v = _qkv_bf16(6, L, d, cuda, 7)
+    do = _qkv_bf16(6, L, d, cuda, 8)[0]
+    lut = get_block_map(q, k, 0.3, bm, bn)[1]
+    with torch.inference_mode():
+        o, lse = bsa.block_sparse_attention_fwd(q, k, v, lut, bm, bn)
+        first = bsa.block_sparse_attention_bwd(q, k, v, lut, o, lse, do, bm, bn)
+        second = bsa.block_sparse_attention_bwd(q, k, v, lut, o, lse, do, bm, bn)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dq", "dk", "dv"), first, second):
+        assert torch.equal(a, b), name
 
 
 @pytest.mark.gpu

@@ -49,38 +49,55 @@ def _inputs(seed, BH, Lq, Lk, D, dtype):
     return mk(Lq), mk(Lk), mk(Lk), mk(Lq)   # q, k, v, do
 
 
-def _lut(seed, BH, L, block, topk, dup):
-    """Random key-block ids; with dup, every second row repeats its first id
-    in its last slot (padded rows look like this)."""
+def _lut(seed, BH, L, block, topk, dup, block_n=None):
+    """Random key-block ids (of block_n keys, default block) for query blocks
+    of `block` rows; with dup, every second row repeats its first id in its
+    last slot (padded rows look like this)."""
     r = np.random.default_rng(seed)
-    M = -(-L // block)
-    lut = np.stack([[r.choice(M, size=topk, replace=False) for _ in range(M)]
+    M, N = -(-L // block), -(-L // (block_n or block))
+    lut = np.stack([[r.choice(N, size=topk, replace=False) for _ in range(M)]
                     for _ in range(BH)]).astype(np.int32)
     if dup:
         lut[:, ::2, -1] = lut[:, ::2, 0]
     return lut
 
 
+UNNAMED = 1   # the key block that an "unnamed" LUT names nowhere
+
+
 @pytest.mark.parametrize("dtype,tol", [("f32", F32_TOL), ("bf16", BF16_TOL)])
-@pytest.mark.parametrize("D,block,L,dup", [(64, 64, 200, False),    # ragged: 200 = 3 * 64 + 8
-                                           (128, 64, 200, True),    # duplicated ids
-                                           (64, 128, 256, True)])   # aligned, block 128
+@pytest.mark.parametrize("D,block,L,dup", [
+    (64, 64, 200, False),     # ragged: 200 = 3 * 64 + 8
+    (128, 64, 200, True),     # duplicated ids
+    (64, 128, 256, True),     # aligned, block 128
+    # block (block_m, block_n) with block_m != block_n, both ways, ragged
+    (64, (128, 64), 300, False), (128, (64, 192), 330, True),
+    # dup "unnamed": key block UNNAMED appears in no LUT row, so its dk and
+    # dv are exactly 0
+    (64, (192, 64), 400, "unnamed"), (128, 128, 300, "unnamed")])
 def test_sla_bwd_twin_matches_pallas(dtype, tol, D, block, L, dup):
-    BH, topk = 3, 2 if L // block < 3 else 3
+    bm, bn = block if isinstance(block, tuple) else (block, block)
+    BH, topk = 3, 2 if L // bn < 3 else 3
     q, k, v, do = _inputs(L + D, BH, L, L, D, dtype)
-    lut = _lut(D + block, BH, L, block, topk, dup)
+    lut = _lut(D + bm + bn, BH, L, bm, topk, dup is True, bn)
+    if dup == "unnamed":
+        lut[lut == UNNAMED] = UNNAMED + 1   # a repeat where UNNAMED + 1 was already named
     scale = D ** -0.5
-    o, lse = jbsa._fwd_pallas(q, k, v, jnp.asarray(lut), block, block, scale, interpret=True)
-    ref = jbsa._bwd_pallas(q, k, v, jnp.asarray(lut), o, lse, do, block, block, scale,
+    o, lse = jbsa._fwd_pallas(q, k, v, jnp.asarray(lut), bm, bn, scale, interpret=True)
+    ref = jbsa._bwd_pallas(q, k, v, jnp.asarray(lut), o, lse, do, bm, bn, scale,
                            interpret=True)
     tdt = torch.bfloat16 if dtype == "bf16" else torch.float32
     args = [_to_torch(x, tdt) for x in (q, k, v)]
     got = bsa.block_sparse_attention_bwd(*args, torch.tensor(lut), _to_torch(o, tdt),
                                          _to_torch(lse, torch.float32), _to_torch(do, tdt),
-                                         block, block, scale)
+                                         bm, bn, scale)
     for name, a, b in zip(("dq", "dk", "dv"), got, ref):
         assert a.dtype == tdt and a.shape == b.shape, name
         assert rel_err(a, b) <= tol, (name, rel_err(a, b))
+    if dup == "unnamed":
+        keys = slice(UNNAMED * bn, (UNNAMED + 1) * bn)
+        for a, b in zip(got[1:], ref[1:]):
+            assert bool((a[:, keys] == 0).all()) and bool((np.asarray(b[:, keys]) == 0).all())
 
 
 def test_sla_bwd_twin_matches_xla_oracle():
