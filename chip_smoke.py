@@ -46,6 +46,17 @@ Phases, each on its own lines; any failure exits non-zero:
                   forward and backward; then both CLIs (main) for a few steps
                   with a checkpoint and a resume, and the trained EMA weights
                   through models/loading into make_pipeline
+  5c. sample cli  the sampling CLI (sample/generate.main, --device cuda) on the
+                  full-width checkpoints of 5b's CLI runs and an rf Stage-1
+                  checkpoint trained here by the CLI, batch 256 x 3 batches,
+                  linear DDIM-20: ddim, pfdiff, dpm (20 and 10 steps), FORA
+                  interval 2, best-of-4 (dp and set), level noise with delta
+                  smoothing, --compare_oracle, policy fused, rf; launches per
+                  call (SAMPLE_CLI_STAGE1), no twin call, the files and their
+                  columns, samples/s and the sanity verdict (not a gate); then
+                  make_pipeline at B=64 with an anchor-confidence Stage 2 under
+                  pfdiff, dpm, FORA 2, best-of-4 dp, rf, soft clamp + level
+                  noise and logit space, kernel path against twin path
   6. wan kernels  the SLA, int8 SLA and flash kernels against their twins at
                   the Wan anchor path's shapes, at the 33k-token geometry of
                   scripts/bench_wan33k.py (blocks 128 and 256) and at a
@@ -947,8 +958,9 @@ def _nonzero_head(model):
                 p.copy_(((torch.rand(p.shape, generator=g) * 2 - 1) * 1e-2).to(p.device))
 
 
-def phase_maze_train(dev, card, profile):
-    """The two maze trainers at their defaults; see the module docstring."""
+def phase_maze_train(dev, card, profile, workdir):
+    """The two maze trainers at their defaults; see the module docstring. The
+    CLI runs write their checkpoints under `workdir` (phase 5c samples them)."""
     import numpy as np
     import torch
     from interpolated_diffusion_tpu_torch.models import transformer
@@ -1128,43 +1140,42 @@ def phase_maze_train(dev, card, profile):
 
     # both CLIs as a user calls them: defaults, a few steps, a checkpoint, a
     # resume; then the trained EMA weights through models/loading into the sampler
-    with tempfile.TemporaryDirectory() as tmp:
-        runs = {}
-        for stage, policy in (("stage1", "block"), ("stage2", "fused")):
-            trainer = _maze_trainer(stage)
-            out = os.path.join(tmp, stage)
-            flags = ["--num_samples", str(MAZE_SAMPLES), "--attn_policy", policy, "--out_dir", out,
-                     "--log_every", "1"]
-            if stage == "stage2":
-                flags += ["--bootstrap_ckpt", runs["stage1"], "--bootstrap_warmup_steps", "2",
-                          "--pos_clip", "1"]
-            first, total = MAZE_CLI_STEPS
-            before = _maze_counts()
-            with count_maze_twin_calls() as calls:
-                t0 = time.perf_counter()
-                trainer.main(flags + ["--steps", str(first), "--save_every", str(first)])
-                st = trainer.main(flags + ["--steps", str(total), "--save_every", str(total),
-                                           "--resume", out])
-                torch.cuda.synchronize()
-                took = time.perf_counter() - t0
-            delta = {k: v - before[k] for k, v in _maze_counts().items()}
-            for name in ("run_config.json", f"ckpt_{first}/meta.json", f"ckpt_{total}/params.pt",
-                         f"ckpt_{total}/ema.pt", f"ckpt_{total}/opt_state.pt"):
-                require(os.path.exists(os.path.join(out, name)), f"{stage} CLI: {name} missing")
-            key = "fused_film_block" if policy == "block" else "small_mha_packed"
-            # Stage 2's bootstrap sampler adds Stage-1 evaluations at K=8: under
-            # the fused policy they run plain attention (H*L = 96), no launch
-            require(st.step == total and st.opt_state.count == total
-                    and delta[key] == n_layers * total and calls["forward"] == 0,
-                    f"{stage} CLI: step {st.step}, launches {delta}, twin calls {calls}")
-            print(f"[maze train] {stage} CLI policy={policy}: {first} steps, checkpoint, resumed "
-                  f"to {total} in {took:.1f} s (dataset, model and both runs); launches {delta}, "
-                  f"forward twin calls 0", flush=True)
-            for k, v in delta.items():
-                launches[k] += v
-            runs[stage] = out
-        kp, kp_meta = load_keypoint_model(runs["stage1"], bf16=True, device=dev)
-        it, it_meta = load_interp_model(runs["stage2"], bf16=True, device=dev)
+    runs = {}
+    for stage, policy in (("stage1", "block"), ("stage2", "fused")):
+        trainer = _maze_trainer(stage)
+        out = os.path.join(workdir, stage)
+        flags = ["--num_samples", str(MAZE_SAMPLES), "--attn_policy", policy, "--out_dir", out,
+                 "--log_every", "1"]
+        if stage == "stage2":
+            flags += ["--bootstrap_ckpt", runs["stage1"], "--bootstrap_warmup_steps", "2",
+                      "--pos_clip", "1"]
+        first, total = MAZE_CLI_STEPS
+        before = _maze_counts()
+        with count_maze_twin_calls() as calls:
+            t0 = time.perf_counter()
+            trainer.main(flags + ["--steps", str(first), "--save_every", str(first)])
+            st = trainer.main(flags + ["--steps", str(total), "--save_every", str(total),
+                                       "--resume", out])
+            torch.cuda.synchronize()
+            took = time.perf_counter() - t0
+        delta = {k: v - before[k] for k, v in _maze_counts().items()}
+        for name in ("run_config.json", f"ckpt_{first}/meta.json", f"ckpt_{total}/params.pt",
+                     f"ckpt_{total}/ema.pt", f"ckpt_{total}/opt_state.pt"):
+            require(os.path.exists(os.path.join(out, name)), f"{stage} CLI: {name} missing")
+        key = "fused_film_block" if policy == "block" else "small_mha_packed"
+        # Stage 2's bootstrap sampler adds Stage-1 evaluations at K=8: under
+        # the fused policy they run plain attention (H*L = 96), no launch
+        require(st.step == total and st.opt_state.count == total
+                and delta[key] == n_layers * total and calls["forward"] == 0,
+                f"{stage} CLI: step {st.step}, launches {delta}, twin calls {calls}")
+        print(f"[maze train] {stage} CLI policy={policy}: {first} steps, checkpoint, resumed "
+              f"to {total} in {took:.1f} s (dataset, model and both runs); launches {delta}, "
+              f"forward twin calls 0", flush=True)
+        for k, v in delta.items():
+            launches[k] += v
+        runs[stage] = out
+    kp, kp_meta = load_keypoint_model(runs["stage1"], bf16=True, device=dev)
+    it, it_meta = load_interp_model(runs["stage2"], bf16=True, device=dev)
     require(kp.dtype == torch.bfloat16 and kp.in_proj.weight.dtype == torch.float32,
             "loaded model: f32 weights with bf16 compute expected")
     cfg = PipelineConfig(T=BENCH["T"], K=BENCH["K"], levels=it_meta["levels"],
@@ -1187,8 +1198,292 @@ def phase_maze_train(dev, card, profile):
               f"policy={policy} B=64: shapes, anchors, endpoints, [0,1] ok; launches {delta}",
               flush=True)
     print(f"[maze train] launches in the main-path run: {launches}", flush=True)
-    return launches, results
+    return launches, results, runs
 
+
+
+# Phase 5c: Stage-1 block launches per pipeline call under attn_policy
+# "block" on the linear DDIM-20 grid (20 timesteps, 19 transitions), from the
+# solvers' rules in ops/ddpm.py and ops/rectified_flow.py: ddim 19
+# evaluations, dpm 19 (9 at --ddim_steps 10), pfdiff 1 + ceil(18 / 2) = 10,
+# FORA interval 2 the block stack at the 10 even transitions, rf 20 Euler
+# steps; 12 layers each. Best-of-N folds its candidates into the batch: the
+# same launches, each over N * B rows. Stage 2 adds levels x layers = 36.
+SAMPLE_CLI_STAGE1 = {"ddim": 228, "pfdiff": 120, "dpm": 228, "dpm10": 108, "fora2": 120,
+                     "rf": 240}
+SAMPLE_CLI_BATCH = (256, 3)      # --batch, --num_batches of each sampling CLI run
+SAMPLE_METRICS = ("collision_rate", "goal_dist", "success", "path_length", "smoothness",
+                  "mse_to_gt")
+
+
+def _stage1_evals(solver, steps, interval=1):
+    """Stage-1 model evaluations of one call on the linear grid of `steps`."""
+    from interpolated_diffusion_tpu_torch.ops.ddpm import make_timesteps
+
+    if solver == "rf":
+        return steps
+    S = len(make_timesteps(BENCH["n_train"], steps, "linear")) - 1
+    if solver == "pfdiff":
+        return S if S < 2 else 1 + -(-(S - 1) // 2)
+    return -(-S // interval)
+
+
+@contextlib.contextmanager
+def record_block_rows():
+    """{sequence length: set of batch sizes} of the model's fused_film_block
+    calls (each goes on to the kernel)."""
+    from interpolated_diffusion_tpu_torch.models import transformer
+
+    rows, real = {}, transformer.fused_film_block
+
+    def recording(x, *a, **kw):
+        rows.setdefault(x.shape[1], set()).add(x.shape[0])
+        return real(x, *a, **kw)
+
+    transformer.fused_film_block = recording
+    try:
+        yield rows
+    finally:
+        transformer.fused_film_block = real
+
+
+@contextlib.contextmanager
+def anchor_choices(replay=None):
+    """The best-of dp mix's choice [B, K] of candidate per anchor, one per
+    call: recorded, or with `replay` (a kernel path's choices) imposed on this
+    path's own candidates. The choice is discrete: a bf16 ulp upstream can
+    move a candidate's anchor across a cell boundary and flip it on one path
+    only, so the twin path replays the kernel path's choices (as the Wan
+    trainer's gate replays its SLA LUTs) and the flips are counted apart."""
+    import torch
+    from interpolated_diffusion_tpu_torch.ops import anchor_search
+
+    real, own = anchor_search.dp_mix_anchors, []
+
+    def choosing(z_cands, idx, occ, T):
+        mixed = real(z_cands, idx, occ, T)
+        own.append((z_cands == mixed[None]).all(-1).int().argmax(0))     # [B, K]
+        if replay is None:
+            return mixed
+        c = replay[len(own) - 1]
+        return torch.gather(z_cands.permute(1, 2, 0, 3), 2,
+                            c[:, :, None, None].expand(-1, -1, 1, z_cands.shape[-1]))[:, :, 0]
+
+    anchor_search.dp_mix_anchors = choosing
+    try:
+        yield own
+    finally:
+        anchor_search.dp_mix_anchors = real
+
+
+def _sample_cli_profile(dev, card, runs, cfg_of):
+    """Where one CLI-shaped call (B=256, policy block, 5b's checkpoints)
+    spends its time, per Stage-1 solver: the median wall time of 5 calls, and
+    the device time of one more under torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+    from interpolated_diffusion_tpu_torch.models.loading import (load_interp_model,
+                                                                  load_keypoint_model)
+    from interpolated_diffusion_tpu_torch.ops.schedules import make_schedule
+    from interpolated_diffusion_tpu_torch.sample import generate
+
+    kp, kp_meta = load_keypoint_model(runs["stage1"], device=dev)
+    it, it_meta = load_interp_model(runs["stage2"], device=dev)
+    for m in (kp, it):
+        m.set_attn_policy("block")
+    sched = make_schedule(kp_meta["schedule"], kp_meta["N_train"], device=dev)
+    idx, cond = _requests(SAMPLE_CLI_BATCH[0], torch.Generator().manual_seed(40), dev)
+    for label, knob in (("ddim", {}), ("pfdiff", dict(stage1_solver="pfdiff")),
+                        ("dpm10", dict(stage1_solver="dpm", ddim_steps=10)),
+                        ("fora2", dict(stage1_cache_interval=2)),
+                        ("best_of4-dp", dict(stage1_best_of=4, stage1_best_of_mode="dp"))):
+        cfg = cfg_of(**knob)
+        pipe = generate.make_pipeline(kp, it, sched, cfg, BENCH["data_dim"])
+        draws = generate.make_draws(cfg, len(idx), BENCH["data_dim"],
+                                    torch.Generator(device=dev).manual_seed(41))
+        walls = []
+        for _ in range(6):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pipe(idx, cond, **draws)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        wall = sorted(walls[1:])[2]
+        with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            pipe(idx, cond, **draws)
+            torch.cuda.synchronize()
+        device = sum(_device_us(e) for e in prof.key_averages()) / 1e3
+        print(f"[profile] [{card}] sampling CLI call, {label}, B={len(idx)}, block: median wall "
+              f"{wall * 1e3:.1f} ms of 5 calls ({len(idx) / wall:.1f} samples/s), device time "
+              f"{device:.1f} ms under the profiler: the device is busy {device / (wall * 1e3):.2f} "
+              f"of the call", flush=True)
+
+
+def phase_maze_sample_cli(dev, card, runs, workdir, profile=False):
+    """The sampling CLI (sample/generate.main) on the full-width checkpoints
+    of phase 5b's CLI runs (and an rf Stage-1 checkpoint trained here), then
+    the pipeline under each knob, kernel path against twin path."""
+    import csv
+
+    import numpy as np
+    import torch
+    from interpolated_diffusion_tpu_torch.models.denoisers import InterpLevelDenoiser
+    from interpolated_diffusion_tpu_torch.models.init import build_model
+    from interpolated_diffusion_tpu_torch.ops.schedules import make_schedule
+    from interpolated_diffusion_tpu_torch.sample import generate
+    from interpolated_diffusion_tpu_torch.train import train_keypoints
+
+    t_phase = time.perf_counter()
+    n_layers, levels = BENCH["n_layers"], BENCH["levels"]
+    s2 = levels * n_layers
+    for key, (solver, steps, interval) in (("ddim", ("ddim", 20, 1)), ("pfdiff", ("pfdiff", 20, 1)),
+                                           ("dpm", ("dpm", 20, 1)), ("dpm10", ("dpm", 10, 1)),
+                                           ("fora2", ("ddim", 20, 2)), ("rf", ("rf", 20, 1))):
+        require(_stage1_evals(solver, steps, interval) * n_layers == SAMPLE_CLI_STAGE1[key],
+                f"Stage-1 launches of {key}: the solvers' rules give "
+                f"{_stage1_evals(solver, steps, interval) * n_layers}")
+    # an rf Stage-1 checkpoint through the trainer's CLI (full width, a few steps)
+    kp_rf = os.path.join(workdir, "stage1_rf")
+    before = _maze_counts()
+    train_keypoints.main(["--num_samples", str(MAZE_SAMPLES), "--attn_policy", "block",
+                          "--objective", "rf", "--steps", "2", "--save_every", "2",
+                          "--log_every", "1", "--out_dir", kp_rf])
+    launches = {k: v - before[k] for k, v in _maze_counts().items()}
+    require(launches["fused_film_block"] == 2 * n_layers,
+            f"rf Stage-1 CLI: launches {launches}")
+
+    B, n_batches = SAMPLE_CLI_BATCH
+    variants = ("interp", "refined")
+    columns = ["batch", "sample"] + [f"{v}_{m}" for v in variants for m in SAMPLE_METRICS]
+    oracle_columns = columns + [f"{v}_{m}" for v in ("oracle_interp", "oracle_refined")
+                                for m in SAMPLE_METRICS]
+    plan = [("ddim", [], "ddim"), ("pfdiff", ["--stage1_solver", "pfdiff"], "pfdiff"),
+            ("dpm", ["--stage1_solver", "dpm"], "dpm"),
+            ("dpm10", ["--stage1_solver", "dpm", "--ddim_steps", "10"], "dpm10"),
+            ("fora2", ["--stage1_cache_interval", "2"], "fora2"),
+            ("best_of4-dp", ["--stage1_best_of", "4", "--stage1_best_of_mode", "dp"], "ddim"),
+            ("best_of4-set", ["--stage1_best_of", "4", "--stage1_best_of_mode", "set"], "ddim"),
+            ("s2-level-smooth", ["--s2_noise_mode", "level", "--s2_noise_sigma", "0.02",
+                                 "--s2_delta_smooth", "2"], "ddim"),
+            ("oracle", ["--compare_oracle", "1"], "ddim"),
+            ("fused", ["--attn_policy", "fused"], "ddim"),
+            ("rf", ["--kp_ckpt", kp_rf], "rf")]
+    rates, cli_launches = {}, dict.fromkeys(("fused_film_block", "small_mha_packed",
+                                             "small_mha"), 0)
+    for label, flags, s1_key in plan:
+        out = os.path.join(workdir, f"sample_{label}")
+        policy = "fused" if "--attn_policy" in flags else "block"
+        argv = ["--kp_ckpt", runs["stage1"], "--interp_ckpt", runs["stage2"], "--device", "cuda",
+                "--attn_policy", "block", "--batch", str(B), "--num_batches", str(n_batches),
+                "--time_spacing", "linear", "--num_samples", str(MAZE_SAMPLES),
+                "--cache_dir", os.path.join(workdir, "data"), "--sanity", "0",
+                "--out_dir", out] + flags
+        calls = n_batches * (2 if "--compare_oracle" in flags else 1)
+        n_cand = int(flags[flags.index("--stage1_best_of") + 1]) if "--stage1_best_of" in flags else 1
+        if policy == "block":
+            want = {"fused_film_block": n_batches * SAMPLE_CLI_STAGE1[s1_key] + calls * s2,
+                    "small_mha_packed": 0, "small_mha": 0}
+            want_len = {BENCH["K"]: n_batches * SAMPLE_CLI_STAGE1[s1_key], BENCH["T"]: calls * s2}
+        else:   # Stage 1 at K = 8 runs no kernel under fused (H * L = 96)
+            want = {"fused_film_block": 0, "small_mha_packed": calls * s2, "small_mha": 0}
+            want_len = {}
+        from interpolated_diffusion_tpu_torch.kernels.fused_block import fused_film_block
+
+        by_len = fused_film_block.launches_by_len
+        _set_maze_counts(dict.fromkeys(want, 0))
+        by_len.clear()
+        with count_maze_twin_calls() as twin, record_block_rows() as rows:
+            t0 = time.perf_counter()
+            summary = generate.main(argv)
+            torch.cuda.synchronize()
+            took = time.perf_counter() - t0
+        counts, got_len = _maze_counts(), dict(by_len)
+        require(counts == want and got_len == want_len and twin["total"] == 0,
+                f"sample CLI {label}: launches {counts} by length {got_len}, twin calls {twin}; "
+                f"expected {want} by length {want_len}, no twin call")
+        if policy == "block":
+            require(rows[BENCH["K"]] == {n_cand * B} and rows[BENCH["T"]] == {B},
+                    f"sample CLI {label}: block rows by length {rows}")
+        with open(os.path.join(out, "metrics.csv")) as f:
+            header = next(csv.reader(f))
+        require(header == (oracle_columns if "--compare_oracle" in flags else columns),
+                f"sample CLI {label}: metrics.csv columns {header}")
+        with open(os.path.join(out, "summary.json")) as f:
+            keys = set(json.load(f))
+        require(keys == set(header[2:]) | {"samples_per_sec", "sanity"},
+                f"sample CLI {label}: summary.json keys {sorted(keys)}")
+        with np.load(os.path.join(out, "samples.npz")) as f:
+            shapes = {k: f[k].shape for k in f.files}
+            finite = all(bool(np.isfinite(f[k]).all()) for k in ("interp", "refined", "keypoints"))
+        n = B * n_batches
+        require(finite and shapes["refined"] == (n, BENCH["T"], 2)
+                and shapes["keypoints"] == (n, BENCH["K"], 2),
+                f"sample CLI {label}: samples.npz finite {finite}, shapes {shapes}")
+        rates[label] = summary["samples_per_sec"]
+        for k, v in counts.items():
+            cli_launches[k] += v
+        print(f"[sample cli] {card} {label} (policy {policy}, {n_batches} x {B}): "
+              f"{summary['samples_per_sec']:.1f} samples/s (batches 1..{n_batches - 1}; the "
+              f"first holds the warm-up), {took:.1f} s with model load and dataset; launches "
+              f"{counts} (Stage 1 {want_len.get(BENCH['K'], 0) // n_batches} per call"
+              f"{f', each over {n_cand} x {B} rows' if n_cand > 1 else ''}), twin calls 0; "
+              f"refined collision {summary['refined_collision_rate']:.4f}, success "
+              f"{summary['refined_success']:.3f}; sanity verdict {summary['sanity']}", flush=True)
+
+    # kernel path against twin path at the pipeline level: seeded full-width
+    # weights, a Stage 2 with the anchor-confidence channel, the same draws
+    kp, _ = _build_models(dev)
+    it3 = build_model(InterpLevelDenoiser, generator=torch.Generator().manual_seed(5), device=dev,
+                      dtype=torch.bfloat16, mask_channels=3,
+                      **{k: BENCH[k] for k in ("d_model", "n_layers", "n_heads", "d_ff",
+                                               "d_cond", "maze_channels", "data_dim")})
+    _nonzero_head(it3)
+    it3.eval()
+    for m in (kp, it3):
+        m.set_attn_policy("block")
+    sched = make_schedule("linear", BENCH["n_train"], device=dev)
+    idx, cond = _requests(64, torch.Generator().manual_seed(38), dev)
+    base = dict(T=BENCH["T"], K=BENCH["K"], levels=levels, K_min=BENCH["K_min"],
+                ddim_steps=BENCH["ddim_steps"], pos_clip=True, anchor_conf=True)
+    knobs = {"pfdiff": dict(stage1_solver="pfdiff"), "dpm": dict(stage1_solver="dpm"),
+             "fora2": dict(stage1_cache_interval=2),
+             "best_of4-dp": dict(stage1_best_of=4, stage1_best_of_mode="dp"),
+             "rf": dict(stage1_objective="rf"),
+             "conf-soft-s2level": dict(soft_anchor_clamp=True, s2_noise_mode="level",
+                                       s2_noise_sigma=0.02, anchor_conf_anneal_mode="linear"),
+             "logit_space": dict(logit_space=True)}
+    worst = {}
+    for label, knob in knobs.items():
+        cfg = generate.PipelineConfig(**base, **knob)
+        pipe = generate.make_pipeline(kp, it3, sched, cfg, BENCH["data_dim"])
+        draws = generate.make_draws(cfg, 64, BENCH["data_dim"],
+                                    torch.Generator(device=dev).manual_seed(39))
+        _set_maze_counts(dict.fromkeys(("fused_film_block", "small_mha_packed", "small_mha"), 0))
+        with anchor_choices() as chosen:
+            out = pipe(idx, cond, **draws)
+        k_launches = _maze_counts()["fused_film_block"]
+        with plain_twins(), anchor_choices(replay=chosen) as own:
+            ref = pipe(idx, cond, **draws)
+        flips = "" if not chosen else (
+            f"; the twin path's own dp choice differs in {int((own[0] != chosen[0]).sum())} of "
+            f"{chosen[0].numel()} anchors (the kernel path's replayed)")
+        require(k_launches > 0 and _maze_counts()["fused_film_block"] == k_launches,
+                f"pipeline {label}: kernel launches {k_launches}, then {_maze_counts()}")
+        errs = {name: (a - b).abs().max().item()
+                for name, a, b in zip(("x_interp", "x_refined", "z_pred"), out, ref)}
+        worst[label] = max(errs.values())
+        require(all(bool(torch.isfinite(t).all()) for t in out) and worst[label] <= PIPE_TOL,
+                f"pipeline {label}: kernel path disagrees with the twin path {errs}")
+        print(f"[sample cli] pipeline {label}, B=64, block policy, kernels vs plain twins, same "
+              f"draws: max|d| {', '.join(f'{k} {v:.3e}' for k, v in errs.items())} (tol "
+              f"{PIPE_TOL}); {k_launches} block launches{flips}", flush=True)
+    took = time.perf_counter() - t_phase
+    if profile:
+        _sample_cli_profile(dev, card, runs, lambda **knob: generate.PipelineConfig(
+            **dict(base, anchor_conf=False, **knob)))
+    print(f"[sample cli] launches over the CLI runs: {cli_launches}; {card} phase 5c wall "
+          f"time {took:.1f} s", flush=True)
+    return cli_launches
 
 
 def _sla_work(lut, L, block):
@@ -2206,7 +2501,10 @@ def main() -> int:
         del kp, it, pipe
         torch.cuda.empty_cache()
         grad_errs, mha_times = phase_maze_autograd(dev, card)
-        maze_train_launches, _ = phase_maze_train(dev, card, profile)
+        with tempfile.TemporaryDirectory() as workdir:
+            maze_train_launches, _, runs = phase_maze_train(dev, card, profile, workdir)
+            torch.cuda.empty_cache()
+            cli_launches = phase_maze_sample_cli(dev, card, runs, workdir, profile)
         torch.cuda.empty_cache()
         wan_errs, wan_cases = phase_wan_kernels(dev)
         model, sampler, inputs, wan_launches = phase_wan_main(dev)
@@ -2245,7 +2543,8 @@ def main() -> int:
                         "library_ms": library_ms, **extra})
 
     # `launches` from the sampling pipeline's run, `train_launches` from the
-    # maze trainers' run (steps, the CLIs, the use_small_mha stack). The block's
+    # maze trainers' run (steps, the CLIs, the use_small_mha stack),
+    # `sample_cli_launches` from the sampling CLI's runs (phase 5c). The block's
     # row also holds its Stage-1 shape, the same run's launches by shape as the
     # wrapper counted them (three block-policy calls), and its four products
     # alone; small_mha_packed's its time by graph replay.
@@ -2264,7 +2563,8 @@ def main() -> int:
     for name in ("fused_film_block", "small_mha_packed"):
         k_ms, p_ms, lib_ms = times[(name, B, L)]
         row(name, launches[name], max(grad_errs[name], *(c[1] for c in cases[name])), k_ms, p_ms,
-            maze_bounds[name], lib_ms, train_launches=maze_train_launches[name], **extras[name])
+            maze_bounds[name], lib_ms, train_launches=maze_train_launches[name],
+            sample_cli_launches=cli_launches[name], **extras[name])
     # small_mha at the Stage-2 trainer's shape [256, 64, 384]; its main path is
     # the maze training phase (TransformerBlock(use_small_mha=True))
     k_ms, p_ms, lib_ms, mha_bound = mha_times[(256, 64)]

@@ -93,7 +93,13 @@ class KeypointDenoiser(_Denoiser):
         self.out = Linear(d_model, data_dim)
 
     def forward(self, z_t: torch.Tensor, t: torch.Tensor, idx: torch.Tensor,
-                known_mask: torch.Tensor, cond: Cond, T: int) -> torch.Tensor:
+                known_mask: torch.Tensor, cond: Cond, T: int,
+                blocks_delta: Optional[torch.Tensor] = None, return_delta: bool = False):
+        """eps [B, K, D] f32. FORA-style caching of the block stack for DDIM
+        sampling: `return_delta` also returns the stack's total residual
+        h_out - h_in [B, K, d_model]; `blocks_delta` skips all n_layers blocks
+        and adds that residual instead, while the input projection, the
+        embeddings and the head run fresh."""
         B, K, _ = z_t.shape
         dtype = self.dtype
         pos = idx.float() / max(1.0, float(T - 1))
@@ -106,9 +112,13 @@ class KeypointDenoiser(_Denoiser):
         h = self.in_proj(x)
         h = h + self.t_embed(timestep_embedding(t, self.d_model).to(dtype))[:, None, :]
         cond_vec = self._cond_vec(cond, B, z_t.device)
-        h = h + self.cond_proj(cond_vec)[:, None, :]
-        h = self.transformer(h, cond_vec)
-        return self.out(h).float()
+        h_in = h + self.cond_proj(cond_vec)[:, None, :]
+        if blocks_delta is not None:
+            h = h_in + blocks_delta.to(h_in.dtype)
+        else:
+            h = self.transformer(h_in, cond_vec)
+        out = self.out(h).float()
+        return (out, h - h_in) if return_delta else out
 
 
 class InterpLevelDenoiser(_Denoiser):

@@ -202,6 +202,28 @@ def build_nested_masks_from_base(
     return _nested_from_order(order, T, K_list)
 
 
+def build_nested_masks_from_logits(
+    logits: torch.Tensor, K_min: int, levels: int, k_schedule: str = "doubling",
+    k_geom_gamma: Optional[float] = None,
+) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+    """Nested masks ranked by selector logits [B, T]; endpoints always first,
+    the interior frames by descending logit (ties by position).
+    Returns (masks_levels [B, levels+1, T] bool, idx_levels list of [B, K_s])."""
+    if logits.ndim != 2:
+        raise ValueError("logits must be [B, T]")
+    if levels < 1:
+        raise ValueError("levels must be >= 1")
+    B, T = logits.shape
+    if T < 2:
+        raise ValueError("T must be >= 2 when using endpoints")
+    K_list = compute_k_schedule(T, K_min, levels, schedule=k_schedule, geom_gamma=k_geom_gamma)
+    if K_list[levels] < 2:
+        raise ValueError("K_min must be >= 2 to include endpoints")
+    interior = torch.argsort(-logits[:, 1:-1], dim=1, stable=True) + 1
+    ends = torch.tensor([0, T - 1], dtype=torch.long, device=logits.device).expand(B, 2)
+    return _nested_from_order(torch.cat([ends, interior], dim=1), T, K_list)
+
+
 def interpolate_from_indices(idx: torch.Tensor, vals: torch.Tensor, T: int,
                              recompute_velocity: bool = False) -> torch.Tensor:
     """Piecewise-linear fill between sorted anchors.

@@ -9,14 +9,14 @@ per-sample mix of them), level sampling (uniform / high-biased), `adj`
 channels with per-level anneal, interp corruption (distance-scaled noise,
 anchor noise, index jitter), conf-weighted MSE, a curvature term, and Stage-1
 bootstrap scheduled sampling (`--bootstrap_ckpt`: GT anchors of the coarsest
-level are replaced by DDIM-sampled student anchors with a warm-up scheduled
-probability). The model holds f32 master parameters and computes in bf16
+level are replaced by student anchors, sampled by `--bootstrap_solver` and
+optionally the best of `--bootstrap_best_of` candidates, with a warm-up
+scheduled probability). The model holds f32 master parameters and computes in bf16
 (`--bf16 1`). Runs on the GPU unless `--device cpu`.
 
 Not ported (each raises, naming what is missing): `--causal 1`, the
 `selector` / `selector_level` mask policies, `--dphi_ckpt` and bootstrap
-checkpoints trained with kp_feat, `--bootstrap_solver pfdiff|dpm`,
-`--bootstrap_best_of > 1`, `--n_data_shards`.
+checkpoints trained with kp_feat, `--n_data_shards`.
 """
 from __future__ import annotations
 
@@ -31,6 +31,7 @@ import torch
 
 from ..models.denoisers import InterpLevelDenoiser
 from ..models.loading import load_keypoint_model
+from ..ops.anchor_search import pick_anchors
 from ..ops.ddpm import make_timesteps, run_solver
 from ..ops.keyframes import build_nested_masks_batch, build_nested_masks_from_base
 from ..ops.normalize import logit_pos, sigmoid_pos
@@ -110,8 +111,10 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--bootstrap_warmup_steps", type=int, default=2000)
     p.add_argument("--bootstrap_ddim_steps", type=int, default=5)
     p.add_argument("--bootstrap_solver", type=str, default="ddim",
-                   choices=["ddim", "pfdiff", "dpm"], help="pfdiff / dpm: not ported")
-    p.add_argument("--bootstrap_best_of", type=int, default=1, help="> 1: not ported")
+                   choices=["ddim", "pfdiff", "dpm"])
+    p.add_argument("--bootstrap_best_of", type=int, default=1,
+                   help="> 1: sample N candidate anchor sets, keep the dp mix or the least "
+                        "colliding (the sampler's stage1_best_of)")
     p.add_argument("--bootstrap_best_of_mode", type=str, default="dp",
                    choices=["dp", "collision"])
     p.add_argument("--bootstrap_x0_clip", type=float, default=4.0,
@@ -162,12 +165,6 @@ def check_ported(args) -> None:
     if args.dphi_ckpt:
         raise NotImplementedError("--dphi_ckpt: the segment-cost model (models/selector.py) is "
                                   "not ported yet")
-    if args.bootstrap_solver != "ddim":
-        raise NotImplementedError(f"--bootstrap_solver {args.bootstrap_solver}: only ddim is "
-                                  "ported (ops/ddpm.py pfdiff_scan / dpm_solver_pp_scan)")
-    if int(args.bootstrap_best_of or 1) > 1:
-        raise NotImplementedError("--bootstrap_best_of > 1: the anchor search "
-                                  "(ops/anchor_search.py) is not ported yet")
 
 
 def mask_channels_for(args) -> int:
@@ -250,9 +247,12 @@ def sample_level_indices(rng: Rng, B: int, levels: int, mode: str, high_prob: fl
 def make_bootstrap_sampler(args, data_dim: int, device: torch.device):
     """Load the Stage-1 checkpoint (EMA weights, rebuilt from its meta) and
     return (sample, K): sample(rng, idx, cond) -> z_pred [B, K, D] in data
-    space, a few-step DDIM with quadratic time spacing, known-endpoint
-    re-clamping and per-step position clipping (as the serving sampler's
-    Stage 1). Draw: "boot_z" normal [B, K, D]."""
+    space, a few-step `--bootstrap_solver` run with quadratic time spacing,
+    known-endpoint re-clamping and per-step position clipping (as the serving
+    sampler's Stage 1). Draw: "boot_z" normal [B, K, D]; under
+    `--bootstrap_best_of` N > 1, [N, B, K, D]: the N candidates run as one
+    batch of N * B rows, and the chain-DP mix (`--bootstrap_best_of_mode dp`)
+    or the least colliding candidate is kept, as the sampler's best-of does."""
     kp_model, meta = load_keypoint_model(args.bootstrap_ckpt, bool(args.bf16), device=device)
     if meta.get("kp_feat_dphi"):
         raise NotImplementedError("the bootstrap Stage-1 checkpoint was trained with D_phi "
@@ -264,15 +264,13 @@ def make_bootstrap_sampler(args, data_dim: int, device: torch.device):
     T = int(meta["T"])
     times = make_timesteps(int(meta["N_train"]), args.bootstrap_ddim_steps, "quadratic")
     x0c = getattr(args, "bootstrap_x0_clip", 0.0)
+    N = int(getattr(args, "bootstrap_best_of", 1) or 1)
 
-    @torch.no_grad()
-    def sample(rng: Rng, idx: torch.Tensor, cond: Dict) -> torch.Tensor:
-        B, K_ = idx.shape
+    def solve(z: torch.Tensor, idx: torch.Tensor, cond: Dict) -> torch.Tensor:
         known_mask, known_values = build_known_mask_values(idx, cond, data_dim, T,
                                                            bool(meta["clamp_endpoints"]))
         if logit_space:
             known_values = logit_pos(known_values, eps=logit_eps)
-        z = draw(rng, "boot_z", "normal", (B, K_, data_dim)).to(idx.device).float()
 
         def post(z):
             if args.pos_clip and not logit_space:
@@ -287,6 +285,20 @@ def make_bootstrap_sampler(args, data_dim: int, device: torch.device):
         z = run_solver(args.bootstrap_solver, eps_fn, post(z), times, kp_schedule, post=post,
                        x0_clip=x0c if (x0c and not logit_space) else None)
         return sigmoid_pos(z) if logit_space else z
+
+    @torch.no_grad()
+    def sample(rng: Rng, idx: torch.Tensor, cond: Dict) -> torch.Tensor:
+        B, K_ = idx.shape
+        if N <= 1:
+            z = draw(rng, "boot_z", "normal", (B, K_, data_dim)).to(idx.device).float()
+            return solve(z, idx, cond)
+        z = draw(rng, "boot_z", "normal", (N, B, K_, data_dim)).to(idx.device).float()
+        rep = lambda t: t.repeat(N, *([1] * (t.ndim - 1)))
+        z_cands = solve(z.reshape(N * B, K_, data_dim), rep(idx),
+                        {k: rep(v) for k, v in cond.items()})
+        occ = cond["occ"][:, 0] if cond["occ"].ndim == 4 else cond["occ"]
+        return pick_anchors(z_cands.view(N, B, K_, data_dim), idx, occ, T,
+                            getattr(args, "bootstrap_best_of_mode", "dp"))
 
     return sample, int(meta["K"])
 

@@ -10,9 +10,12 @@ parameters and computes in bf16 (`--bf16 1`). Runs on the GPU unless
 `--device cpu`. Exactly `--steps` optimizer steps are taken (the JAX trainer
 rounds up to a multiple of `--steps_per_call`).
 
-Not ported (each raises, naming what is missing): `--objective rf` and
-`--reflow_teacher`, `--use_kp_feat` / `--dphi_ckpt`, the `selector` index
-policy, `--n_data_shards`.
+`--objective rf` trains rectified-flow velocity matching instead
+(ops/rectified_flow.py), optionally on a frozen rf teacher's own couplings
+(`--reflow_teacher`, ReFlow).
+
+Not ported (each raises, naming what is missing): `--use_kp_feat` /
+`--dphi_ckpt`, the `selector` index policy, `--n_data_shards`.
 """
 from __future__ import annotations
 
@@ -28,6 +31,7 @@ from ..models.denoisers import KeypointDenoiser
 from ..ops.ddpm import q_sample
 from ..ops.keyframes import sample_fixed_k_indices_batch, sample_fixed_k_indices_uniform_batch
 from ..ops.normalize import logit_pos
+from ..ops.rectified_flow import rf_integrate, rf_interpolate
 from ..ops.schedules import DiffusionSchedule, make_schedule
 from .batches import Rng, build_known_mask_values, draw, gather_keypoints, parse_policy_mix
 from .common import (add_data_args, add_train_args, build_seeded, check_train_args_ported,
@@ -43,9 +47,9 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--N_train", type=int, default=100)
     p.add_argument("--schedule", type=str, default="linear", choices=["linear", "cosine"])
     p.add_argument("--objective", type=str, default="eps", choices=["eps", "rf"],
-                   help="rf: rectified-flow velocity matching (not ported)")
+                   help="rf: rectified-flow velocity matching")
     p.add_argument("--reflow_teacher", type=str, default=None,
-                   help="rf checkpoint to distill (not ported)")
+                   help="rf checkpoint whose (noise, generated) couplings to train on")
     p.add_argument("--reflow_steps", type=int, default=20)
     p.add_argument("--d_model", type=int, default=384)
     p.add_argument("--n_layers", type=int, default=12)
@@ -76,9 +80,6 @@ def build_argparser() -> argparse.ArgumentParser:
 
 def check_ported(args) -> None:
     check_train_args_ported(args)
-    if args.objective != "eps" or args.reflow_teacher:
-        raise NotImplementedError("--objective rf / --reflow_teacher: rectified flow "
-                                  "(ops/rectified_flow.py) is not ported yet")
     if args.use_kp_feat or args.dphi_ckpt:
         raise NotImplementedError("--use_kp_feat / --dphi_ckpt: the index features and the "
                                   "segment-cost model (ops/selection.py, models/selector.py) "
@@ -123,15 +124,17 @@ def device_policy_of(args) -> Optional[str]:
 
 
 def make_loss_fn(model: KeypointDenoiser, args, schedule: DiffusionSchedule,
-                 device_policy: Optional[str] = None):
+                 device_policy: Optional[str] = None, reflow_fn=None):
     """loss_fn(params, batch, rng) -> (loss, {}); batch has x, occ,
     start_goal[, sdf][, idx]. `params` are the model's own tensors.
 
     device_policy ("random" / "uniform") samples the anchor indices inside
     the step; without it the batch carries `idx` from the host policy mix.
     Draws of `rng` (train/batches.Rng), in order: "policy_rand" uniform
-    [B, T-2] (random) or [B, K] (uniform with jitter), "t" randint [B] in
-    [0, N_train), "eps" normal [B, K, D].
+    [B, T-2] (random) or [B, K] (uniform with jitter); then under eps "t"
+    randint [B] in [0, N_train) and "eps" normal [B, K, D]; under rf "tau"
+    uniform [B] and "eps" normal [B, K, D], or with `reflow_fn` (from
+    make_reflow_fn) its "reflow_noise" normal [B, K, D].
     """
     T = args.T
 
@@ -159,17 +162,61 @@ def make_loss_fn(model: KeypointDenoiser, args, schedule: DiffusionSchedule,
         if args.logit_space:
             z0 = logit_pos(z0, eps=args.logit_eps)
             known_values = logit_pos(known_values, eps=args.logit_eps)
+        valid = (~known_mask).float()
+        if args.objective == "rf":
+            # straight-path velocity matching; the eps head doubles as the
+            # velocity head, and tau rides the integer timestep embedding
+            tau = draw(rng, "tau", "uniform", (B,)).to(dev).float()
+            if reflow_fn is not None:
+                # ReFlow: the frozen teacher's own (noise, generated) coupling
+                noise, z0 = reflow_fn(rng, idx, cond, known_mask, known_values)
+            else:
+                noise = draw(rng, "eps", "normal", tuple(z0.shape)).to(z0)
+            z_t, v = rf_interpolate(z0, tau, noise)
+            z_t = torch.where(known_mask, known_values, z_t)
+            v_hat = model(z_t, (tau * (args.N_train - 1)).to(torch.int32), idx, known_mask,
+                          cond, T)
+            v = v * (~known_mask)
+            return ((v_hat - v) ** 2 * valid).sum() / (valid.sum() + 1e-8), {}
         t = draw(rng, "t", "randint", (B,), 0, args.N_train).to(dev).long()
         z_t, eps = q_sample(z0, t, schedule,
                             noise=draw(rng, "eps", "normal", tuple(z0.shape)).to(z0))
         z_t = torch.where(known_mask, known_values, z_t)
-        valid = (~known_mask).float()
         eps = eps * valid
         eps_hat = model(z_t, t, idx, known_mask, cond, T)
         loss = ((eps_hat - eps) ** 2 * valid).sum() / (valid.sum() + 1e-8)
         return loss, {}
 
     return loss_fn
+
+
+def make_reflow_fn(args, device: torch.device):
+    """The frozen rf teacher (--reflow_teacher, EMA weights) -> reflow_fn(rng,
+    idx, cond, known_mask, known_values) -> (noise, generated): the teacher
+    integrates its velocity field from the noise the loss then interpolates
+    against (the ReFlow coupling), clamping the known values every step.
+    Draw: "reflow_noise" normal [B, K, D]."""
+    from ..models.loading import load_keypoint_model
+
+    t_model, t_meta = load_keypoint_model(args.reflow_teacher, bool(args.bf16), device=device)
+    if t_meta.get("objective") != "rf":
+        raise ValueError("--reflow_teacher must be an rf-objective Stage-1 checkpoint "
+                         "(meta objective=rf)")
+    t_model.set_attn_policy(getattr(args, "attn_policy", "fused"))
+    n_tr, T = int(t_meta["N_train"]), args.T
+
+    @torch.no_grad()
+    def reflow_fn(rng: Rng, idx, cond, known_mask, known_values):
+        noise = draw(rng, "reflow_noise", "normal", tuple(known_values.shape)).to(
+            known_values)
+        vel = lambda z, t: t_model(z, (t * (n_tr - 1)).to(torch.int32), idx, known_mask,
+                                   cond, T)
+        post = lambda z: torch.where(known_mask, known_values, z)
+        x = rf_integrate(vel, torch.where(known_mask, known_values, noise),
+                         args.reflow_steps, post=post)
+        return noise, x
+
+    return reflow_fn
 
 
 def make_trainer(args, device: torch.device, data_dim: int, model=None):
@@ -179,7 +226,8 @@ def make_trainer(args, device: torch.device, data_dim: int, model=None):
     if model is None:
         model = build_model(args, data_dim, device)
     schedule = make_schedule(args.schedule, args.N_train, device=device)
-    loss_fn = make_loss_fn(model, args, schedule, device_policy_of(args))
+    reflow_fn = make_reflow_fn(args, device) if args.reflow_teacher else None
+    loss_fn = make_loss_fn(model, args, schedule, device_policy_of(args), reflow_fn)
     tx = make_optimizer(args.lr, args.weight_decay, args.grad_clip)
     state = init_train_state(model_params(model), tx, use_ema=bool(args.use_ema))
     train_step = make_train_multi_step(loss_fn, args.ema_decay, args.grad_accum,

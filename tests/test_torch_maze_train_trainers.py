@@ -321,8 +321,6 @@ def test_stage2_two_optimizer_steps_match_jax():
 # --- what is not ported raises ------------------------------------------------------
 
 @pytest.mark.parametrize("mod,flags,match", [
-    (ps1, ["--objective", "rf"], "rectified_flow"),
-    (ps1, ["--reflow_teacher", "x"], "rectified_flow"),
     (ps1, ["--use_kp_feat", "1"], "selection"),
     (ps1, ["--dphi_ckpt", "x"], "selector"),
     (ps1, ["--idx_policy", "selector:1.0"], "selector"),
@@ -332,9 +330,6 @@ def test_stage2_two_optimizer_steps_match_jax():
     (ps2, ["--mask_policy", "selector_level"], "selector"),
     (ps2, ["--mask_policy_mix", "selector:0.5,random:0.5"], "selector"),
     (ps2, ["--dphi_ckpt", "x"], "selector"),
-    (ps2, ["--bootstrap_solver", "pfdiff"], "pfdiff"),
-    (ps2, ["--bootstrap_solver", "dpm"], "dpm"),
-    (ps2, ["--bootstrap_best_of", "4"], "anchor_search"),
     (ps2, ["--n_data_shards", "2"], "mesh")])
 def test_unported_flags_raise_naming_what_is_missing(mod, flags, match, tmp_path):
     with pytest.raises(NotImplementedError, match=match):

@@ -117,14 +117,6 @@ def test_ddim_scan_matches_jax(x0_clip):
     close(out, ref)
 
 
-@pytest.mark.parametrize("solver,interval", [("pfdiff", 1), ("dpm", 1), ("ddim", 2)])
-def test_unported_solvers_raise(solver, interval):
-    s = schedules.make_schedule("linear", N_TRAIN)
-    with pytest.raises(NotImplementedError):
-        ddpm.run_solver(solver, lambda z, t: z, torch.zeros(1, 2, 2),
-                        ddpm.make_timesteps(N_TRAIN, 5), s, cache_interval=interval)
-
-
 @pytest.mark.parametrize("sch", ["doubling", "linear", "geom"])
 def test_k_schedule(g, sch):
     kw = {"geom_gamma": 1.7} if sch == "geom" else {}
