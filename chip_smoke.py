@@ -57,6 +57,23 @@ Phases, each on its own lines; any failure exits non-zero:
                   make_pipeline at B=64 with an anchor-confidence Stage 2 under
                   pfdiff, dpm, FORA 2, best-of-4 dp, rf, soft clamp + level
                   noise and logit space, kernel path against twin path
+  5d. serve and   the C++ maze generator (a shard of 10000 mazes 21x21, native
+      select      and numpy, two native builds bit for bit); D_phi and the
+                  keypoint selector at their trainers' defaults (batch 256,
+                  s/step); prepare_dp_keypoints (T=64, K=8, levels 3, 2048
+                  mazes; gt, then D_phi costs) and its invariants; the DP on
+                  the card against the CPU on the same cost matrix; at BENCH
+                  width under block: Stage 1 with --use_kp_feat / --dphi_ckpt
+                  / a dp,selector,random policy, Stage 2 with --mask_policy
+                  selector_level, the sampling CLI with --kp_index_mode
+                  selector --stage2_mask_policy selector (256 x 3), launches
+                  per call, no twin call, and the kp_feat + selector pipeline
+                  kernel path vs twin path; GenerationService (buckets 1, 4,
+                  16, 64, block) on 5b's and on the kp_feat checkpoints:
+                  warm-up, B = 1, 3, 64, 264 launches a dispatch, kernel path
+                  vs twin path, latency per bucket over 20 calls; the HTTP
+                  server with 16 concurrent clients (coalescing, p50 / p95);
+                  and the service under fused (36 small_mha_packed a dispatch)
   6. wan kernels  the SLA, int8 SLA and flash kernels against their twins at
                   the Wan anchor path's shapes, at the 33k-token geometry of
                   scripts/bench_wan33k.py (blocks 128 and 256) and at a
@@ -1486,6 +1503,481 @@ def phase_maze_sample_cli(dev, card, runs, workdir, profile=False):
     return cli_launches
 
 
+
+# Phase 5d: serving and keypoint selection. The selection models at the JAX
+# trainers' defaults (D_phi: d_cond 128, hidden 256, 3 layers; selector:
+# d_model 256, 8 heads, d_ff 512, 2 layers, pos_dim 64; maze channels
+# 32,64,128,128; T=64, K=8, levels 3 of the DP prep, so the selector trains
+# with --levels 3 --k_schedule doubling to read its per-level labels), batch
+# 256; the maze models at BENCH width under block. Launches of a served
+# dispatch under block: 19 Stage-1 evaluations at L = K and 3 Stage-2 levels
+# at L = T, 12 layers each; under fused, Stage 2's 36 small_mha_packed.
+SELECT = dict(num_samples=2048, prep_batch=256, shard=10000, train_batch=256,
+              train_steps=(1, 4), cli_steps=4, sel_levels=3)
+SERVE_BUCKETS = (1, 4, 16, 64)
+SERVE_CALLS = 20          # timed calls per bucket (each ends in a synchronize)
+SERVE_CLIENTS = 16        # concurrent HTTP clients, one (start, goal) each
+SERVE_LINGER_S = 0.02
+
+
+def _net_flags():
+    return ["--d_model", str(BENCH["d_model"]), "--n_layers", str(BENCH["n_layers"]),
+            "--n_heads", str(BENCH["n_heads"]), "--d_ff", str(BENCH["d_ff"]),
+            "--d_cond", str(BENCH["d_cond"]),
+            "--maze_channels", ",".join(str(c) for c in BENCH["maze_channels"]),
+            "--T", str(BENCH["T"]), "--maze_h", str(BENCH["grid"]),
+            "--maze_w", str(BENCH["grid"])]
+
+
+def _dispatch_launches():
+    """(fused_film_block per dispatch by sequence length, small_mha_packed
+    per fused dispatch) of a served call."""
+    n_s1 = len(range(BENCH["ddim_steps"] - 1)) * BENCH["n_layers"]       # 228
+    n_s2 = BENCH["levels"] * BENCH["n_layers"]                           # 36
+    return {BENCH["K"]: n_s1, BENCH["T"]: n_s2}, n_s2
+
+
+def _timed_steps(train_step, state, loader, host, dev, warm, timed):
+    """(state, s/step over the timed steps, last loss) through the trainer's
+    own step, one batch per call, each step ending in a synchronize."""
+    import torch
+    from interpolated_diffusion_tpu_torch.train.common import to_device
+
+    gen = torch.Generator(device=dev).manual_seed(51)
+    times, loss = [], float("nan")
+    for i in range(warm + timed):
+        batch = to_device(host(next(loader), i), dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = train_step(state, batch, gen)
+        loss = float(metrics["loss"])
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        require(math.isfinite(loss), f"non-finite loss at step {i}")
+    return state, sum(times[warm:]) / timed, loss
+
+
+def _select_phase(dev, card, workdir):
+    """Native shards, D_phi and the selector at their trainers' defaults, the
+    DP prep (gt, then dphi) and the DP on the card against the CPU."""
+    import numpy as np
+    import torch
+    from interpolated_diffusion_tpu_torch.data import native
+    from interpolated_diffusion_tpu_torch.data import prepare_dp_keypoints as prep
+    from interpolated_diffusion_tpu_torch.data.dataset import ParticleMazeDataset
+    from interpolated_diffusion_tpu_torch.ops import selection as sel
+    from interpolated_diffusion_tpu_torch.ops.keyframes import compute_k_schedule
+    from interpolated_diffusion_tpu_torch.train import train_keypoint_selector as tks
+    from interpolated_diffusion_tpu_torch.train import train_segment_cost as tsc
+    from interpolated_diffusion_tpu_torch.train.common import make_dataset, make_loader
+
+    T, K, G, levels = BENCH["T"], BENCH["K"], BENCH["grid"], BENCH["levels"]
+    # the C++ generator: a fresh g++ build of the checkout's source (the
+    # datasets of 5b loaded the library already), a failed build is fatal
+    # ("always"), two shard builds agree
+    from pathlib import Path
+
+    saved, native.BUILD_ROOT = native.BUILD_ROOT, Path(workdir) / "native"
+    try:
+        t0 = time.perf_counter()
+        lib = native.build()
+        build_s = time.perf_counter() - t0
+    finally:
+        native.BUILD_ROOT = saved
+    shards, secs = {}, {}
+    for mode in ("always", "never", "always"):
+        ds = ParticleMazeDataset(num_samples=SELECT["shard"], h=G, w=G, T=T,
+                                 shard_size=SELECT["shard"], use_native=mode)
+        t0 = time.perf_counter()
+        data = ds._build_shard(0)
+        secs.setdefault(mode, time.perf_counter() - t0)
+        if mode in shards:
+            require(all(np.array_equal(shards[mode][k], data[k]) for k in data),
+                    "native maze shards: two builds differ")
+        shards[mode] = data
+    require(shards["always"]["x"].shape == (SELECT["shard"], T, 2)
+            and np.isfinite(shards["always"]["x"]).all(), "native maze shard: bad x")
+    print(f"[select] {card} native maze shard of {SELECT['shard']} mazes {G}x{G}, T={T}: "
+          f"{secs['always']:.3f} s native (a fresh g++ build of csrc/host/maze_gen.cpp "
+          f"{build_s:.1f} s: {lib.name}), {secs['never']:.3f} s numpy; two native builds equal bit "
+          f"for bit", flush=True)
+    del shards
+
+    # D_phi at its trainer's defaults
+    data = ["--num_samples", str(SELECT["num_samples"]), "--T", str(T), "--maze_h", str(G),
+            "--maze_w", str(G), "--batch", str(SELECT["train_batch"])]
+    dphi_dir, sel_dir = os.path.join(workdir, "dphi"), os.path.join(workdir, "sel")
+    args = tsc.build_argparser().parse_args(data + ["--steps_per_call", "1", "--seed", "52"])
+    require((args.d_cond, args.hidden_dim, args.n_layers_mlp, args.maze_channels) ==
+            (128, 256, 3, "32,64,128,128"), "D_phi trainer defaults changed")
+    ds, _ = make_dataset(args)
+    state, step, model, targets = tsc.make_trainer(args, dev, ds)
+    warm, timed = SELECT["train_steps"]
+    _, per, loss = _timed_steps(step, state, iter(make_loader(ds, args)),
+                                lambda b, i: tsc.host_batch(args, b), dev, warm, timed)
+    print(f"[select] {card} D_phi trainer (d_cond 128, hidden 256, 3 layers, batch "
+          f"{args.batch}, {len(targets.seg_feat)} segments): {per:.4f} s/step over {timed} steps "
+          f"after {warm}, loss {loss:.4f}", flush=True)
+    tsc.main(data + ["--steps", "2", "--save_every", "2", "--log_every", "1",
+                     "--out_dir", dphi_dir])
+
+    # the DP prep, ground-truth costs then D_phi's, with its invariants
+    out, k_list = {}, compute_k_schedule(T, K, levels)
+    for source in ("gt", "dphi"):
+        path = os.path.join(workdir, f"dp_{source}.npz")
+        t0 = time.perf_counter()
+        res = prep.main(["--out_path", path, "--T", str(T), "--K", str(K), "--levels", str(levels),
+                         "--num_samples", str(SELECT["num_samples"]), "--maze_h", str(G),
+                         "--maze_w", str(G), "--batch", str(SELECT["prep_batch"]),
+                         "--store_kp_mask_levels", "1", "--cost_source", source]
+                        + (["--dphi_ckpt", dphi_dir] if source == "dphi" else []))
+        took = time.perf_counter() - t0
+        idx, masks = res["kp_idx"], res["kp_mask_levels"]
+        require((idx[:, 0] == 0).all() and (idx[:, -1] == T - 1).all()
+                and (np.diff(idx, axis=1) > 0).all(), f"prep {source}: bad kp_idx")
+        require((masks.sum(-1) == np.asarray(k_list)[None]).all()
+                and masks[:, :, 0].all() and masks[:, :, -1].all(),
+                f"prep {source}: a level's mask does not hold K_s anchors and the endpoints")
+        out[source] = path
+        print(f"[select] {card} prepare_dp_keypoints cost_source={source}: {len(idx)} mazes, "
+              f"T={T}, K={K}, levels {levels} (K_s {k_list}) in {took:.2f} s; endpoints, "
+              f"increasing indices, K_s anchors per level ok", flush=True)
+
+    # the DP on the card against the DP on the CPU over the same cost matrix
+    x = torch.as_tensor(np.load(out["gt"])["x"][:SELECT["prep_batch"]])
+    pre = sel.build_segment_precompute(T, 16)
+    c_cpu = sel.compute_segment_costs_batch(x, pre)
+    c_dev = sel.compute_segment_costs_batch(x.to(dev), pre.to(dev))
+    rel = float(((c_dev.cpu() - c_cpu).abs() / c_cpu.abs().clamp_min(1e-12)).max())
+    C = sel.build_cost_matrix_from_segments(c_dev, pre.to(dev), T)
+    for k in (K, *k_list):
+        a = sel.dp_select_indices_batch(C, k)
+        b = sel.dp_select_indices_batch(C.cpu(), k)
+        require(torch.equal(a.cpu(), b), f"DP with K={k}: the card's indices differ from the CPU's")
+    print(f"[select] DP on the card = DP on the CPU over the same cost matrix "
+          f"[{len(x)}, {T}, {T}] at K in {sorted({K, *k_list})}: identical; cost matrix card vs CPU "
+          f"max relative difference {rel:.2e} (tol 1e-5)", flush=True)
+    require(rel <= 1e-5, f"segment costs: the card's differ from the CPU's by {rel:.2e}")
+
+    # the selector at its trainer's defaults, on the DP prep's per-level labels
+    sel_flags = ["--dataset", "prepared", "--prepared_path", out["gt"], "--T", str(T), "--K",
+                 str(K), "--levels", str(levels), "--k_schedule", "doubling", "--use_level", "1",
+                 "--maze_h", str(G), "--maze_w", str(G), "--batch", str(SELECT["train_batch"])]
+    args = tks.build_argparser().parse_args(sel_flags + ["--steps_per_call", "1", "--seed", "53",
+                                                         "--steps", str(warm + timed)])
+    require((args.d_model, args.n_heads, args.d_ff, args.n_layers_sel, args.pos_dim) ==
+            (256, 8, 512, 2, 64), "selector trainer defaults changed")
+    ds, _ = make_dataset(args)
+    state, step, _ = tks.make_trainer(args, dev, True)
+    _, per, loss = _timed_steps(step, state, iter(make_loader(ds, args)),
+                                lambda b, i: tks.host_batch(args, b, i, True), dev, warm, timed)
+    print(f"[select] {card} selector trainer (d_model 256, 8 heads, d_ff 512, 2 layers, "
+          f"pos_dim 64, batch {args.batch}): {per:.4f} s/step over {timed} steps after {warm}, "
+          f"loss {loss:.4f}", flush=True)
+    tks.main(sel_flags + ["--steps", "2", "--save_every", "2", "--log_every", "1",
+                          "--out_dir", sel_dir])
+    return dphi_dir, sel_dir, out["gt"]
+
+
+def _select_modes(dev, card, workdir, dphi_dir, sel_dir, prep_path, launches):
+    """The maze trainers' and the sampling CLI's selection options at BENCH
+    width under block, then the kp_feat + selector pipeline, kernel path vs
+    twin path."""
+    import numpy as np
+    import torch
+    from interpolated_diffusion_tpu_torch.models.loading import (load_interp_model,
+                                                                  load_keypoint_model,
+                                                                  load_selector_model,
+                                                                  make_dphi_seg_cost_fn)
+    from interpolated_diffusion_tpu_torch.models.selector import select_topk_indices
+    from interpolated_diffusion_tpu_torch.ops.schedules import make_schedule
+    from interpolated_diffusion_tpu_torch.sample import generate
+    from interpolated_diffusion_tpu_torch.train import train_interp_levels, train_keypoints
+
+    n_layers, steps = BENCH["n_layers"], SELECT["cli_steps"]
+    common = _net_flags() + ["--dataset", "prepared", "--prepared_path", prep_path,
+                             "--attn_policy", "block", "--steps", str(steps),
+                             "--save_every", str(steps), "--log_every", "1"]
+    runs = {}
+    for stage, trainer, flags in (
+            ("kp_feat", train_keypoints, ["--K", str(BENCH["K"]), "--use_kp_feat", "1",
+                                          "--kp_feat_dim", "5", "--dphi_ckpt", dphi_dir,
+                                          "--idx_policy", "dp:0.4,selector:0.3,random:0.3",
+                                          "--selector_ckpt", sel_dir]),
+            ("selector_level", train_interp_levels, ["--K_min", str(BENCH["K_min"]),
+                                                     "--levels", str(BENCH["levels"]),
+                                                     "--mask_policy", "selector_level",
+                                                     "--selector_ckpt", sel_dir])):
+        out = os.path.join(workdir, stage)
+        _set_maze_counts(dict.fromkeys(launches, 0))
+        with count_maze_twin_calls() as calls:
+            t0 = time.perf_counter()
+            st = trainer.main(common + flags + ["--out_dir", out])
+            torch.cuda.synchronize()
+            took = time.perf_counter() - t0
+        delta = _maze_counts()
+        require(st.step == steps and delta["fused_film_block"] == n_layers * steps
+                and calls["forward"] == 0,
+                f"{stage} CLI: step {st.step}, launches {delta}, twin calls {calls}")
+        for k, v in delta.items():
+            launches[k] += v
+        runs[stage] = out
+        print(f"[select] {card} {trainer.__name__.rsplit('.', 1)[-1]} CLI "
+              f"{' '.join(a for a in flags if not a.startswith(workdir))} (block, full width): "
+              f"{steps} steps in {took:.1f} s (with model and selector / D_phi load); launches "
+              f"{delta}, forward twin calls 0", flush=True)
+
+    # the sampling CLI with every selection flag, 256 x 3, linear DDIM-20
+    B, n_batches = SAMPLE_CLI_BATCH
+    per_len, _ = _dispatch_launches()
+    from interpolated_diffusion_tpu_torch.kernels.fused_block import fused_film_block
+
+    by_len = fused_film_block.launches_by_len
+    _set_maze_counts(dict.fromkeys(launches, 0))
+    by_len.clear()
+    with count_maze_twin_calls() as twin:
+        t0 = time.perf_counter()
+        summary = generate.main([
+            "--kp_ckpt", runs["kp_feat"], "--interp_ckpt", runs["selector_level"],
+            "--device", "cuda", "--attn_policy", "block", "--batch", str(B), "--num_batches",
+            str(n_batches), "--time_spacing", "linear", "--num_samples",
+            str(SELECT["num_samples"]), "--kp_index_mode", "selector", "--stage2_mask_policy",
+            "selector", "--selector_ckpt", sel_dir, "--dphi_ckpt", dphi_dir, "--sanity", "0",
+            "--out_dir", os.path.join(workdir, "sample_select")])
+        torch.cuda.synchronize()
+        took = time.perf_counter() - t0
+    counts, got_len = _maze_counts(), dict(by_len)
+    want_len = {L: n * n_batches for L, n in per_len.items()}
+    require(got_len == want_len and counts["fused_film_block"] == sum(want_len.values())
+            and twin["total"] == 0,
+            f"selection sampling CLI: launches {counts} by length {got_len}, twin calls {twin}; "
+            f"expected {want_len}")
+    for k, v in counts.items():
+        launches[k] += v
+    print(f"[select] {card} sampling CLI --kp_index_mode selector --stage2_mask_policy selector "
+          f"--dphi_ckpt ({n_batches} x {B}, block): {summary['samples_per_sec']:.1f} samples/s "
+          f"(batches 1..{n_batches - 1}), {took:.1f} s with loads and dataset; launches "
+          f"{counts} (by length {got_len}), twin calls 0; refined collision "
+          f"{summary['refined_collision_rate']:.4f}", flush=True)
+
+    # the kp_feat + selector pipeline, kernel path vs twin path on the same
+    # draws; the selector's top-k and D_phi run no maze kernel, so both paths
+    # get the same indices and logits (the discrete choice is made once)
+    kp, kp_meta = load_keypoint_model(runs["kp_feat"], device=dev)
+    it, it_meta = load_interp_model(runs["selector_level"], device=dev)
+    selector, _ = load_selector_model(sel_dir, device=dev)
+    dphi_fn, _ = make_dphi_seg_cost_fn(dphi_dir, BENCH["T"], False, device=dev)
+    for m in (kp, it):
+        m.set_attn_policy("block")
+    cfg = generate.PipelineConfig(T=BENCH["T"], K=BENCH["K"], levels=it_meta["levels"],
+                                  K_min=it_meta["K_min"], ddim_steps=BENCH["ddim_steps"],
+                                  pos_clip=True, stage2_mask_policy="selector",
+                                  kp_feat_dim=int(kp_meta["kp_feat_dim"]))
+    pipe = generate.make_pipeline(kp, it, make_schedule(kp_meta["schedule"], kp_meta["N_train"],
+                                                        device=dev), cfg, 2, dphi_fn)
+    _, cond = _requests(64, torch.Generator().manual_seed(54), dev)
+    with torch.no_grad():
+        logits = selector(dict(cond, level=torch.full((64, 1), BENCH["K"] / (BENCH["T"] - 1),
+                                                      device=dev)))
+    idx = select_topk_indices(logits, BENCH["K"])
+    draws = generate.make_draws(cfg, 64, 2, torch.Generator(device=dev).manual_seed(55))
+    before = _maze_counts()["fused_film_block"]
+    out = pipe(idx, cond, selector_logits=logits, **draws)
+    k_launches = _maze_counts()["fused_film_block"] - before
+    with plain_twins():
+        ref = pipe(idx, cond, selector_logits=logits, **draws)
+    errs = {n: (a - b).abs().max().item() for n, a, b in zip(("x_interp", "x_refined", "z_pred"),
+                                                              out, ref)}
+    require(k_launches == sum(per_len.values()) and max(errs.values()) <= PIPE_TOL
+            and all(bool(torch.isfinite(t).all()) for t in out),
+            f"kp_feat + selector pipeline: launches {k_launches}, kernel vs twin {errs}")
+    print(f"[select] kp_feat (D_phi channels) + selector pipeline, B=64, block, kernels vs "
+          f"plain twins on the same draws and selector choices: max|d| "
+          f"{', '.join(f'{k} {v:.3e}' for k, v in errs.items())} (tol {PIPE_TOL}); {k_launches} "
+          f"block launches", flush=True)
+    return runs
+
+
+def _serve_phase(dev, card, kp_dir, il_dir, dphi_dir, launches, label):
+    """GenerationService (block) on one pair of checkpoints: warm-up, the
+    three request sizes and their launches, the kernel path against the twin
+    path, latency per bucket, and the HTTP server with concurrent clients."""
+    import threading
+
+    import numpy as np
+    import torch
+    from interpolated_diffusion_tpu_torch.kernels.fused_block import fused_film_block
+    from interpolated_diffusion_tpu_torch.serve import server as srv
+    from interpolated_diffusion_tpu_torch.serve.client import GenerationClient
+    from interpolated_diffusion_tpu_torch.serve.service import GenerationService
+
+    G, T, K = BENCH["grid"], BENCH["T"], BENCH["K"]
+    per_len, _ = _dispatch_launches()
+    svc = GenerationService(kp_dir, il_dir, dphi_ckpt=dphi_dir or "", buckets=SERVE_BUCKETS,
+                            attn_policy="block", device="cuda")
+    svc.set_default_grid((np.random.default_rng(56).uniform(size=(G, G)) < 0.2).astype(np.float32))
+    t0 = time.perf_counter()
+    svc.warmup()
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    rng = np.random.default_rng(57)
+    by_len = fused_film_block.launches_by_len
+    for B in (1, 3, 64):
+        sg = rng.uniform(0.05, 0.95, size=(B, 4)).astype(np.float32)
+        occ = (rng.uniform(size=(B, 1, G, G)) < 0.2).astype(np.float32)
+        _set_maze_counts(dict.fromkeys(("fused_film_block", "small_mha_packed", "small_mha"), 0))
+        by_len.clear()
+        timing = {}
+        with count_maze_twin_calls() as twin:
+            out = svc.generate(sg, occ, seed=B, timing=timing)
+        counts, got_len = _maze_counts(), dict(by_len)
+        nb = min(b for b in SERVE_BUCKETS if b >= B)
+        require(out["served_batch"] == nb and timing["served_batch"] == nb
+                and set(timing) == {"prep_s", "put_s", "dispatch_s", "pull_s", "served_batch"}
+                and out["refined"].shape == (B, T, 2) and out["keypoints"].shape == (B, K, 2)
+                and out["idx"].shape == (B, K) and np.isfinite(out["refined"]).all()
+                and got_len == per_len and counts["fused_film_block"] == sum(per_len.values())
+                and twin["total"] == 0,
+                f"service {label} B={B}: served {out['served_batch']}, launches {counts} by "
+                f"length {got_len}, twin calls {twin}")
+        for k, v in counts.items():
+            launches[k] += v
+        if B == 64:   # the kernel path against the twin path on the same draws
+            with plain_twins():
+                ref = svc.generate(sg, occ, seed=B)
+            errs = {k: float(np.abs(out[k] - ref[k]).max()) for k in ("interp", "refined",
+                                                                      "keypoints")}
+            require(max(errs.values()) <= PIPE_TOL, f"service {label}: kernel vs twin {errs}")
+        versus = (f"; kernels vs plain twins on the same draws: max|d| "
+                  f"{', '.join(f'{k} {v:.3e}' for k, v in errs.items())} (tol {PIPE_TOL})"
+                  if B == 64 else "")
+        print(f"[serve] {card} {label} B={B} -> bucket {nb}: shapes, timing keys ok; launches "
+              f"{counts['fused_film_block']} fused_film_block (by length {got_len}), twin calls 0"
+              f"{versus}", flush=True)
+    # latency per bucket, each call ending in a synchronize
+    lat = {}
+    for nb in SERVE_BUCKETS:
+        sg = rng.uniform(0.05, 0.95, size=(nb, 4)).astype(np.float32)
+        walls = []
+        for i in range(SERVE_CALLS):
+            t0 = time.perf_counter()
+            svc.generate(sg, seed=i)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        walls = np.sort(np.asarray(walls) * 1e3)
+        lat[nb] = (float(np.median(walls)), float(walls[0]), float(walls[-1]))
+    print(f"[serve] {card} {label} latency per request over {SERVE_CALLS} calls (ms, median "
+          f"[min, max]), warm-up {warm_s:.1f} s: "
+          + ", ".join(f"B={nb} {m:.1f} [{lo:.1f}, {hi:.1f}]" for nb, (m, lo, hi) in lat.items()),
+          flush=True)
+
+    # the HTTP server: concurrent clients under one seed coalesce
+    calls = {"n": 0}
+    real = svc.generate
+
+    def counting(*a, **kw):
+        calls["n"] += 1
+        return real(*a, **kw)
+
+    svc.generate = counting
+    server, batcher = srv.serve(svc, "127.0.0.1", 0, linger_s=SERVE_LINGER_S)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        client = GenerationClient("127.0.0.1", server.server_address[1], timeout_s=120)
+        health = client.health()
+        require(health["ok"] and health["T"] == T and health["K"] == K, f"healthz {health}")
+        results, errors, lock = [], [], threading.Lock()
+
+        def post(i):
+            t0 = time.perf_counter()
+            try:
+                res = client.generate([rng_sg[i]], seed=7)
+            except Exception as e:   # noqa: BLE001 - reported below
+                with lock:
+                    errors.append(repr(e))
+                return
+            with lock:
+                results.append((time.perf_counter() - t0, res))
+
+        rng_sg = np.random.default_rng(58).uniform(0.05, 0.95, size=(SERVE_CLIENTS, 4)).tolist()
+        threads = [threading.Thread(target=post, args=(i,)) for i in range(SERVE_CLIENTS)]
+        t0 = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=120)
+        took = time.perf_counter() - t0
+    finally:
+        server.shutdown()
+        server.server_close()
+        batcher.running = False
+        svc.generate = real
+    keys = {"interp", "refined", "keypoints", "idx", "served_batch", "coalesced_requests"}
+    require(not errors and len(results) == SERVE_CLIENTS and calls["n"] < SERVE_CLIENTS
+            and max(r["coalesced_requests"] for _, r in results) >= 2
+            and all(set(r) == keys and r["refined"].shape == (1, T, 2) for _, r in results),
+            f"server {label}: {len(results)} answers of {SERVE_CLIENTS}, {calls['n']} dispatches, "
+            f"errors {errors[:2]}")
+    walls = np.sort([w for w, _ in results]) * 1e3
+    print(f"[serve] {card} {label} HTTP server, {SERVE_CLIENTS} concurrent clients, linger "
+          f"{SERVE_LINGER_S * 1e3:.0f} ms: all answered in {took:.2f} s by {calls['n']} "
+          f"dispatches (coalesced up to {max(r['coalesced_requests'] for _, r in results)}); "
+          f"latency p50 {np.percentile(walls, 50):.1f} ms, p95 {np.percentile(walls, 95):.1f} ms",
+          flush=True)
+    del svc
+    return lat
+
+
+def phase_serve_select(dev, card, runs, workdir):
+    """Phase 5d; see the module docstring. Returns the launches of rows 1-2
+    on the serving path and on the selection path."""
+    import numpy as np
+    import torch
+    from interpolated_diffusion_tpu_torch.serve.service import GenerationService
+
+    t_phase = time.perf_counter()
+    keys = ("fused_film_block", "small_mha_packed", "small_mha")
+    select_launches, serve_launches = dict.fromkeys(keys, 0), dict.fromkeys(keys, 0)
+    dphi_dir, sel_dir, prep_path = _select_phase(dev, card, workdir)
+    sel_runs = _select_modes(dev, card, workdir, dphi_dir, sel_dir, prep_path, select_launches)
+    torch.cuda.empty_cache()
+    _serve_phase(dev, card, runs["stage1"], runs["stage2"], None, serve_launches, "5b checkpoints")
+    _serve_phase(dev, card, sel_runs["kp_feat"], sel_runs["selector_level"], dphi_dir,
+                 serve_launches, "kp_feat + D_phi checkpoints")
+    # one more service under fused: Stage 2's attention through small_mha_packed
+    _, n_mha = _dispatch_launches()
+    svc = GenerationService(runs["stage1"], runs["stage2"], buckets=SERVE_BUCKETS,
+                            attn_policy="fused", device="cuda")
+    sg = np.random.default_rng(59).uniform(0.05, 0.95, size=(64, 4)).astype(np.float32)
+    occ = (np.random.default_rng(60).uniform(size=(64, 1, BENCH["grid"], BENCH["grid"]))
+           < 0.2).astype(np.float32)
+    svc.generate(sg, occ, seed=0)
+    torch.cuda.synchronize()
+    _set_maze_counts(dict.fromkeys(keys, 0))
+    with count_maze_twin_calls() as twin:
+        out = svc.generate(sg, occ, seed=1)
+    counts = _maze_counts()
+    walls = []
+    for i in range(SERVE_CALLS):
+        t0 = time.perf_counter()
+        svc.generate(sg, occ, seed=i)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    require(counts == {"fused_film_block": 0, "small_mha_packed": n_mha, "small_mha": 0}
+            and twin["total"] == 0 and np.isfinite(out["refined"]).all(),
+            f"service fused: launches {counts}, twin calls {twin}")
+    serve_launches["small_mha_packed"] += counts["small_mha_packed"]
+    walls = np.sort(walls) * 1e3
+    print(f"[serve] {card} 5b checkpoints, policy fused, B=64: {counts['small_mha_packed']} "
+          f"small_mha_packed launches a dispatch, twin calls 0; latency over {SERVE_CALLS} calls "
+          f"median {np.median(walls):.1f} ms [{walls[0]:.1f}, {walls[-1]:.1f}]", flush=True)
+    print(f"[serve] launches in the serving run: {serve_launches}; in the selection run: "
+          f"{select_launches}; {card} phase 5d wall time {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return serve_launches, select_launches
+
+
 def _sla_work(lut, L, block):
     """(rows x keys summed over the LUT's entries, the same over its distinct
     (query block, key block) pairs): what this LUT makes the forward and dQ
@@ -2505,6 +2997,8 @@ def main() -> int:
             maze_train_launches, _, runs = phase_maze_train(dev, card, profile, workdir)
             torch.cuda.empty_cache()
             cli_launches = phase_maze_sample_cli(dev, card, runs, workdir, profile)
+            torch.cuda.empty_cache()
+            serve_launches, select_launches = phase_serve_select(dev, card, runs, workdir)
         torch.cuda.empty_cache()
         wan_errs, wan_cases = phase_wan_kernels(dev)
         model, sampler, inputs, wan_launches = phase_wan_main(dev)
@@ -2564,7 +3058,8 @@ def main() -> int:
         k_ms, p_ms, lib_ms = times[(name, B, L)]
         row(name, launches[name], max(grad_errs[name], *(c[1] for c in cases[name])), k_ms, p_ms,
             maze_bounds[name], lib_ms, train_launches=maze_train_launches[name],
-            sample_cli_launches=cli_launches[name], **extras[name])
+            sample_cli_launches=cli_launches[name], serve_launches=serve_launches[name],
+            select_launches=select_launches[name], **extras[name])
     # small_mha at the Stage-2 trainer's shape [256, 64, 384]; its main path is
     # the maze training phase (TransformerBlock(use_small_mha=True))
     k_ms, p_ms, lib_ms, mha_bound = mha_times[(256, 64)]

@@ -2,8 +2,10 @@
 of the JAX package's data/dataset.py; numpy only): ParticleMazeDataset
 (procedural mazes and paths, generated per seeded shard, with an npz shard
 cache), PreparedTrajectoryDataset (npz-backed prepared data) and BatchLoader.
-The numpy generator gives the JAX package's `use_native="never"` samples bit
-for bit; its C++ generator is not ported.
+Shards come from the C++ generator (data/native.py, the port's copy of
+native/maze_gen.cpp) unless `use_native="never"` or SDFs are asked for, as in
+the JAX package; either generator gives the JAX package's samples bit for bit
+under the same flags.
 """
 from __future__ import annotations
 
@@ -40,7 +42,7 @@ class ParticleMazeDataset:
         cache_dir: Optional[str] = None,
         shard_size: int = 10_000,
         seed: int = 123,
-        use_native: str = "auto",  # auto | never: numpy; always: not ported
+        use_native: str = "auto",  # auto | always | never
     ):
         self.num_samples = num_samples
         self.h, self.w, self.T = h, w, T
@@ -81,12 +83,22 @@ class ParticleMazeDataset:
         lo = shard_idx * self.shard_size
         hi = min(self.num_samples, lo + self.shard_size)
         n = hi - lo
-        # The C++ generator (native/maze_gen.cpp of the JAX package) is not
-        # ported: "auto" and "never" build with numpy, "always" raises.
-        if self.use_native == "always":
-            raise NotImplementedError(
-                "use_native='always': the C++ maze generator (data/native.py, "
-                "native/maze_gen.cpp) is not ported yet")
+        # C++ hot path (csrc/host/maze_gen.cpp) unless SDFs are needed or it
+        # is turned off: "auto" falls back to numpy when the library does not
+        # build, "always" raises then
+        if self.use_native != "never" and not self.use_sdf:
+            try:
+                from .native import generate_maze_batch_native
+
+                x, occ, sg = generate_maze_batch_native(
+                    self.seed * 1_000_003 + shard_idx * self.shard_size,
+                    n, self.h, self.w, self.p_wall_min, self.p_wall_max,
+                    self.T, self.with_velocity,
+                )
+                return {"x": x, "occ": occ, "start_goal": sg}
+            except Exception:
+                if self.use_native == "always":
+                    raise
         x = np.zeros((n, self.T, self.data_dim), dtype=np.float32)
         occ = np.zeros((n, 1, self.h, self.w), dtype=np.float32)
         sdf = np.zeros((n, 1, self.h, self.w), dtype=np.float32) if self.use_sdf else None

@@ -1,11 +1,14 @@
-"""Checkpoint -> model loaders shared by the samplers and the trainers (port
-of models/loading.py: the two maze denoisers).
+"""Checkpoint -> model loaders shared by the samplers, the trainers and the
+service (port of models/loading.py: the two maze denoisers, the keypoint
+selector and the segment-cost model D_phi, and the D_phi cost function of
+the kp_feat channels).
 
 Reads the port's own checkpoint format (utils/checkpoint.py): the meta dict
-rebuilds the model, `ema.pt` (by default) or `params.pt` fills it. Models
-come back with f32 parameters on `device` (the card unless the caller asks
-for the CPU), computing in bf16 under `bf16=True`, in eval mode. The selector and segment-cost loaders and the JAX
-package's msgpack / reference-PyTorch checkpoints are not ported.
+rebuilds the model, `ema.pt` (by default) or `params.pt` fills it (the
+selector and D_phi trainers keep no EMA: `params.pt`). Models come back with
+f32 parameters on `device` (the card unless the caller asks for the CPU),
+computing in bf16 under `bf16=True`, in eval mode. The JAX package's msgpack
+and reference-PyTorch checkpoints are not read here.
 """
 from __future__ import annotations
 
@@ -16,6 +19,7 @@ import torch
 
 from ..utils.checkpoint import latest_checkpoint, load_checkpoint, read_meta
 from .denoisers import InterpLevelDenoiser, KeypointDenoiser
+from .selector import KeypointSelector, SegmentCostPredictor
 from .transformer import set_compute_dtype
 
 
@@ -39,9 +43,6 @@ def _check_meta(meta: Dict, path: str, stage: str) -> None:
     if meta.get("causal"):
         raise NotImplementedError("causal Stage-2 checkpoints: the causal transformer is not "
                                   "ported yet")
-    if meta.get("use_kp_feat"):
-        raise NotImplementedError("checkpoints trained with --use_kp_feat: ops/selection.py is "
-                                  "not ported yet")
 
 
 def _fill(model, path: str, bf16: bool, use_ema: bool, device):
@@ -61,7 +62,8 @@ def load_keypoint_model(path: str, bf16: bool = True, use_ema: bool = True, devi
         d_model=meta["d_model"], n_layers=meta["n_layers"], n_heads=meta["n_heads"],
         d_ff=meta["d_ff"], d_cond=meta["d_cond"], use_sdf=bool(meta["use_sdf"]),
         use_start_goal=bool(meta["cond_start_goal"]), data_dim=int(meta["data_dim"]),
-        kp_feat_dim=0, maze_channels=_maze_ch(meta))
+        kp_feat_dim=int(meta.get("kp_feat_dim", 0)) if meta.get("use_kp_feat") else 0,
+        maze_channels=_maze_ch(meta))
     return _fill(model, path, bf16, use_ema, device), meta
 
 
@@ -77,3 +79,55 @@ def load_interp_model(path: str, bf16: bool = True, use_ema: bool = True, device
         max_levels=max(8, int(meta["levels"])), mask_channels=int(meta["mask_channels"]),
         maze_channels=_maze_ch(meta))
     return _fill(model, path, bf16, use_ema, device), meta
+
+
+def load_selector_model(path: str, bf16: bool = True, device="cuda"):
+    """(model, meta) of a keypoint-selector checkpoint (or the newest under a run dir)."""
+    path = resolve_ckpt(path)
+    _, meta = read_meta(path)
+    _check_meta(meta, path, "selector")
+    model = KeypointSelector(
+        T=int(meta["T"]), d_model=meta["d_model"], n_heads=meta["n_heads"],
+        d_ff=meta["d_ff"], n_layers=meta["n_layers"], pos_dim=meta["pos_dim"],
+        use_sdf=bool(meta["use_sdf"]), use_start_goal=bool(meta["cond_start_goal"]),
+        use_sg_map=bool(meta["use_sg_map"]), use_sg_token=bool(meta["use_sg_token"]),
+        use_goal_dist_token=bool(meta["use_goal_dist_token"]),
+        use_cond_bias=bool(meta["use_cond_bias"]), cond_bias_mode=meta["cond_bias_mode"],
+        use_level=bool(meta["use_level"]), sg_map_sigma=float(meta["sg_map_sigma"]),
+        maze_channels=_maze_ch(meta))
+    return _fill(model, path, bf16, False, device), meta
+
+
+def load_segment_cost_model(path: str, bf16: bool = True, device="cuda"):
+    """(model, meta) of a D_phi checkpoint (or the newest under a run dir)."""
+    path = resolve_ckpt(path)
+    _, meta = read_meta(path)
+    _check_meta(meta, path, "segment_cost")
+    model = SegmentCostPredictor(
+        d_cond=meta["d_cond"], seg_feat_dim=meta["seg_feat_dim"],
+        hidden_dim=meta["hidden_dim"], n_layers=meta["n_layers"],
+        use_sdf=bool(meta["use_sdf"]), use_start_goal=bool(meta["cond_start_goal"]),
+        maze_channels=_maze_ch(meta))
+    return _fill(model, path, bf16, False, device), meta
+
+
+def make_dphi_seg_cost_fn(path: str, T: int, use_sdf=None, bf16: bool = True, device="cuda"):
+    """Load D_phi and return (seg_cost_fn, meta): seg_cost_fn(cond, idx) ->
+    [B, K-1] predicted costs of the consecutive segments of `idx` [B, K],
+    for the kp_feat cost channels. T and use_sdf must match the checkpoint's
+    meta."""
+    from ..ops.selection import build_segment_features_from_idx
+
+    model, meta = load_segment_cost_model(path, bf16, device)
+    if meta.get("T") is not None and int(meta["T"]) != int(T):
+        raise ValueError(f"dphi_ckpt T mismatch: ckpt={meta['T']} args={T}")
+    if use_sdf is not None and meta.get("use_sdf") is not None \
+            and bool(meta["use_sdf"]) != bool(use_sdf):
+        raise ValueError("dphi_ckpt use_sdf mismatch")
+    seg_feat_dim = int(meta.get("seg_feat_dim", 3))
+
+    def seg_cost_fn(cond, idx):
+        with torch.no_grad():
+            return model(cond, build_segment_features_from_idx(idx, T, seg_feat_dim))
+
+    return seg_cost_fn, meta

@@ -224,6 +224,47 @@ def build_nested_masks_from_logits(
     return _nested_from_order(torch.cat([ends, interior], dim=1), T, K_list)
 
 
+def build_nested_masks_from_level_logits(
+    logits_levels: torch.Tensor, K_min: int, levels: int, k_schedule: str = "doubling",
+    k_geom_gamma: Optional[float] = None,
+) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+    """Nested masks from per-level logits [B, levels+1, T]: walking coarse to
+    fine, each level adds its top (K_s - already selected) positions among
+    those not yet selected (ties to the lower index, as jax.lax.top_k).
+    Returns (masks_levels [B, levels+1, T] bool, idx_levels list of [B, K_s])."""
+    if logits_levels.ndim != 3:
+        raise ValueError("logits_levels must be [B, L, T]")
+    B, L, T = logits_levels.shape
+    if levels < 1:
+        raise ValueError("levels must be >= 1")
+    if L != levels + 1:
+        raise ValueError(f"logits_levels second dim must be levels+1 ({levels + 1}), got {L}")
+    if T < 2:
+        raise ValueError("T must be >= 2 when using endpoints")
+    K_list = compute_k_schedule(T, K_min, levels, schedule=k_schedule, geom_gamma=k_geom_gamma)
+    selected = torch.zeros((B, T), dtype=torch.bool, device=logits_levels.device)
+    selected[:, 0] = selected[:, -1] = True
+    count = 2
+    masks = [None] * (levels + 1)
+    for s in range(levels, -1, -1):
+        need = K_list[s] - count
+        if need < 0:
+            raise ValueError("K_schedule produced decreasing K values; ensure nestedness.")
+        if need > 0:
+            row = logits_levels[:, s].float()
+            scores = torch.where(selected, torch.full_like(row, -1e9), row)
+            top = torch.argsort(-scores, dim=1, stable=True)[:, :need]
+            selected = selected | _mask_from_idx(top, T)
+            count = K_list[s]
+        masks[s] = selected
+    masks_levels = torch.stack(masks, dim=1)
+    # the K_s selected positions of each level, ascending
+    pos = torch.arange(T, device=logits_levels.device)
+    idx_levels = [torch.sort(torch.where(masks_levels[:, s], pos, T), dim=1).values[:, :K_list[s]]
+                  for s in range(levels + 1)]
+    return masks_levels, idx_levels
+
+
 def interpolate_from_indices(idx: torch.Tensor, vals: torch.Tensor, T: int,
                              recompute_velocity: bool = False) -> torch.Tensor:
     """Piecewise-linear fill between sorted anchors.

@@ -11,13 +11,16 @@ Stage-2 sampling noise `s2_noise` [levels + 1, B, T, 2] (row s used at level
 s). They are drawn from a `torch.Generator` unless the caller passes them; a
 parity test passes the draws JAX made (k1, k2 = split(key); normal(k1, (B,
 K, D)), or normal(keys[n], ...) over keys = split(k1, N); uniform(k2, (B,
-T)); normal(split(fold_in(k2, 7), levels + 1)[s], (B, T, 2))).
+T)); normal(split(fold_in(k2, 7), levels + 1)[s], (B, T, 2))). The CLI's
+stochastic selector top-k draws its Gumbel noise from the same generator,
+before the pipeline's draws.
 
-Not ported (each raises NotImplementedError, naming the missing module):
-`kp_feat_dim > 0` (ops/selection.py); the selector and D_phi models
-(models/selector.py: `--kp_index_mode selector`, `--stage2_mask_policy
-selector` without caller-given logits, `--selector_ckpt`, `--dphi_ckpt`);
-`--save_plots` / `--save_steps` (eval/visualize.py).
+Keypoint selection: a Stage-1 checkpoint trained with `--use_kp_feat` gets
+its index features rebuilt inside the pipeline (`kp_feat_dim`; the D_phi
+cost channels from `dphi_fn`, see models/loading.make_dphi_seg_cost_fn); the
+CLI's `--kp_index_mode selector` and `--stage2_mask_policy selector` run the
+keypoint selector (`--selector_ckpt`). `--save_plots` / `--save_steps` write
+PNGs (and a GIF) through eval/visualize.py, which needs matplotlib (and PIL).
 """
 from __future__ import annotations
 
@@ -34,7 +37,9 @@ import numpy as np
 import torch
 
 from ..eval.metrics import compute_metrics_batch
-from ..models.loading import load_interp_model, load_keypoint_model
+from ..models.loading import (load_interp_model, load_keypoint_model, load_selector_model,
+                              make_dphi_seg_cost_fn)
+from ..models.selector import select_topk_indices
 from ..ops.anchor_search import pick_anchors
 from ..ops.clamp import apply_clamp, apply_soft_clamp
 from ..ops.ddpm import SOLVERS, make_timesteps, run_solver
@@ -42,6 +47,7 @@ from ..ops.keyframes import (build_nested_masks_from_base, build_nested_masks_fr
                              compute_k_schedule, interpolate_from_indices)
 from ..ops.normalize import logit_pos, sigmoid_pos
 from ..ops.rectified_flow import rf_integrate
+from ..ops.selection import build_kp_feat_full
 from ..ops.schedules import DiffusionSchedule, make_schedule
 from ..train.batches import build_known_mask_values, compute_sigma_for_level, gather_keypoints
 from ..train.common import add_data_args, make_dataset, resolve_device, sample_idx_policy
@@ -82,22 +88,19 @@ class PipelineConfig:
     logit_space: bool = False
     logit_eps: float = 1e-5
     recompute_vel: bool = False
-    stage2_mask_policy: str = "base"    # base | selector (with caller-given logits)
+    stage2_mask_policy: str = "base"    # base | selector (ranked by the selector logits)
     collect_steps: bool = False         # also return the per-step states
     stage1_cache_interval: int = 1      # FORA: the block stack every Nth DDIM step
     stage1_solver: str = "ddim"         # ddim | pfdiff | dpm
     stage1_objective: str = "eps"       # eps | rf (Euler-integrate the velocity head)
     stage1_best_of: int = 1             # N candidate anchor sets, the least colliding kept
     stage1_best_of_mode: str = "set"    # set: whole-set argmin; dp: per-anchor chain DP
-    kp_feat_dim: int = 0                # > 0: not ported (ops/selection.py)
+    kp_feat_dim: int = 0                # > 0: rebuild kp_feat for Stage 1 (cost channels: dphi_fn)
     x0_clip: float = 0.0                # > 0: clamp the solver's per-step x0 to +-x0_clip
     s2_delta_smooth: int = 0            # N passes of a 3-tap binomial filter at missing frames
 
 
 def check_supported(cfg: PipelineConfig) -> None:
-    if cfg.kp_feat_dim > 0:
-        raise NotImplementedError("PipelineConfig.kp_feat_dim > 0: the index features "
-                                  "(ops/selection.py) are not ported yet")
     if cfg.stage2_mode not in ("adj", "x0"):
         raise ValueError(f"unknown stage2_mode {cfg.stage2_mode!r}")
     if cfg.clamp_policy not in ("endpoints", "all_anchors", "none"):
@@ -173,7 +176,7 @@ def _repeat(t: torch.Tensor, n: int) -> torch.Tensor:
 
 
 def make_pipeline(kp_model, interp_model, schedule: DiffusionSchedule,
-                  cfg: PipelineConfig, data_dim: int):
+                  cfg: PipelineConfig, data_dim: int, dphi_fn=None):
     """Returns pipeline(idx, cond, *, generator=None, z_init=None,
     mask_rand=None, s2_noise=None, z_override=None, selector_logits=None) ->
     (x_interp [B,T,D], x_refined [B,T,D], z_pred [B,K,D]), and with
@@ -182,7 +185,11 @@ def make_pipeline(kp_model, interp_model, schedule: DiffusionSchedule,
     idx [B, K] holds sorted anchor frames; cond has "occ" [B, 1, G, G] and
     "start_goal" [B, 4]. z_override [B, K, D] replaces Stage 1;
     selector_logits [B, T] rank the Stage-2 masks under
-    stage2_mask_policy="selector". Everything runs on idx's device.
+    stage2_mask_policy="selector" (without them the masks grow from idx, as
+    in the JAX pipeline). With cfg.kp_feat_dim > 0 Stage 1 gets the index
+    features of idx, whose cost channels (kp_feat_dim >= 5) come from
+    dphi_fn(cond, idx) -> [B, K-1] when it is given and stay zero otherwise.
+    Everything runs on idx's device.
     """
     check_supported(cfg)
     T, K, levels = cfg.T, cfg.K, cfg.levels
@@ -198,6 +205,9 @@ def make_pipeline(kp_model, interp_model, schedule: DiffusionSchedule,
 
     def stage1(sched, idx, cond, z):
         """z [M, K, D] initial noise -> (z_pred [M, K, D], per-step states or None)."""
+        if cfg.kp_feat_dim > 0:
+            seg_cost = dphi_fn(cond, idx) if dphi_fn is not None else None
+            cond = dict(cond, kp_feat=build_kp_feat_full(idx, T, cfg.kp_feat_dim, seg_cost))
         known_mask, known_values = build_known_mask_values(
             idx, cond, data_dim, T, cfg.clamp_endpoints)
         if cfg.logit_space:
@@ -235,11 +245,7 @@ def make_pipeline(kp_model, interp_model, schedule: DiffusionSchedule,
 
     def stage2(x_pred, idx, cond, mask_rand, s2_noise, selector_logits):
         B = idx.shape[0]
-        if cfg.stage2_mask_policy == "selector":
-            if selector_logits is None:
-                raise NotImplementedError(
-                    "stage2_mask_policy='selector' without selector_logits: the selector "
-                    "model (models/selector.py) is not ported yet")
+        if cfg.stage2_mask_policy == "selector" and selector_logits is not None:
             masks, _ = build_nested_masks_from_logits(selector_logits, cfg.K_min, levels,
                                                       k_schedule=cfg.k_schedule)
         else:
@@ -338,6 +344,46 @@ def make_pipeline(kp_model, interp_model, schedule: DiffusionSchedule,
     return pipeline
 
 
+def export_viz(args, batch, idx, z_pred, x_interp, x_refined, steps, T):
+    """Per-sample PNG plots (`--save_plots N`: the first N samples) and
+    per-step diffusion frames + a GIF of sample 0 (`--save_steps`)."""
+    from ..eval.visualize import plot_occupancy_trajectories
+
+    occ, sg, gt = batch["occ"], batch["start_goal"], batch["x"]
+    host = lambda t: t.float().cpu().numpy()
+    z_np, xi_np, xr_np = host(z_pred), host(x_interp), host(x_refined)
+    plots_dir = os.path.join(args.out_dir, "plots")
+    os.makedirs(plots_dir, exist_ok=True)
+    for b in range(min(int(args.save_plots), xi_np.shape[0])):
+        plot_occupancy_trajectories(
+            occ[b], [gt[b], xi_np[b], xr_np[b]], labels=["gt", "interp", "refined"],
+            keypoints=z_np[b], start_goal=sg[b],
+            out_path=os.path.join(plots_dir, f"sample_{b:03d}.png"), title=f"sample {b}")
+    if not (args.save_steps and steps is not None):
+        return
+    z_steps, x_steps = steps       # [S1,B,K,D], [S2,B,T,D]
+    frames_dir = os.path.join(args.out_dir, "steps")
+    os.makedirs(frames_dir, exist_ok=True)
+    frames = [("stage1", si, host(interpolate_from_indices(idx[:1], z_steps[si][:1].float(), T))[0])
+              for si in range(z_steps.shape[0])]
+    frames += [("stage2", si, host(x_steps[si][0])) for si in range(x_steps.shape[0])]
+    paths = [plot_occupancy_trajectories(
+        occ[0], [gt[0], traj], labels=["gt", stage], keypoints=z_np[0], start_goal=sg[0],
+        out_path=os.path.join(frames_dir, f"frame_{fi:03d}.png"), title=f"{stage} step {si}")
+        for fi, (stage, si, traj) in enumerate(frames)]
+    try:
+        from PIL import Image
+    except ImportError as e:
+        raise ImportError("--save_steps writes a GIF and needs the PIL (Pillow) package, "
+                          "which is not installed") from e
+    try:
+        imgs = [Image.open(p) for p in paths]
+        imgs[0].save(os.path.join(args.out_dir, "diffusion_steps.gif"), save_all=True,
+                     append_images=imgs[1:], duration=200, loop=0)
+    except Exception as e:  # the PNG frames remain the durable output
+        print(f"gif export skipped ({e})")
+
+
 # ---------------------------------------------------------------------------
 # CLI
 # ---------------------------------------------------------------------------
@@ -353,15 +399,16 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--time_spacing", type=str, default="quadratic",
                    choices=["linear", "quadratic", "sqrt"])
     p.add_argument("--kp_index_mode", type=str, default="uniform",
-                   choices=["random", "uniform", "uniform_jitter", "selector"],
-                   help="selector: not ported (models/selector.py)")
+                   choices=["random", "uniform", "uniform_jitter", "selector"])
     p.add_argument("--kp_jitter", type=float, default=0.0)
-    p.add_argument("--selector_ckpt", type=str, default=None, help="not ported")
-    p.add_argument("--dphi_ckpt", type=str, default=None, help="not ported")
+    p.add_argument("--selector_ckpt", type=str, default=None)
+    p.add_argument("--dphi_ckpt", type=str, default=None,
+                   help="segment-cost ckpt for the kp_feat cost channels; required when the "
+                        "Stage-1 meta says kp_feat_dphi")
     p.add_argument("--selector_stochastic", type=int, default=0)
     p.add_argument("--selector_tau", type=float, default=1.0)
     p.add_argument("--stage2_mask_policy", type=str, default="base",
-                   choices=["base", "selector"], help="selector: not ported")
+                   choices=["base", "selector"])
     p.add_argument("--stage2_mode", type=str, default=None, help="default: from meta")
     p.add_argument("--clamp_policy", type=str, default="endpoints",
                    choices=["endpoints", "all_anchors", "none"])
@@ -401,27 +448,16 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--sanity", type=int, default=0,
                    help="exit 2 when the summary trips check_summary_sanity (tiny or briefly "
                         "trained models trip it by design)")
-    p.add_argument("--save_plots", type=int, default=0, help="not ported (eval/visualize.py)")
-    p.add_argument("--save_steps", type=int, default=0, help="not ported (eval/visualize.py)")
+    p.add_argument("--save_plots", type=int, default=0,
+                   help="plot the first N samples of batch 0 as PNGs (needs matplotlib)")
+    p.add_argument("--save_steps", type=int, default=0,
+                   help="export per-step diffusion frames (PNG + GIF) for sample 0 of batch 0")
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (default; no fallback when there is no GPU) or cpu")
     p.add_argument("--attn_policy", type=str, default="fused", choices=["fused", "block", "dense"],
                    help="small-L attention route of every block (models/transformer.py)")
     add_data_args(p)
     return p
-
-
-def check_cli_ported(args) -> None:
-    if args.save_plots or args.save_steps:
-        raise NotImplementedError("--save_plots / --save_steps: the plots (eval/visualize.py) "
-                                  "are not ported yet")
-    if (args.kp_index_mode == "selector" or args.stage2_mask_policy == "selector"
-            or args.selector_ckpt):
-        raise NotImplementedError("the selector modes: the selector model (models/selector.py) "
-                                  "is not ported yet")
-    if args.dphi_ckpt:
-        raise NotImplementedError("--dphi_ckpt: the segment-cost model (models/selector.py) is "
-                                  "not ported yet")
 
 
 def config_from_args(args, kp_meta: Dict, il_meta: Dict) -> PipelineConfig:
@@ -473,7 +509,6 @@ def _load_stage1_cache(path: str, cond: Dict[str, torch.Tensor], device):
 
 def main(argv=None):
     args = build_argparser().parse_args(argv)
-    check_cli_ported(args)
     device = resolve_device(args.device)
     kp_model, kp_meta = load_keypoint_model(args.kp_ckpt, bool(args.bf16), bool(args.use_ema),
                                             device=device)
@@ -484,8 +519,22 @@ def main(argv=None):
     cfg = config_from_args(args, kp_meta, il_meta)
     T, K = cfg.T, cfg.K
     data_dim = int(kp_meta["data_dim"])
+    selector, sel_meta = None, {}
+    if args.kp_index_mode == "selector" or args.stage2_mask_policy == "selector":
+        if not args.selector_ckpt:
+            raise ValueError("selector mode requested but --selector_ckpt missing")
+        selector, sel_meta = load_selector_model(args.selector_ckpt, bool(args.bf16),
+                                                 device=device)
+    dphi_fn = None
+    if args.dphi_ckpt:
+        dphi_fn, _ = make_dphi_seg_cost_fn(args.dphi_ckpt, T, kp_meta.get("use_sdf"),
+                                           bool(args.bf16), device=device)
+    elif kp_meta.get("kp_feat_dphi"):
+        raise ValueError("Stage-1 ckpt was trained with D_phi kp_feat cost channels (meta "
+                         "kp_feat_dphi=1): pass --dphi_ckpt, or sampling runs off-distribution "
+                         "(channels 3/4 zero)")
     kp_schedule = make_schedule(kp_meta["schedule"], int(kp_meta["N_train"]), device=device)
-    pipeline = make_pipeline(kp_model, interp_model, kp_schedule, cfg, data_dim)
+    pipeline = make_pipeline(kp_model, interp_model, kp_schedule, cfg, data_dim, dphi_fn)
 
     args.T = T  # for make_dataset
     ds, _ = make_dataset(args)
@@ -497,8 +546,8 @@ def main(argv=None):
     rows = []
     all_out = {k: [] for k in ("interp", "refined", "keypoints", "idx", "gt", "occ",
                                "start_goal")}
-    policy = {"random": "random:1.0", "uniform": "uniform:1.0",
-              "uniform_jitter": "uniform:1.0"}[args.kp_index_mode]
+    policy = {"random": "random:1.0", "uniform": "uniform:1.0", "uniform_jitter": "uniform:1.0",
+              "selector": "uniform:1.0"}[args.kp_index_mode]
     jitter = args.kp_jitter if args.kp_index_mode == "uniform_jitter" else 0.0
     sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
 
@@ -506,9 +555,22 @@ def main(argv=None):
     for bi in range(args.num_batches):
         batch = ds.get_batch(host_rng.randint(0, len(ds), size=args.batch))
         cond = {"occ": to_dev(batch["occ"]), "start_goal": to_dev(batch["start_goal"])}
-        if "sdf" in batch and (kp_meta.get("use_sdf") or il_meta.get("use_sdf")):
+        if "sdf" in batch and (kp_meta.get("use_sdf") or il_meta.get("use_sdf")
+                               or sel_meta.get("use_sdf")):
             cond["sdf"] = to_dev(batch["sdf"])
-        idx = to_dev(sample_idx_policy(host_rng, policy, args.batch, T, K, None, jitter)).long()
+        sel_logits = None
+        if selector is not None:
+            sel_cond = dict(cond)
+            if sel_meta.get("use_level"):
+                sel_cond["level"] = torch.full((args.batch, 1), K / max(1, T - 1), device=device)
+            with torch.no_grad():
+                sel_logits = selector(sel_cond)
+        if args.kp_index_mode == "selector":
+            idx = select_topk_indices(sel_logits, K, bool(args.selector_stochastic),
+                                      args.selector_tau, generator=gen)
+        else:
+            idx = to_dev(sample_idx_policy(host_rng, policy, args.batch, T, K, None,
+                                           jitter)).long()
         draws = make_draws(cfg, args.batch, data_dim, gen, device)
         # Stage-1 cache: {idx, z_pred} per batch, checked against the
         # current conditioning on load
@@ -521,7 +583,8 @@ def main(argv=None):
             idx, z_override = _load_stage1_cache(cache_path, cond, device)
         sync()
         t0 = time.perf_counter()
-        x_interp, x_refined, z_pred = pipeline(idx, cond, z_override=z_override, **draws)[:3]
+        out = pipeline(idx, cond, z_override=z_override, selector_logits=sel_logits, **draws)
+        x_interp, x_refined, z_pred = out[:3]
         sync()
         dt = time.perf_counter() - t0
         if cache_path and (mode == "save" or (mode == "auto" and not cached)):
@@ -537,7 +600,8 @@ def main(argv=None):
         variants = {"interp": compute_metrics_batch(cond["occ"], x_interp, goal, gt),
                     "refined": compute_metrics_batch(cond["occ"], x_refined, goal, gt)}
         if args.compare_oracle:
-            xo_i, xo_r = pipeline(idx, cond, z_override=gather_keypoints(gt, idx), **draws)[:2]
+            xo_i, xo_r = pipeline(idx, cond, z_override=gather_keypoints(gt, idx),
+                                  selector_logits=sel_logits, **draws)[:2]
             variants["oracle_interp"] = compute_metrics_batch(cond["occ"], xo_i, goal, gt)
             variants["oracle_refined"] = compute_metrics_batch(cond["occ"], xo_r, goal, gt)
         host = {v: {m: t.cpu().numpy() for m, t in vm.items()} for v, vm in variants.items()}
@@ -552,6 +616,9 @@ def main(argv=None):
             all_out[key].append(t.cpu().numpy())
         for key, src in (("gt", "x"), ("occ", "occ"), ("start_goal", "start_goal")):
             all_out[key].append(np.asarray(batch[src]))
+        if bi == 0 and (args.save_plots or args.save_steps):
+            export_viz(args, batch, idx, z_pred, x_interp, x_refined,
+                       out[3] if len(out) > 3 else None, T)
         print(f"batch {bi}: {dt:.3f}s "
               f"coll(interp)={host['interp']['collision_rate'].mean():.4f} "
               f"coll(refined)={host['refined']['collision_rate'].mean():.4f} "

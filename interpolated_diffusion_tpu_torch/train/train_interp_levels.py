@@ -11,12 +11,16 @@ anchor noise, index jitter), conf-weighted MSE, a curvature term, and Stage-1
 bootstrap scheduled sampling (`--bootstrap_ckpt`: GT anchors of the coarsest
 level are replaced by student anchors, sampled by `--bootstrap_solver` and
 optionally the best of `--bootstrap_best_of` candidates, with a warm-up
-scheduled probability). The model holds f32 master parameters and computes in bf16
-(`--bf16 1`). Runs on the GPU unless `--device cpu`.
+scheduled probability; a bootstrap checkpoint trained with kp_feat gets its
+index features, their cost channels from `--dphi_ckpt`). The `selector` /
+`selector_level` mask policies (and `selector` in `--mask_policy_mix`) rank
+the nested masks by a frozen keypoint selector's logits (`--selector_ckpt`;
+selector_level: one logit row per level). The model holds f32 master
+parameters and computes in bf16 (`--bf16 1`). Runs on the GPU unless
+`--device cpu`.
 
-Not ported (each raises, naming what is missing): `--causal 1`, the
-`selector` / `selector_level` mask policies, `--dphi_ckpt` and bootstrap
-checkpoints trained with kp_feat, `--n_data_shards`.
+Not ported (each raises, naming what is missing): `--causal 1`,
+`--n_data_shards`.
 """
 from __future__ import annotations
 
@@ -33,9 +37,12 @@ from ..models.denoisers import InterpLevelDenoiser
 from ..models.loading import load_keypoint_model
 from ..ops.anchor_search import pick_anchors
 from ..ops.ddpm import make_timesteps, run_solver
-from ..ops.keyframes import build_nested_masks_batch, build_nested_masks_from_base
+from ..ops.keyframes import (build_nested_masks_batch, build_nested_masks_from_base,
+                             build_nested_masks_from_level_logits,
+                             build_nested_masks_from_logits, compute_k_schedule)
 from ..ops.normalize import logit_pos, sigmoid_pos
 from ..ops.schedules import make_schedule
+from ..ops.selection import build_kp_feat_full
 from .batches import (Rng, build_interp_adjacent_batch, build_interp_level_batch,
                       build_known_mask_values, draw, gather_keypoints, parse_policy_mix)
 from .common import (add_data_args, add_train_args, build_seeded, check_train_args_ported,
@@ -58,7 +65,7 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--selector_ckpt", type=str, default=None)
     p.add_argument("--mask_policy_mix", type=str, default="",
                    help='weighted policy mix like "uniform:0.5,random:0.3,dp:0.2", sampled '
-                        "per sample; overrides --mask_policy (selector: not ported)")
+                        "per sample; overrides --mask_policy")
     p.add_argument("--level_sampling", type=str, default="high", choices=["uniform", "high"])
     p.add_argument("--level_high_prob", type=float, default=0.5)
     p.add_argument("--d_model", type=int, default=384)
@@ -106,7 +113,8 @@ def build_argparser() -> argparse.ArgumentParser:
     # Stage-1 bootstrap scheduled sampling
     p.add_argument("--bootstrap_ckpt", type=str, default=None)
     p.add_argument("--dphi_ckpt", type=str, default=None,
-                   help="segment-cost ckpt for the bootstrap sampler (not ported)")
+                   help="segment-cost ckpt for the bootstrap Stage-1 model's kp_feat cost "
+                        "channels (when it was trained with kp_feat_dphi)")
     p.add_argument("--bootstrap_replace_prob", type=float, default=0.5)
     p.add_argument("--bootstrap_warmup_steps", type=int, default=2000)
     p.add_argument("--bootstrap_ddim_steps", type=int, default=5)
@@ -157,14 +165,6 @@ def check_ported(args) -> None:
     if args.causal:
         raise NotImplementedError("--causal 1: the causal transformer and its chunked sampler "
                                   "(models/transformer.py causal path) are not ported yet")
-    mix = _mask_mix_entries(args) or []
-    if (args.mask_policy in ("selector", "selector_level") and not mix) or args.selector_ckpt \
-            or any(n == "selector" for n, _ in mix):
-        raise NotImplementedError("the selector mask policies (ops/selection.py, "
-                                  "models/selector.py) are not ported yet")
-    if args.dphi_ckpt:
-        raise NotImplementedError("--dphi_ckpt: the segment-cost model (models/selector.py) is "
-                                  "not ported yet")
 
 
 def mask_channels_for(args) -> int:
@@ -254,9 +254,16 @@ def make_bootstrap_sampler(args, data_dim: int, device: torch.device):
     batch of N * B rows, and the chain-DP mix (`--bootstrap_best_of_mode dp`)
     or the least colliding candidate is kept, as the sampler's best-of does."""
     kp_model, meta = load_keypoint_model(args.bootstrap_ckpt, bool(args.bf16), device=device)
-    if meta.get("kp_feat_dphi"):
-        raise NotImplementedError("the bootstrap Stage-1 checkpoint was trained with D_phi "
-                                  "kp_feat cost channels: models/selector.py is not ported yet")
+    kp_feat_dim = int(meta.get("kp_feat_dim", 0)) if meta.get("use_kp_feat") else 0
+    dphi_fn = None
+    if getattr(args, "dphi_ckpt", None):
+        from ..models.loading import make_dphi_seg_cost_fn
+
+        dphi_fn, _ = make_dphi_seg_cost_fn(args.dphi_ckpt, int(meta["T"]), meta.get("use_sdf"),
+                                           bool(args.bf16), device=device)
+    elif meta.get("kp_feat_dphi"):
+        raise ValueError("bootstrap Stage-1 ckpt was trained with D_phi kp_feat cost channels: "
+                         "pass --dphi_ckpt (channels 3/4 would be off-distribution zeros)")
     kp_model.set_attn_policy(getattr(args, "attn_policy", "fused"))
     kp_schedule = make_schedule(meta["schedule"], int(meta["N_train"]), device=device)
     logit_space = bool(meta.get("logit_space", 0))
@@ -267,6 +274,11 @@ def make_bootstrap_sampler(args, data_dim: int, device: torch.device):
     N = int(getattr(args, "bootstrap_best_of", 1) or 1)
 
     def solve(z: torch.Tensor, idx: torch.Tensor, cond: Dict) -> torch.Tensor:
+        if kp_feat_dim > 0:
+            # the model was trained with index features: zeros here would be
+            # off-distribution
+            seg_cost = dphi_fn(cond, idx) if dphi_fn is not None else None
+            cond = dict(cond, kp_feat=build_kp_feat_full(idx, T, kp_feat_dim, seg_cost))
         known_mask, known_values = build_known_mask_values(idx, cond, data_dim, T,
                                                            bool(meta["clamp_endpoints"]))
         if logit_space:
@@ -303,10 +315,36 @@ def make_bootstrap_sampler(args, data_dim: int, device: torch.device):
     return sample, int(meta["K"])
 
 
-def make_loss_fn(model: InterpLevelDenoiser, args, bootstrap_sample=None):
+def make_selector_logits_fn(args, device: torch.device):
+    """Frozen selector logits for the selector / selector_level mask
+    policies: logits_fn(cond) -> [B, T], or [B, levels+1, T] under
+    selector_level with a level-conditioned selector."""
+    from ..models.loading import load_selector_model
+
+    sel_model, sel_meta = load_selector_model(args.selector_ckpt, bool(args.bf16), device=device)
+    k_list = compute_k_schedule(args.T, args.K_min, args.levels, args.k_schedule)
+
+    @torch.no_grad()
+    def logits_fn(cond: Dict) -> torch.Tensor:
+        B, dev = cond["occ"].shape[0], cond["occ"].device
+        level = lambda lv: dict(cond, level=torch.full((B, 1), float(lv), device=dev))
+        if args.mask_policy == "selector_level" and sel_meta.get("use_level"):
+            return torch.stack([sel_model(level(
+                s / max(1, args.levels) if sel_meta.get("level_mode") == "s_norm"
+                else k_list[s] / max(1, args.T - 1))) for s in range(args.levels + 1)], dim=1)
+        if sel_meta.get("use_level"):
+            return sel_model(level(args.K_min / max(1, args.T - 1)))
+        return sel_model(cond)
+
+    return logits_fn
+
+
+def make_loss_fn(model: InterpLevelDenoiser, args, bootstrap_sample=None,
+                 selector_logits_fn=None):
     """loss_fn(params, batch, rng) -> (loss, {}); batch: x, occ, start_goal,
     [sdf], [idx_base], [mask_policy_code], [bootstrap_p] scalar. `params` are
-    the model's own tensors.
+    the model's own tensors. selector_logits_fn (make_selector_logits_fn)
+    ranks the masks under the selector policies.
 
     Draws of `rng` (train/batches.Rng), in order: the masks' "mask_rand"
     uniform [B, T-2] (random_nested) or "base_rand" uniform [B, T] (from
@@ -342,11 +380,19 @@ def make_loss_fn(model: InterpLevelDenoiser, args, bootstrap_sample=None):
         base_masks = lambda: build_nested_masks_from_base(
             batch["idx_base"].long(), T, levels, k_schedule=args.k_schedule,
             rand=draw(rng, "base_rand", "uniform", (B, T)).to(dev))
+
+        def selector_masks():
+            logits = selector_logits_fn(cond)
+            build = (build_nested_masks_from_level_logits if logits.ndim == 3
+                     else build_nested_masks_from_logits)
+            return build(logits, args.K_min, levels, k_schedule=args.k_schedule)
+
         if mix_buckets:
             # per-sample policy mix: build each bucket's masks and select by
             # batch["mask_policy_code"] (assigned on the host, same bucket order)
             code = batch["mask_policy_code"]
-            built = [random_masks() if name == "random" else base_masks()
+            built = [random_masks() if name == "random" else
+                     base_masks() if name == "base" else selector_masks()
                      for name in mix_buckets]
             masks_levels, idx_levels = built[0][0], list(built[0][1])
             for j in range(1, len(built)):
@@ -354,6 +400,8 @@ def make_loss_fn(model: InterpLevelDenoiser, args, bootstrap_sample=None):
                 masks_levels = torch.where(sel[:, None, None], built[j][0], masks_levels)
                 idx_levels = [torch.where(sel[:, None], bj, io)
                               for io, bj in zip(idx_levels, built[j][1])]
+        elif selector_logits_fn is not None:
+            masks_levels, idx_levels = selector_masks()
         elif "idx_base" in batch:
             masks_levels, idx_levels = base_masks()
         else:
@@ -431,7 +479,14 @@ def make_trainer(args, device: torch.device, data_dim: int, model=None):
     bootstrap_sample = None
     if args.bootstrap_ckpt:
         bootstrap_sample, _ = make_bootstrap_sampler(args, data_dim, device)
-    loss_fn = make_loss_fn(model, args, bootstrap_sample)
+    mix = _mask_mix_entries(args) or []
+    selector_logits_fn = None
+    if ((args.mask_policy in ("selector", "selector_level") and not mix)
+            or any(n == "selector" for n, _ in mix)):
+        if not args.selector_ckpt:
+            raise ValueError("selector mask policy needs --selector_ckpt")
+        selector_logits_fn = make_selector_logits_fn(args, device)
+    loss_fn = make_loss_fn(model, args, bootstrap_sample, selector_logits_fn)
     tx = make_optimizer(args.lr, args.weight_decay, args.grad_clip)
     state = init_train_state(model_params(model), tx, use_ema=bool(args.use_ema))
     train_step = make_train_multi_step(loss_fn, args.ema_decay, args.grad_accum,

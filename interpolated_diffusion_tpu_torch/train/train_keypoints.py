@@ -14,8 +14,14 @@ rounds up to a multiple of `--steps_per_call`).
 (ops/rectified_flow.py), optionally on a frozen rf teacher's own couplings
 (`--reflow_teacher`, ReFlow).
 
-Not ported (each raises, naming what is missing): `--use_kp_feat` /
-`--dphi_ckpt`, the `selector` index policy, `--n_data_shards`.
+Keypoint selection: `--use_kp_feat 1 --kp_feat_dim F` feeds the index
+features of the anchors to the model (ops/selection.build_kp_feat_full),
+their cost channels from a frozen D_phi (`--dphi_ckpt`, F >= 5); the
+`selector` entry of `--idx_policy` takes anchors from a frozen keypoint
+selector (`--selector_ckpt`, top-K of its logits, Gumbel-perturbed under
+`--selector_stochastic` from a generator seeded by `--seed`).
+
+Not ported (raises, naming what is missing): `--n_data_shards`.
 """
 from __future__ import annotations
 
@@ -33,6 +39,7 @@ from ..ops.keyframes import sample_fixed_k_indices_batch, sample_fixed_k_indices
 from ..ops.normalize import logit_pos
 from ..ops.rectified_flow import rf_integrate, rf_interpolate
 from ..ops.schedules import DiffusionSchedule, make_schedule
+from ..ops.selection import build_kp_feat_full
 from .batches import Rng, build_known_mask_values, draw, gather_keypoints, parse_policy_mix
 from .common import (add_data_args, add_train_args, build_seeded, check_train_args_ported,
                      make_dataset, make_loader, model_params, resolve_device, resume_state,
@@ -58,15 +65,16 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--d_cond", type=int, default=128)
     p.add_argument("--maze_channels", type=str, default="32,64,128,128")
     p.add_argument("--kp_feat_dim", type=int, default=0)
-    p.add_argument("--use_kp_feat", type=int, default=0, help="index features (not ported)")
+    p.add_argument("--use_kp_feat", type=int, default=0)
     p.add_argument("--dphi_ckpt", type=str, default=None,
-                   help="segment-cost ckpt for the kp_feat cost channels (not ported)")
+                   help="segment-cost ckpt: fills kp_feat channels 3/4 with the D_phi cost of "
+                        "each keypoint's left/right segment (use_kp_feat=1, kp_feat_dim>=5)")
     p.add_argument("--logit_space", type=int, default=0)
     p.add_argument("--logit_eps", type=float, default=1e-5)
     p.add_argument("--clamp_endpoints", type=int, default=1)
     p.add_argument("--cond_start_goal", type=int, default=1)
     p.add_argument("--idx_policy", type=str, default="random:1.0",
-                   help='mix like "dp:0.5,uniform:0.3,random:0.2" (selector: not ported)')
+                   help='mix like "dp:0.5,uniform:0.2,random:0.2,selector:0.1"')
     p.add_argument("--uniform_jitter", type=float, default=0.0)
     p.add_argument("--selector_ckpt", type=str, default=None)
     p.add_argument("--selector_stochastic", type=int, default=0)
@@ -80,13 +88,6 @@ def build_argparser() -> argparse.ArgumentParser:
 
 def check_ported(args) -> None:
     check_train_args_ported(args)
-    if args.use_kp_feat or args.dphi_ckpt:
-        raise NotImplementedError("--use_kp_feat / --dphi_ckpt: the index features and the "
-                                  "segment-cost model (ops/selection.py, models/selector.py) "
-                                  "are not ported yet")
-    if "selector" in args.idx_policy or args.selector_ckpt:
-        raise NotImplementedError("the selector index policy (models/selector.py) is not "
-                                  "ported yet")
 
 
 def make_meta(args, data_dim: int) -> Dict:
@@ -124,9 +125,11 @@ def device_policy_of(args) -> Optional[str]:
 
 
 def make_loss_fn(model: KeypointDenoiser, args, schedule: DiffusionSchedule,
-                 device_policy: Optional[str] = None, reflow_fn=None):
+                 device_policy: Optional[str] = None, reflow_fn=None, dphi_fn=None):
     """loss_fn(params, batch, rng) -> (loss, {}); batch has x, occ,
-    start_goal[, sdf][, idx]. `params` are the model's own tensors.
+    start_goal[, sdf][, idx]. `params` are the model's own tensors. Under
+    --use_kp_feat the model gets the anchors' index features, whose cost
+    channels come from the frozen dphi_fn(cond, idx) -> [B, K-1] when given.
 
     device_policy ("random" / "uniform") samples the anchor indices inside
     the step; without it the batch carries `idx` from the host policy mix.
@@ -162,6 +165,10 @@ def make_loss_fn(model: KeypointDenoiser, args, schedule: DiffusionSchedule,
         if args.logit_space:
             z0 = logit_pos(z0, eps=args.logit_eps)
             known_values = logit_pos(known_values, eps=args.logit_eps)
+        if args.use_kp_feat:
+            with torch.no_grad():
+                seg_cost = dphi_fn(cond, idx) if dphi_fn is not None else None
+            cond["kp_feat"] = build_kp_feat_full(idx, T, args.kp_feat_dim, seg_cost)
         valid = (~known_mask).float()
         if args.objective == "rf":
             # straight-path velocity matching; the eps head doubles as the
@@ -227,7 +234,16 @@ def make_trainer(args, device: torch.device, data_dim: int, model=None):
         model = build_model(args, data_dim, device)
     schedule = make_schedule(args.schedule, args.N_train, device=device)
     reflow_fn = make_reflow_fn(args, device) if args.reflow_teacher else None
-    loss_fn = make_loss_fn(model, args, schedule, device_policy_of(args), reflow_fn)
+    dphi_fn = None
+    if args.dphi_ckpt:
+        if not args.use_kp_feat or args.kp_feat_dim < 5:
+            raise ValueError("dphi_ckpt requires use_kp_feat=1 and kp_feat_dim>=5")
+        from ..models.loading import make_dphi_seg_cost_fn
+
+        dphi_fn, _ = make_dphi_seg_cost_fn(args.dphi_ckpt, args.T, bool(args.use_sdf),
+                                           bool(args.bf16), device=device)
+    loss_fn = make_loss_fn(model, args, schedule, device_policy_of(args), dphi_fn=dphi_fn,
+                           reflow_fn=reflow_fn)
     tx = make_optimizer(args.lr, args.weight_decay, args.grad_clip)
     state = init_train_state(model_params(model), tx, use_ema=bool(args.use_ema))
     train_step = make_train_multi_step(loss_fn, args.ema_decay, args.grad_accum,
@@ -235,14 +251,44 @@ def make_trainer(args, device: torch.device, data_dim: int, model=None):
     return state, train_step, model
 
 
+def make_selector_idx_fn(args, device: torch.device):
+    """The `selector` index policy: selector_fn(batch) -> idx [B, K] int32
+    (numpy), the top-K frames of a frozen selector's logits (--selector_ckpt),
+    Gumbel-perturbed under --selector_stochastic with draws from a generator
+    seeded by --seed + 3."""
+    if not args.selector_ckpt:
+        raise ValueError("idx_policy includes selector but --selector_ckpt missing")
+    from ..models.loading import load_selector_model
+    from ..models.selector import select_topk_indices
+
+    sel_model, sel_meta = load_selector_model(args.selector_ckpt, bool(args.bf16), device=device)
+    gen = torch.Generator(device=device).manual_seed(args.seed + 3)
+
+    @torch.no_grad()
+    def selector_fn(batch: Dict[str, np.ndarray]) -> np.ndarray:
+        cond = {k: torch.as_tensor(batch[k]).to(device) for k in ("occ", "start_goal")}
+        if sel_meta.get("use_sdf") and "sdf" in batch:
+            cond["sdf"] = torch.as_tensor(batch["sdf"]).to(device)
+        if sel_meta.get("use_level"):
+            cond["level"] = torch.full((cond["occ"].shape[0], 1), args.K / max(1, args.T - 1),
+                                       device=device)
+        idx = select_topk_indices(sel_model(cond), args.K, bool(args.selector_stochastic),
+                                  args.selector_tau, generator=gen)
+        return idx.cpu().numpy().astype(np.int32)
+
+    return selector_fn
+
+
 def host_batch(args, batch: Dict[str, np.ndarray], device_policy: Optional[str],
-               host_rng: np.random.RandomState) -> Dict[str, np.ndarray]:
+               host_rng: np.random.RandomState, selector_fn=None) -> Dict[str, np.ndarray]:
     """What one step takes from a loader batch, with the host policy mix's
-    anchor indices when the policy is not drawn on the device."""
+    anchor indices when the policy is not drawn on the device (the selector's
+    choices under a `selector` entry)."""
     out = {"x": batch["x"], "occ": batch["occ"], "start_goal": batch["start_goal"]}
     if device_policy is None:
+        sel_idx = selector_fn(batch) if selector_fn is not None else None
         out["idx"] = sample_idx_policy(host_rng, args.idx_policy, args.batch, args.T, args.K,
-                                       batch.get("kp_idx"), args.uniform_jitter)
+                                       batch.get("kp_idx"), args.uniform_jitter, sel_idx)
     if "sdf" in batch and args.use_sdf:
         out["sdf"] = batch["sdf"]
     return out
@@ -265,13 +311,16 @@ def main(argv=None) -> TrainState:
         state, start_step = resume_state(state, args.resume, device)
 
     device_policy = device_policy_of(args)
+    selector_fn = (make_selector_idx_fn(args, device) if "selector" in args.idx_policy
+                   else None)
     host_rng = np.random.RandomState(args.seed + 1)
     meta = make_meta(args, data_dim)
     os.makedirs(args.out_dir, exist_ok=True)
     with open(os.path.join(args.out_dir, "run_config.json"), "w") as f:
         json.dump({"args": vars(args), "meta": meta, "n_params": n_params}, f, indent=2)
     return run_training(args, device, loader, first, state, train_step,
-                        lambda b, _step: host_batch(args, b, device_policy, host_rng), meta,
+                        lambda b, _step: host_batch(args, b, device_policy, host_rng,
+                                                    selector_fn), meta,
                         start_step)
 
 

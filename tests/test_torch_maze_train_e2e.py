@@ -155,15 +155,20 @@ def test_loaders_refuse_the_wrong_stage_and_unported_metas(runs, tmp_path):
     from interpolated_diffusion_tpu_torch.utils.checkpoint import read_meta, save_checkpoint
 
     _, meta = read_meta(resolve_ckpt(kp))
-    save_checkpoint(str(tmp_path / "ckpt_1"), {}, None, 1, None, dict(meta, use_kp_feat=1))
-    with pytest.raises(NotImplementedError, match="selection"):
+    save_checkpoint(str(tmp_path / "ckpt_1"), {}, None, 1, None, dict(meta, causal=1))
+    with pytest.raises(NotImplementedError, match="causal"):
         load_keypoint_model(str(tmp_path), device="cpu")
 
 
 def test_loaders_default_to_the_card():
     """Like every other entry point of the port, the loaders put the model on
     the card unless the caller asks for the CPU."""
-    for loader in (load_keypoint_model, load_interp_model):
+    from interpolated_diffusion_tpu_torch.models.loading import (load_segment_cost_model,
+                                                                 load_selector_model,
+                                                                 make_dphi_seg_cost_fn)
+
+    for loader in (load_keypoint_model, load_interp_model, load_selector_model,
+                   load_segment_cost_model, make_dphi_seg_cost_fn):
         assert inspect.signature(loader).parameters["device"].default == "cuda", loader.__name__
 
 

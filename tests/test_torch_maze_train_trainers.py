@@ -318,18 +318,150 @@ def test_stage2_two_optimizer_steps_match_jax():
                rngs, [_s2_draws(r, pargs, 2) for r in rngs], pargs.lr)
 
 
+# --- the selection options (kp_feat, D_phi, the selector policies) ------------------
+
+SEL_META = dict(stage="selector", T=T, K=4, d_model=16, n_heads=2, d_ff=32, n_layers=2,
+                pos_dim=8, use_sdf=0, cond_start_goal=1, use_sg_map=1, use_sg_token=1,
+                use_goal_dist_token=0, use_cond_bias=0, cond_bias_mode="memory", use_level=1,
+                level_mode="k_norm", levels=2, k_schedule="doubling", k_geom_gamma=None,
+                sg_map_sigma=1.5, maze_channels="4,8", maze_h=G, maze_w=G)
+DPHI_META = dict(stage="segment_cost", T=T, d_cond=16, seg_feat_dim=3, hidden_dim=24, n_layers=3,
+                 use_sdf=0, cond_start_goal=1, maze_channels="4,8", normalize_targets=0,
+                 target_mean=0.0, target_std=1.0, maze_h=G, maze_w=G)
+
+
+@pytest.fixture(scope="module")
+def sel_ckpts(tmp_path_factory):
+    """A seeded keypoint selector and D_phi, saved as a port checkpoint and,
+    through the JAX package's converters, as a JAX checkpoint of the same
+    weights: {"sel": (jax dir, port dir), "dphi": (...)}."""
+    from interpolated_diffusion_tpu.models.torch_import import (convert_keypoint_selector,
+                                                                convert_segment_cost)
+    from interpolated_diffusion_tpu_torch.models.init import build_model
+    from interpolated_diffusion_tpu_torch.models.selector import (KeypointSelector,
+                                                                  SegmentCostPredictor)
+
+    root = tmp_path_factory.mktemp("sel_ckpts")
+    models = {
+        "sel": (build_model(KeypointSelector, generator=torch.Generator().manual_seed(8), T=T,
+                            d_model=16, n_heads=2, d_ff=32, n_layers=2, pos_dim=8,
+                            use_level=True, maze_channels=(4, 8)),
+                lambda sd: convert_keypoint_selector(sd, n_heads=2), SEL_META),
+        "dphi": (build_model(SegmentCostPredictor, generator=torch.Generator().manual_seed(9),
+                             d_cond=16, hidden_dim=24, maze_channels=(4, 8)),
+                 convert_segment_cost, DPHI_META)}
+    out = {}
+    for name, (model, convert, meta) in models.items():
+        sd = {k: v.detach() for k, v in model.state_dict().items()}
+        save_checkpoint(str(root / f"p_{name}" / "ckpt_1"), sd, None, 1, None, meta)
+        jckpt.save_checkpoint(str(root / f"j_{name}" / "ckpt_1"), jax.tree.map(
+            jnp.asarray, convert({k: v.numpy() for k, v in sd.items()})), None, 1, None, meta)
+        out[name] = (str(root / f"j_{name}"), str(root / f"p_{name}"))
+    return out
+
+
+@pytest.mark.parametrize("case", ["kp_feat", "kp_feat_dphi", "selector_policy"])
+def test_stage1_selection_options_match_jax(case, sel_ckpts):
+    """--use_kp_feat (index features only; with --dphi_ckpt, the D_phi cost
+    channels) and the selector entry of --idx_policy (the selector's top-K
+    anchors, mixed per sample on the host) against the JAX trainer."""
+    from interpolated_diffusion_tpu.models.loading import make_dphi_seg_cost_fn as j_dphi
+    from interpolated_diffusion_tpu.models.loading import load_selector_model as j_sel
+    from interpolated_diffusion_tpu.models.selector import select_topk_indices as j_topk
+    from interpolated_diffusion_tpu.train.common import sample_idx_policy as j_policy
+    from interpolated_diffusion_tpu_torch.models.loading import make_dphi_seg_cost_fn as p_dphi
+
+    flags = {"kp_feat": ["--use_kp_feat", "1", "--kp_feat_dim", "3"],
+             "kp_feat_dphi": ["--use_kp_feat", "1", "--kp_feat_dim", "5"],
+             "selector_policy": ["--idx_policy", "selector:0.5,random:0.5"]}[case]
+    jargs, pargs, jmodel, params, model, b = _s1_setup(flags, 2, seed=6)
+    jdphi = pdphi = None
+    if case == "kp_feat_dphi":
+        jdphi, _ = j_dphi(sel_ckpts["dphi"][0], T, False, False)
+        pdphi, _ = p_dphi(sel_ckpts["dphi"][1], T, False, False, device="cpu")
+    policy = ps1.device_policy_of(pargs)
+    if case == "selector_policy":
+        pargs.selector_ckpt = sel_ckpts["sel"][1]
+        sel_idx = ps1.make_selector_idx_fn(pargs, torch.device("cpu"))(b)
+        sel_model, sel_params, _ = j_sel(sel_ckpts["sel"][0], False)
+        j_logits = sel_model.apply({"params": sel_params}, {
+            "occ": jnp.asarray(b["occ"]), "start_goal": jnp.asarray(b["start_goal"]),
+            "level": jnp.full((B, 1), 5 / (T - 1))})
+        np.testing.assert_array_equal(sel_idx, np.asarray(j_topk(j_logits, 5)))
+        host = ps1.host_batch(pargs, dict(b, kp_idx=sel_idx), None, np.random.RandomState(2),
+                              lambda _: sel_idx)
+        np.testing.assert_array_equal(host["idx"], j_policy(
+            np.random.RandomState(2), jargs.idx_policy, B, T, 5, sel_idx, 0.0, sel_idx))
+        assert (host["idx"] == sel_idx).all(axis=1).any()
+        b = host
+    jloss = js1.make_loss_fn(jmodel, jargs, j_make_schedule(jargs.schedule, jargs.N_train),
+                             policy, jdphi)
+    rng = jax.random.PRNGKey(42)
+    (loss_j, _), grads_j = jax.value_and_grad(jloss, has_aux=True)(
+        jax.tree.map(jnp.asarray, params), {k: jnp.asarray(v) for k, v in b.items()}, rng)
+    ploss = ps1.make_loss_fn(model, pargs, ps1.make_schedule(pargs.schedule, pargs.N_train),
+                             policy, dphi_fn=pdphi)
+    loss, _ = ploss(None, {k: t(v) for k, v in b.items()}, _s1_draws(rng, pargs, 2, policy))
+    _check_grads(model, grads_j, "keypoint", loss, loss_j)
+
+
+@pytest.mark.parametrize("case", ["selector", "selector_level", "mix_selector",
+                                  "bootstrap_kp_feat_dphi"])
+def test_stage2_selection_options_match_jax(case, sel_ckpts, tmp_path):
+    """--mask_policy selector / selector_level (per-level logits of a
+    level-conditioned selector), selector in --mask_policy_mix, and a
+    bootstrap Stage-1 checkpoint trained with D_phi kp_feat channels (with
+    --dphi_ckpt) against the JAX trainer."""
+    D = 2
+    flags = {"selector": ["--mask_policy", "selector"],
+             "selector_level": ["--mask_policy", "selector_level"],
+             "mix_selector": ["--mask_policy_mix", "selector:0.5,random:0.3,dp:0.2"],
+             "bootstrap_kp_feat_dphi": ["--bootstrap_ddim_steps", "2", "--anchor_conf", "1"]}[case]
+    jsample = psample = None
+    K_boot = None
+    if case == "bootstrap_kp_feat_dphi":
+        j1, p1, _, kp_params, _, _ = _s1_setup(["--use_kp_feat", "1", "--kp_feat_dim", "5",
+                                                "--dphi_ckpt", "d"], D, seed=7)
+        meta = js1.make_meta(j1, D)
+        assert meta == ps1.make_meta(p1, D) and meta["kp_feat_dphi"] == 1
+        jckpt.save_checkpoint(str(tmp_path / "j" / "ckpt_1"), jax.tree.map(jnp.asarray, kp_params),
+                              None, 1, None, meta)
+        save_checkpoint(str(tmp_path / "p" / "ckpt_1"),
+                        params_to_state_dict(kp_params, "keypoint"), None, 1, None, meta)
+    jargs, pargs, jmodel, params, model, b = _s2_setup(flags, D, seed=8)
+    jsel_fn = psel_fn = None
+    if case == "bootstrap_kp_feat_dphi":
+        jargs.bootstrap_ckpt, pargs.bootstrap_ckpt = str(tmp_path / "j"), str(tmp_path / "p")
+        with pytest.raises(ValueError, match="dphi_ckpt"):
+            ps2.make_bootstrap_sampler(pargs, D, torch.device("cpu"))
+        jargs.dphi_ckpt, pargs.dphi_ckpt = sel_ckpts["dphi"]
+        jsample, _ = js2.make_bootstrap_sampler(jargs, D)
+        psample, K_boot = ps2.make_bootstrap_sampler(pargs, D, torch.device("cpu"))
+    else:
+        jargs.selector_ckpt, pargs.selector_ckpt = sel_ckpts["sel"]
+        jsel_fn = js2.make_selector_logits_fn(jargs)
+        psel_fn = ps2.make_selector_logits_fn(pargs, torch.device("cpu"))
+    kp_idx = np.sort(np.stack([np.random.default_rng(i).choice(T, 4, replace=False)
+                               for i in range(B)]), axis=1)
+    kp_idx[:, 0], kp_idx[:, -1] = 0, T - 1
+    host = ps2.host_batch(pargs, dict(b, kp_idx=kp_idx), 0, np.random.RandomState(1))
+    if case == "bootstrap_kp_feat_dphi":
+        host["bootstrap_p"] = np.float32(0.6)
+    jloss = js2.make_loss_fn(jmodel, jargs, jsample, jsel_fn)
+    rng = jax.random.PRNGKey(61)
+    (loss_j, _), grads_j = jax.value_and_grad(jloss, has_aux=True)(
+        jax.tree.map(jnp.asarray, params), {k: jnp.asarray(v) for k, v in host.items()}, rng)
+    ploss = ps2.make_loss_fn(model, pargs, psample, psel_fn)
+    loss, _ = ploss(None, {k: t(v) for k, v in host.items()},
+                    _s2_draws(rng, pargs, D, K_boot=4 if K_boot else None))
+    _check_grads(model, grads_j, "interp", loss, loss_j)
+
+
 # --- what is not ported raises ------------------------------------------------------
 
 @pytest.mark.parametrize("mod,flags,match", [
-    (ps1, ["--use_kp_feat", "1"], "selection"),
-    (ps1, ["--dphi_ckpt", "x"], "selector"),
-    (ps1, ["--idx_policy", "selector:1.0"], "selector"),
     (ps1, ["--n_data_shards", "2"], "mesh"),
     (ps2, ["--causal", "1"], "causal"),
-    (ps2, ["--mask_policy", "selector"], "selector"),
-    (ps2, ["--mask_policy", "selector_level"], "selector"),
-    (ps2, ["--mask_policy_mix", "selector:0.5,random:0.5"], "selector"),
-    (ps2, ["--dphi_ckpt", "x"], "selector"),
     (ps2, ["--n_data_shards", "2"], "mesh")])
 def test_unported_flags_raise_naming_what_is_missing(mod, flags, match, tmp_path):
     with pytest.raises(NotImplementedError, match=match):

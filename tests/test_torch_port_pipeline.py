@@ -118,22 +118,6 @@ def test_pipeline_generator_draws_are_reproducible(setup):
         pipe(idx, cond)
 
 
-@pytest.mark.parametrize("knob,value,match", [("stage2_mask_policy", "selector", "selector"),
-                                               ("kp_feat_dim", 5, "kp_feat_dim")])
-def test_unported_knobs_raise(setup, knob, value, match):
-    """What still needs an unported module raises, naming it: the selector
-    mask policy without caller-given logits (models/selector.py) and the
-    index features (ops/selection.py). The other knobs are ported
-    (tests/test_torch_sample_pipeline.py)."""
-    cfg = generate.PipelineConfig(**CFG, **{knob: value})
-    with pytest.raises(NotImplementedError, match=match):
-        pipe = generate.make_pipeline(setup["kp_t"], setup["adj"][2],
-                                      make_schedule("linear", 100), cfg, 2)
-        pipe(torch.tensor(setup["idx"]), {"occ": torch.tensor(setup["occ"]),
-                                          "start_goal": torch.tensor(setup["sg"])},
-             generator=torch.Generator().manual_seed(0))
-
-
 def test_pipeline_config_has_the_jax_fields_and_defaults():
     """Every keyword of the JAX PipelineConfig exists in the port's with the
     same default (a caller's config then builds in both packages), and the
@@ -148,7 +132,6 @@ def test_pipeline_config_has_the_jax_fields_and_defaults():
     for name, default in jax_fields.items():
         want = dataclasses.MISSING if default is inspect.Parameter.empty else default
         assert port_fields[name] == want and type(port_fields[name]) is type(want), name
-    # every field is ported but kp_feat_dim, which raises off its default
+    # every field is ported, kp_feat_dim included
     generate.check_supported(generate.PipelineConfig(**CFG))
-    with pytest.raises(NotImplementedError, match="selection"):
-        generate.check_supported(generate.PipelineConfig(**CFG, kp_feat_dim=3))
+    generate.check_supported(generate.PipelineConfig(**CFG, kp_feat_dim=3))

@@ -12,9 +12,10 @@ agree: f32 atol 1e-5 / rtol 1e-4 (the metrics golden tolerance of
 tests/test_golden_parity.py).
 """
 import csv
-import functools
 import json
 import os
+import shutil
+import time
 
 import jax
 import jax.numpy as jnp
@@ -22,10 +23,9 @@ import numpy as np
 import pytest
 import torch
 
-from interpolated_diffusion_tpu.data import dataset as jdata
+from interpolated_diffusion_tpu.data import native as jnative
 from interpolated_diffusion_tpu.models.torch_import import convert_state_dict
 from interpolated_diffusion_tpu.sample import generate as jgen
-from interpolated_diffusion_tpu.train import common as jcommon
 from interpolated_diffusion_tpu.utils import checkpoint as jckpt
 from interpolated_diffusion_tpu_torch.sample import generate
 from interpolated_diffusion_tpu_torch.train import train_interp_levels, train_keypoints
@@ -88,13 +88,17 @@ def _columns(out_dir):
         return next(csv.reader(f))
 
 
-def test_cli_matches_the_jax_cli_columns_keys_and_oracle_metrics(runs, monkeypatch):
+def test_cli_matches_the_jax_cli_columns_keys_and_oracle_metrics(runs):
     summary, samples, out_dir = _run(runs, "ddim", ["--compare_oracle", "1"])
     j_dir = str(runs["root"] / "jax")
-    # the port generates the mazes in Python (data/dataset.py); the JAX CLI
-    # would take its C++ generator where one is built, which draws others
-    monkeypatch.setattr(jcommon, "ParticleMazeDataset",
-                        functools.partial(jdata.ParticleMazeDataset, use_native="never"))
+    # both CLIs build their mazes at the default flags (the C++ generator of
+    # each package where g++ is, else numpy), so they draw the same mazes;
+    # the JAX library is loaded first, since its "auto" would fall back to
+    # numpy on a failed load
+    for _ in range(5):
+        if shutil.which("g++") is None or jnative.load_native() is not None:
+            break
+        time.sleep(1.0)
     j_summary = jgen.main(["--kp_ckpt", runs["j_kp"], "--interp_ckpt", runs["j_il"],
                            "--compare_oracle", "1", "--out_dir", j_dir] + SAMPLE)
     assert _columns(out_dir) == _columns(j_dir)
@@ -158,12 +162,13 @@ def test_cli_raises_without_a_gpu_and_names_what_is_missing(runs, tmp_path):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             generate.main(base)
-    for flags, match in ((["--save_plots", "2"], "visualize"), (["--save_steps", "1"], "visualize"),
-                         (["--kp_index_mode", "selector"], "selector"),
-                         (["--stage2_mask_policy", "selector"], "selector"),
-                         (["--selector_ckpt", "x"], "selector"), (["--dphi_ckpt", "x"], "selector")):
-        with pytest.raises(NotImplementedError, match=match):
+    # the selector modes need their checkpoint, and a Stage-1 checkpoint
+    # trained with D_phi cost channels needs D_phi (JAX's refusals)
+    for flags in (["--kp_index_mode", "selector"], ["--stage2_mask_policy", "selector"]):
+        with pytest.raises(ValueError, match="--selector_ckpt"):
             generate.main(base + ["--device", "cpu"] + flags)
+    with pytest.raises(FileNotFoundError):
+        generate.main(base + ["--device", "cpu", "--dphi_ckpt", str(tmp_path / "none")])
 
 
 def test_cli_flags_match_the_jax_cli():

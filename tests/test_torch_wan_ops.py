@@ -157,7 +157,19 @@ def test_wan_port_import_pulls_in_no_jax():
             "interpolated_diffusion_tpu_torch.train.batches, "
             "interpolated_diffusion_tpu_torch.train.common, "
             "interpolated_diffusion_tpu_torch.train.train_keypoints, "
-            "interpolated_diffusion_tpu_torch.train.train_interp_levels; "
+            "interpolated_diffusion_tpu_torch.train.train_interp_levels, "
+            "interpolated_diffusion_tpu_torch.train.train_segment_cost, "
+            "interpolated_diffusion_tpu_torch.train.train_keypoint_selector, "
+            "interpolated_diffusion_tpu_torch.data.native, "
+            "interpolated_diffusion_tpu_torch.data.prepare_dp_keypoints, "
+            "interpolated_diffusion_tpu_torch.ops.selection, "
+            "interpolated_diffusion_tpu_torch.ops.oracle_segment_cost, "
+            "interpolated_diffusion_tpu_torch.models.selector, "
+            "interpolated_diffusion_tpu_torch.sample.generate, "
+            "interpolated_diffusion_tpu_torch.serve.service, "
+            "interpolated_diffusion_tpu_torch.serve.server, "
+            "interpolated_diffusion_tpu_torch.serve.client, "
+            "interpolated_diffusion_tpu_torch.eval.visualize; "
             "bad = [m for m in sys.modules if m in ('jax', 'flax', 'optax') "
             "or m.startswith(('jax.', 'flax.', 'optax.')) "
             "or m == 'interpolated_diffusion_tpu' or m.startswith('interpolated_diffusion_tpu.')]; "
