@@ -11,8 +11,9 @@ Phases, each on its own lines; any failure exits non-zero:
                   the shapes the maze path gives them: the block's GEMM alone
                   (gemm_bias_act, each epilogue at the path's eight (M, N, K),
                   at M = 8, at a ragged M and at a width served by the narrower
-                  tiles), the block, and small_mha_packed / small_mha over
-                  L in 1..256 at both head dims
+                  tiles), the block (also at L = 4 and 3, the causal
+                  sampler's per-chunk Stage 1), and small_mha_packed /
+                  small_mha over L in 1..256 at both head dims
   4. main         make_pipeline at the bench configuration (384d x 12 layers x
                   12 heads, T=64, K=8, DDIM-20, 3 levels, seeded random
                   weights): requests of B in {1, 64, 1024} under attn_policy
@@ -20,7 +21,7 @@ Phases, each on its own lines; any failure exits non-zero:
                   and agreement of the kernel path with the plain-twin path
   5. timings      maze kernels vs twins (CUDA events; short ones also by graph
                   replay): the four products alone against F.linear, the block
-                  at [1024,64,384] and [1024,8,384] against the same block made
+                  at [1024,64,384], [1024,8,384] and [1024,4,384] against the same block made
                   of PyTorch's own calls (F.linear x 4,
                   scaled_dot_product_attention, layer_norm, silu), small_mha_packed
                   against scaled_dot_product_attention; then pipeline samples/s
@@ -74,6 +75,19 @@ Phases, each on its own lines; any failure exits non-zero:
                   vs twin path, latency per bucket over 20 calls; the HTTP
                   server with 16 concurrent clients (coalescing, p50 / p95);
                   and the service under fused (36 small_mha_packed a dispatch)
+  5e. causal      the causal Stage-2 trainer CLI (train_interp_levels_causal,
+                  its defaults: bench width, batch 256, levels 3, bf16) for a
+                  few steps with a checkpoint and a resume (s/step, peak
+                  memory, no launch of rows 1-2: causal attention takes no
+                  kernel); the causal sampling CLI (sample/generate_causal)
+                  on 5b's Stage 1 and that checkpoint, 256 x 3, chunk 16,
+                  K_min 4, DDIM-10, under block (ddim, pfdiff, FORA 2,
+                  best-of-4 dp) and fused: launches per call, no twin call,
+                  the JAX CSV columns and summary keys, samples/s (and the
+                  device's busy share under --profile); make_causal_pipeline
+                  at B=64 kernel path vs twin path; sample_keypoints under
+                  block; the JAX checkpoints runs/wansynth_debug/{p1,p2,flow}
+                  through the port's msgpack reader
   6. wan kernels  the SLA, int8 SLA and flash kernels against their twins at
                   the Wan anchor path's shapes, at the 33k-token geometry of
                   scripts/bench_wan33k.py (blocks 128 and 256) and at a
@@ -432,6 +446,7 @@ def phase_kernels(dev):
                                                                      gemm_bias_act)
     from interpolated_diffusion_tpu_torch.kernels.small_mha import (_torch_attention, small_mha,
                                                                    small_mha_packed)
+    from interpolated_diffusion_tpu_torch.models.transformer import fused_group_b
 
     gen = torch.Generator(device=dev).manual_seed(0)
     D, H, F = BENCH["d_model"], BENCH["n_heads"], BENCH["d_ff"]
@@ -460,10 +475,12 @@ def phase_kernels(dev):
                                           f"disagrees: {rel:.3e}")
                 if d == D and M >= 1024 * 8:
                     results["gemm"].append(((M, N, K, epilogue), err, a, w, bias, resid))
+        # (1024, 4) and (37, 3): the causal sampler's per-chunk Stage 1 (K_local
+        # 4 at its CLI defaults, 3 at a chunk of K_min 3), odd and tiny L
         for B, L, film in ((1024, 8, True), (1024, 64, True), (1, 8, True), (37, 64, True),
-                           (37, 8, False)):
+                           (37, 8, False), (1024, 4, True), (37, 3, True)):
             x, args = _block_inputs(B, L, D, H, F, film, gen, dev)
-            out = fused_film_block(x, *args, n_heads=H, group_b=max(1, 512 // L),
+            out = fused_film_block(x, *args, n_heads=H, group_b=fused_group_b(L),
                                    use_film=film)
             ref = _torch_block(x, *args, n_heads=H, use_film=film)
             torch.cuda.synchronize()
@@ -1978,6 +1995,298 @@ def phase_serve_select(dev, card, runs, workdir):
     return serve_launches, select_launches
 
 
+# Phase 5e: the causal path. The causal Stage-2 trainer CLI at its defaults
+# (bench width, batch 256, levels 3, bf16 over f32 masters), then the causal
+# sampling CLI (sample/generate_causal.main) on 5b's Stage-1 checkpoint and
+# that causal checkpoint: 256 x 3, T=64, chunk 16 (chunks of 16, 16, 16 and 15
+# frames), K_min 4, linear DDIM-10 (10 timesteps, 9 transitions). Each chunk's
+# Stage 1 runs fused_film_block at [B, 4, 384] under policy block (ddim 9
+# evaluations, pfdiff 1 + ceil(8 / 2) = 5, FORA interval 2 the block stack at 5
+# of the 9, best-of-N the same launches over N x B rows; x 12 layers x 4
+# chunks); the causal Stage 2 takes no kernel (plain attention: the kernels
+# take no causal mask), nor does Stage 1 at H * L = 48 under fused.
+CAUSAL_CLI = dict(batch=256, n_batches=3, chunk=16, K_min=4, ddim_steps=10)
+CAUSAL_CLI_STEPS = (3, 5)    # causal trainer CLI: steps, then resumed to
+
+
+@contextlib.contextmanager
+def _tee_stdout():
+    """Capture what is printed (the trainers' log lines) while printing it."""
+    import io
+
+    buf, real = io.StringIO(), sys.stdout
+
+    class Tee:
+        def write(self, text):
+            buf.write(text)
+            return real.write(text)
+
+        def flush(self):
+            real.flush()
+
+    sys.stdout = Tee()
+    try:
+        yield buf
+    finally:
+        sys.stdout = real
+
+
+def _s_per_step(log: str) -> float:
+    """The last s/step a maze trainer printed (`step N loss X | t s/step`:
+    the mean over the run's steps so far)."""
+    import re
+
+    found = re.findall(r"step \d+ loss \S+ \| ([0-9.]+) s/step", log)
+    require(bool(found), "no s/step line in the trainer's log")
+    return float(found[-1])
+
+
+def _causal_profile(dev, card, kp_dir, il_dir):
+    """The device's busy share of one causal CLI-shaped call (B=256, block,
+    ddim): the median wall time of 5 calls beside the device time of one more
+    under torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+    from interpolated_diffusion_tpu_torch.models.loading import (load_interp_model,
+                                                                  load_keypoint_model)
+    from interpolated_diffusion_tpu_torch.ops.schedules import make_schedule
+    from interpolated_diffusion_tpu_torch.sample import generate_causal
+
+    kp, kp_meta = load_keypoint_model(kp_dir, device=dev)
+    it, it_meta = load_interp_model(il_dir, device=dev)
+    for m in (kp, it):
+        m.set_attn_policy("block")
+    c = CAUSAL_CLI
+    pipe = generate_causal.make_causal_pipeline(
+        kp, it, make_schedule(kp_meta["schedule"], kp_meta["N_train"], device=dev),
+        T=BENCH["T"], K_min=c["K_min"], levels=it_meta["levels"], chunk=c["chunk"],
+        ddim_steps=c["ddim_steps"], data_dim=BENCH["data_dim"],
+        mask_channels=it_meta["mask_channels"])
+    _, cond = _requests(c["batch"], torch.Generator().manual_seed(70), dev)
+    draws = generate_causal.make_causal_draws(BENCH["T"], c["K_min"], c["chunk"], c["batch"],
+                                              BENCH["data_dim"],
+                                              torch.Generator(device=dev).manual_seed(71))
+    walls = []
+    for _ in range(6):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pipe(cond, draws=draws)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    wall = sorted(walls[1:])[2]
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        pipe(cond, draws=draws)
+        torch.cuda.synchronize()
+    _print_profile(prof, f"[{card}]", f"one causal sampling call (ddim, B={c['batch']}, block)")
+    device = sum(_device_us(e) for e in prof.key_averages()) / 1e3
+    print(f"[causal] [{card}] causal sampling call, ddim, B={c['batch']}, block: median wall "
+          f"{wall * 1e3:.1f} ms of 5 calls ({c['batch'] / wall:.1f} samples/s), device time "
+          f"{device:.1f} ms under the profiler: the device is busy {device / (wall * 1e3):.2f} of "
+          f"the call", flush=True)
+
+
+def phase_causal(dev, card, runs, workdir, profile=False):
+    """Phase 5e; see the comment above CAUSAL_CLI. Returns the block launches
+    of the causal sampling CLI runs and of the sample_keypoints run."""
+    import csv
+    import importlib.util
+
+    import numpy as np
+    import torch
+    from interpolated_diffusion_tpu_torch.kernels.fused_block import fused_film_block
+    from interpolated_diffusion_tpu_torch.models.loading import (load_interp_model,
+                                                                  load_keypoint_model)
+    from interpolated_diffusion_tpu_torch.ops.ddpm import make_timesteps
+    from interpolated_diffusion_tpu_torch.ops.schedules import make_schedule
+    from interpolated_diffusion_tpu_torch.sample import (generate_causal, sample_keypoints)
+    from interpolated_diffusion_tpu_torch.train import train_interp_levels_causal
+    from interpolated_diffusion_tpu_torch.utils import checkpoint, jax_checkpoint
+
+    t_phase = time.perf_counter()
+    tag = f"[{card}]"
+    n_layers, T = BENCH["n_layers"], BENCH["T"]
+    zero = dict.fromkeys(("fused_film_block", "small_mha_packed", "small_mha"), 0)
+
+    # the causal trainer CLI at its defaults: a checkpoint, then a resume
+    il_dir = os.path.join(workdir, "stage2_causal")
+    flags = ["--num_samples", str(MAZE_SAMPLES), "--out_dir", il_dir, "--log_every", "1"]
+    first, total = CAUSAL_CLI_STEPS
+    _set_maze_counts(zero)
+    torch.cuda.reset_peak_memory_stats()
+    with count_maze_twin_calls() as calls, _tee_stdout() as log:
+        t0 = time.perf_counter()
+        train_interp_levels_causal.main(flags + ["--steps", str(first), "--save_every",
+                                                 str(first)])
+        st = train_interp_levels_causal.main(flags + ["--steps", str(total), "--save_every",
+                                                      str(total), "--resume", il_dir])
+        torch.cuda.synchronize()
+        took = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    counts = _maze_counts()
+    _, il_meta = checkpoint.read_meta(os.path.join(il_dir, f"ckpt_{total}"))
+    for name in ("run_config.json", f"ckpt_{first}/meta.json", f"ckpt_{total}/params.pt",
+                 f"ckpt_{total}/ema.pt", f"ckpt_{total}/opt_state.pt"):
+        require(os.path.exists(os.path.join(il_dir, name)), f"causal trainer CLI: {name} missing")
+    require(st.step == total and il_meta["causal"] == 1 and il_meta["levels"] == BENCH["levels"]
+            and counts == zero and calls["total"] == 0,
+            f"causal trainer CLI: step {st.step}, meta causal {il_meta.get('causal')}, launches "
+            f"{counts}, twin calls {calls}")
+    first_log, resumed_log = log.getvalue().split("resumed from")
+    print(f"[causal] {tag} causal Stage-2 trainer CLI at its defaults (batch 256, levels 3, "
+          f"bf16 over f32 masters, policy fused): {first} steps, checkpoint, resumed to {total} "
+          f"in {took:.1f} s; {_s_per_step(first_log):.4f} s/step over the first run (its first "
+          f"step warms up), {_s_per_step(resumed_log):.4f} s/step over the resumed run; peak "
+          f"memory "
+          f"{peak:.2f} GiB; launches of rows 1-2 {counts} (0 a step: causal attention takes no "
+          f"kernel), twin calls 0", flush=True)
+
+    # the causal sampling CLI on 5b's Stage 1 and this causal Stage 2
+    c = CAUSAL_CLI
+    n_chunks = len(generate_causal.chunk_plan(T, c["chunk"]))
+    evals = lambda solver, interval=1: _stage1_evals(solver, c["ddim_steps"], interval)
+    plan = [("ddim", [], evals("ddim")), ("pfdiff", ["--stage1_solver", "pfdiff"], evals("pfdiff")),
+            ("fora2", ["--stage1_cache_interval", "2"], evals("ddim", 2)),
+            ("best_of4-dp", ["--stage1_best_of", "4", "--stage1_best_of_mode", "dp"],
+             evals("ddim")),
+            ("fused", ["--attn_policy", "fused"], 0)]
+    columns = ["batch", "sample", *SAMPLE_METRICS]
+    causal_launches = 0
+    for label, extra, n_evals in plan:
+        out = os.path.join(workdir, f"causal_{label}")
+        argv = ["--kp_ckpt", runs["stage1"], "--interp_ckpt", il_dir, "--device", "cuda",
+                "--attn_policy", "block", "--batch", str(c["batch"]), "--num_batches",
+                str(c["n_batches"]), "--chunk", str(c["chunk"]), "--K_min", str(c["K_min"]),
+                "--ddim_steps", str(c["ddim_steps"]), "--num_samples", str(MAZE_SAMPLES),
+                "--cache_dir", os.path.join(workdir, "data"), "--out_dir", out] + extra
+        per_call = n_chunks * n_evals * n_layers
+        n_cand = int(extra[extra.index("--stage1_best_of") + 1]) if "--stage1_best_of" in extra else 1
+        want = dict(zero, fused_film_block=c["n_batches"] * per_call)
+        _set_maze_counts(zero)
+        fused_film_block.launches_by_len.clear()
+        with count_maze_twin_calls() as twin, record_block_rows() as rows:
+            t0 = time.perf_counter()
+            summary = generate_causal.main(argv)
+            torch.cuda.synchronize()
+            took = time.perf_counter() - t0
+        counts, by_len = _maze_counts(), dict(fused_film_block.launches_by_len)
+        want_len = {c["K_min"]: want["fused_film_block"]} if per_call else {}
+        require(counts == want and by_len == want_len and twin["total"] == 0,
+                f"causal CLI {label}: launches {counts} by length {by_len}, twin calls {twin}; "
+                f"expected {want} by length {want_len}, no twin call")
+        if per_call:
+            require(rows == {c["K_min"]: {n_cand * c["batch"]}},
+                    f"causal CLI {label}: block rows by length {rows}")
+        with open(os.path.join(out, "metrics.csv")) as f:
+            header = next(csv.reader(f))
+        with open(os.path.join(out, "summary.json")) as f:
+            keys = set(json.load(f))
+        require(header == columns and keys == set(SAMPLE_METRICS) | {"samples_per_sec", "sanity"},
+                f"causal CLI {label}: metrics.csv columns {header}, summary keys {sorted(keys)}")
+        require(summary["goal_dist"] < 1e-4, f"causal CLI {label}: the last frame is not the goal "
+                                            f"({summary['goal_dist']:.3e})")
+        rows_note = f", over {n_cand} x {c['batch']} rows" if n_cand > 1 else ""
+        causal_launches += counts["fused_film_block"]
+        print(f"[causal] {tag} generate_causal {label} ({c['n_batches']} x {c['batch']}, chunk "
+              f"{c['chunk']}, K_min {c['K_min']}, DDIM-{c['ddim_steps']}): "
+              f"{summary['samples_per_sec']:.1f} samples/s (batches 1..{c['n_batches'] - 1}), "
+              f"{took:.1f} s with model load and dataset; fused_film_block {per_call} a call "
+              + (f"({n_chunks} chunks x {n_evals} evaluations x {n_layers} layers{rows_note})"
+                 if per_call else "(Stage 1 at H * L = 48 runs plain attention)")
+              + f", others 0, twin calls 0; collision {summary['collision_rate']:.4f}, goal_dist "
+              f"{summary['goal_dist']:.2e}", flush=True)
+    if profile:
+        _causal_profile(dev, card, runs["stage1"], il_dir)
+
+    # the pipeline, kernel path against twin path on the same draws
+    kp, kp_meta = load_keypoint_model(runs["stage1"], device=dev)
+    it, it_meta = load_interp_model(il_dir, device=dev)
+    require(it.causal and all(layer.causal for layer in it.transformer.layers),
+            "the causal checkpoint did not build the causal denoiser")
+    for m in (kp, it):
+        m.set_attn_policy("block")
+    _nonzero_head(it)   # a few steps leave the zero-init head near zero
+    pipe = generate_causal.make_causal_pipeline(
+        kp, it, make_schedule(kp_meta["schedule"], kp_meta["N_train"], device=dev), T=T,
+        K_min=c["K_min"], levels=it_meta["levels"], chunk=c["chunk"], ddim_steps=c["ddim_steps"],
+        data_dim=BENCH["data_dim"], mask_channels=it_meta["mask_channels"])
+    _, cond = _requests(64, torch.Generator().manual_seed(72), dev)
+    draws = generate_causal.make_causal_draws(T, c["K_min"], c["chunk"], 64, BENCH["data_dim"],
+                                              torch.Generator(device=dev).manual_seed(73))
+    _set_maze_counts(zero)
+    out = pipe(cond, draws=draws)
+    k_launches = _maze_counts()["fused_film_block"]
+    with plain_twins():
+        ref = pipe(cond, draws=draws)
+    err = (out - ref).abs().max().item()
+    require(k_launches == n_chunks * evals("ddim") * n_layers
+            and _maze_counts()["fused_film_block"] == k_launches
+            and bool(torch.isfinite(out).all()) and err <= PIPE_TOL,
+            f"causal pipeline B=64: launches {k_launches}, kernel path vs twins {err:.3e}")
+    print(f"[causal] make_causal_pipeline B=64, block, kernels vs plain twins, same draws: max|d| "
+          f"{err:.3e} (tol {PIPE_TOL}); {k_launches} block launches", flush=True)
+
+    # Stage 1 alone: sample_keypoints at its defaults (quadratic DDIM-20) under block
+    out = os.path.join(workdir, "sample_keypoints")
+    sk_evals = len(make_timesteps(BENCH["n_train"], 20, "quadratic")) - 1
+    plots = importlib.util.find_spec("matplotlib") is not None
+    _set_maze_counts(zero)
+    with count_maze_twin_calls() as twin:
+        t0 = time.perf_counter()
+        summary = sample_keypoints.main(
+            ["--kp_ckpt", runs["stage1"], "--device", "cuda", "--attn_policy", "block", "--batch",
+             str(c["batch"]), "--num_batches", str(c["n_batches"]), "--num_samples",
+             str(MAZE_SAMPLES), "--cache_dir", os.path.join(workdir, "data"), "--plots",
+             str(int(plots)), "--out_dir", out])
+        torch.cuda.synchronize()
+        took = time.perf_counter() - t0
+    sk_counts = _maze_counts()
+    with open(os.path.join(out, "metrics.csv")) as f:
+        header = next(csv.reader(f))
+    with np.load(os.path.join(out, "samples.npz")) as f:
+        shapes = {k: f[k].shape for k in f.files}
+    n = c["batch"] * c["n_batches"]
+    require(sk_counts == dict(zero, fused_film_block=c["n_batches"] * sk_evals * n_layers)
+            and twin["total"] == 0 and header == columns and set(summary) == set(SAMPLE_METRICS)
+            and shapes == {"keypoints": (n, BENCH["K"], 2), "interp": (n, T, 2),
+                           "idx": (n, BENCH["K"]), "gt": (n, T, 2)}
+            and os.path.exists(os.path.join(out, "samples.png")) == plots,
+            f"sample_keypoints: launches {sk_counts}, twin calls {twin}, columns {header}, "
+            f"npz {shapes}")
+    print(f"[causal] {tag} sample_keypoints (block, {c['n_batches']} x {c['batch']}, quadratic "
+          f"DDIM-20): {took:.1f} s with model load and dataset; fused_film_block "
+          f"{sk_evals * n_layers} a call ({sk_evals} evaluations x {n_layers} layers at "
+          f"[B, {BENCH['K']}, 384]), twin calls 0; collision {summary['collision_rate']:.4f}; "
+          f"samples.png {'written' if plots else 'skipped (no matplotlib)'}", flush=True)
+
+    # the JAX package's checkpoints in the repo, through the port's reader
+    for name, want_leaves in (("p1", 44), ("p2", 44), ("flow", 26)):
+        path = os.path.join(ROOT, "runs", "wansynth_debug", name, "ckpt_2")
+        tree = jax_checkpoint.read_tree(os.path.join(path, "params.msgpack"))
+        flat = {}
+
+        def walk(t, pre=""):
+            for k, v in t.items():
+                if isinstance(v, dict):
+                    walk(v, f"{pre}{k}/")
+                else:
+                    flat[pre + k] = tuple(v.shape)
+
+        walk(tree)
+        require(len(flat) == want_leaves, f"fixture {name}: {len(flat)} leaves")
+        biggest = max(flat.items(), key=lambda kv: int(np.prod(kv[1])))
+        print(f"[causal] JAX checkpoint {name}: {len(flat)} leaves, "
+              f"{sum(int(np.prod(s)) for s in flat.values())} values, largest {biggest[0]} "
+              f"{biggest[1]}", flush=True)
+    _, payload = checkpoint.load_checkpoint(os.path.join(ROOT, "runs", "wansynth_debug", "p1",
+                                                         "ckpt_2"), with_opt_state=False)
+    require(len(payload["params"]["lora"]) == 40 and len(payload["params"]["frame_cond"]) == 4,
+            "p1 through load_checkpoint: the LoRA and projector leaves")
+    print(f"[causal] launches of the causal CLI runs {causal_launches}, of sample_keypoints "
+          f"{sk_counts['fused_film_block']}; {card} phase 5e wall time "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return causal_launches, sk_counts["fused_film_block"]
+
+
 def _sla_work(lut, L, block):
     """(rows x keys summed over the LUT's entries, the same over its distinct
     (query block, key block) pairs): what this LUT makes the forward and dQ
@@ -2999,6 +3308,8 @@ def main() -> int:
             cli_launches = phase_maze_sample_cli(dev, card, runs, workdir, profile)
             torch.cuda.empty_cache()
             serve_launches, select_launches = phase_serve_select(dev, card, runs, workdir)
+            torch.cuda.empty_cache()
+            causal_launches, sk_launches = phase_causal(dev, card, runs, workdir, profile)
         torch.cuda.empty_cache()
         wan_errs, wan_cases = phase_wan_kernels(dev)
         model, sampler, inputs, wan_launches = phase_wan_main(dev)
@@ -3044,9 +3355,14 @@ def main() -> int:
     # alone; small_mha_packed's its time by graph replay.
     s1_ms, s1_plain, s1_lib = times[("fused_film_block", B, 8)]
     g_ms, g_lib = times[("small_mha_packed/graph", B, L)]
+    c_ms, c_plain, c_lib = times[("fused_film_block", B, CAUSAL_CLI["K_min"])]
     extras = {"fused_film_block": dict(
                   stage1_ms=s1_ms, stage1_plain_ms=s1_plain, stage1_library_ms=s1_lib,
                   stage1_bound_ms=block_bound(8)[0],
+                  causal_stage1_ms=c_ms, causal_stage1_plain_ms=c_plain,
+                  causal_stage1_library_ms=c_lib,
+                  causal_stage1_bound_ms=block_bound(CAUSAL_CLI["K_min"])[0],
+                  causal_launches=causal_launches, sample_keypoints_launches=sk_launches,
                   launches_by_shape=launches["fused_film_block/by_shape"],
                   host_paced_ms={f"[{b},8,384]": dict(zip(("bf16_parameters", "f32_masters"),
                                                           times[("fused_film_block/host", b)]))

@@ -1,5 +1,5 @@
 """Stage-1 keypoint denoiser and Stage-2 interp-level denoiser
-(port of models/denoisers.py, non-causal).
+(port of models/denoisers.py; the Stage-2 denoiser also causal).
 
 Parameter names follow the original PyTorch reference's state_dict
 (in_proj, t_embed.{0,2}, level_emb, level_proj.{0,2}, cond_enc.*, cond_proj,
@@ -127,16 +127,18 @@ class InterpLevelDenoiser(_Denoiser):
     Inputs per token: [x_s, mask channels]; the discrete level s enters via a
     learned embedding -> MLP; sinusoidal positions over T. The output head is
     zero-initialised (as in the JAX package), so an untrained model is the
-    identity refiner.
+    identity refiner. `causal=True` is the autoregressive variant: frame t
+    attends to frames 0..t only (the causal sampler, sample/generate_causal.py).
     """
 
     def __init__(self, d_model: int = 256, n_layers: int = 8, n_heads: int = 8,
                  d_ff: int = 1024, d_cond: int = 128, use_sdf: bool = False,
                  use_start_goal: bool = True, data_dim: int = 2, max_levels: int = 8,
                  mask_channels: int = 1, maze_channels: Sequence[int] = (32, 64),
-                 attn_policy: str = "fused"):
+                 attn_policy: str = "fused", causal: bool = False):
         super().__init__()
         self.d_model, self.d_cond, self.mask_channels = d_model, d_cond, mask_channels
+        self.causal = causal
         self.in_proj = Linear(data_dim + mask_channels, d_model)
         self.level_emb = Embedding(max_levels + 1, d_model)
         self.level_proj = nn.Sequential(Linear(d_model, d_model), nn.SiLU(),
@@ -144,7 +146,7 @@ class InterpLevelDenoiser(_Denoiser):
         self.cond_enc = MazeConditionEncoder(use_sdf, d_cond, use_start_goal, maze_channels)
         self.cond_proj = Linear(d_cond, d_model)
         self.transformer = TransformerEncoder(d_model, n_layers, n_heads, d_ff, d_cond,
-                                              True, attn_policy)
+                                              True, attn_policy, causal=causal)
         self.out = Linear(d_model, data_dim)
         self.out.zero_init = True
         nn.init.zeros_(self.out.weight)

@@ -1,8 +1,13 @@
 """JAX (flax) params -> port state_dicts, and the trainable leaves back.
 
 `params_to_state_dict` is the inverse of interpolated_diffusion_tpu/models/
-torch_import.py::convert_state_dict for the two maze denoisers;
-`wan_params_to_state_dict` converts a WanDiT (and FrameCondProjector) tree.
+torch_import.py::convert_state_dict for the two maze denoisers (causal or
+not: the causal mask has no parameters); `selector_to_state_dict` and
+`segment_cost_to_state_dict` invert its convert_keypoint_selector and
+convert_segment_cost; `wan_params_to_state_dict` converts a WanDiT (and
+FrameCondProjector) tree and `lora_params_to_state_dict` a Wan trainer's LoRA
+tree. `checkpoint_to_state_dict` picks the converter from a checkpoint's
+meta (utils/jax_checkpoint.py reads the trees).
 `lora_to_params` / `frame_cond_to_params` go the other way for the leaves the
 Wan trainer updates (values or gradients), so that a test compares them with
 the JAX trees leaf by leaf. All take or give param trees with numpy (or
@@ -14,6 +19,9 @@ array-like) leaves, so they need no JAX:
                                     (rows [q; k; v], each split H x Dh)
   Embed embedding                -> Embedding weight, as it is
   LayerNorm scale / bias         -> weight / bias
+  MultiHeadDotProductAttention   -> attn.in_proj_weight / in_proj_bias
+    query/key/value [d, H, Dh]      (rows [q; k; v]) and attn.out_proj
+    out [H, Dh, d]
 """
 from __future__ import annotations
 
@@ -40,14 +48,16 @@ def _layernorm(sd, prefix: str, p: Params) -> None:
     sd[f"{prefix}.bias"] = _t(p["bias"])
 
 
+def _conv(sd, prefix: str, p: Params) -> None:
+    sd[f"{prefix}.weight"] = _t(np.asarray(p["kernel"]).transpose(3, 2, 0, 1))
+    sd[f"{prefix}.bias"] = _t(p["bias"])
+
+
 def _cond_enc(sd, p: Params) -> None:
     maze = p["maze"]
     n_convs = sum(1 for k in maze if k.startswith("conv_"))
     for n in range(n_convs):
-        conv = maze[f"conv_{n}"]
-        sd[f"cond_enc.maze.convs.{2 * n}.weight"] = _t(
-            np.asarray(conv["kernel"]).transpose(3, 2, 0, 1))
-        sd[f"cond_enc.maze.convs.{2 * n}.bias"] = _t(conv["bias"])
+        _conv(sd, f"cond_enc.maze.convs.{2 * n}", maze[f"conv_{n}"])
     _linear(sd, "cond_enc.maze.fc", maze["fc"])
     if "sg" in p:
         _linear(sd, "cond_enc.sg.mlp.0", p["sg"]["fc1"])
@@ -236,3 +246,153 @@ def frame_cond_to_params(fc: Dict[str, torch.Tensor]) -> Params:
         out.setdefault(module, {})["kernel" if leaf == "weight" else "bias"] = (
             a.T.copy() if leaf == "weight" else a.copy())
     return out
+
+
+def lora_params_to_state_dict(lora: Params) -> Dict[str, torch.Tensor]:
+    """A JAX Wan trainer's `lora` tree -> the port's LoRA leaves
+    ({"blocks.i.attn1.to_q.lora_A": [r, in], "...lora_B": [out, r]}), the
+    inverse of `lora_to_params`.
+
+    Takes every layout the JAX trainer writes: runtime LoRA (LoRADense leaves
+    lora_A [in, r] / lora_B [r, out] under block_{i}/..., remat groups
+    group_{g}/block_{j}/... or blocks/block/... stacked on a leading layer
+    axis) and the merged form (init_lora: A / B under the kernel's path, a
+    "block_{i}/self_attn/q_proj" string key). Both forms compute x W + (alpha
+    / r) (x A) B, so the leaves map one to one."""
+    names = {("self_attn" if pre == "attn1" else "cross_attn", jax_name): f"{pre}.{name}"
+             for pre in ("attn1", "attn2") for jax_name, name in _WAN_ATTN}
+    names.update({(None, "ffn_in"): "ffn.net.0.proj", (None, "ffn_out"): "ffn.net.2"})
+    leaf_names = {"A": "lora_A", "lora_A": "lora_A", "B": "lora_B", "lora_B": "lora_B"}
+    flat: Dict[Tuple[str, ...], Any] = {}
+
+    def walk(tree, path):
+        for key, value in tree.items():
+            sub = path + tuple(str(key).split("/"))
+            if isinstance(value, dict):
+                walk(value, sub)
+            else:
+                flat[sub] = value
+
+    walk(lora, ())
+
+    def block_key(path):   # ("block_3",) or ("group_1", "block_2"): the path down to the block
+        cut = next((i for i, q in enumerate(path) if q.startswith("block_")), None)
+        return None if cut is None or path[:2] == ("blocks", "block") else path[:cut + 1]
+
+    # loop and remat-group blocks in layer order: block_{i}, or group_{g}/block_{j} by (g, j)
+    keys = sorted({block_key(p) for p in flat} - {None},
+                  key=lambda b: [int(q.rsplit("_", 1)[1]) for q in b])
+    layer_of = {b: i for i, b in enumerate(keys)}
+    sd: Dict[str, torch.Tensor] = {}
+    for path, value in flat.items():
+        a, key = np.asarray(value), block_key(path)
+        if key is None:      # scan: blocks/block/..., stacked on the layer axis
+            layers, rest = range(a.shape[0]), path[2:]
+        else:
+            layers, rest, a = [layer_of[key]], path[len(key):], a[None]
+        group = rest[0] if rest[0] in ("self_attn", "cross_attn") else None
+        module = names[(group, rest[-2])]
+        for n, i in enumerate(layers):
+            sd[f"blocks.{i}.{module}.{leaf_names[rest[-1]]}"] = _t(a[n].T)
+    return sd
+
+
+def selector_to_state_dict(params: Params) -> Dict[str, torch.Tensor]:
+    """flax params of a KeypointSelector -> the port's KeypointSelector
+    state_dict (the inverse of convert_keypoint_selector)."""
+    sd: Dict[str, torch.Tensor] = {}
+    n_convs = sum(1 for k in params if k.startswith("conv_"))
+    for n in range(n_convs):
+        _conv(sd, f"spatial_conv.{2 * n}", params[f"conv_{n}"])
+    if "proj" in params:
+        _conv(sd, "spatial_proj", params["proj"])
+    for jax_pre, name in (("sg", "sg_token"), ("gd", "goal_dist_token"), ("lvl", "level_mlp"),
+                          ("bias", "cond_bias")):
+        if f"{jax_pre}_fc1" in params:
+            _linear(sd, f"{name}.0", params[f"{jax_pre}_fc1"])
+            _linear(sd, f"{name}.2", params[f"{jax_pre}_fc2"])
+    _linear(sd, "time_proj", params["time_proj"])
+    if "cond_enc" in params:
+        _cond_enc(sd, params["cond_enc"])
+    n_blocks = sum(1 for k in params if k.startswith("block_"))
+    for i in range(n_blocks):
+        blk, pre = params[f"block_{i}"], f"blocks.{i}."
+        _layernorm(sd, f"{pre}norm1", blk["norm1"])
+        _layernorm(sd, f"{pre}norm2", blk["norm2"])
+        att = blk["attn"]
+        d = np.asarray(att["query"]["kernel"]).shape[0]
+        sd[f"{pre}attn.in_proj_weight"] = _t(np.concatenate(
+            [np.asarray(att[n]["kernel"]).reshape(d, d).T for n in ("query", "key", "value")]))
+        sd[f"{pre}attn.in_proj_bias"] = _t(np.concatenate(
+            [np.asarray(att[n]["bias"]).reshape(d) for n in ("query", "key", "value")]))
+        sd[f"{pre}attn.out_proj.weight"] = _t(np.asarray(att["out"]["kernel"]).reshape(d, d).T)
+        sd[f"{pre}attn.out_proj.bias"] = _t(att["out"]["bias"])
+        _linear(sd, f"{pre}ff.0", blk["ff1"])
+        _linear(sd, f"{pre}ff.2", blk["ff2"])
+    _linear(sd, "out", params["out"])
+    return sd
+
+
+def segment_cost_to_state_dict(params: Params) -> Dict[str, torch.Tensor]:
+    """flax params of a SegmentCostPredictor (D_phi) -> the port's state_dict
+    (the inverse of convert_segment_cost): fc_{n} -> mlp.{2n}, out last."""
+    sd: Dict[str, torch.Tensor] = {}
+    _cond_enc(sd, params["cond_enc"])
+    n_hidden = sum(1 for k in params if k.startswith("fc_"))
+    for n in range(n_hidden):
+        _linear(sd, f"mlp.{2 * n}", params[f"fc_{n}"])
+    _linear(sd, f"mlp.{2 * n_hidden}", params["out"])
+    return sd
+
+
+# stages whose module the port does not have yet, and what is missing
+_UNPORTED_STAGES = {
+    "interp_levels_wansynth": "the Wan Stage-2 trainer (train/train_interp_levels_wansynth.py)",
+    "flow_interpolator": "the flow interpolator (models/flow_interpolator.py)",
+}
+
+
+def _numpy_tree(tree):
+    """Tensor leaves (utils/jax_checkpoint) -> numpy; bf16 widens to f32 (exact)."""
+    if isinstance(tree, dict):
+        return {k: _numpy_tree(v) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor):
+        return (tree.float() if tree.dtype == torch.bfloat16 else tree).numpy()
+    return tree
+
+
+def checkpoint_to_state_dict(meta: Dict, params: Params) -> Dict[str, Any]:
+    """A JAX checkpoint's params (or EMA) tree -> what the port's checkpoint
+    of the same stage holds under `params`: the model's state_dict for the
+    maze stages (keypoints, interp_levels causal or not, segment_cost,
+    selector); for keypoints_wansynth the LoRA partition the Wan trainer
+    saves ({"lora": LoRA leaves, "frame_cond": projector state_dict}; the
+    frozen Wan base is in neither package's checkpoint). Other stages, and a
+    Wan tree with other leaves (a run that trained every weight), raise
+    NotImplementedError naming what is missing."""
+    stage = meta.get("stage")
+    params = _numpy_tree(params)
+    if stage == "keypoints":
+        return params_to_state_dict(params, "keypoint")
+    if stage == "interp_levels":
+        return params_to_state_dict(params, "interp")
+    if stage == "selector":
+        return selector_to_state_dict(params)
+    if stage == "segment_cost":
+        return segment_cost_to_state_dict(params)
+    if stage == "keypoints_wansynth":
+        extra = sorted(set(params) - {"lora", "frame_cond"})
+        if extra:
+            raise NotImplementedError(f"JAX keypoints_wansynth checkpoint with {extra}: only "
+                                      "the LoRA and frame-projector leaves are read")
+        out: Dict[str, Any] = {}
+        if "lora" in params:
+            out["lora"] = lora_params_to_state_dict(params["lora"])
+        if "frame_cond" in params:
+            out["frame_cond"] = {}
+            for name, p in params["frame_cond"].items():
+                _linear(out["frame_cond"], name, p)
+        return out
+    missing = _UNPORTED_STAGES.get(stage, f"the module of stage {stage!r}")
+    raise NotImplementedError(f"JAX checkpoint of stage {stage!r}: {missing} is not ported "
+                              "yet, so its parameters have no counterpart in the port")

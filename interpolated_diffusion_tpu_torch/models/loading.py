@@ -3,12 +3,15 @@ service (port of models/loading.py: the two maze denoisers, the keypoint
 selector and the segment-cost model D_phi, and the D_phi cost function of
 the kp_feat channels).
 
-Reads the port's own checkpoint format (utils/checkpoint.py): the meta dict
-rebuilds the model, `ema.pt` (by default) or `params.pt` fills it (the
-selector and D_phi trainers keep no EMA: `params.pt`). Models come back with
-f32 parameters on `device` (the card unless the caller asks for the CPU),
-computing in bf16 under `bf16=True`, in eval mode. The JAX package's msgpack
-and reference-PyTorch checkpoints are not read here.
+Reads the port's own checkpoints and the JAX package's (utils/checkpoint.py
+routes a directory with `params.msgpack` through utils/jax_checkpoint.py and
+models/jax_import.py): the meta dict rebuilds the model, the EMA weights (by
+default) or the params fill it (the selector and D_phi trainers keep no
+EMA). A causal Stage-2 meta builds the causal denoiser; Stage 1 ignores
+`causal`, as the JAX loader does. Models come back with f32 parameters on
+`device` (the card unless the caller asks for the CPU), computing in bf16
+under `bf16=True`, in eval mode. Reference-PyTorch `.pt` files are not read
+here.
 """
 from __future__ import annotations
 
@@ -40,9 +43,6 @@ def _maze_ch(meta) -> Tuple[int, ...]:
 def _check_meta(meta: Dict, path: str, stage: str) -> None:
     if meta.get("stage") != stage:
         raise ValueError(f"{path} is not a {stage} checkpoint (stage {meta.get('stage')!r})")
-    if meta.get("causal"):
-        raise NotImplementedError("causal Stage-2 checkpoints: the causal transformer is not "
-                                  "ported yet")
 
 
 def _fill(model, path: str, bf16: bool, use_ema: bool, device):
@@ -77,7 +77,7 @@ def load_interp_model(path: str, bf16: bool = True, use_ema: bool = True, device
         d_ff=meta["d_ff"], d_cond=meta["d_cond"], use_sdf=bool(meta["use_sdf"]),
         use_start_goal=bool(meta["cond_start_goal"]), data_dim=int(meta["data_dim"]),
         max_levels=max(8, int(meta["levels"])), mask_channels=int(meta["mask_channels"]),
-        maze_channels=_maze_ch(meta))
+        maze_channels=_maze_ch(meta), causal=bool(meta.get("causal", 0)))
     return _fill(model, path, bf16, use_ema, device), meta
 
 

@@ -1,4 +1,4 @@
-"""Pre-norm FiLM transformer encoder (port of models/transformer.py, non-causal).
+"""Pre-norm FiLM transformer encoder (port of models/transformer.py).
 
 Each block dispatches its attention the way the JAX block does, under an
 explicit `attn_policy` instead of the JAX package's environment/registry
@@ -14,6 +14,13 @@ A single `TransformerBlock(use_small_mha=True)` routes non-causal attention
 with H*L <= 1024 through kernels/small_mha.small_mha before the packed
 window is tried, as the JAX block does (an opt-in of the block alone: neither
 encoder passes it on).
+
+`causal=True` masks each query's later keys (a `tril` mask, -1e30 on the f32
+logits, as JAX's dense_attention). No kernel takes that mask, so a causal
+block runs plain attention under every policy, as the JAX block keeps causal
+off its block and packed kernels; JAX's block-diagonal packing of heads
+under causal (kron(eye(G), tril)) is per-head causal attention, which is
+what runs here.
 
 Parameters and compute dtype are separate, as in the JAX package
 (`dtype=bfloat16` over f32 parameters): `set_compute_dtype(model,
@@ -46,12 +53,12 @@ def fused_group_b(L: int) -> int:
     return max(1, min(64, FUSED_ROWS // max(1, L)))
 
 
-def _use_fused_block_policy(policy: str, H: int, L: int) -> bool:
-    return policy == "block" and L <= 256 and H * L <= 8192
+def _use_fused_block_policy(policy: str, H: int, L: int, causal: bool) -> bool:
+    return policy == "block" and not causal and L <= 256 and H * L <= 8192
 
 
-def _use_fused_packed(policy: str, H: int, L: int) -> bool:
-    return policy == "fused" and 256 < H * L and L <= 256
+def _use_fused_packed(policy: str, H: int, L: int, causal: bool) -> bool:
+    return policy == "fused" and not causal and 256 < H * L and L <= 256
 
 
 def set_compute_dtype(module: nn.Module, dtype: Optional[torch.dtype]) -> nn.Module:
@@ -137,13 +144,18 @@ class SelfAttentionParams(nn.Module):
 
 
 def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    n_heads: int) -> torch.Tensor:
+                    n_heads: int, causal: bool = False) -> torch.Tensor:
     """Plain multi-head attention on the packed [B, L, H*Dh] layout, f32
-    softmax; k/v may have another length than q (cross-attention)."""
+    softmax; k/v may have another length than q (cross-attention). `causal`
+    keeps query i to keys 0..i: -1e30 on the f32 logits above the diagonal
+    (self-attention only, Lk == Lq)."""
     B, L, D = q.shape
     dh = D // n_heads
     heads = lambda t: t.reshape(B, t.shape[1], n_heads, dh).transpose(1, 2)
     logits = (heads(q) @ heads(k).transpose(-1, -2)).float() * dh ** -0.5
+    if causal:
+        keep = torch.ones((L, k.shape[1]), dtype=torch.bool, device=q.device).tril()
+        logits = logits.masked_fill(~keep, -1e30)
     p = torch.softmax(logits, dim=-1).to(v.dtype)
     return (p @ heads(v)).transpose(1, 2).reshape(B, L, D)
 
@@ -158,12 +170,12 @@ class TransformerBlock(nn.Module):
 
     def __init__(self, d_model: int, n_heads: int, d_ff: int, d_cond: int = 128,
                  use_film: bool = True, attn_policy: str = "fused",
-                 use_small_mha: bool = False):
+                 use_small_mha: bool = False, causal: bool = False):
         super().__init__()
         if attn_policy not in ATTN_POLICIES:
             raise ValueError(f"attn_policy {attn_policy!r} not in {ATTN_POLICIES}")
         self.d_model, self.n_heads, self.use_film = d_model, n_heads, use_film
-        self.attn_policy, self.use_small_mha = attn_policy, use_small_mha
+        self.attn_policy, self.use_small_mha, self.causal = attn_policy, use_small_mha, causal
         self.norm1 = LayerNorm(d_model)
         self.norm2 = LayerNorm(d_model)
         self.attn = SelfAttentionParams(d_model)
@@ -178,7 +190,7 @@ class TransformerBlock(nn.Module):
         film_on = self.use_film and cond is not None
         dt = self.compute_dtype or self.attn.in_proj_weight.dtype
         x = x.to(dt)
-        if _use_fused_block_policy(self.attn_policy, H, L):
+        if _use_fused_block_policy(self.attn_policy, H, L, self.causal):
             # FiLM gamma/beta projections stay outside the kernel, as in JAX
             if film_on:
                 gb1, gb2 = self.film1(cond), self.film2(cond)
@@ -197,12 +209,12 @@ class TransformerBlock(nn.Module):
             h = _film(h, self.film1(cond))
         q, k, v = F.linear(h, self.attn.in_proj_weight.to(dt),
                            self.attn.in_proj_bias.to(dt)).split(D, dim=-1)
-        if self.use_small_mha and H * L <= SMALL_MHA_MAX_ROWS:
+        if self.use_small_mha and not self.causal and H * L <= SMALL_MHA_MAX_ROWS:
             attn = small_mha(q, k, v, H)
-        elif _use_fused_packed(self.attn_policy, H, L):
+        elif _use_fused_packed(self.attn_policy, H, L, self.causal):
             attn = small_mha_packed(q, k, v, H, fused_group_b(L))
         else:
-            attn = dense_attention(q, k, v, H)
+            attn = dense_attention(q, k, v, H, self.causal)
         x = x + self.attn.out_proj(attn)
         h = self.norm2(x)
         if film_on:
@@ -213,10 +225,11 @@ class TransformerBlock(nn.Module):
 class TransformerEncoder(nn.Module):
     def __init__(self, d_model: int = 256, n_layers: int = 8, n_heads: int = 8,
                  d_ff: int = 1024, d_cond: int = 128, use_film: bool = True,
-                 attn_policy: str = "fused"):
+                 attn_policy: str = "fused", causal: bool = False):
         super().__init__()
         self.layers = nn.ModuleList([
-            TransformerBlock(d_model, n_heads, d_ff, d_cond, use_film, attn_policy)
+            TransformerBlock(d_model, n_heads, d_ff, d_cond, use_film, attn_policy,
+                             causal=causal)
             for _ in range(n_layers)])
 
     def set_attn_policy(self, policy: str) -> None:

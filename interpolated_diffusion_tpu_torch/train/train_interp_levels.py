@@ -15,12 +15,13 @@ scheduled probability; a bootstrap checkpoint trained with kp_feat gets its
 index features, their cost channels from `--dphi_ckpt`). The `selector` /
 `selector_level` mask policies (and `selector` in `--mask_policy_mix`) rank
 the nested masks by a frozen keypoint selector's logits (`--selector_ckpt`;
-selector_level: one logit row per level). The model holds f32 master
+selector_level: one logit row per level). `--causal 1` trains the causal
+(autoregressive) denoiser, `causal` in its meta, for sample/generate_causal.py
+(train/train_interp_levels_causal.py forces it). The model holds f32 master
 parameters and computes in bf16 (`--bf16 1`). Runs on the GPU unless
 `--device cpu`.
 
-Not ported (each raises, naming what is missing): `--causal 1`,
-`--n_data_shards`.
+Not ported (raises, naming what is missing): `--n_data_shards`.
 """
 from __future__ import annotations
 
@@ -59,7 +60,8 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--k_schedule", type=str, default="doubling",
                    choices=["doubling", "linear", "geom"])
     p.add_argument("--mode", type=str, default="adj", choices=["adj", "x0"])
-    p.add_argument("--causal", type=int, default=0, help="causal variant (not ported)")
+    p.add_argument("--causal", type=int, default=0,
+                   help="causal (autoregressive) denoiser, for the causal sampler")
     p.add_argument("--mask_policy", type=str, default="random_nested",
                    choices=["random_nested", "uniform", "dp", "selector", "selector_level"])
     p.add_argument("--selector_ckpt", type=str, default=None)
@@ -160,13 +162,6 @@ def _mask_mix_buckets(args):
     return buckets
 
 
-def check_ported(args) -> None:
-    check_train_args_ported(args)
-    if args.causal:
-        raise NotImplementedError("--causal 1: the causal transformer and its chunked sampler "
-                                  "(models/transformer.py causal path) are not ported yet")
-
-
 def mask_channels_for(args) -> int:
     base = 2 if args.mode == "adj" else 1
     return base + (1 if args.anchor_conf else 0)
@@ -201,7 +196,7 @@ def build_model(args, data_dim: int, device: torch.device) -> InterpLevelDenoise
         use_start_goal=bool(args.cond_start_goal), data_dim=data_dim,
         max_levels=max(8, args.levels), mask_channels=mask_channels_for(args),
         maze_channels=tuple(int(c) for c in args.maze_channels.split(",")),
-        attn_policy=getattr(args, "attn_policy", "fused"))
+        attn_policy=getattr(args, "attn_policy", "fused"), causal=bool(args.causal))
 
 
 def build_anchor_conf(mask_s: torch.Tensor, student_mask: Optional[torch.Tensor],
@@ -531,7 +526,7 @@ def host_batch(args, batch: Dict[str, np.ndarray], step: int,
 
 def main(argv=None) -> TrainState:
     args = build_argparser().parse_args(argv)
-    check_ported(args)
+    check_train_args_ported(args)
     device = resolve_device(args.device)
     ds, data_dim = make_dataset(args)
     loader = iter(make_loader(ds, args))

@@ -5,9 +5,13 @@ A checkpoint is a directory with `meta.json` (step, meta, has_opt_state,
 has_ema: the JAX package's keys, plus "format": "torch") and `params.pt`,
 optionally `opt_state.pt` and `ema.pt`: torch.save of (nested) dicts of
 tensors under the port's state_dict names. `meta` is the config channel:
-samplers and downstream trainers rebuild models from it. The JAX package's
-msgpack checkpoints are not read here; models/jax_import converts its
-parameter trees.
+samplers and downstream trainers rebuild models from it.
+
+`load_checkpoint` and `read_meta` also read a checkpoint the JAX package
+wrote (`params.msgpack` beside its `meta.json`, which has no "format" key):
+utils/jax_checkpoint.py decodes its trees and models/jax_import converts
+them to the port's state_dicts. Only params and EMA cross over; the optax
+optimizer state does not.
 """
 from __future__ import annotations
 
@@ -17,6 +21,8 @@ import shutil
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+
+from .jax_checkpoint import is_jax_checkpoint, load_jax_checkpoint
 
 
 def _to_host(tree):
@@ -89,9 +95,18 @@ def _recover_interrupted(parent: str) -> None:
 def load_checkpoint(path: str, map_location="cpu", with_opt_state: bool = True
                     ) -> Tuple[int, Dict[str, Any]]:
     """(step, payload) from a checkpoint directory; payload has `meta`,
-    `params`, and `opt_state` / `ema` when they were saved."""
+    `params`, and `opt_state` / `ema` when they were saved. A JAX checkpoint
+    (utils/jax_checkpoint.py) gives its params and EMA as the port's
+    state_dicts; asked `with_opt_state` (a resume) it raises
+    NotImplementedError, since its optax optimizer state does not cross over."""
+    if is_jax_checkpoint(path):
+        return load_jax_checkpoint(path, map_location, with_opt_state)
     with open(os.path.join(path, "meta.json")) as f:
         header = json.load(f)
+    if header.get("format") == "orbax":
+        raise NotImplementedError(
+            f"{path}: sharded (orbax) JAX checkpoints are not read; the sharded checkpoint "
+            "reader (utils/checkpoint_sharded.py) is not ported yet")
     if header.get("format", "torch") != "torch":
         raise NotImplementedError(
             f"checkpoint format {header.get('format')!r} is not read here; convert the JAX "
@@ -107,7 +122,8 @@ def load_checkpoint(path: str, map_location="cpu", with_opt_state: bool = True
 
 
 def read_meta(path: str) -> Tuple[int, Dict]:
-    """Just (step, meta), without reading the tensors."""
+    """Just (step, meta), without reading the tensors (either package's
+    checkpoint: both write the same meta.json keys)."""
     with open(os.path.join(path, "meta.json")) as f:
         header = json.load(f)
     return int(header["step"]), header["meta"]

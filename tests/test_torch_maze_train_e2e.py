@@ -154,10 +154,18 @@ def test_loaders_refuse_the_wrong_stage_and_unported_metas(runs, tmp_path):
         resolve_ckpt(str(tmp_path))
     from interpolated_diffusion_tpu_torch.utils.checkpoint import read_meta, save_checkpoint
 
-    _, meta = read_meta(resolve_ckpt(kp))
-    save_checkpoint(str(tmp_path / "ckpt_1"), {}, None, 1, None, dict(meta, causal=1))
-    with pytest.raises(NotImplementedError, match="causal"):
-        load_keypoint_model(str(tmp_path), device="cpu")
+    # a causal meta is no longer refused: Stage 1 ignores `causal`, as the JAX
+    # loader does (models/loading.py), and loads the same weights
+    path = resolve_ckpt(kp)
+    _, meta = read_meta(path)
+    _, payload = load_checkpoint(path)
+    save_checkpoint(str(tmp_path / "ckpt_1"), payload["params"], None, 1, payload["ema"],
+                    dict(meta, causal=1))
+    model, got = load_keypoint_model(str(tmp_path), device="cpu")
+    want, _ = load_keypoint_model(kp, device="cpu")
+    assert got["causal"] == 1
+    for (n, a), (_, b) in zip(model.state_dict().items(), want.state_dict().items()):
+        assert torch.equal(a, b), n
 
 
 def test_loaders_default_to_the_card():

@@ -255,7 +255,8 @@ CORRUPT = ["--corrupt_mode", "dist", "--corrupt_sigma_max", "0.05", "--corrupt_s
       "uniform", "--corrupt_vel", "1", "--k_schedule", "linear"] + CORRUPT, 4),
     (["--mask_policy", "dp", "--clean_target", "0", "--w_anchor", "3.0",
       "--clamp_endpoints", "0"] + CORRUPT, 2),
-    (["--mask_policy_mix", "uniform:0.4,random:0.3,dp:0.3", "--recompute_vel", "0"], 4)])
+    (["--mask_policy_mix", "uniform:0.4,random:0.3,dp:0.3", "--recompute_vel", "0"], 4),
+    (["--causal", "1", "--anchor_conf", "1"], 2)])                # the causal trainer
 def test_stage2_loss_and_gradients_match_jax(flags, D):
     jargs, pargs, jmodel, params, model, b = _s2_setup(flags, D)
     kp_idx = np.sort(np.stack([np.random.default_rng(i).choice(T, 4, replace=False)
@@ -461,7 +462,6 @@ def test_stage2_selection_options_match_jax(case, sel_ckpts, tmp_path):
 
 @pytest.mark.parametrize("mod,flags,match", [
     (ps1, ["--n_data_shards", "2"], "mesh"),
-    (ps2, ["--causal", "1"], "causal"),
     (ps2, ["--n_data_shards", "2"], "mesh")])
 def test_unported_flags_raise_naming_what_is_missing(mod, flags, match, tmp_path):
     with pytest.raises(NotImplementedError, match=match):

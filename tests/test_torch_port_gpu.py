@@ -53,6 +53,8 @@ def _rel(out, ref):
 @pytest.mark.parametrize("B,L,film,d,h,f", [
     (1024, 8, True, D, H, F), (1024, 64, True, D, H, F), (1, 8, True, D, H, F),
     (37, 64, True, D, H, F), (37, 8, False, D, H, F),
+    # the causal sampler's per-chunk Stage 1: K_local = 4 (its CLI default) and 3
+    (1024, 4, True, D, H, F), (37, 3, True, D, H, F),
     # widths the 192-wide GEMM tile does not divide (N = 320, 1280: the 64- and
     # 128-column instantiations) and Dh = 64
     (64, 64, True, 320, 10, 1280), (64, 64, True, 384, 6, 1536)])
@@ -603,3 +605,43 @@ def test_functions_kernel_path_matches_twin_path(cuda, which):
     for name, a, b in zip(("dq", "dk", "dv"), *grads):
         assert a is not None and a.dtype == torch.bfloat16 and torch.isfinite(a).all(), name
         assert _rel(a, b) <= BWD_TOL, (name, _rel(a, b))
+
+
+@pytest.mark.gpu
+def test_causal_pipeline_kernel_path_matches_twin_path(cuda, monkeypatch):
+    """sample/generate_causal under policy block: each chunk's Stage 1 runs
+    fused_film_block at [B, 4, 384] (4 chunks x 4 DDIM evaluations x 2
+    layers), the causal Stage 2 plain attention; the twin path on the same
+    draws agrees within chip_smoke.py's pipeline tolerance (5e-2)."""
+    from interpolated_diffusion_tpu_torch.models import transformer
+    from interpolated_diffusion_tpu_torch.models.denoisers import (InterpLevelDenoiser,
+                                                                  KeypointDenoiser)
+    from interpolated_diffusion_tpu_torch.models.init import build_model
+    from interpolated_diffusion_tpu_torch.ops.schedules import make_schedule
+    from interpolated_diffusion_tpu_torch.sample import generate_causal
+
+    w = dict(d_model=D, n_layers=2, n_heads=H, d_ff=F, d_cond=128, maze_channels=(32, 64),
+             dtype=torch.bfloat16, device=cuda, attn_policy="block")
+    kp = build_model(KeypointDenoiser, generator=torch.Generator().manual_seed(1), **w).eval()
+    it = build_model(InterpLevelDenoiser, generator=torch.Generator().manual_seed(2),
+                     mask_channels=2, causal=True, **w).eval()
+    with torch.no_grad():
+        it.out.weight.normal_(0.0, 0.02, generator=torch.Generator(cuda).manual_seed(3))
+    B, T = 64, 64
+    g = torch.Generator(cuda).manual_seed(4)
+    cond = {"occ": (torch.rand((B, 1, 21, 21), generator=g, device=cuda) < 0.2).float(),
+            "start_goal": torch.rand((B, 4), generator=g, device=cuda)}
+    pipe = generate_causal.make_causal_pipeline(
+        kp, it, make_schedule("linear", 100, device=cuda), T=T, K_min=4, levels=3, chunk=16,
+        ddim_steps=5, data_dim=2, mask_channels=2)
+    draws = generate_causal.make_causal_draws(T, 4, 16, B, 2, g)
+    before = fused_block.fused_film_block.launches
+    before_len = dict(fused_block.fused_film_block.launches_by_len)
+    out = pipe(cond, draws=draws)
+    torch.cuda.synchronize()
+    assert fused_block.fused_film_block.launches - before == 4 * 4 * 2
+    assert fused_block.fused_film_block.launches_by_len[4] - before_len.get(4, 0) == 4 * 4 * 2
+    monkeypatch.setattr(transformer, "fused_film_block", fused_block.fused_film_block_twin)
+    ref = pipe(cond, draws=draws)
+    assert out.shape == (B, T, 2) and torch.isfinite(out).all()
+    assert (out - ref).abs().max().item() <= 5e-2

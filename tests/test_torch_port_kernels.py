@@ -309,6 +309,6 @@ def test_port_sources_name_no_jax():
             if f.endswith(".py"):
                 src = open(os.path.join(dirpath, f)).read()
                 for bad in ("import jax", "from jax", "import flax", "from flax",
-                            "import optax", "from optax",
+                            "import optax", "from optax", "import msgpack", "from msgpack",
                             "from interpolated_diffusion_tpu.", "import interpolated_diffusion_tpu\n"):
                     assert bad not in src, f"{f}: {bad}"

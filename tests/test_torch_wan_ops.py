@@ -128,7 +128,8 @@ def test_dense_attention_cross_length_matches_jax():
 
 
 def test_wan_port_import_pulls_in_no_jax():
-    """The slice's modules, and chip_smoke.py, import neither JAX nor the JAX package."""
+    """The slice's modules, and chip_smoke.py, import neither JAX (nor flax, optax or
+    msgpack) nor the JAX package."""
     import os
     import subprocess
     import sys
@@ -169,9 +170,17 @@ def test_wan_port_import_pulls_in_no_jax():
             "interpolated_diffusion_tpu_torch.serve.service, "
             "interpolated_diffusion_tpu_torch.serve.server, "
             "interpolated_diffusion_tpu_torch.serve.client, "
-            "interpolated_diffusion_tpu_torch.eval.visualize; "
-            "bad = [m for m in sys.modules if m in ('jax', 'flax', 'optax') "
-            "or m.startswith(('jax.', 'flax.', 'optax.')) "
+            "interpolated_diffusion_tpu_torch.eval.visualize, "
+            "interpolated_diffusion_tpu_torch.utils.jax_checkpoint, "
+            "interpolated_diffusion_tpu_torch.sample.generate_causal, "
+            "interpolated_diffusion_tpu_torch.sample.sample_causal, "
+            "interpolated_diffusion_tpu_torch.sample.sample_fullseq, "
+            "interpolated_diffusion_tpu_torch.sample.sample_keypoints, "
+            "interpolated_diffusion_tpu_torch.train.train_interp_levels_causal, "
+            "interpolated_diffusion_tpu_torch.train.train_causal, "
+            "interpolated_diffusion_tpu_torch.train.train_fullseq; "
+            "bad = [m for m in sys.modules if m in ('jax', 'flax', 'optax', 'msgpack') "
+            "or m.startswith(('jax.', 'flax.', 'optax.', 'msgpack.')) "
             "or m == 'interpolated_diffusion_tpu' or m.startswith('interpolated_diffusion_tpu.')]; "
             "print(bad); sys.exit(1 if bad else 0)")
     proc = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True,
