@@ -129,13 +129,33 @@ Phases, each on its own lines; any failure exits non-zero:
                   block choice is discrete, so an ulp upstream can flip a
                   block on one path only; how many rows its own choice
                   differs in, and its reading on its own LUTs, are printed)
+  5f. wan phase 2 the Wan Phase-2 chain through its CLIs at Wan2.1-1.3B width
+                  and depth: 8 synthetic clips at the full shapes (T=21,
+                  16x60x104, text 512x4096) as tar shards (data/make_synth_tars);
+                  the Phase-1 trainer CLI at its defaults for 2 steps; the
+                  anchor precompute CLI (batch 4, 30 layers) under ddim,
+                  pfdiff and FORA 2, its shards' fields and launches per call;
+                  rows 4-8 against their twins at the Phase-2 trainer's
+                  shapes ([24, 32760, 128], SLA block 256, top-k 12; flash
+                  cross x 533 keys and self x 32760) with their times, bounds
+                  and library times; the Phase-2 loss and gradients at 4 of 30
+                  layers, full width and L = 32760, kernel path vs twin path
+                  (LUTs replayed), under sla, sage_sla and dense; the Phase-2
+                  trainer CLI at its defaults on the anchor-joined shards: 4
+                  sla steps, then resumed for 2 sage_sla and 2 dense steps
+                  (launches per step, no twin call, s/step, peak memory); the
+                  evaluation CLI on each mode's checkpoint (launches per
+                  batch, the five MSEs, samples/s) and its MSEs on the kernel
+                  path vs the twin path. Runs after phase 10; the checkpoints
+                  live in a temp dir that is removed
 Every timing phase also times the one PyTorch library call that computes the
 same function, where there is one (scaled_dot_product_attention, for SLA
 under the LUT as a mask; F.linear; or for the block a chain of them), as a
 yardstick that the port never calls.
 --profile adds torch.profiler tables of one maze pipeline call (policy block,
 B=1024), one maze Stage-2 training step, one sla-mode sampler call and one
-sla-mode Wan training step. The line before the
+sla-mode Wan training step, and of one sla-mode Wan Phase-2 training step
+with the device's busy share. The line before the
 last is a JSON summary of the kernels (time, bound, library time, launches);
 the last line is {"ok": true, "device": {...}}. --kernels runs only the phases
 that build, check and time the kernels alone (1-3, the kernel times of 5, 5a,
@@ -143,9 +163,11 @@ that build, check and time the kernels alone (1-3, the kernel times of 5, 5a,
 first run for a changed kernel. --gemm-ab reads what the block GEMM's
 W-resident kernel buys: the maze part of phases 3 and 5 (--maze-kernels) in four
 processes, two on a build that sends every product to the streaming kernel.
+--wan-phase2 runs the build and phase 5f alone and prints neither JSON line.
 """
 from __future__ import annotations
 
+import argparse
 import contextlib
 import json
 import math
@@ -3216,6 +3238,465 @@ def phase_wan_train(dev, card, profile):
     return launches, results
 
 
+# Phase 5f: Wan Phase 2 at Wan2.1-T2V-1.3B width and depth. The Phase-2
+# trainer sees T = 21 latent frames of 16x60x104, 21 * 30 * 52 = 32760 tokens a
+# sample (BH = 2 x 12 at batch 2), cross-attention to 512 text tokens plus 21
+# frame-conditioning tokens (533 keys); SLA block 256, top-k int(0.1 * 128) = 12.
+WAN2_SAMPLES = 8                # synthetic clips written as tar shards
+WAN2_P1_STEPS = 2               # the Phase-1 trainer CLI at its defaults
+WAN2_ANCHOR_RUNS = (("ddim", ()), ("pfdiff", ("--solver", "pfdiff")),
+                    ("fora2", ("--cache_interval", "2")))
+WAN2_TRAIN = (("sla", 4), ("sage_sla", 2), ("dense", 2))   # CLI runs, each resuming the last
+WAN2_EVAL_BATCHES = 2
+WAN2_COMPARE_LAYERS = 4         # depth of the whole-step kernel-vs-twin comparison
+WAN2_BH, WAN2_L, WAN2_LK = 24, 21 * 30 * 52, 512 + 21
+# Evaluation, kernel path vs plain-twin path on one batch (same masks, the
+# kernel path's SLA LUTs replayed): relative difference of each MSE.
+WAN2_EVAL_TOL = 5e-2
+
+
+def _cli_run(main_fn, argv):
+    """main_fn(argv) with every Wan kernel's launch count set to 0 just
+    before and read just after, and the twins' calls counted: (result,
+    {kernel: launches}, twin calls, the printed log, seconds, peak GiB)."""
+    import torch
+
+    _set_train_counts((0,) * len(TRAIN_KERNELS))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with count_twin_calls() as twin, _tee_stdout() as log:
+        result = main_fn(list(argv))
+    torch.cuda.synchronize()
+    return (result, dict(zip(TRAIN_KERNELS, _train_counts())), twin[0], log.getvalue(),
+            time.perf_counter() - t0, torch.cuda.max_memory_allocated() / 2 ** 30)
+
+
+def _wan2_kernels(dev, card):
+    """Rows 4-8 against their twins at the Phase-2 trainer's shapes, then
+    their times beside the bound, the twin and the library call. Returns
+    ({kernel: max|d|}, {kernel or kernel/self: (ms, twin ms, bound, library
+    ms or None, shape)})."""
+    import torch
+    from interpolated_diffusion_tpu_torch.kernels import block_sparse_attention as bsa
+    from interpolated_diffusion_tpu_torch.kernels import int8_attention as i8
+    from interpolated_diffusion_tpu_torch.kernels.block_sparse_reference import (
+        block_sparse_attention_reference as sla_twin)
+    from interpolated_diffusion_tpu_torch.kernels.sla import get_block_map
+
+    tag = f"[{card}]"
+    gen = torch.Generator(device=dev).manual_seed(40)
+    BH, L, Lk, D, block = WAN2_BH, WAN2_L, WAN2_LK, 128, 256
+    scale = D ** -0.5
+    errs, out = {}, {}
+    saved = _train_counts()
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    with torch.no_grad():
+        q, k, v = _wan_qkv(BH, L, D, gen, dev)
+        do = torch.randn((BH, L, D), generator=gen, device=dev).to(torch.bfloat16)
+        kc, vc = (torch.randn((BH, Lk, D), generator=gen, device=dev).to(torch.bfloat16)
+                  for _ in range(2))
+        _, lut, topk = get_block_map(q, k, 0.1, block, block)
+        require(topk == 12 and lut.shape == (BH, 128, 12), f"Phase-2 LUT {tuple(lut.shape)}")
+        label = f"Phase 2 [{BH},{L},{D}] block={block} topk={topk} (last key block {L % block} of {block})"
+        shape = f"[{BH},{L},{D}] block {block} topk {topk}"
+        # row 4: forward, and its backward (row 5)
+        o, lse = bsa.block_sparse_attention_fwd(q, k, v, lut, block, block)
+        _check_pair("block_sparse_attention", label, (o, lse), sla_twin(q, k, v, lut, block, block),
+                    ATTN_TOL, errs)
+        got = bsa.block_sparse_attention_bwd(q, k, v, lut, o, lse, do, block, block)
+        want = bsa.block_sparse_attention_bwd(q, k, v, lut, o, lse, do, block, block, twin=True)
+        for name, tensor, a, b in zip(("sla_bwd_dq", "sla_bwd_dkdv", "sla_bwd_dkdv"),
+                                      ("dq", "dk", "dv"), got, want):
+            err, rel = _errors(a, b)
+            print(f"[wan2 kernels] {name} {label}: {tensor} max|d|={err:.3e} "
+                  f"max|d|/max|twin|={rel:.3e} (tol {BWD_TOL})", flush=True)
+            require(bool(torch.isfinite(a).all()) and rel <= BWD_TOL,
+                    f"{name} {label}: {tensor} disagrees ({rel:.3e})")
+            errs[name] = max(errs.get(name, 0.0), err)
+        del got, want
+        # row 8 against its twin and against the bf16 SLA twin
+        qi, ki, qs, ks = i8.quantize_qk(q, k)
+        got8 = i8.int8_attention_fwd(qi, ki, v, qs, ks, lut, block, block, scale)
+        _check_pair("int8_block_sparse_attention", f"{label} vs int8 twin", got8,
+                    i8._torch_int8_attention(qi, ki, v, qs, ks, lut, block, block, scale),
+                    ATTN_TOL, errs)
+        _, rel = _errors(got8[0], o)
+        print(f"[wan2 kernels] int8_block_sparse_attention {label} vs the bf16 SLA kernel: "
+              f"max|d|/max|bf16|={rel:.3e} (tol {INT8_VS_BF16_TOL})", flush=True)
+        require(rel <= INT8_VS_BF16_TOL, f"int8 vs bf16 SLA {label}: {rel:.3e}")
+        del got8
+        # rows 6 and 7: cross-attention (every mode) and self-attention (dense)
+        flash = {}
+        for which, kk, vv in (("cross", kc, vc), ("self", k, v)):
+            lab = f"Phase 2 {which} q [{BH},{L},{D}] k {kk.shape[1]} rows"
+            fo, flse = bsa.flash_attention_fwd(q, kk, vv)
+            _check_pair("flash_attention", lab, (fo, flse),
+                        bsa._torch_flash(q, kk, vv, scale, 1024), ATTN_TOL, errs)
+            got = bsa.flash_attention_bwd(q, kk, vv, fo, flse, do)
+            want = bsa.flash_attention_bwd(q, kk, vv, fo, flse, do, twin=True)
+            for name, tensor, a, b in zip(("flash_bwd_dq", "flash_bwd_dkdv", "flash_bwd_dkdv"),
+                                          ("dq", "dk", "dv"), got, want):
+                err, rel = _errors(a, b)
+                print(f"[wan2 kernels] {name} {lab}: {tensor} max|d|={err:.3e} "
+                      f"max|d|/max|twin|={rel:.3e} (tol {BWD_TOL})", flush=True)
+                require(bool(torch.isfinite(a).all()) and rel <= BWD_TOL,
+                        f"{name} {lab}: {tensor} disagrees ({rel:.3e})")
+                errs[name] = max(errs.get(name, 0.0), err)
+            flash[which] = (kk, vv, fo, flse)
+            del got, want
+        torch.cuda.synchronize()
+
+        # times: each kernel alone (CUDA events), its twin, the bound, and one
+        # PyTorch call where one computes the same function. SLA under its LUT
+        # as an additive mask would need a [24, 32760, 32760] bias (51 GB), so
+        # rows 4, 5 and 8 have none here.
+        entries, pairs = _sla_work(lut, L, block)
+        o_lse = _nbytes(q) + 4 * BH * L
+        delta = bsa.attention_delta(o, do)
+        rows_b = _nbytes(lse, delta)
+        # (name, shape, kernel, twin key, twin or None when the key's twin was
+        # timed already: the backward twins compute dq, dk and dv in one call,
+        # bound, library call or ("backward", leaves) or None)
+        plan = [
+            ("block_sparse_attention", shape,
+             lambda: bsa.block_sparse_attention_fwd(q, k, v, lut, block, block), "sla",
+             lambda: sla_twin(q, k, v, lut, block, block),
+             bound_ms(_nbytes(q, k, v, lut) + o_lse, 4.0 * entries * D), None),
+            ("int8_block_sparse_attention", f"{shape}, pre-quantized q/k",
+             lambda: i8.int8_attention_fwd(qi, ki, v, qs, ks, lut, block, block, scale), "int8",
+             lambda: i8._torch_int8_attention(qi, ki, v, qs, ks, lut, block, block, scale),
+             bound_ms(_nbytes(qi, ki, v, qs, ks, lut) + o_lse, 2.0 * entries * D,
+                      2.0 * entries * D), None),
+            ("sla_bwd_dq", shape,
+             lambda: bsa.sla_bwd_dq(q, k, v, lut, do, lse, delta, block, block, scale), "sla_bwd",
+             lambda: bsa.block_sparse_attention_bwd(q, k, v, lut, o, lse, do, block, block,
+                                                    twin=True),
+             bound_ms(_nbytes(q, k, v, do, lut) + rows_b + _nbytes(q), 6.0 * entries * D), None),
+            ("sla_bwd_dkdv", shape,
+             lambda: bsa.sla_bwd_dkdv(q, k, v, lut, do, lse, delta, block, block, scale),
+             "sla_bwd", None,
+             bound_ms(_nbytes(q, k, v, do, lut) + rows_b + _nbytes(k, v), 8.0 * pairs * D), None)]
+        for which in ("cross", "self"):
+            kk, vv, fo, flse = flash[which]
+            fdelta = bsa.attention_delta(fo, do)
+            n_k = kk.shape[1]
+            fshape = f"q [{BH},{L},{D}] k {n_k} rows"
+            leaves = [t[None].clone().requires_grad_() for t in (q, kk, vv)]
+            io = _nbytes(q, kk, vv, do) + 8 * BH * L
+            plan += [
+                (f"flash_attention/{which}", fshape,
+                 lambda kk=kk, vv=vv: bsa.flash_attention_fwd(q, kk, vv), f"flash/{which}",
+                 lambda kk=kk, vv=vv: bsa._torch_flash(q, kk, vv, scale, 1024),
+                 bound_ms(_nbytes(q, kk, vv, q) + 4 * BH * L, 4.0 * BH * L * n_k * D),
+                 lambda kk=kk, vv=vv: sdpa(q[None], kk[None], vv[None])),
+                (f"flash_bwd_dq/{which}", fshape,
+                 lambda kk=kk, vv=vv, fl=flse, fd=fdelta: bsa.flash_bwd_dq(
+                     q, kk, vv, do, fl, fd, scale), f"flash_bwd/{which}",
+                 lambda kk=kk, vv=vv, fo=fo, fl=flse: bsa.flash_attention_bwd(
+                     q, kk, vv, fo, fl, do, twin=True),
+                 bound_ms(io + _nbytes(q), 6.0 * BH * L * n_k * D), ("backward", leaves)),
+                (f"flash_bwd_dkdv/{which}", fshape,
+                 lambda kk=kk, vv=vv, fl=flse, fd=fdelta: bsa.flash_bwd_dkdv(
+                     q, kk, vv, do, fl, fd, scale), f"flash_bwd/{which}", None,
+                 bound_ms(io + _nbytes(kk, vv), 8.0 * BH * L * n_k * D), ("backward", leaves))]
+        twin_ms, lib_bwd = {}, {}
+        for name, shp, kernel, twin_key, twin, bound, lib in plan:
+            k_ms = _time_ms(kernel, iters=5, warmup=1)
+            if twin is not None:
+                twin_ms[twin_key] = _time_ms(twin, iters=1, warmup=1)
+            lib_ms = None
+            if isinstance(lib, tuple):      # autograd through sdpa: dq, dk, dv in one call
+                if twin_key not in lib_bwd:
+                    with torch.enable_grad():
+                        y = sdpa(*lib[1])
+                        lib_bwd[twin_key] = _time_ms(
+                            lambda: torch.autograd.grad(y, lib[1], do[None], retain_graph=True),
+                            iters=3, warmup=1)
+                    del y
+                lib_ms = lib_bwd[twin_key]
+            elif lib is not None:
+                lib_ms = _time_ms(lib, iters=5, warmup=1)
+            out[name] = (k_ms, twin_ms[twin_key], bound, lib_ms, shp)
+            lib_txt = ("library: none (no PyTorch call takes int8 Q K^T)" if name.startswith("int8")
+                       else "library: none (the LUT as an additive mask would be a 51 GB bias)"
+                       if lib_ms is None else
+                       f"library (scaled_dot_product_attention{' backward, dq dk dv' if 'bwd' in name else ''}) "
+                       f"{lib_ms:.4f} ms")
+            print(f"[timing] {tag} Phase 2 {name} {shp}: kernel {k_ms:.4f} ms, bound "
+                  f"{bound[0]:.4f} ms ({bound[1]}), plain twin{' (dq, dk, dv)' if 'bwd' in name else ''} "
+                  f"{twin_ms[twin_key]:.4f} ms, {lib_txt}", flush=True)
+        del plan, flash, leaves, q, k, v, do, kc, vc, o, lse, qi, ki, qs, ks
+    _set_train_counts(saved)
+    torch.cuda.empty_cache()
+    # _check_pair keeps a list per forward kernel; one largest |d| per kernel
+    return {k: max(v) if isinstance(v, list) else v for k, v in errs.items()}, out
+
+
+def _wan2_step_check(dev, data, anchors_root):
+    """The Phase-2 loss and every trainable leaf's gradient, kernel path
+    against twin path, from the same state, batch (an anchor-joined tar
+    batch) and draws, at full width and L = 32760, WAN2_COMPARE_LAYERS
+    layers, under sla, sage_sla and dense."""
+    import torch
+    from interpolated_diffusion_tpu_torch.train import train_interp_levels_wansynth as p2
+    from interpolated_diffusion_tpu_torch.train.state import flatten_dict, tree_leaves
+    from interpolated_diffusion_tpu_torch.train.wansynth_common import (build_wan,
+                                                                        make_wansynth_loader)
+    from interpolated_diffusion_tpu_torch.utils.prefetch import pinned_put
+
+    args = p2.build_argparser().parse_args(
+        ["--data", "tar", "--data_root", data, "--anchors_root", anchors_root,
+         "--wan_layers", str(WAN2_COMPARE_LAYERS), "--seed", "41"])
+    args.frame_cond, args.frame_cond_dim = 1, p2.FRAME_FEATURES + 1
+    wan, fc = build_wan(args, True, device=dev, zero_init_scale=1e-2,
+                        generator=torch.Generator(device=dev).manual_seed(args.seed))
+    batch = pinned_put(dev, keys=("latents", "text_embed", "anchors", "anchor_idx"))(
+        next(make_wansynth_loader(args, args.seed)))
+    require("anchors" in batch, "the Phase-2 tar batch has no joined anchors")
+    B, T, C, H, W = batch["latents"].shape
+    N, D_tok = (H // 2) * (W // 2), C * 4
+    require(B * args.wan_heads == WAN2_BH and T * N == WAN2_L, "Phase-2 shapes changed")
+    draws = p2.make_phase2_draws(torch.Generator(device=dev).manual_seed(42), args, B, T,
+                                 N * D_tok)
+    for mode in ("sla", "sage_sla", "dense"):
+        args.attn_mode = mode
+        wan.set_attn_mode(mode)
+        state, _, _, _, _ = p2.make_trainer(args, dev, wan, fc)
+        names = list(flatten_dict(state.params))
+        leaves = tree_leaves(state.params)
+
+        def loss_and_grads():
+            loss, _ = p2.phase2_loss(wan, fc, args, batch, draws)
+            return loss.detach(), torch.autograd.grad(loss, leaves)
+
+        luts = []
+        with sla_luts(luts):
+            loss_k, grads_k = loss_and_grads()
+        note = ""
+        if luts:
+            with wan_plain_twins():
+                _, grads_own = loss_and_grads()
+            own = max((_errors(a, b)[1], n) for n, a, b in zip(names, grads_k, grads_own))
+            del grads_own
+        with wan_plain_twins(), sla_luts(luts, replay=True) as lut_stats:
+            loss_t, grads_t = loss_and_grads()
+        if luts:
+            note = (f"; the twin path's own LUTs differ in {lut_stats[2]} of {lut_stats[1]} rows, "
+                    f"on them its worst gradient max|d|/max|twin|={own[0]:.3e} at {own[1]}")
+        rel_loss = abs(loss_k.item() - loss_t.item()) / abs(loss_t.item())
+        worst = max((_errors(a, b)[1], n) for n, a, b in zip(names, grads_k, grads_t))
+        zero = [n for n, g in zip(names, grads_t) if not bool(g.abs().max() > 0)]
+        print(f"[wan2 step] attn_mode={mode}, {WAN2_COMPARE_LAYERS} of 30 layers, L={T * N}, "
+              f"kernels vs plain twins (same state / batch / draws / LUTs): loss "
+              f"{loss_k.item():.6f} vs {loss_t.item():.6f} (rel {rel_loss:.3e}, tol "
+              f"{TRAIN_LOSS_TOL}); {len(names)} trainable leaves, worst gradient "
+              f"max|d|/max|twin|={worst[0]:.3e} at {worst[1]} (tol {TRAIN_GRAD_TOL}){note}",
+              flush=True)
+        require(not zero, f"Phase 2 {mode}: identically zero gradients at {zero[:3]}")
+        require(rel_loss <= TRAIN_LOSS_TOL, f"Phase 2 {mode}: loss disagrees ({rel_loss:.3e})")
+        require(worst[0] <= TRAIN_GRAD_TOL,
+                f"Phase 2 {mode}: gradient of {worst[1]} disagrees ({worst[0]:.3e})")
+        del grads_k, grads_t, state
+    del wan, fc, batch, draws
+    torch.cuda.empty_cache()
+
+
+_STEP_LINE = r"step (\d+) loss (\S+) \| ([0-9.]+)s/step"
+
+
+def phase_wan_phase2(dev, card, profile):
+    """Phase 5f: the Wan Phase-2 chain through its CLIs at Wan2.1-1.3B width
+    and depth. Returns ({kernel: max|d|}, kernel times at the Phase-2 shapes,
+    {kernel: {mode: launches per step}} of the trainer runs)."""
+    import re
+    import shutil
+
+    import numpy as np
+    import torch
+    from interpolated_diffusion_tpu_torch.data import make_synth_tars
+    from interpolated_diffusion_tpu_torch.data import precompute_phase1_anchors as prep
+    from interpolated_diffusion_tpu_torch.data.wan_synth import iter_tar_samples
+    from interpolated_diffusion_tpu_torch.diagnostics import eval_wansynth_stage2 as ev
+    from interpolated_diffusion_tpu_torch.train import train_interp_levels_wansynth as p2
+    from interpolated_diffusion_tpu_torch.train import train_keypoints_wansynth as p1
+    from interpolated_diffusion_tpu_torch.train.wansynth_common import make_wansynth_loader
+
+    t_phase = time.perf_counter()
+    tag = f"[{card}]"
+    work = tempfile.mkdtemp(prefix="wan_phase2_")
+    try:
+        # 1. inputs: synthetic clips at the full shapes as tar shards, and a
+        # Phase-1 checkpoint from its trainer CLI at its defaults
+        data = os.path.join(work, "data")
+        make_synth_tars.main(["--out_root", data, "--num_samples", str(WAN2_SAMPLES),
+                              "--shard_size", str(WAN2_SAMPLES)])
+        p1_dir = os.path.join(work, "p1")
+        _, counts, twin, log, secs, peak = _cli_run(p1.main, [
+            "--steps", str(WAN2_P1_STEPS), "--log_every", "1", "--data", "tar",
+            "--data_root", data, "--out_dir", p1_dir])
+        want = {k: c * WAN2_P1_STEPS for k, c in zip(TRAIN_KERNELS, TRAIN_EXPECT["sla"])}
+        require(counts == want and twin == 0, f"Phase-1 CLI: launches {counts}, twin calls "
+                f"{twin}, expected {want} and 0")
+        print(f"[wan2] {tag} Phase-1 trainer CLI at its defaults, {WAN2_P1_STEPS} steps on the "
+              f"tar shards: {secs:.1f} s with the model build and a checkpoint, peak "
+              f"{peak:.2f} GiB, launches {counts}", flush=True)
+
+        # 2. anchors at full width and depth, batch 4: ddim, pfdiff, FORA 2
+        anchor_sets, anchor_launches = {}, {}
+        for label, extra in WAN2_ANCHOR_RUNS:
+            out_root = os.path.join(work, f"anchors_{label}")
+            res, counts, twin, log, secs, peak = _cli_run(prep.main, [
+                "--ckpt", p1_dir, "--out_root", out_root, "--data", "tar", "--data_root", data,
+                "--batch", "4", *extra])
+            calls = -(-WAN2_SAMPLES // 4)
+            require(twin == 0 and res["samples"] == WAN2_SAMPLES and res["n_shards"] == 1,
+                    f"precompute {label}: {res}, twin calls {twin}")
+            per_call = {k: v // calls for k, v in counts.items() if v}
+            require(all(v % calls == 0 for v in counts.values()) and
+                    counts["block_sparse_attention"] > 0 and counts["flash_attention"] > 0,
+                    f"precompute {label}: launches {counts} over {calls} calls")
+            samples = list(iter_tar_samples(os.path.join(out_root, "shard_00000.tar")))
+            require(len(samples) == WAN2_SAMPLES and all(
+                set(s) == {"__key__", "anchors", "anchor_idx"} and
+                s["anchors"].shape == (5, 16, 60, 104) and s["anchors"].dtype == np.float32 and
+                s["anchor_idx"].shape == (5,) and s["anchor_idx"].dtype == np.int32 and
+                bool(np.isfinite(s["anchors"]).all()) and bool(np.all(np.diff(s["anchor_idx"]) > 0))
+                for s in samples), f"precompute {label}: the shard's fields or shapes are wrong")
+            anchor_sets[label] = np.stack([s["anchors"] for s in samples])
+            anchor_launches[label] = per_call
+            with open(os.path.join(out_root, "prep_config.json")) as f:
+                sps = json.load(f)["samples_per_sec"]
+            print(f"[wan2] {tag} precompute {label} (30 layers, batch 4, sla block 128, 4 "
+                  f"quadratic steps): {sps:.3f} samples/s after the first batch, launches per "
+                  f"call {per_call}, twin calls 0; {secs:.1f} s with the load", flush=True)
+        ref = anchor_sets["ddim"]
+        for label in ("pfdiff", "fora2"):
+            d = np.abs(anchor_sets[label] - ref).max() / np.abs(ref).max()
+            print(f"[wan2] anchors {label} vs ddim: max|d|/max|ddim| = {d:.3e} (another "
+                  f"solver or cached blocks: not a gate)", flush=True)
+        shutil.rmtree(p1_dir)
+        anchors_root = os.path.join(work, "anchors_ddim")
+
+        # 3. the kernels at the Phase-2 shapes, then the whole step at reduced depth
+        errs, ktimes = _wan2_kernels(dev, card)
+        _wan2_step_check(dev, data, anchors_root)
+
+        # 4. the trainer CLI at its defaults: sla, then resumed under sage_sla and dense
+        p2_dir = os.path.join(work, "p2")
+        done, launches, results = 0, {}, {}
+        for mode, n in WAN2_TRAIN:
+            argv = ["--data", "tar", "--data_root", data, "--anchors_root", anchors_root,
+                    "--out_dir", p2_dir, "--log_every", "1", "--attn_mode", mode,
+                    "--steps", str(done + n)] + (["--resume", p2_dir] if done else [])
+            _, counts, twin, log, secs, peak = _cli_run(p2.main, argv)
+            steps = [(int(a), float(b), float(c)) for a, b, c in re.findall(_STEP_LINE, log)]
+            require([s[0] for s in steps] == list(range(done, done + n)) and
+                    all(np.isfinite(s[1]) for s in steps),
+                    f"Phase-2 CLI {mode}: step lines {steps}")
+            want = {k: c * n for k, c in zip(TRAIN_KERNELS, TRAIN_EXPECT[mode])}
+            require(counts == want and twin == 0, f"Phase-2 CLI {mode}: launches {counts}, "
+                    f"twin calls {twin}, expected {want} and 0")
+            timed = [s[2] for s in steps[1:]]
+            per = sum(timed) / len(timed)
+            results[mode] = dict(s_per_step=per, peak_gib=peak, losses=[s[1] for s in steps])
+            for name, c in zip(TRAIN_KERNELS, TRAIN_EXPECT[mode]):
+                launches.setdefault(name, {})[mode] = c
+            print(f"[wan2 train] {tag} attn_mode={mode}: steps {done}..{done + n - 1}"
+                  f"{' (resumed)' if done else ''}: {per:.3f} s/step over {len(timed)} step(s) "
+                  f"after the first ({steps[0][2]:.3f} s), {2 / per:.3f} samples/s, peak memory "
+                  f"{peak:.2f} GiB, launches per step "
+                  f"{dict(zip(TRAIN_KERNELS, TRAIN_EXPECT[mode]))}, twin calls 0; losses "
+                  f"{[round(s[1], 4) for s in steps]}", flush=True)
+            results[mode]["ckpt"] = os.path.join(p2_dir, f"ckpt_{done + n}")
+            require(os.path.exists(os.path.join(results[mode]["ckpt"], "params.pt")),
+                    f"Phase-2 CLI {mode}: no checkpoint")
+            done += n
+
+        # 5. the evaluation CLI on each mode's checkpoint (the checkpoint's meta
+        # names its attention mode), then kernel path vs twin path under sla
+        for mode, _ in WAN2_TRAIN:
+            summary, counts, twin, log, secs, peak = _cli_run(ev.main, [
+                "--p2_ckpt", results[mode]["ckpt"], "--data_root", data,
+                "--anchors_root", anchors_root, "--num_batches", str(WAN2_EVAL_BATCHES),
+                "--out_dir", os.path.join(work, f"eval_{mode}")])
+            forwards = WAN2_EVAL_BATCHES * 2 * 2 * TRAIN_LAYERS   # batches x {gt, p1} x levels
+            want = {"sla": ("block_sparse_attention", "flash_attention"),
+                    "sage_sla": ("int8_block_sparse_attention", "flash_attention"),
+                    "dense": ("flash_attention", "flash_attention")}[mode]
+            want = {k: want.count(k) * forwards for k in TRAIN_KERNELS}
+            require(twin == 0 and counts == want and
+                    all(np.isfinite(summary[k]) for k in ev.MSE_KEYS),
+                    f"eval {mode}: {summary}, launches {counts} (expected {want}), twin calls {twin}")
+            results[mode]["eval"] = summary
+            for name, c in want.items():
+                if c:
+                    launches.setdefault(name, {})[f"eval_{mode}"] = c // WAN2_EVAL_BATCHES
+            print(f"[wan2 eval] {tag} {mode} checkpoint, {WAN2_EVAL_BATCHES} batches of 2: "
+                  + ", ".join(f"{k} {summary[k]:.6g}" for k in ev.MSE_KEYS)
+                  + f"; {summary['samples_per_sec']:.3f} samples/s; helps gt "
+                  f"{summary['stage2_helps_gt']}, p1 {summary['stage2_helps_p1']}; launches per "
+                  f"batch {({k: v // WAN2_EVAL_BATCHES for k, v in want.items() if v})}, twin "
+                  f"calls 0, peak {peak:.2f} GiB", flush=True)
+        model, fc, meta = ev.load_stage2(results["sla"]["ckpt"], True, dev)
+        run = ev.make_stage2_eval(model, fc, meta)
+        args = argparse.Namespace(data="tar", data_root=data, T=21, anchors_root=anchors_root,
+                                  batch=2)
+        batch = next(make_wansynth_loader(args, 0))
+        inputs = [torch.from_numpy(batch[k]).to(dev)
+                  for k in ("latents", "text_embed", "anchors", "anchor_idx")]
+        mask_rand = ev.make_eval_draws(torch.Generator(device=dev).manual_seed(43), 2, 21)
+        luts = []
+        with sla_luts(luts):
+            got = {k: float(v) for k, v in run(*inputs, mask_rand["mask_rand"]).items()}
+        with wan_plain_twins(), sla_luts(luts, replay=True):
+            ref = {k: float(v) for k, v in run(*inputs, mask_rand["mask_rand"]).items()}
+        rel = {k: abs(got[k] - ref[k]) / max(abs(ref[k]), 1e-30) for k in ev.MSE_KEYS}
+        print(f"[wan2 eval] kernel path vs twin path, one batch, same masks and LUTs: "
+              + ", ".join(f"{k} {got[k]:.6g} vs {ref[k]:.6g}" for k in ev.MSE_KEYS)
+              + f"; worst rel {max(rel.values()):.3e} (tol {WAN2_EVAL_TOL})", flush=True)
+        require(max(rel.values()) <= WAN2_EVAL_TOL, f"eval kernel vs twin path: {rel}")
+        del model, fc, run, inputs
+        torch.cuda.empty_cache()
+        if profile:
+            _wan2_profile(dev, card, data, anchors_root)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print(f"[wan2] phase 5f took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return errs, ktimes, launches, results
+
+
+def _wan2_profile(dev, card, data, anchors_root):
+    """torch.profiler over one sla-mode Phase-2 training step at the
+    trainer's defaults (full width and depth): device time by kind and the
+    device's busy share of the step."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+    from interpolated_diffusion_tpu_torch.train import train_interp_levels_wansynth as p2
+    from interpolated_diffusion_tpu_torch.train.wansynth_common import make_wansynth_loader
+    from interpolated_diffusion_tpu_torch.utils.prefetch import pinned_put
+
+    args = p2.build_argparser().parse_args(["--data", "tar", "--data_root", data,
+                                            "--anchors_root", anchors_root])
+    state, base, train_step, _, _ = p2.make_trainer(args, dev)
+    put = pinned_put(dev, keys=("latents", "text_embed", "anchors", "anchor_idx"))
+    loader = make_wansynth_loader(args, args.seed)
+    rng = torch.Generator(device=dev).manual_seed(44)
+    state, _ = train_step(state, base, put(next(loader)), rng)   # warm-up
+    batch = put(next(loader))
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, _ = train_step(state, base, batch, rng)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    _print_profile(prof, f"[{card}]", "one sla-mode Phase-2 training step (batch 2, L 32760)")
+    busy = sum(_device_us(e) for e in prof.key_averages()) / 1e6
+    print(f"[profile] [{card}] the Phase-2 step: {busy:.3f} s of device time in a {wall:.3f} s "
+          f"step: busy {busy / wall:.2f}", flush=True)
+    del state, base, train_step
+    torch.cuda.empty_cache()
+
+
 def gemm_ab(card) -> int:
     """`--gemm-ab`: what the W-resident GEMM kernel buys over the streaming one.
     Four runs of this script's `--maze-kernels` part in processes of their own,
@@ -3281,6 +3762,10 @@ def main() -> int:
                 f"[{k[1]},{k[2]},{BENCH['d_model']}]": v[0] for k, v in times.items()
                 if k[0] == "fused_film_block" and k[1] == 1024}}), flush=True)
             return 0
+        if "--wan-phase2" in sys.argv[1:]:   # phase 5f alone: no other phase, no summary
+            phase_wan_phase2(dev, card, profile)
+            print("[wan2] phase 5f passed", flush=True)
+            return 0
         if "--kernels" in sys.argv[1:]:   # the kernels alone: no model, no summary
             phase_timings(dev, card, cases)
             del cases
@@ -3320,6 +3805,8 @@ def main() -> int:
         bwd_errs, bwd_times, bwd_bounds = phase_wan_bwd_kernels(dev, card)
         torch.cuda.empty_cache()
         train_launches, _ = phase_wan_train(dev, card, profile)
+        torch.cuda.empty_cache()
+        wan2_errs, wan2_times, wan2_launches, _ = phase_wan_phase2(dev, card, profile)
     except SmokeFailure as e:
         print(f"FAIL: {e}", flush=True)
         return 1
@@ -3389,6 +3876,17 @@ def main() -> int:
     # Wan forward kernels: times at the anchor path's shapes (flash: its
     # cross-attention; SLA and int8 SLA also at the trainer's); `launches`
     # from the sampler's run, `train_launches` from the trainer's
+    # rows 4-8 also at the Wan Phase-2 trainer's shapes (phase 5f), with their
+    # launches per training step and per evaluation batch in its CLI runs
+    def phase2(name, *shapes):
+        out = {}
+        for which in shapes or ("",):
+            k_ms, p_ms, bound, lib_ms, shp = wan2_times[f"{name}/{which}" if which else name]
+            out[f"phase2_{which}" if which else "phase2"] = dict(
+                shape=shp, ms=k_ms, plain_ms=p_ms, bound_ms=bound[0], bound_by=bound[1],
+                library_ms=lib_ms, launches=wan2_launches.get(name, {}))
+        return out
+
     for name in WAN_KERNELS:
         k_ms, p_ms, lib_ms = wan_times[name if name != "flash_attention"
                                        else "flash_attention/cross"]
@@ -3403,8 +3901,9 @@ def main() -> int:
             t_ms, t_plain, t_lib = wan_times[f"{name}/train"]
             extra = dict(train_ms=t_ms, train_plain_ms=t_plain, train_library_ms=t_lib,
                          train_bound_ms=wan_times["bounds"][f"{name}/train"][0])
-        row(name, wan_launches[name], max(wan_errs[name]), k_ms, p_ms, wan_times["bounds"][name],
-            lib_ms, train_launches=train_launches[name], **extra)
+        extra.update(phase2(name, *(("cross", "self") if name == "flash_attention" else ())))
+        row(name, wan_launches[name], max(*wan_errs[name], wan2_errs.get(name, 0.0)), k_ms, p_ms,
+            wan_times["bounds"][name], lib_ms, train_launches=train_launches[name], **extra)
     # backward kernels: times at the trainer's shapes (flash: cross-attention,
     # and its self-attention shape too; SLA also by graph replay); the twin and
     # the library call compute dq, dk and dv in one call
@@ -3420,9 +3919,10 @@ def main() -> int:
                          self_plain_ms=bwd_times["flash_twin_self"],
                          self_library_ms=bwd_times["flash_library_self"],
                          self_bound_ms=bwd_bounds[f"{name}_self"][0])
-        row(name, train_launches[name], bwd_errs[name], bwd_times[name],
-            bwd_times[f"{kind}_twin"], bwd_bounds[name], bwd_times.get(f"{kind}_library"),
-            **extra)
+        extra.update(phase2(name, *(("cross", "self") if kind == "flash" else ())))
+        row(name, train_launches[name], max(bwd_errs[name], wan2_errs.get(name, 0.0)),
+            bwd_times[name], bwd_times[f"{kind}_twin"], bwd_bounds[name],
+            bwd_times.get(f"{kind}_library"), **extra)
     idle = [r["name"] for r in summary if r["launches"] <= 0]
     if idle:
         print(f"FAIL: kernels never launched on their main path: {idle}", flush=True)

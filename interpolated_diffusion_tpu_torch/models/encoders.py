@@ -1,7 +1,7 @@
-"""Maze condition encoders (port of models/encoders.py).
+"""Maze and text condition encoders (port of models/encoders.py).
 
 Parameter names follow the original PyTorch reference (`maze.convs.{0,2,..}`,
-`maze.fc`, `sg.mlp.{0,2}`), so models/jax_import.py and the JAX package's
+`maze.fc`, `sg.mlp.{0,2}`, the text encoder's `proj.{0,2}`), so models/jax_import.py and the JAX package's
 torch_import.convert_state_dict map between the two. Convolutions run NCHW,
 3x3 with padding 1 (flax "SAME").
 """
@@ -64,3 +64,21 @@ class MazeConditionEncoder(nn.Module):
                 raise ValueError("use_start_goal is True but start_goal missing from cond")
             emb = emb + self.sg(cond["start_goal"])
         return emb
+
+
+class TextConditionEncoder(nn.Module):
+    """Text embeddings [B, L, text_dim] (or [B, text_dim]) -> [B, d_cond]:
+    mean over the tokens, then Linear -> SiLU -> Linear (the JAX package's
+    text_enc fc1 / fc2, the reference's proj.0 / proj.2)."""
+
+    def __init__(self, text_dim: int, d_cond: int = 128):
+        super().__init__()
+        self.proj = nn.Sequential(Linear(text_dim, d_cond), nn.SiLU(), Linear(d_cond, d_cond))
+
+    def forward(self, cond: Dict[str, torch.Tensor]) -> torch.Tensor:
+        text = cond.get("text_embed")
+        if text is None:
+            raise ValueError("text_embed missing from cond")
+        if text.ndim > 2:
+            text = text.mean(dim=tuple(range(1, text.ndim - 1)))
+        return self.proj(text)

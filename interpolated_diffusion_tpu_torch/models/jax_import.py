@@ -84,22 +84,31 @@ def _transformer(sd, p: Params) -> None:
         _block(sd, f"transformer.layers.{i}.", p[f"block_{i}"])
 
 
+_KINDS = ("keypoint", "interp", "video_keypoint", "video_interp")
+
+
 def params_to_state_dict(params: Params, kind: str) -> Dict[str, torch.Tensor]:
-    """flax params of a KeypointDenoiser ("keypoint") or InterpLevelDenoiser
-    ("interp") -> state_dict of the port's module of the same name."""
+    """flax params of a KeypointDenoiser ("keypoint"), InterpLevelDenoiser
+    ("interp"), VideoTokenKeypointDenoiser ("video_keypoint") or
+    VideoTokenInterpLevelDenoiser ("video_interp") -> state_dict of the
+    port's module of the same name (the video denoisers' text encoder
+    text_enc/fc{1,2} -> cond_enc.proj.{0,2})."""
+    if kind not in _KINDS:
+        raise ValueError(f"unknown model kind {kind!r}; one of {list(_KINDS)}")
     sd: Dict[str, torch.Tensor] = {}
     _linear(sd, "in_proj", params["in_proj"])
-    if kind == "keypoint":
+    if kind.endswith("keypoint"):
         _linear(sd, "t_embed.0", params["t_fc1"])
         _linear(sd, "t_embed.2", params["t_fc2"])
-    elif kind == "interp":
+    else:
         sd["level_emb.weight"] = _t(params["level_emb"]["embedding"])
         _linear(sd, "level_proj.0", params["lvl_fc1"])
         _linear(sd, "level_proj.2", params["lvl_fc2"])
-    else:
-        raise ValueError(f"unknown model kind {kind!r}; one of ['interp', 'keypoint']")
     if "cond_enc" in params:
         _cond_enc(sd, params["cond_enc"])
+    if "text_enc" in params:
+        _linear(sd, "cond_enc.proj.0", params["text_enc"]["fc1"])
+        _linear(sd, "cond_enc.proj.2", params["text_enc"]["fc2"])
     _linear(sd, "cond_proj", params["cond_proj"])
     _transformer(sd, params["transformer"])
     _linear(sd, "out", params["out"])
@@ -347,9 +356,10 @@ def segment_cost_to_state_dict(params: Params) -> Dict[str, torch.Tensor]:
 
 # stages whose module the port does not have yet, and what is missing
 _UNPORTED_STAGES = {
-    "interp_levels_wansynth": "the Wan Stage-2 trainer (train/train_interp_levels_wansynth.py)",
     "flow_interpolator": "the flow interpolator (models/flow_interpolator.py)",
 }
+_WANSYNTH_STAGES = {"keypoints_wansynth": "video_keypoint",
+                    "interp_levels_wansynth": "video_interp"}
 
 
 def _numpy_tree(tree):
@@ -380,11 +390,13 @@ def checkpoint_to_state_dict(meta: Dict, params: Params) -> Dict[str, Any]:
         return selector_to_state_dict(params)
     if stage == "segment_cost":
         return segment_cost_to_state_dict(params)
-    if stage == "keypoints_wansynth":
-        extra = sorted(set(params) - {"lora", "frame_cond"})
+    if stage in _WANSYNTH_STAGES:
+        if not meta.get("use_wan", 1):
+            return params_to_state_dict(params, _WANSYNTH_STAGES[stage])
+        extra = sorted(set(params) - {"lora", "frame_cond", "wan_base", "wan"})
         if extra:
-            raise NotImplementedError(f"JAX keypoints_wansynth checkpoint with {extra}: only "
-                                      "the LoRA and frame-projector leaves are read")
+            raise NotImplementedError(f"JAX {stage} checkpoint with {extra}: only the LoRA, "
+                                      "frame-projector and WanDiT trees are read")
         out: Dict[str, Any] = {}
         if "lora" in params:
             out["lora"] = lora_params_to_state_dict(params["lora"])
@@ -392,6 +404,9 @@ def checkpoint_to_state_dict(meta: Dict, params: Params) -> Dict[str, Any]:
             out["frame_cond"] = {}
             for name, p in params["frame_cond"].items():
                 _linear(out["frame_cond"], name, p)
+        for key in ("wan_base", "wan"):
+            if key in params:
+                out[key] = wan_params_to_state_dict(params[key])[0]
         return out
     missing = _UNPORTED_STAGES.get(stage, f"the module of stage {stage!r}")
     raise NotImplementedError(f"JAX checkpoint of stage {stage!r}: {missing} is not ported "

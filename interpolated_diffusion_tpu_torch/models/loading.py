@@ -1,7 +1,8 @@
 """Checkpoint -> model loaders shared by the samplers, the trainers and the
 service (port of models/loading.py: the two maze denoisers, the keypoint
 selector and the segment-cost model D_phi, and the D_phi cost function of
-the kp_feat channels).
+the kp_feat channels), and the wansynth checkpoints of both phases
+(`load_wansynth_model`: WanDiT + frame projector, or the token denoisers).
 
 Reads the port's own checkpoints and the JAX package's (utils/checkpoint.py
 routes a directory with `params.msgpack` through utils/jax_checkpoint.py and
@@ -16,7 +17,8 @@ here.
 from __future__ import annotations
 
 import os
-from typing import Dict, Tuple
+import warnings
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -131,3 +133,80 @@ def make_dphi_seg_cost_fn(path: str, T: int, use_sdf=None, bf16: bool = True, de
             return model(cond, build_segment_features_from_idx(idx, T, seg_feat_dim))
 
     return seg_cost_fn, meta
+
+
+WANSYNTH_STAGES = ("keypoints_wansynth", "interp_levels_wansynth")
+
+
+def _token_model(meta: Dict, stage: str):
+    from .video_denoisers import VideoTokenInterpLevelDenoiser, VideoTokenKeypointDenoiser
+
+    p = int(meta["patch_size"])
+    common = dict(d_model=int(meta["d_model"]), n_layers=int(meta["n_layers"]),
+                  n_heads=int(meta["n_heads"]), d_ff=int(meta["d_ff"]),
+                  data_dim=int(meta["latent_c"]) * p * p, text_dim=int(meta["text_dim"]))
+    if stage == "keypoints_wansynth":
+        return VideoTokenKeypointDenoiser(**common)
+    return VideoTokenInterpLevelDenoiser(max_levels=max(8, int(meta["levels"])),
+                                         mask_channels=int(meta["mask_channels"]), **common)
+
+
+def load_wansynth_model(path: str, stage: str, bf16: bool = True, device="cuda",
+                        base: Optional[Dict[str, torch.Tensor]] = None, use_ema: bool = False,
+                        **wan_over):
+    """(model, fc, meta) of a wansynth checkpoint of `stage` (or the newest
+    under a run dir), either package's, on `device`, in eval mode without
+    gradients.
+
+    use_wan: `model` is the WanDiT built from the meta (train/wansynth_common
+    .wan_args_from_meta with `wan_over` on top: the precompute's attention
+    overrides, the Phase-2 frame_cond_dim), LoRA in the meta's form as f32
+    masters, the base in the compute dtype (bf16 under `bf16`), `fc` its
+    FrameCondProjector. The base comes from the checkpoint's "wan_base"; a
+    checkpoint without one (written before the trainers saved it) takes
+    `base` when given, else keeps the seeded initialisation with a warning.
+    A base without the SLA projection (a dense run sampled under sla) keeps
+    the projection's zero initialisation.
+    use_wan 0: `model` is the token denoiser of the stage (its EMA weights
+    with `use_ema` when saved), fc None."""
+    from ..train.wansynth_common import build_wan, check_wan_meta, init_wan_trainables, \
+        wan_args_from_meta
+
+    path = resolve_ckpt(path)
+    _, meta = read_meta(path)
+    _check_meta(meta, path, stage)
+    _, payload = load_checkpoint(path, map_location=device, with_opt_state=False)
+    params = payload["params"]
+    if not meta.get("use_wan", 1):
+        model = _token_model(meta, stage)
+        model.load_state_dict(payload["ema"] if (use_ema and "ema" in payload) else params)
+        set_compute_dtype(model, torch.bfloat16 if bf16 else None)
+        return model.to(device).eval().requires_grad_(False), None, meta
+    check_wan_meta(meta)
+    ns = wan_args_from_meta(meta, **wan_over)
+    wan, fc = build_wan(ns, bf16, device=device,
+                        generator=torch.Generator(device=device).manual_seed(0))
+    init_wan_trainables(ns, wan, fc, bf16)
+    named = dict(wan.named_parameters())
+    base_sd = params.get("wan_base", params.get("wan", base))
+    with torch.no_grad():
+        if base_sd is None:
+            warnings.warn(f"{path} holds no wan_base: the WanDiT base weights are the seeded "
+                          "initialisation, not the trained model's", stacklevel=2)
+        else:
+            unknown = sorted(set(base_sd) - set(named))
+            missing = sorted(k for k in set(named) - set(base_sd) - set(params.get("lora", {}))
+                             if ".sla.proj_l." not in k)
+            if unknown or missing:
+                raise ValueError(f"{path}: the Wan base does not fit the model built from its "
+                                 f"meta (unknown {unknown[:3]}, missing {missing[:3]})")
+            for name, value in base_sd.items():
+                named[name].copy_(value)
+        for name, value in params.get("lora", {}).items():
+            named[name].copy_(value)
+        if fc is not None:
+            fc.load_state_dict({k: v.float() for k, v in params["frame_cond"].items()})
+    wan.eval().requires_grad_(False)
+    if fc is not None:
+        fc.eval().requires_grad_(False)
+    return wan, fc, meta

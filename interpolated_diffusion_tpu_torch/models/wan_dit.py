@@ -15,13 +15,18 @@ any other attention with L >= 2048 queries goes through the flash kernel;
 the rest is plain dense attention.
 
 Module names follow the diffusers WanTransformer3DModel state dict
-(models/wan_convert.py in the JAX package lists the map) so that a Wan2.1
-checkpoint maps straight on. Leaves diffusers does not have sit under names
-of their own: `*.lora_A` / `*.lora_B` beside each adapted Linear,
-`attn1.sla.proj_l`, and `condition_embedder.extra_embedder` (the JAX
-package's extra_fc1/extra_fc2). One Python loop of blocks, each under its own
-activation checkpoint with use_remat: the JAX package's scan layout,
-remat_group and FORA block caching (blocks_delta) are not ported.
+(models/wan_convert.py lists the map) so that a Wan2.1 checkpoint maps
+straight on. Leaves diffusers does not have sit under names of their own:
+`*.lora_A` / `*.lora_B` beside each adapted Linear, `attn1.sla.proj_l`, and
+`condition_embedder.extra_embedder` (the JAX package's extra_fc1/extra_fc2).
+LoRA runs in either of the JAX package's forms on the same leaves: "runtime"
+adds (a/r)(x A^T) B^T to the activations, "merged" adds ((B A)(a/r)) rounded
+to the weight's dtype to the weight, the rounding point of its
+models/lora.apply_lora. One Python loop of blocks, under one activation
+checkpoint per `remat_group` blocks with use_remat; the JAX package's scan
+layout is a parameter layout only (models/jax_import reads it). FORA block
+caching for sampling: `return_delta` also returns the block stack's total
+residual, `blocks_delta` skips the stack and adds a cached one.
 """
 from __future__ import annotations
 
@@ -101,21 +106,25 @@ def _linear(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tens
 
 
 class LoRALinear(nn.Linear):
-    """Linear with runtime low-rank adaptation: y = x W^T + b + (a/r)(x A^T) B^T.
+    """Linear with low-rank adaptation, A [r, in] and B [out, r] (torch's
+    layout; the JAX package stores their transposes), B zero-initialised.
 
-    The delta is applied to activations, so the base weight is never
-    duplicated. A [r, in] and B [out, r] (torch's layout; the JAX package
-    stores their transposes) are cast to the compute dtype, as is x. B is
-    zero-initialised.
+    form "runtime": y = x W^T + b + (a/r)(x A^T) B^T, the delta applied to the
+    activations (A, B and x cast to the compute dtype), so the base weight is
+    never duplicated. form "merged": y = x W'^T + b with W' = W +
+    ((B A)(a/r)).to(W.dtype), the product in f32 and the sum in the weight's
+    dtype, as the JAX package's models/lora.apply_lora merges its adapter tree.
     """
 
     zero_init_params = ("lora_B",)
     compute_dtype: Optional[torch.dtype] = None
 
     def __init__(self, in_features: int, out_features: int, rank: int = 0,
-                 alpha: float = 16.0):
+                 alpha: float = 16.0, form: str = "runtime"):
         super().__init__(in_features, out_features)
-        self.rank, self.alpha = rank, alpha
+        if form not in ("runtime", "merged"):
+            raise ValueError(f"LoRA form {form!r} not in ('runtime', 'merged')")
+        self.rank, self.alpha, self.form = rank, alpha, form
         if rank > 0:
             self.lora_A = nn.Parameter(torch.empty(rank, in_features))
             self.lora_B = nn.Parameter(torch.empty(out_features, rank))
@@ -130,6 +139,10 @@ class LoRALinear(nn.Linear):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dtype = self.compute_dtype or self.weight.dtype
         x = x.to(dtype)   # keep the residual stream in the compute dtype
+        if self.rank > 0 and self.form == "merged":
+            delta = (self.lora_B.float() @ self.lora_A.float()) * (self.alpha / float(self.rank))
+            weight = self.weight + delta.to(self.weight.dtype)
+            return F.linear(x, weight.to(dtype), self.bias.to(dtype))
         y = _linear(self, x, dtype)
         if self.rank <= 0:
             return y
@@ -162,15 +175,16 @@ def _gelu(x: torch.Tensor) -> torch.Tensor:
 class WanAttention(nn.Module):
     def __init__(self, dim: int, n_heads: int, attn_mode: str = "dense",
                  sla_topk: float = 0.1, sla_block: int = 128, lora_rank: int = 0,
-                 lora_alpha: float = 16.0):
+                 lora_alpha: float = 16.0, lora_form: str = "runtime"):
         super().__init__()
         if attn_mode not in ATTN_MODES:
             raise ValueError(f"attn_mode {attn_mode!r} not in {ATTN_MODES}")
         self.dim, self.n_heads = dim, n_heads
-        self.to_q = LoRALinear(dim, dim, lora_rank, lora_alpha)
-        self.to_k = LoRALinear(dim, dim, lora_rank, lora_alpha)
-        self.to_v = LoRALinear(dim, dim, lora_rank, lora_alpha)
-        self.to_out = nn.ModuleList([LoRALinear(dim, dim, lora_rank, lora_alpha)])
+        lora = (lora_rank, lora_alpha, lora_form)
+        self.to_q = LoRALinear(dim, dim, *lora)
+        self.to_k = LoRALinear(dim, dim, *lora)
+        self.to_v = LoRALinear(dim, dim, *lora)
+        self.to_out = nn.ModuleList([LoRALinear(dim, dim, *lora)])
         self.norm_q = RMSNorm(dim)
         self.norm_k = RMSNorm(dim)
         self.sla = None
@@ -218,9 +232,9 @@ class WanAttention(nn.Module):
 
 
 class _GeluProj(nn.Module):
-    def __init__(self, d_in: int, d_out: int, rank: int, alpha: float):
+    def __init__(self, d_in: int, d_out: int, rank: int, alpha: float, form: str):
         super().__init__()
-        self.proj = LoRALinear(d_in, d_out, rank, alpha)
+        self.proj = LoRALinear(d_in, d_out, rank, alpha, form)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return _gelu(self.proj(x))
@@ -229,10 +243,11 @@ class _GeluProj(nn.Module):
 class FeedForward(nn.Module):
     """diffusers' FeedForward layout: net.0.proj, (net.1 dropout), net.2."""
 
-    def __init__(self, dim: int, ffn_dim: int, rank: int = 0, alpha: float = 16.0):
+    def __init__(self, dim: int, ffn_dim: int, rank: int = 0, alpha: float = 16.0,
+                 form: str = "runtime"):
         super().__init__()
-        self.net = nn.ModuleList([_GeluProj(dim, ffn_dim, rank, alpha), nn.Identity(),
-                                  LoRALinear(ffn_dim, dim, rank, alpha)])
+        self.net = nn.ModuleList([_GeluProj(dim, ffn_dim, rank, alpha, form), nn.Identity(),
+                                  LoRALinear(ffn_dim, dim, rank, alpha, form)])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.net[2](self.net[0](x))
@@ -242,7 +257,7 @@ class WanBlock(nn.Module):
     def __init__(self, dim: int, n_heads: int, ffn_dim: int, attn_mode: str = "dense",
                  sla_topk: float = 0.1, sla_block: int = 256, lora_rank: int = 0,
                  lora_alpha: float = 16.0, lora_targets: str = "attn,ffn",
-                 ffn_mode: str = "dense"):
+                 ffn_mode: str = "dense", lora_form: str = "runtime"):
         super().__init__()
         if ffn_mode != "dense":
             raise NotImplementedError(f"ffn_mode={ffn_mode!r} (Switch MoE) is not ported yet")
@@ -252,11 +267,12 @@ class WanBlock(nn.Module):
         self.scale_shift_table = nn.Parameter(torch.empty(1, 6, dim))
         self.norm1 = LayerNorm(dim, affine=False)
         self.attn1 = WanAttention(dim, n_heads, attn_mode, sla_topk, sla_block, r_attn,
-                                  lora_alpha)
+                                  lora_alpha, lora_form)
         self.norm2 = LayerNorm(dim)
-        self.attn2 = WanAttention(dim, n_heads, "dense", lora_rank=r_attn, lora_alpha=lora_alpha)
+        self.attn2 = WanAttention(dim, n_heads, "dense", lora_rank=r_attn, lora_alpha=lora_alpha,
+                                  lora_form=lora_form)
         self.norm3 = LayerNorm(dim, affine=False)
-        self.ffn = FeedForward(dim, ffn_dim, r_ffn, lora_alpha)
+        self.ffn = FeedForward(dim, ffn_dim, r_ffn, lora_alpha, lora_form)
 
     def init_seeded(self, uniform_) -> None:
         uniform_(self.scale_shift_table, 0.02 * math.sqrt(3.0))  # std 0.02, as the JAX init
@@ -330,9 +346,10 @@ class WanDiT(nn.Module):
     Defaults are the Wan2.1-T2V-1.3B family (dim 1536, 30 blocks, 12 heads,
     ffn 8960, text dim 4096, patch (1, 2, 2), head dim 128). extra_context
     creates the extra-token MLP that FrameCondProjector's output goes through.
-    use_remat recomputes each block's forward in the backward pass (one
-    non-reentrant activation checkpoint per block), so that a training step
-    keeps one [B, L, dim] tensor per block instead of every intermediate.
+    use_remat recomputes the blocks' forward in the backward pass (one
+    non-reentrant activation checkpoint per `remat_group` consecutive blocks),
+    so that a training step keeps one [B, L, dim] tensor per group instead of
+    every intermediate. lora_form "runtime" or "merged" (LoRALinear).
     """
 
     compute_dtype: Optional[torch.dtype] = None
@@ -344,10 +361,10 @@ class WanDiT(nn.Module):
                  sla_topk: float = 0.1, sla_block: int = 256, lora_rank: int = 0,
                  lora_alpha: float = 16.0, lora_targets: str = "attn,ffn",
                  ffn_mode: str = "dense", extra_context: bool = False,
-                 use_remat: bool = False):
+                 use_remat: bool = False, remat_group: int = 1, lora_form: str = "runtime"):
         super().__init__()
         self.dim, self.n_heads, self.out_channels = dim, n_heads, out_channels
-        self.use_remat = use_remat
+        self.use_remat, self.remat_group = use_remat, max(1, int(remat_group))
         self.patch_size, self.max_seq_len = tuple(patch_size), max_seq_len
         # a Conv3d-shaped weight [dim, C, pt, ph, pw]; stride == kernel, so it
         # runs as reshape + linear (no convolution)
@@ -356,7 +373,7 @@ class WanDiT(nn.Module):
         self.condition_embedder = WanConditionEmbedder(dim, freq_dim, text_dim, extra_context)
         self.blocks = nn.ModuleList([
             WanBlock(dim, n_heads, ffn_dim, attn_mode, sla_topk, sla_block, lora_rank,
-                     lora_alpha, lora_targets, ffn_mode) for _ in range(n_layers)])
+                     lora_alpha, lora_targets, ffn_mode, lora_form) for _ in range(n_layers)])
         self.scale_shift_table = nn.Parameter(torch.empty(1, 2, dim))
         self.norm_out = LayerNorm(dim, affine=False)
         self.proj_out = nn.Linear(dim, out_channels * math.prod(self.patch_size))
@@ -370,12 +387,46 @@ class WanDiT(nn.Module):
         for block in self.blocks:
             block.attn1.set_attn_mode(mode)
 
+    def set_sla_topk(self, topk: float) -> None:
+        """The SLA top-k ratio of every block (the precompute CLI's per-phase
+        --sla_topk_schedule: the weights do not depend on it)."""
+        for block in self.blocks:
+            if block.attn1.sla is None:
+                raise ValueError("set_sla_topk needs a model built in sla or sage_sla mode")
+            block.attn1.sla.topk = topk
+
+    def _run_blocks(self, x, ctx, t_mod, rope):
+        blocks = list(self.blocks)
+        if not (self.use_remat and torch.is_grad_enabled()):
+            for block in blocks:
+                x = block(x, ctx, t_mod, rope)
+            return x
+
+        def group(x, ctx, t_mod, rope, members):
+            for block in members:
+                x = block(x, ctx, t_mod, rope)
+            return x
+
+        for i in range(0, len(blocks), self.remat_group):
+            # non-reentrant: with only LoRA leaves training, the tokens
+            # entering the first block require no gradient
+            x = checkpoint(group, x, ctx, t_mod, rope, blocks[i:i + self.remat_group],
+                           use_reentrant=False, preserve_rng_state=False)
+        return x
+
     def forward(self, latents: torch.Tensor, t: torch.Tensor, context: torch.Tensor,
                 frame_indices: Optional[torch.Tensor] = None,
-                extra_context: Optional[torch.Tensor] = None) -> torch.Tensor:
+                extra_context: Optional[torch.Tensor] = None,
+                blocks_delta: Optional[torch.Tensor] = None, return_delta: bool = False):
         """latents [B, C, T, H, W], t [B], context [B, L_text, text_dim],
         frame_indices [B, T] (absolute-time RoPE), extra_context
-        [B, L_extra, text_dim] -> [B, C_out, T, H, W] float32."""
+        [B, L_extra, text_dim] -> [B, C_out, T, H, W] float32.
+
+        FORA-style block caching for sampling: `return_delta` also returns
+        the block stack's residual x_blocks - x_embed [B, L, dim] (compute
+        dtype); `blocks_delta` skips every block and adds that residual to the
+        fresh token embedding, while the conditioning and the time-modulated
+        head still run. Training never uses it."""
         dtype = self.compute_dtype or self.proj_out.weight.dtype
         B, C, T, H, W = latents.shape
         pt, ph, pw = self.patch_size
@@ -401,14 +452,12 @@ class WanDiT(nn.Module):
                                        device=latents.device)
         rope = build_rope_freqs(tables, dims, ppf, pph, ppw, frame_indices)
 
-        for block in self.blocks:
-            if self.use_remat and torch.is_grad_enabled():
-                # non-reentrant: with only LoRA leaves training, the tokens
-                # entering block 0 require no gradient
-                x = checkpoint(block, x, ctx, t_mod, rope, use_reentrant=False,
-                               preserve_rng_state=False)
-            else:
-                x = block(x, ctx, t_mod, rope)
+        x_embed = x
+        if blocks_delta is not None:
+            x = x_embed + blocks_delta.to(x.dtype)
+        else:
+            x = self._run_blocks(x, ctx, t_mod, rope)
+        delta = x - x_embed if return_delta else None
 
         # head: modulated by the time embedding itself (diffusers Wan semantics)
         mod = self.scale_shift_table.float() + t_emb[:, None].float()
@@ -416,4 +465,4 @@ class WanDiT(nn.Module):
         x = _linear(self.proj_out, self.norm_out(x) * (1 + scale) + shift, dtype)
         x = x.reshape(B, ppf, pph, ppw, self.out_channels, pt, ph, pw)
         x = x.permute(0, 4, 1, 5, 2, 6, 3, 7).reshape(B, self.out_channels, T, H, W)
-        return x.float()
+        return (x.float(), delta) if return_delta else x.float()

@@ -9,13 +9,15 @@ noisy anchors into the T-sequence and interpolates the missing frames;
 `short_anchors` runs the K anchors alone, `short_midpoints` /
 `short_meanpool` 2K - 1 frames (anchors and segment midpoints, or segment
 means), all three with absolute-time RoPE. Self-attention through SLA
-(`--attn_mode sla`, `sage_sla`) or the flash kernels (`dense`), runtime LoRA
-on a frozen base, frame-conditioning cross-attention tokens, CFG text
-dropout, throughput telemetry. Runs on the GPU unless `--device cpu`.
+(`--attn_mode sla`, `sage_sla`) or the flash kernels (`dense`), LoRA (runtime
+or merged form) on a frozen base, optionally pretrained Wan2.1 weights
+(`--wan_pretrained`), frame-conditioning cross-attention tokens, CFG text
+dropout, throughput telemetry. `--use_wan 0` trains the token transformer
+(models/video_denoisers.VideoTokenKeypointDenoiser) instead. Runs on the GPU
+unless `--device cpu`.
 
-Not ported (each raises, naming what is missing): `--use_wan 0` (the token
-transformer), `--ckpt_async`, `--n_data_shards`, `--ffn_mode moe`,
-`--lora_form merged`, `--wan_pretrained`. `--grad_accum` is parsed and not
+Not ported (each raises, naming what is missing): `--ckpt_async`,
+`--n_data_shards`, `--ffn_mode moe`. `--grad_accum` is parsed and not
 applied, as in the JAX trainer.
 """
 from __future__ import annotations
@@ -29,6 +31,9 @@ from typing import Dict, Optional, Tuple, Union
 
 import torch
 
+from ..models.init import build_model
+from ..models.transformer import set_compute_dtype
+from ..models.video_denoisers import VideoTokenKeypointDenoiser
 from ..ops.keyframes import sample_fixed_k_indices_uniform_batch
 from ..ops.schedules import DiffusionSchedule, make_schedule
 from ..ops.video_keyframes import interpolate_video_from_indices
@@ -37,6 +42,7 @@ from ..utils.frame_features import frame_features_from_mask
 from ..utils.memguard import check_cpu_mem
 from ..utils.prefetch import DevicePrefetcher, pinned_put
 from ..utils.video_tokens import patchify_latents, unpatchify_tokens
+from .common import resolve_device
 from .state import TrainState, flatten_dict, init_train_state, make_optimizer, make_train_step_frozen
 from .wansynth_common import (
     WAN_HEAD_MOD_VERSION,
@@ -89,7 +95,7 @@ def build_argparser() -> argparse.ArgumentParser:
                         "chrome://tracing or Perfetto) of a window of steps into this dir")
     p.add_argument("--profile_start", type=int, default=3)
     p.add_argument("--profile_steps", type=int, default=3)
-    # token-transformer fallback (use_wan=0, not ported)
+    # token-transformer fallback (use_wan=0)
     p.add_argument("--d_model", type=int, default=512)
     p.add_argument("--n_layers", type=int, default=8)
     p.add_argument("--n_heads", type=int, default=8)
@@ -120,9 +126,10 @@ def draw_phase1(generator: torch.Generator, args, B: int, z_shape: Tuple[int, ..
 def phase1_loss(wan, fc, args, schedule: DiffusionSchedule, batch: Dict[str, torch.Tensor],
                 rng: Union[torch.Generator, Draws]) -> Tuple[torch.Tensor, Dict]:
     """Anchor-slot eps MSE of one batch (latents [B, T, C, H, W], text_embed
-    [B, L, text_dim]). `rng` is a torch.Generator, or the draws themselves
-    (the dict of `draw_phase1`), so that a test can hand in another
-    framework's."""
+    [B, L, text_dim]). `wan` is the WanDiT (`fc` its projector), or the
+    VideoTokenKeypointDenoiser under --use_wan 0. `rng` is a
+    torch.Generator, or the draws themselves (the dict of `draw_phase1`), so
+    that a test can hand in another framework's."""
     latents, text = batch["latents"].float(), batch["text_embed"]
     B, T = latents.shape[:2]
     p_sz, K, mode = args.patch_size, min(args.K, args.T), args.phase1_input_mode
@@ -155,6 +162,9 @@ def phase1_loss(wan, fc, args, schedule: DiffusionSchedule, batch: Dict[str, tor
         drop = draws["drop_rand"] < args.cond_drop_prob
         text = torch.where(drop[:, None, None], torch.zeros_like(text), text)
 
+    if not args.use_wan:
+        eps_hat = wan(z_t, t, idx_in, {"text_embed": text}, T, spatial)
+        return torch.mean((eps_hat - eps) ** 2), {}
     extra = None
     if args.frame_cond:
         feat = frame_features_from_mask(mask)
@@ -178,24 +188,12 @@ def phase1_loss(wan, fc, args, schedule: DiffusionSchedule, batch: Dict[str, tor
 
 
 def _check_ported(args) -> None:
-    if not args.use_wan:
-        raise NotImplementedError("--use_wan 0: the token transformer "
-                                  "(models/video_denoisers.VideoTokenKeypointDenoiser) is not "
-                                  "ported yet")
     if args.ckpt_async:
         raise NotImplementedError("--ckpt_async: asynchronous sharded checkpoints "
                                   "(utils/checkpoint_sharded.py) are not ported yet")
     if args.n_data_shards is not None:
         raise NotImplementedError("--n_data_shards: the data-parallel mesh (parallel/mesh.py) "
                                   "is not ported yet")
-
-
-def _resolve_device(name: str) -> torch.device:
-    device = torch.device(name)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("--device cuda: no CUDA device is available (pass --device cpu to "
-                           "run on the CPU)")
-    return device
 
 
 def run_meta(args, C: int, H: int, W: int) -> Dict:
@@ -221,14 +219,31 @@ def run_meta(args, C: int, H: int, W: int) -> Dict:
     }
 
 
+def build_token_model(args, device: torch.device, generator: torch.Generator):
+    """The --use_wan 0 Stage-1 model: VideoTokenKeypointDenoiser over the
+    patchified tokens (d_model, n_layers, n_heads, d_ff), text conditioning,
+    f32 parameters computing in bf16 under --bf16."""
+    model = build_model(VideoTokenKeypointDenoiser, generator=generator, device=device,
+                        d_model=args.d_model, n_layers=args.n_layers, n_heads=args.n_heads,
+                        d_ff=args.d_ff, data_dim=args.latent_c * args.patch_size ** 2,
+                        text_dim=args.text_dim)
+    set_compute_dtype(model, torch.bfloat16 if args.bf16 else None)
+    return model
+
+
 def make_trainer(args, device: torch.device, wan=None, fc=None):
     """(state, base, train_step, wan, fc): the model (built from --seed unless
-    given), its trainable / frozen partition, the optimizer state and the
-    step function step(state, base, batch, rng) -> (state, metrics)."""
-    if wan is None:
-        wan, fc = build_wan(args, bool(args.bf16), device=device,
-                            generator=torch.Generator(device=device).manual_seed(args.seed))
-    trainable, base = init_wan_trainables(args, wan, fc, bool(args.bf16))
+    given; the token model under --use_wan 0, with fc and base None), its
+    trainable / frozen partition, the optimizer state and the step function
+    step(state, base, batch, rng) -> (state, metrics)."""
+    generator = torch.Generator(device=device).manual_seed(args.seed)
+    if not args.use_wan:
+        wan = wan if wan is not None else build_token_model(args, device, generator)
+        trainable, base = dict(wan.named_parameters()), None
+    else:
+        if wan is None:
+            wan, fc = build_wan(args, bool(args.bf16), device=device, generator=generator)
+        trainable, base = init_wan_trainables(args, wan, fc, bool(args.bf16))
     schedule = make_schedule(args.schedule, args.N_train, device=device)
 
     def loss_fn(params, frozen, batch, rng):
@@ -243,7 +258,7 @@ def make_trainer(args, device: torch.device, wan=None, fc=None):
 def main(argv=None) -> TrainState:
     args = build_argparser().parse_args(argv)
     _check_ported(args)
-    device = _resolve_device(args.device)
+    device = resolve_device(args.device)
     # the resume checkpoint first: its meta carries the data-stream position,
     # so a preempted run resumes mid-epoch instead of replaying the stream
     resume_path: Optional[str] = None

@@ -1,15 +1,20 @@
 """Shared wansynth trainer plumbing (port of train/wansynth_common.py): the
 command-line arguments, the data loader, Wan / LoRA construction and the
-trainable / frozen partition, and the Phase-1 index helpers.
+trainable / frozen partition, pretrained weights, and the Phase-1 index
+helpers.
 
-`build_wan` makes the WanDiT (and FrameCondProjector) the wansynth trainers
-and the Phase-1 anchor precompute use, from the same argument names, with
-seeded parameters (models/init.py). `init_wan_trainables` splits them into
-the trainable dict (LoRA leaves and the projector, f32 masters) and the
-frozen base (compute dtype). `split_lora_state_dict` /
-`join_lora_state_dict` / `merged_wan_params` are the runtime-form LoRA
-partition and join. The merge-form adapter tree, the Switch-MoE FFN, the
-scan parameter layout and pretrained-weight conversion are not ported yet.
+`build_wan` makes the WanDiT (and FrameCondProjector) the wansynth trainers,
+the Phase-1 anchor precompute and the Phase-2 evaluation use, from the same
+argument names, with seeded parameters (models/init.py) and, with
+--wan_pretrained, a diffusers Wan2.1 checkpoint over them
+(`load_pretrained_into`, models/wan_convert.py). `wan_args_from_meta`
+rebuilds those arguments from a checkpoint's meta. `init_wan_trainables`
+splits the model into the trainable dict (LoRA leaves and the projector, f32
+masters) and the frozen base (compute dtype). LoRA takes either form
+(models/wan_dit.LoRALinear: runtime, or merged as models/lora.py merges);
+`split_lora_state_dict` / `join_lora_state_dict` / `merged_wan_params` are
+the partition and its join. The Switch-MoE FFN (--ffn_mode moe) is not
+ported.
 """
 from __future__ import annotations
 
@@ -22,6 +27,7 @@ import torch
 from ..data.dataset import BatchLoader
 from ..data.wan_synth import SyntheticWanDataset, WanSynthTarDataset
 from ..models.init import build_model
+from ..models.lora import apply_lora, init_lora, leaves_to_tree, tree_to_leaves
 from ..models.wan_dit import FrameCondProjector, WanDiT, set_compute_dtype
 from ..utils.memguard import add_memguard_args
 
@@ -63,7 +69,7 @@ def add_wan_model_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--lora_form", type=str, default="runtime",
                    choices=["runtime", "merged"],
                    help="runtime: y += (a/r)(x A)B inside each Linear, no merged "
-                        "weight copy; merged (W' = W + a/r A B) is not ported")
+                        "weight copy; merged: W' = W + a/r A B per call (the reference form)")
     p.add_argument("--ffn_mode", type=str, default="dense", choices=["dense", "moe"],
                    help="moe (Switch top-1 expert FFN) is not ported")
     p.add_argument("--n_experts", type=int, default=8)
@@ -75,8 +81,8 @@ def add_wan_model_args(p: argparse.ArgumentParser) -> None:
                         "Here the blocks are one Python loop either way, and "
                         "--use_remat bounds the saved activations to one tensor a block")
     p.add_argument("--wan_pretrained", type=str, default=None,
-                   help="a diffusers Wan2.1 transformer checkpoint (not ported: "
-                        "needs models/wan_convert)")
+                   help="a diffusers Wan2.1 transformer checkpoint (a directory of "
+                        ".safetensors shards or one file), read into the frozen base")
     p.add_argument("--frame_cond", type=int, default=1)
     p.add_argument("--frame_cond_dim", type=int, default=5)
     p.add_argument("--patch_size", type=int, default=2)
@@ -87,12 +93,8 @@ def check_wan_args(args) -> None:
     if str(getattr(args, "ffn_mode", "dense")) != "dense":
         raise NotImplementedError("--ffn_mode moe: the Switch-MoE FFN (models/moe.py) is not "
                                   "ported yet")
-    if int(args.lora_rank) > 0 and _lora_form(args) != "runtime":
-        raise NotImplementedError("--lora_form merged: the merge-form adapter tree "
-                                  "(models/lora.py) is not ported yet; use 'runtime'")
-    if getattr(args, "wan_pretrained", None):
-        raise NotImplementedError("--wan_pretrained: the diffusers checkpoint converter "
-                                  "(models/wan_convert.py) is not ported yet")
+    if _lora_form(args) not in ("runtime", "merged"):
+        raise ValueError(f"--lora_form {_lora_form(args)!r} not in ('runtime', 'merged')")
 
 
 class _StatefulIter:
@@ -173,11 +175,15 @@ def build_wan(args, bf16: bool = True, *, generator: torch.Generator,
     """(WanDiT, FrameCondProjector or None) from wansynth arguments
     (wan_dim, wan_layers, wan_heads, wan_ffn, latent_c, text_dim, attn_mode,
     sla_topk, sla_block, lora_rank, lora_alpha, lora_form, lora_targets,
-    ffn_mode, frame_cond, frame_cond_dim), parameters drawn from `generator`.
+    ffn_mode, use_remat, remat_group, frame_cond, frame_cond_dim,
+    wan_pretrained), parameters drawn from `generator`.
 
-    Runtime-form LoRA lives inside the model (LoRALinear), as in the JAX
-    package; zero_init_scale > 0 makes the zero-initialised leaves (lora_B,
-    sla.proj_l, the projector's output) small and non-zero.
+    LoRA lives inside the model (LoRALinear) in either form; the merged
+    form's A is drawn as the JAX package's init_lora draws it (N(0, 1) / r),
+    the runtime form's as its LoRADense does. --wan_pretrained then
+    overwrites the base weights. zero_init_scale > 0 makes the
+    zero-initialised leaves (lora_B, sla.proj_l, the projector's output)
+    small and non-zero.
     """
     check_wan_args(args)
     frame_cond = bool(getattr(args, "frame_cond", 0))
@@ -192,7 +198,19 @@ def build_wan(args, bf16: bool = True, *, generator: torch.Generator,
         lora_alpha=float(args.lora_alpha),
         lora_targets=str(getattr(args, "lora_targets", "attn,ffn")),
         ffn_mode=str(getattr(args, "ffn_mode", "dense")), extra_context=frame_cond,
-        use_remat=bool(getattr(args, "use_remat", 0)))
+        use_remat=bool(getattr(args, "use_remat", 0)),
+        remat_group=int(getattr(args, "remat_group", 1)), lora_form=_lora_form(args))
+    if int(args.lora_rank) > 0 and _lora_form(args) == "merged":
+        targets = {t.strip() for t in str(getattr(args, "lora_targets", "attn,ffn")).split(",")}
+        pats = (["q_proj|k_proj|v_proj|o_proj"] if "attn" in targets else []) + (
+            ["ffn_in|ffn_out"] if "ffn" in targets else [])
+        tree = init_lora(generator, wan.state_dict(), int(args.lora_rank),
+                         float(args.lora_alpha), filter_regex="(" + "|".join(pats) + ")")
+        with torch.no_grad():
+            params = dict(wan.named_parameters())
+            for name, value in tree_to_leaves(tree).items():
+                params[name].copy_(value)
+    load_pretrained_into(wan, args)
     fc = None
     if frame_cond:
         fc = build_model(FrameCondProjector, generator=generator, device=device, dtype=dtype,
@@ -200,6 +218,55 @@ def build_wan(args, bf16: bool = True, *, generator: torch.Generator,
                          feat_dim=int(getattr(args, "frame_cond_dim", 5)),
                          text_dim=args.text_dim)
     return wan.eval(), (fc.eval() if fc is not None else None)
+
+
+def load_pretrained_into(wan: WanDiT, args) -> int:
+    """Overwrite the base weights of a built WanDiT with a converted diffusers
+    checkpoint (--wan_pretrained; none: nothing happens). LoRA leaves and the
+    weights the checkpoint lacks keep their values; every checkpoint tensor
+    must name a parameter of the model with its shape. Returns the count."""
+    path = getattr(args, "wan_pretrained", None)
+    if not path:
+        return 0
+    from ..models.wan_convert import load_wan_safetensors
+
+    pre = load_wan_safetensors(path)
+    params = dict(wan.named_parameters())
+    for name, value in pre.items():
+        if name not in params:
+            raise ValueError(f"pretrained param {name} not in model")
+        if tuple(params[name].shape) != tuple(value.shape):
+            raise ValueError(f"shape mismatch at {name}: model {tuple(params[name].shape)} vs "
+                             f"checkpoint {tuple(value.shape)}")
+    with torch.no_grad():
+        for name, value in pre.items():
+            params[name].copy_(value.to(params[name].dtype))
+    print(f"loaded {len(pre)} pretrained tensors from {path}")
+    return len(pre)
+
+
+def wan_args_from_meta(meta: Dict, **over) -> argparse.Namespace:
+    """The build_wan arguments of a wansynth checkpoint's meta, with `over`
+    on top (the precompute's attention overrides, its sla_block 128, the
+    Phase-2 frame_cond_dim). Keys an older meta lacks take the trainers'
+    defaults: lora_alpha 16, lora_form merged (the JAX package's reading),
+    lora_targets attn,ffn, ffn_mode dense, sla_topk 0.1, sla_block 256."""
+    ns = argparse.Namespace(
+        wan_dim=int(meta["wan_dim"]), wan_layers=int(meta["wan_layers"]),
+        wan_heads=int(meta["wan_heads"]), wan_ffn=int(meta["wan_ffn"]),
+        latent_c=int(meta["latent_c"]), text_dim=int(meta["text_dim"]),
+        attn_mode=meta.get("attn_mode", "dense"), sla_topk=float(meta.get("sla_topk", 0.1)),
+        sla_block=int(meta.get("sla_block", 256)), use_remat=0,
+        lora_rank=int(meta.get("lora_rank", 0)), lora_alpha=float(meta.get("lora_alpha", 16.0)),
+        lora_form=meta.get("lora_form", "merged"),
+        lora_targets=meta.get("lora_targets", "attn,ffn"),
+        layer_mode=meta.get("layer_mode", "loop"), ffn_mode=meta.get("ffn_mode", "dense"),
+        n_experts=int(meta.get("n_experts", 8)),
+        capacity_factor=float(meta.get("capacity_factor", 1.25)),
+        frame_cond=int(meta.get("frame_cond", 1)), frame_cond_dim=5, T=int(meta["T"]))
+    for k, v in over.items():
+        setattr(ns, k, v)
+    return ns
 
 
 def split_lora_state_dict(sd: Dict[str, torch.Tensor]
@@ -219,10 +286,13 @@ def join_lora_state_dict(lora: Dict[str, torch.Tensor],
 def merged_wan_params(params: Dict, base: Optional[Dict[str, torch.Tensor]], args
                       ) -> Dict[str, torch.Tensor]:
     """Effective WanDiT state_dict: the frozen base joined with the runtime
-    LoRA leaves (params["lora"]), or params["wan"] without LoRA."""
+    LoRA leaves (params["lora"]), the base with the merged-form adapters
+    merged into its weights (models/lora.apply_lora; a state_dict for a
+    lora_rank 0 model), or params["wan"] without LoRA."""
     if int(args.lora_rank) > 0:
-        if _lora_form(args) != "runtime":
-            raise NotImplementedError("lora_form='merged' is not ported yet; use 'runtime'")
+        if _lora_form(args) == "merged":
+            return apply_lora(base, leaves_to_tree(params["lora"]), int(args.lora_rank),
+                              float(args.lora_alpha))
         return join_lora_state_dict(params["lora"], base)
     return params["wan"]
 

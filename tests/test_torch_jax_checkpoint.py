@@ -318,18 +318,19 @@ def test_lora_layouts_convert_alike():
         assert all(torch.equal(got[k], want[k]) for k in want)
 
 
-@pytest.mark.parametrize("fixture,match", [(1, "train_interp_levels_wansynth"),
-                                           (2, "models/flow_interpolator.py")])
+@pytest.mark.parametrize("fixture,match", [(2, "models/flow_interpolator.py")])
 def test_unported_stages_raise_naming_what_is_missing(fixture, match):
     with pytest.raises(NotImplementedError, match=match):
         checkpoint.load_checkpoint(FIXTURES[fixture], with_opt_state=False)
 
 
 def test_a_wan_tree_with_other_leaves_raises():
-    """A Phase-1 run that trained every weight saves them under `wan`: the
-    reader takes only the LoRA partition, so it says so rather than drop them."""
+    """The wansynth readers take the LoRA, frame-projector and WanDiT trees
+    (`wan_base`, and `wan` of a run that trained every weight); a tree with
+    any other leaves says so rather than drop them."""
     from interpolated_diffusion_tpu_torch.models.jax_import import checkpoint_to_state_dict
 
-    with pytest.raises(NotImplementedError, match="wan"):
-        checkpoint_to_state_dict({"stage": "keypoints_wansynth"},
-                                 {"wan": {"proj_out": {"kernel": np.zeros((2, 2), np.float32)}}})
+    for stage in ("keypoints_wansynth", "interp_levels_wansynth"):
+        with pytest.raises(NotImplementedError, match="moe"):
+            checkpoint_to_state_dict({"stage": stage, "use_wan": 1},
+                                     {"moe": {"kernel": np.zeros((2, 2), np.float32)}})

@@ -645,3 +645,127 @@ def test_causal_pipeline_kernel_path_matches_twin_path(cuda, monkeypatch):
     ref = pipe(cond, draws=draws)
     assert out.shape == (B, T, 2) and torch.isfinite(out).all()
     assert (out - ref).abs().max().item() <= 5e-2
+
+
+# The Wan Phase-2 trainer's attention shapes: B = 2 x 12 heads, L = 21 x 30 x
+# 52 = 32760 tokens (the last 256-key block holds 248), SLA block 256, top-k
+# int(0.1 x 128) = 12; cross-attention to 512 text + 21 frame tokens.
+PHASE2_BH, PHASE2_L, PHASE2_LK = 24, 32760, 533
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("which", ["sla", "int8", "sla_bwd"])
+def test_phase2_shape_sla_kernels_match_twins(cuda, which):
+    q, k, v = _qkv_bf16(PHASE2_BH, PHASE2_L, 128, cuda, 31)
+    _, lut, topk = get_block_map(q, k, 0.1, 256, 256)
+    assert topk == 12
+    with torch.inference_mode():
+        ref = block_sparse_attention_reference(q, k, v, lut, 256, 256)
+        if which == "sla":
+            got = bsa.block_sparse_attention_fwd(q, k, v, lut, 256, 256)
+            pairs = zip(got, ref)
+        elif which == "int8":
+            qi, ki, qs, ks = int8_attention.quantize_qk(q, k)
+            got = int8_attention.int8_attention_fwd(qi, ki, v, qs, ks, lut, 256, 256, 128 ** -0.5)
+            want = int8_attention._torch_int8_attention(qi, ki, v, qs, ks, lut, 256, 256,
+                                                        128 ** -0.5)
+            assert _rel(got[0], ref[0]) <= 0.08
+            pairs = zip(got, want)
+        else:
+            do = _qkv_bf16(PHASE2_BH, PHASE2_L, 128, cuda, 32)[0]
+            o, lse = bsa.block_sparse_attention_fwd(q, k, v, lut, 256, 256)
+            got = bsa.block_sparse_attention_bwd(q, k, v, lut, o, lse, do, 256, 256)
+            pairs = zip(got, bsa.block_sparse_attention_bwd(q, k, v, lut, o, lse, do, 256, 256,
+                                                            twin=True))
+    torch.cuda.synchronize()
+    tol = BWD_TOL if which == "sla_bwd" else 1e-2
+    for a, b in pairs:
+        assert torch.isfinite(a).all() and _rel(a, b) <= tol, _rel(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("Lk", [PHASE2_LK, PHASE2_L])
+def test_phase2_shape_flash_kernels_match_twins(cuda, Lk):
+    q, k, v = _qkv_bf16(PHASE2_BH, PHASE2_L, 128, cuda, 33, Lk=Lk)
+    do = _qkv_bf16(PHASE2_BH, PHASE2_L, 128, cuda, 34)[0]
+    with torch.inference_mode():
+        o, lse = bsa.flash_attention_fwd(q, k, v)
+        ref = bsa._torch_flash(q, k, v, 128 ** -0.5, 1024)
+        got = bsa.flash_attention_bwd(q, k, v, o, lse, do)
+        want = bsa.flash_attention_bwd(q, k, v, o, lse, do, twin=True)
+    torch.cuda.synchronize()
+    assert _rel(o, ref[0]) <= 1e-2 and _rel(lse, ref[1]) <= 1e-2
+    for a, b in zip(got, want):
+        assert torch.isfinite(a).all() and _rel(a, b) <= BWD_TOL, _rel(a, b)
+
+
+def _phase2_args(extra=()):
+    from interpolated_diffusion_tpu_torch.train import train_interp_levels_wansynth as p2
+
+    return p2, p2.build_argparser().parse_args(
+        ["--T", "17", "--latent_c", "4", "--latent_h", "16", "--latent_w", "32",
+         "--text_len", "8", "--text_dim", "64", "--wan_dim", "256", "--wan_layers", "2",
+         "--wan_heads", "2", "--wan_ffn", "512", "--lora_rank", "4", "--K_min", "3",
+         "--attn_mode", "dense", "--device", "cuda", *extra])
+
+
+@pytest.mark.gpu
+def test_phase2_loss_kernel_path_matches_twin_path(cuda, monkeypatch):
+    """The Phase-2 loss and every trainable leaf's gradient at head dim 128,
+    17 frames of 128 tokens (L = 2176: self- and cross-attention through the
+    flash kernels), bf16: the kernel path against the same step through the
+    flash twins, chip_smoke.py's training tolerances (1e-2 loss, 5e-2
+    gradients)."""
+    from interpolated_diffusion_tpu_torch.models import wan_dit
+    from interpolated_diffusion_tpu_torch.train.state import flatten_dict, tree_leaves
+
+    p2, args = _phase2_args()
+    state, _, _, model, fc = p2.make_trainer(args, cuda)
+    g = torch.Generator(cuda).manual_seed(5)
+    batch = {"latents": torch.randn(2, 17, 4, 16, 32, generator=g, device=cuda),
+             "text_embed": torch.randn(2, 8, 64, generator=g, device=cuda) * 0.02}
+    draws = p2.make_phase2_draws(g, args, 2, 17, 128 * 16)
+    leaves = tree_leaves(state.params)
+    with torch.no_grad():
+        for name, p in flatten_dict(state.params).items():
+            if name.endswith("lora_B") or name.startswith("frame_cond/out"):
+                p.normal_(0.0, 0.02, generator=g)
+    before = bsa.flash_attention.launches
+    results = []
+    for twin in (False, True):
+        if twin:
+            monkeypatch.setattr(wan_dit, "flash_attention", bsa.flash_attention_twin)
+        loss, _ = p2.phase2_loss(model, fc, args, batch, draws)
+        results.append((loss.detach(), torch.autograd.grad(loss, leaves)))
+        if not twin:   # self + cross, 2 layers, forward and the remat recompute
+            assert bsa.flash_attention.launches - before == 2 * 2 * 2
+    (lk, gk), (lt, gt) = results
+    assert abs(lk.item() - lt.item()) <= 1e-2 * abs(lt.item())
+    for a, b in zip(gk, gt):
+        assert torch.isfinite(a).all() and _rel(a, b) <= 5e-2, _rel(a, b)
+
+
+@pytest.mark.gpu
+def test_merged_lora_on_the_card_is_apply_lora(cuda):
+    """The merged form in bf16 on the card: each Linear merges its adapter at
+    the JAX rounding point, so the model agrees with a lora_rank 0 model
+    holding models/lora.apply_lora's merged weights (the two f32 products of
+    rank 4 may round a weight to the neighbouring bf16 value)."""
+    from interpolated_diffusion_tpu_torch.models import lora
+    from interpolated_diffusion_tpu_torch.models.wan_dit import WanDiT
+    from interpolated_diffusion_tpu_torch.train import wansynth_common as common
+
+    p2, args = _phase2_args(["--lora_form", "merged"])
+    args.frame_cond, args.frame_cond_dim = 0, 7
+    wan, _ = common.build_wan(args, True, device=cuda, zero_init_scale=0.05,
+                              generator=torch.Generator(cuda).manual_seed(6))
+    lora_sd, base = common.split_lora_state_dict(wan.state_dict())
+    plain = WanDiT(dim=256, n_layers=2, n_heads=2, ffn_dim=512, in_channels=4, out_channels=4,
+                   text_dim=64).to(cuda, torch.bfloat16).eval()
+    plain.load_state_dict(lora.apply_lora(base, lora.leaves_to_tree(lora_sd), 4, 16.0))
+    g = torch.Generator(cuda).manual_seed(7)
+    lat = torch.randn(2, 4, 3, 16, 32, generator=g, device=cuda)
+    ctx = torch.randn(2, 8, 64, generator=g, device=cuda)
+    t = torch.tensor([100, 200], device=cuda)
+    with torch.no_grad():
+        assert _rel(wan(lat, t, ctx), plain(lat, t, ctx)) <= 2.0 ** -7

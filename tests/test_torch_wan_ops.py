@@ -178,7 +178,15 @@ def test_wan_port_import_pulls_in_no_jax():
             "interpolated_diffusion_tpu_torch.sample.sample_keypoints, "
             "interpolated_diffusion_tpu_torch.train.train_interp_levels_causal, "
             "interpolated_diffusion_tpu_torch.train.train_causal, "
-            "interpolated_diffusion_tpu_torch.train.train_fullseq; "
+            "interpolated_diffusion_tpu_torch.train.train_fullseq, "
+            "interpolated_diffusion_tpu_torch.train.train_interp_levels_wansynth, "
+            "interpolated_diffusion_tpu_torch.data.make_synth_tars, "
+            "interpolated_diffusion_tpu_torch.data.precompute_phase1_anchors, "
+            "interpolated_diffusion_tpu_torch.diagnostics.eval_wansynth_stage2, "
+            "interpolated_diffusion_tpu_torch.models.lora, "
+            "interpolated_diffusion_tpu_torch.models.wan_convert, "
+            "interpolated_diffusion_tpu_torch.models.video_denoisers, "
+            "interpolated_diffusion_tpu_torch.utils.safetensors; "
             "bad = [m for m in sys.modules if m in ('jax', 'flax', 'optax', 'msgpack') "
             "or m.startswith(('jax.', 'flax.', 'optax.', 'msgpack.')) "
             "or m == 'interpolated_diffusion_tpu' or m.startswith('interpolated_diffusion_tpu.')]; "

@@ -230,10 +230,19 @@ def test_init_wan_trainables_partition():
     assert all(p.dtype == torch.float32 and p.requires_grad for p in leaves)   # f32 masters
     assert all(p.dtype == torch.bfloat16 and not p.requires_grad for p in base.values())
     assert wan.compute_dtype == fc.compute_dtype == torch.bfloat16 and wan.use_remat
-    for flag, value in (("ffn_mode", "moe"), ("lora_form", "merged"), ("wan_pretrained", "x")):
-        bad = types.SimpleNamespace(**{**vars(args), flag: value})
-        with pytest.raises(NotImplementedError, match=flag):
-            pcommon.build_wan(bad, bf16=True, generator=torch.Generator().manual_seed(0))
+    bad = types.SimpleNamespace(**{**vars(args), "ffn_mode": "moe"})
+    with pytest.raises(NotImplementedError, match="ffn_mode"):
+        pcommon.build_wan(bad, bf16=True, generator=torch.Generator().manual_seed(0))
+    # the merged LoRA form: the same leaves and partition, merged into the weights per call
+    merged = types.SimpleNamespace(**{**vars(args), "lora_form": "merged"})
+    wan, fc = pcommon.build_wan(merged, bf16=True, generator=torch.Generator().manual_seed(0))
+    trainable, base = pcommon.init_wan_trainables(merged, wan, fc, bf16=True)
+    assert len(trainable["lora"]) == 2 * 10 * 2 and wan.blocks[0].attn1.to_q.form == "merged"
+    assert all(p.dtype == torch.float32 and p.requires_grad
+               for p in pstate.tree_leaves(trainable))
+    missing = types.SimpleNamespace(**{**vars(args), "wan_pretrained": "no/such/dir"})
+    with pytest.raises(FileNotFoundError):
+        pcommon.build_wan(missing, bf16=True, generator=torch.Generator().manual_seed(0))
 
 
 # ---------------------------------------------------------------------------

@@ -176,10 +176,9 @@ def test_cli_resume_continues_from_checkpoint(tmp_path, capsys):
 
 def test_cli_refuses_what_is_not_ported(tmp_path):
     base = TINY + ["--device", "cpu", "--out_dir", str(tmp_path / "x")]
-    for flags, what in ((["--use_wan", "0"], "use_wan"), (["--ckpt_async", "1"], "ckpt_async"),
+    for flags, what in ((["--ckpt_async", "1"], "ckpt_async"),
                         (["--n_data_shards", "2"], "n_data_shards"),
-                        (["--ffn_mode", "moe"], "ffn_mode"), (["--lora_form", "merged"], "lora_form"),
-                        (["--wan_pretrained", "w"], "wan_pretrained"),
+                        (["--ffn_mode", "moe"], "ffn_mode"),
                         (["--lora_rank", "0", "--bf16", "1"], "lora_rank")):
         with pytest.raises(NotImplementedError, match=what):
             ptrainer.main(base + flags)
