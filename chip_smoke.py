@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's sampling paths and its trainers once on one GPU.
 
-    python3 chip_smoke.py [--profile] [--kernels] [--gemm-ab]
+    python3 chip_smoke.py [--profile] [--kernels] [--gemm-ab] [--wan-phase2] [--wan-interp]
 
 Phases, each on its own lines; any failure exits non-zero:
   1. device       the card's name and power limit (nvidia-smi); CUDA required
@@ -148,6 +148,22 @@ Phases, each on its own lines; any failure exits non-zero:
                   batch, the five MSEs, samples/s) and its MSEs on the kernel
                   path vs the twin path. Runs after phase 10; the checkpoints
                   live in a temp dir that is removed
+  5g. wan interp  the rest of the Wan video chain, after 5f: 8 synthetic clips
+                  at the full shapes as tar shards; the five interpolator /
+                  selector trainer CLIs at their defaults (flow, straightener,
+                  Sinkhorn, video D_phi, video selector; batch 8 / 8 / 4 / 8 /
+                  8, 4 steps), each with s/step, peak memory, finite losses,
+                  no kernel launch and a checkpoint read back, and its model's
+                  f32 forward on the card against the CPU's (the Sinkhorn
+                  model's SE(2) choices replayed, 1e-4); the teacher
+                  precompute (lerp and the flow checkpoint) joined back by
+                  key; eval_interpolators under lerp, flow and sinkhorn; full
+                  fine-tuning (--lora_rank 0 --bf16 1): at 4 of 30 layers the
+                  kernel path vs the twin path (LUTs replayed) over every
+                  weight's gradient, then the Phase-1 trainer CLI at 30
+                  layers, 2 steps each under sla and sage_sla (launches per
+                  step of rows 4-8, s/step, peak memory, every weight f32
+                  and moved)
 Every timing phase also times the one PyTorch library call that computes the
 same function, where there is one (scaled_dot_product_attention, for SLA
 under the LUT as a mask; F.linear; or for the block a chain of them), as a
@@ -163,7 +179,8 @@ that build, check and time the kernels alone (1-3, the kernel times of 5, 5a,
 first run for a changed kernel. --gemm-ab reads what the block GEMM's
 W-resident kernel buys: the maze part of phases 3 and 5 (--maze-kernels) in four
 processes, two on a build that sends every product to the streaming kernel.
---wan-phase2 runs the build and phase 5f alone and prints neither JSON line.
+--wan-phase2 runs the build and phase 5f alone and prints neither JSON line,
+--wan-interp the build and phase 5g alone.
 """
 from __future__ import annotations
 
@@ -3697,6 +3714,370 @@ def _wan2_profile(dev, card, data, anchors_root):
     torch.cuda.empty_cache()
 
 
+# Phase 5g: the rest of the Wan video chain. The five interpolator / selector
+# trainers at their defaults on 8 synthetic clips at the Wan2.1 latent shape
+# (T = 21, 16x60x104, text 512x4096), each model's f32 forward on the card
+# against the CPU's, the teacher precompute and its join, the interpolator
+# evaluation, and full fine-tuning of WanDiT (--lora_rank 0) under bf16.
+INTERP_SAMPLES = 8
+INTERP_STEPS = 4
+# (name, trainer module, loader in models/, extra flags): each trainer at its
+# defaults (batch 8 / 8 / 4 / 8 / 8); the Sinkhorn validation and the
+# selector's top-K evaluation run at the last step
+INTERP_TRAINERS = (
+    ("flow", "train_flow_interpolator_wansynth", "loading.load_flow_interpolator", ()),
+    ("straightener", "train_latent_straightener_wansynth",
+     "straightener.load_latent_straightener", ()),
+    ("sinkhorn", "train_sinkhorn_interp_wansynth", "loading.load_sinkhorn_interp",
+     ("--val_every", str(INTERP_STEPS), "--val_batches", "1")),
+    ("segment_cost", "train_segment_cost_wansynth", "loading.load_video_segment_cost", ()),
+    ("video_selector", "train_video_selector_wansynth", "loading.load_video_selector",
+     ("--eval_every", str(INTERP_STEPS))),
+)
+# card against CPU, f32 forward of the same weights and inputs, TF32 off:
+# max|d| / max|cpu| of each output
+INTERP_CARD_TOL = 1e-4
+SINKHORN_WELL_POSED = 1e-2
+FULL_FT_STEPS = 2               # CLI steps per mode at full width and depth
+FULL_FT_MODES = ("sla", "sage_sla")
+FULL_FT_GRAD_FLOOR = 1e-3      # of the largest leaf gradient, in the 4-layer gate
+_INTERP_STEP = r"step (\d+) loss (\S+).*?\| ([0-9.]+) s/step"
+
+
+@contextlib.contextmanager
+def se2_choices(model, choices, replay=False):
+    """Record into `choices`, in call order, the global SE(2) (theta, dx, dy)
+    that the Sinkhorn interpolator's phase correlation picks for each pair;
+    with `replay`, hand those back (on this model's device) instead of its
+    own. The argmax of a correlation peak and the best angle are discrete: an
+    FFT rounding difference can flip them on one device only. Yields [calls,
+    pairs, pairs whose own choice differs from the recorded one by more than
+    1e-4]."""
+    own, stats = model._global_se2, [0, 0, 0]
+
+    def global_se2(f0, f1):
+        got = own(f0, f1)
+        if not replay:
+            choices.append(tuple(t.detach().cpu() for t in got))
+            return got
+        kept = choices[stats[0]]
+        stats[0] += 1
+        stats[1] += kept[0].numel()
+        stats[2] += int(sum(((a.cpu() - b).abs() > 1e-4).int() for a, b in zip(got, kept))
+                        .gt(0).sum())
+        return tuple(t.to(f0.device, f0.dtype) for t in kept)
+
+    model._global_se2 = global_se2
+    try:
+        yield stats
+    finally:
+        del model._global_se2
+
+
+def _interp_forward(name, model, batch, dev, dtype=None):
+    """The model's outputs (a tuple) on `dev` for one batch of two clips
+    (the latents in `dtype`, f32 by default)."""
+    import torch
+
+    lat = torch.from_numpy(batch["latents"][:2]).to(dev, dtype or torch.float32)
+    idx = torch.tensor([[0, 5, 10, 15, 20], [0, 3, 9, 14, 20]], device=dev)
+    with torch.no_grad():
+        if name in ("flow", "sinkhorn"):
+            return tuple(model(lat, idx))
+        if name == "straightener":
+            alpha = torch.tensor([0.5, 0.25], device=dev)
+            return tuple(model.interpolate_pair(lat[:, 0], lat[:, 20], alpha)) + (
+                model(lat[:, 10]),)
+        text = torch.from_numpy(batch["text_embed"][:2]).to(dev)
+        if name == "segment_cost":
+            from interpolated_diffusion_tpu_torch.ops.oracle_segment_cost import (
+                build_oracle_seg_precompute)
+            from interpolated_diffusion_tpu_torch.ops.selection import build_segment_features
+
+            pre = build_oracle_seg_precompute(21)
+            feat = build_segment_features(21, pre.seg_i, pre.seg_j).to(dev)
+            return (model({"text_embed": text}, feat),)
+        return (model({"text_embed": text}),)
+
+
+def _full_ft_check(dev, data):
+    """--lora_rank 0 --bf16 1 at full width, 4 of 30 layers: the loss and every
+    WanDiT weight's gradient on the kernel path against the twin path (the
+    kernel path's SLA LUTs replayed), under sla and sage_sla."""
+    import torch
+    from interpolated_diffusion_tpu_torch.ops.schedules import make_schedule
+    from interpolated_diffusion_tpu_torch.train import train_keypoints_wansynth as p1
+    from interpolated_diffusion_tpu_torch.train.state import flatten_dict, tree_leaves
+    from interpolated_diffusion_tpu_torch.train.wansynth_common import (build_wan,
+                                                                        make_wansynth_loader)
+    from interpolated_diffusion_tpu_torch.utils.prefetch import pinned_put
+
+    args = p1.build_argparser().parse_args(["--lora_rank", "0", "--wan_layers",
+                                            str(WAN2_COMPARE_LAYERS), "--data", "tar",
+                                            "--data_root", data, "--seed", "31"])
+    wan, fc = build_wan(args, True, device=dev, zero_init_scale=1e-2,
+                        generator=torch.Generator(device=dev).manual_seed(args.seed))
+    batch = pinned_put(dev, keys=("latents", "text_embed"))(
+        next(make_wansynth_loader(args, args.seed)))
+    schedule = make_schedule(args.schedule, args.N_train, device=dev)
+    N = (args.latent_h // 2) * (args.latent_w // 2)
+    for mode in FULL_FT_MODES:
+        args.attn_mode = mode
+        wan.set_attn_mode(mode)
+        state, base, _, _, _ = p1.make_trainer(args, dev, wan, fc)
+        names, leaves = list(flatten_dict(state.params)), tree_leaves(state.params)
+        require(base is None and all(p.dtype == torch.float32 and p.requires_grad
+                                     for p in leaves),
+                f"full fine-tune {mode}: the trainable leaves are not all f32 masters")
+        draws = p1.draw_phase1(torch.Generator(device=dev).manual_seed(32), args, args.batch,
+                               (args.batch, args.K, N, args.latent_c * 4))
+
+        def loss_and_grads():
+            loss, _ = p1.phase1_loss(wan, fc, args, schedule, batch, draws)
+            return loss.detach(), torch.autograd.grad(loss, leaves)
+
+        luts = []
+        with sla_luts(luts):
+            loss_k, grads_k = loss_and_grads()
+        with wan_plain_twins(), sla_luts(luts, replay=True) as lut_stats:
+            loss_t, grads_t = loss_and_grads()
+        rel_loss = abs(loss_k.item() - loss_t.item()) / abs(loss_t.item())
+        # Each weight's gradient is held to 5e-2 of its own max|twin|, or of
+        # FULL_FT_GRAD_FLOOR x the largest leaf's where its own is smaller. The
+        # floor is for gradients that are the remainder of a cancellation: the
+        # cross-attention key projection's is sum_j dK_j x_j^T over text tokens
+        # x_j that are nearly alike, and sum_j dK_j vanishes with softmax's zero
+        # row sums of dS (bf16 rounds dS, one ulp at other elements on each
+        # path), so the remainder is orders of magnitude below the other
+        # leaves' gradients and rounding is a large share of it.
+        top = max(float(b.abs().max()) for b in grads_t)
+        scale = lambda b: max(float(b.abs().max()), FULL_FT_GRAD_FLOOR * top)
+        worst = max((float((a - b).abs().max()) / scale(b), n)
+                    for n, a, b in zip(names, grads_k, grads_t))
+        floored = sorted(((_errors(a, b)[1], n, float(b.abs().max()))
+                          for n, a, b in zip(names, grads_k, grads_t)
+                          if float(b.abs().max()) < FULL_FT_GRAD_FLOOR * top), reverse=True)
+        print(f"[wan interp] full fine-tune, {WAN2_COMPARE_LAYERS} of 30 layers, attn_mode="
+              f"{mode}: kernels vs plain twins, same state / batch / draws, same LUTs "
+              f"({lut_stats[0]} SLA calls; the twin path's own LUTs differ in {lut_stats[2]} of "
+              f"{lut_stats[1]} rows): loss {loss_k.item():.6f} vs {loss_t.item():.6f} (rel "
+              f"{rel_loss:.3e}, tol {TRAIN_LOSS_TOL}); {len(names)} weights, worst gradient "
+              f"max|d|/max|twin| = {worst[0]:.3e} at {worst[1]} (tol {TRAIN_GRAD_TOL}; largest "
+              f"leaf gradient {top:.3e}, {len(floored)} leaves under {FULL_FT_GRAD_FLOOR} of it "
+              f"held to that floor, {sum(e > TRAIN_GRAD_TOL for e, _, _ in floored)} of which "
+              f"beyond the tol against their own max: "
+              + (", ".join(f"{e:.3e} at {n} (max {m:.3e})" for e, n, m in floored[:4]) or "-")
+              + ")", flush=True)
+        require(rel_loss <= TRAIN_LOSS_TOL, f"full fine-tune {mode}: loss disagrees ({rel_loss})")
+        require(worst[0] <= TRAIN_GRAD_TOL,
+                f"full fine-tune {mode}: gradient of {worst[1]} disagrees ({worst[0]:.3e})")
+        del state, grads_k, grads_t, luts
+    del wan, fc, batch
+    torch.cuda.empty_cache()
+
+
+def _full_ft_cli(dev, card, data, work):
+    """The Phase-1 trainer CLI at Wan2.1-1.3B width and depth with every weight
+    trained (--lora_rank 0 --bf16 1, batch 2, L = 7800, remat), FULL_FT_STEPS
+    steps under each of FULL_FT_MODES: launches per step of rows 4-8 as the
+    LoRA step's, no twin call, s/step, peak memory; every weight stays an f32
+    master and moves. Returns {kernel: {mode: launches per step}}."""
+    import re
+    import shutil
+
+    import numpy as np
+    import torch
+    from interpolated_diffusion_tpu_torch.train import train_keypoints_wansynth as p1
+    from interpolated_diffusion_tpu_torch.train.wansynth_common import build_wan
+
+    launches = {}
+    for mode in FULL_FT_MODES:
+        out = os.path.join(work, f"full_{mode}")
+        argv = ["--lora_rank", "0", "--data", "tar", "--data_root", data, "--attn_mode", mode,
+                "--steps", str(FULL_FT_STEPS), "--log_every", "1", "--out_dir", out]
+        state, counts, twin, log, secs, peak = _cli_run(p1.main, argv)
+        steps = [(int(a), float(b), float(c)) for a, b, c in re.findall(_STEP_LINE, log)]
+        want = {k: c * FULL_FT_STEPS for k, c in zip(TRAIN_KERNELS, TRAIN_EXPECT[mode])}
+        require([s[0] for s in steps] == list(range(FULL_FT_STEPS)) and
+                all(np.isfinite(s[1]) for s in steps), f"full fine-tune {mode}: steps {steps}")
+        require(counts == want and twin == 0, f"full fine-tune {mode}: launches {counts}, twin "
+                f"calls {twin}, expected {want} and 0")
+        leaves = state.params["wan"]
+        require(set(state.params) == {"wan", "frame_cond"} and
+                all(p.dtype == torch.float32 for p in leaves.values()),
+                f"full fine-tune {mode}: the WanDiT weights are not f32 masters")
+        args = p1.build_argparser().parse_args(argv)
+        init, _ = build_wan(args, True, device=dev,
+                            generator=torch.Generator(device=dev).manual_seed(args.seed))
+        still = [n for n, p in init.named_parameters() if torch.equal(p, leaves[n].detach())]
+        n_weights = len(leaves)
+        del init, state, leaves
+        torch.cuda.empty_cache()
+        shutil.rmtree(out, ignore_errors=True)   # ~5.6 GB of f32 weights
+        require(not still, f"full fine-tune {mode}: weights unchanged {still[:3]}")
+        for name, c in zip(TRAIN_KERNELS, TRAIN_EXPECT[mode]):
+            launches.setdefault(name, {})[mode] = c
+        per = sum(s[2] for s in steps[1:]) / max(1, len(steps) - 1)
+        print(f"[wan interp] {card} full fine-tune (--lora_rank 0 --bf16 1, 30 layers, batch 2, "
+              f"L = 7800, remat) attn_mode={mode}: {per:.3f} s/step after the first "
+              f"({steps[0][2]:.3f} s), peak memory {peak:.2f} GiB, launches per step "
+              f"{dict(zip(TRAIN_KERNELS, TRAIN_EXPECT[mode]))}, twin calls 0; all {n_weights} "
+              f"WanDiT weights f32 and moved; losses {[round(s[1], 4) for s in steps]}; "
+              f"{secs:.1f} s with the build and a checkpoint", flush=True)
+    return launches
+
+
+def phase_wan_interp(dev, card):
+    """Phase 5g. Returns {kernel: {mode: launches per step}} of the full
+    fine-tune runs (rows 4-8)."""
+    import importlib
+    import re
+    import shutil
+
+    import numpy as np
+    import torch
+    from interpolated_diffusion_tpu_torch.data import make_synth_tars
+    from interpolated_diffusion_tpu_torch.data import precompute_teacher as prep
+    from interpolated_diffusion_tpu_torch.data.wan_synth import WanSynthTarDataset
+    from interpolated_diffusion_tpu_torch.diagnostics import eval_interpolators as ev
+
+    t_phase = time.perf_counter()
+    tag = f"[{card}]"
+    work = tempfile.mkdtemp(prefix="wan_interp_")
+    try:
+        data = os.path.join(work, "data")
+        make_synth_tars.main(["--out_root", data, "--num_samples", str(INTERP_SAMPLES),
+                              "--shard_size", str(INTERP_SAMPLES)])
+        batch = next(WanSynthTarDataset(data, T=21, shuffle_shards=False).batches(2))
+
+        # 1. the five trainers at their defaults, then each model on the card vs the CPU
+        ckpts = {}
+        for name, module, loader, extra in INTERP_TRAINERS:
+            main_fn = importlib.import_module(
+                f"interpolated_diffusion_tpu_torch.train.{module}").main
+            out = os.path.join(work, name)
+            _set_maze_counts(dict.fromkeys(_maze_counts(), 0))
+            state, counts, twin, log, secs, peak = _cli_run(main_fn, [
+                "--data", "tar", "--data_root", data, "--steps", str(INTERP_STEPS),
+                "--log_every", "1", "--out_dir", out, *extra])
+            maze = _maze_counts()
+            steps = [(int(a), float(b), float(c)) for a, b, c in re.findall(_INTERP_STEP, log)]
+            require([s[0] for s in steps] == list(range(INTERP_STEPS)) and
+                    all(np.isfinite(s[1]) for s in steps), f"{name} trainer: steps {steps}")
+            require(not any(counts.values()) and not any(maze.values()) and twin == 0,
+                    f"{name} trainer: kernel launches {counts} {maze} (none expected)")
+            module_name, fn = loader.split(".")
+            load = getattr(importlib.import_module(
+                f"interpolated_diffusion_tpu_torch.models.{module_name}"), fn)
+            model, _ = load(out, device=dev)
+            got = dict(model.named_parameters())
+            require(got.keys() == state.params.keys() and all(
+                torch.equal(got[k], state.params[k].detach()) for k in got),
+                f"{name}: the checkpoint does not read back into the trained weights")
+            ckpts[name] = os.path.join(out, f"ckpt_{INTERP_STEPS}")
+            per = sum(s[2] for s in steps[1:]) / (len(steps) - 1)
+            n_params = sum(p.numel() for p in got.values())
+            with open(os.path.join(out, "run_config.json")) as f:
+                batch_n = json.load(f)["args"]["batch"]
+            extra_lines = [l for l in log.splitlines() if l.startswith(("[val]", "[eval]"))]
+            print(f"[wan interp] {tag} {name} trainer at its defaults (batch {batch_n}, "
+                  f"{n_params / 1e6:.3f}M parameters): {per:.4f} s/step over steps 1.."
+                  f"{INTERP_STEPS - 1} (step 0 {steps[0][2]:.3f} s), peak memory {peak:.2f} GiB, "
+                  f"losses {[round(s[1], 5) for s in steps]}, no kernel launch; checkpoint "
+                  f"read back" + "".join(f"; {l}" for l in extra_lines), flush=True)
+            # the card's f32 forward against the CPU's, same weights and inputs
+            cpu, _ = load(out, device="cpu")
+            choices, note = [], ""
+            if name == "sinkhorn":
+                with se2_choices(model, choices):
+                    on_card = _interp_forward(name, model, batch, dev)
+                with se2_choices(cpu, choices, replay=True) as stats:
+                    on_cpu = _interp_forward(name, cpu, batch, "cpu")
+                with se2_choices(cpu.double(), choices, replay=True):
+                    on_f64 = _interp_forward(name, cpu, batch, "cpu", torch.float64)
+                note = (f"; the card's SE(2) choices replayed ({stats[0]} calls), the CPU's own "
+                        f"differ in {stats[2]} of {stats[1]} pairs")
+            else:
+                on_card = _interp_forward(name, model, batch, dev)
+                on_cpu = _interp_forward(name, cpu, batch, "cpu")
+            errs = []
+            for k, (a, b) in enumerate(zip(on_card, on_cpu)):
+                a, b = a.double().cpu(), b.double()
+                d = (a - b).abs()
+                if name == "sinkhorn" and k == 0:
+                    # Where both warped confidences are small, the Sinkhorn blend
+                    # (w0 z0 + w1 z1) / (w0 + w1) divides the rounding noise of
+                    # 1 - p (p the dustbin mass) and picks the mix or the lerp at
+                    # denom > 1e-6: there the two devices' f32 roundings part
+                    # without either being wrong. Held are the pixels whose
+                    # confidence (a lower bound of the blend's denominator) is at
+                    # least SINKHORN_WELL_POSED, and the confidence everywhere;
+                    # the rest is printed beside the CPU's f32-vs-f64 distance.
+                    held = (on_cpu[1].double() >= SINKHORN_WELL_POSED)[:, :, None].expand_as(d)
+                    f64_gap = float((b - on_f64[0].double()).abs().max() / b.abs().max())
+                    note += (f"; output held on {float(held.float().mean()):.4f} of its elements "
+                             f"(confidence >= {SINKHORN_WELL_POSED}), elsewhere max|d|/max|cpu| "
+                             f"{float((d * ~held).max()) / float(b.abs().max()):.2e} "
+                             f"(the CPU's own f32 vs f64, all elements: {f64_gap:.2e})")
+                    d = d * held
+                errs.append(float(d.max()) / float(b.abs().max()))
+            print(f"[wan interp] {name}: f32 forward on the card vs the CPU, same weights and "
+                  f"inputs (2 clips), max|d|/max|cpu| {['%.2e' % e for e in errs]} (tol "
+                  f"{INTERP_CARD_TOL}){note}", flush=True)
+            require(max(errs) <= INTERP_CARD_TOL, f"{name}: card vs CPU forward {errs}")
+            del model, cpu, state
+
+        # 2. the teacher precompute from the flow checkpoint and from lerp, joined back
+        for teacher in ("lerp", f"model:{ckpts['flow']}"):
+            label = teacher.split(":")[0]
+            out = os.path.join(work, f"teacher_{label}")
+            t0 = time.perf_counter()
+            n = prep.main(["--data_root", data, "--out_root", out, "--teacher", teacher])
+            took = time.perf_counter() - t0
+            joined = list(WanSynthTarDataset(data, T=21, shuffle_shards=False, shuffle_buffer=1,
+                                             teacher_root=out))
+            require(n == INTERP_SAMPLES and len(joined) == INTERP_SAMPLES and all(
+                s["teacher_latents"].shape == (10, *s["latents"].shape[1:]) and
+                bool(np.isfinite(s["teacher_latents"]).all()) for s in joined),
+                f"teacher {label}: {n} clips, joined shapes "
+                f"{[s.get('teacher_latents', np.zeros(0)).shape for s in joined]}")
+            lat_shape = joined[0]["latents"].shape[1:]
+            if label == "lerp":
+                lat = joined[0]["latents"]
+                require(np.allclose(joined[0]["teacher_latents"][0], 0.5 * (lat[0] + lat[2]),
+                                    atol=1e-6), "lerp teacher: the mid-frame is not the lerp")
+            print(f"[wan interp] {tag} teacher precompute --teacher {label}: {n} clips, "
+                  f"{n * 10} mid-frames of {'x'.join(map(str, lat_shape))} in {took:.2f} s "
+                  f"({n / took:.2f} clips/s with the tar I/O); joined back by key", flush=True)
+
+        # 3. eval_interpolators on the shards: lerp, flow, sinkhorn
+        for interp in ("lerp", "flow", "sinkhorn"):
+            argv = ["--interpolator", interp, "--data", "tar", "--data_root", data,
+                    "--batch", "4", "--num_batches", "2", "--latent_h", "60", "--latent_w", "104"]
+            if interp != "lerp":
+                argv += ["--ckpt", ckpts[interp]]
+            report = ev.main(argv)
+            require(report["n_samples"] == 8 and all(
+                np.isfinite(v) for v in report.values() if isinstance(v, float)),
+                f"eval {interp}: {report}")
+            print(f"[wan interp] {tag} eval_interpolators {interp}: latent_l1 "
+                  f"{report['latent_l1']:.5f} (lerp {report['lerp_l1']:.5f}, "
+                  f"{report['l1_vs_lerp_pct']:+.2f}%), psnr {report['psnr']:.3f}, ssim "
+                  f"{report['ssim']:.4f}, outliers {report['outliers_worse_than_lerp']} of "
+                  f"{report['n_samples']}; {report['samples_per_sec']:.2f} samples/s", flush=True)
+        for name in list(ckpts):
+            shutil.rmtree(os.path.join(work, name), ignore_errors=True)
+        torch.cuda.empty_cache()
+
+        # 4. full fine-tuning under bf16: the 4-layer gate, then the CLI at depth 30
+        _full_ft_check(dev, data)
+        launches = _full_ft_cli(dev, card, data, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print(f"[wan interp] phase 5g took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches
+
+
 def gemm_ab(card) -> int:
     """`--gemm-ab`: what the W-resident GEMM kernel buys over the streaming one.
     Four runs of this script's `--maze-kernels` part in processes of their own,
@@ -3766,6 +4147,10 @@ def main() -> int:
             phase_wan_phase2(dev, card, profile)
             print("[wan2] phase 5f passed", flush=True)
             return 0
+        if "--wan-interp" in sys.argv[1:]:   # phase 5g alone: no other phase, no summary
+            phase_wan_interp(dev, card)
+            print("[wan interp] phase 5g passed", flush=True)
+            return 0
         if "--kernels" in sys.argv[1:]:   # the kernels alone: no model, no summary
             phase_timings(dev, card, cases)
             del cases
@@ -3807,6 +4192,8 @@ def main() -> int:
         train_launches, _ = phase_wan_train(dev, card, profile)
         torch.cuda.empty_cache()
         wan2_errs, wan2_times, wan2_launches, _ = phase_wan_phase2(dev, card, profile)
+        torch.cuda.empty_cache()
+        full_ft_launches = phase_wan_interp(dev, card)
     except SmokeFailure as e:
         print(f"FAIL: {e}", flush=True)
         return 1
@@ -3903,7 +4290,8 @@ def main() -> int:
                          train_bound_ms=wan_times["bounds"][f"{name}/train"][0])
         extra.update(phase2(name, *(("cross", "self") if name == "flash_attention" else ())))
         row(name, wan_launches[name], max(*wan_errs[name], wan2_errs.get(name, 0.0)), k_ms, p_ms,
-            wan_times["bounds"][name], lib_ms, train_launches=train_launches[name], **extra)
+            wan_times["bounds"][name], lib_ms, train_launches=train_launches[name],
+            full_ft_launches=full_ft_launches.get(name, {}), **extra)
     # backward kernels: times at the trainer's shapes (flash: cross-attention,
     # and its self-attention shape too; SLA also by graph replay); the twin and
     # the library call compute dq, dk and dv in one call
@@ -3922,7 +4310,8 @@ def main() -> int:
         extra.update(phase2(name, *(("cross", "self") if kind == "flash" else ())))
         row(name, train_launches[name], max(bwd_errs[name], wan2_errs.get(name, 0.0)),
             bwd_times[name], bwd_times[f"{kind}_twin"], bwd_bounds[name],
-            bwd_times.get(f"{kind}_library"), **extra)
+            bwd_times.get(f"{kind}_library"), full_ft_launches=full_ft_launches.get(name, {}),
+            **extra)
     idle = [r["name"] for r in summary if r["launches"] <= 0]
     if idle:
         print(f"FAIL: kernels never launched on their main path: {idle}", flush=True)

@@ -6,7 +6,8 @@ not: the causal mask has no parameters); `selector_to_state_dict` and
 `segment_cost_to_state_dict` invert its convert_keypoint_selector and
 convert_segment_cost; `wan_params_to_state_dict` converts a WanDiT (and
 FrameCondProjector) tree and `lora_params_to_state_dict` a Wan trainer's LoRA
-tree. `checkpoint_to_state_dict` picks the converter from a checkpoint's
+tree; `module_tree_to_state_dict` converts the modules that keep the flax
+names. `checkpoint_to_state_dict` picks the converter from a checkpoint's
 meta (utils/jax_checkpoint.py reads the trees).
 `lora_to_params` / `frame_cond_to_params` go the other way for the leaves the
 Wan trainer updates (values or gradients), so that a test compares them with
@@ -354,9 +355,38 @@ def segment_cost_to_state_dict(params: Params) -> Dict[str, torch.Tensor]:
     return sd
 
 
+def module_tree_to_state_dict(params: Params, prefix: str = "") -> Dict[str, torch.Tensor]:
+    """flax params of a module whose port keeps the flax names (the flow
+    interpolator, the straighteners, the Sinkhorn interpolator, the video
+    selector and the video D_phi) -> its state_dict: a Dense or Conv leaf
+    dict becomes `<path>.weight` / `<path>.bias` (conv kernels to OIHW), a
+    TransformerEncoder (`transformer`, `tr`) `<path>.layers.{i}.*`, a
+    TextConditionEncoder (`text_enc`) `<path>.proj.{0,2}`, a bare array
+    (time_embed, tau_raw, dustbin) its own entry."""
+    sd: Dict[str, torch.Tensor] = {}
+    for name, p in params.items():
+        path = f"{prefix}{name}"
+        if not isinstance(p, dict):
+            sd[path] = _t(p)
+        elif "kernel" in p:
+            (_conv if np.asarray(p["kernel"]).ndim == 4 else _linear)(sd, path, p)
+        elif name in ("transformer", "tr"):
+            for i in range(sum(1 for k in p if k.startswith("block_"))):
+                _block(sd, f"{path}.layers.{i}.", p[f"block_{i}"])
+        elif name == "text_enc":
+            _linear(sd, f"{path}.proj.0", p["fc1"])
+            _linear(sd, f"{path}.proj.2", p["fc2"])
+        else:
+            sd.update(module_tree_to_state_dict(p, f"{path}."))
+    return sd
+
+
+# stages whose port keeps the flax module names
+_FLAX_NAMED_STAGES = ("flow_interpolator", "straightener", "sinkhorn_interp", "video_selector",
+                      "segment_cost_wansynth")
 # stages whose module the port does not have yet, and what is missing
 _UNPORTED_STAGES = {
-    "flow_interpolator": "the flow interpolator (models/flow_interpolator.py)",
+    "video_interpolator": "the learned video interpolators (models/interpolators.py)",
 }
 _WANSYNTH_STAGES = {"keypoints_wansynth": "video_keypoint",
                     "interp_levels_wansynth": "video_interp"}
@@ -375,10 +405,12 @@ def checkpoint_to_state_dict(meta: Dict, params: Params) -> Dict[str, Any]:
     """A JAX checkpoint's params (or EMA) tree -> what the port's checkpoint
     of the same stage holds under `params`: the model's state_dict for the
     maze stages (keypoints, interp_levels causal or not, segment_cost,
-    selector); for keypoints_wansynth the LoRA partition the Wan trainer
-    saves ({"lora": LoRA leaves, "frame_cond": projector state_dict}; the
-    frozen Wan base is in neither package's checkpoint). Other stages, and a
-    Wan tree with other leaves (a run that trained every weight), raise
+    selector) and the video interpolators' stages (flow_interpolator,
+    straightener, sinkhorn_interp, video_selector, segment_cost_wansynth);
+    for keypoints_wansynth the LoRA partition the Wan trainer
+    saves ({"lora": LoRA leaves, "frame_cond": projector state_dict,
+    "wan_base" and, for a run that trained every weight, "wan": WanDiT
+    state_dicts). Other stages, and a Wan tree with other leaves, raise
     NotImplementedError naming what is missing."""
     stage = meta.get("stage")
     params = _numpy_tree(params)
@@ -390,6 +422,8 @@ def checkpoint_to_state_dict(meta: Dict, params: Params) -> Dict[str, Any]:
         return selector_to_state_dict(params)
     if stage == "segment_cost":
         return segment_cost_to_state_dict(params)
+    if stage in _FLAX_NAMED_STAGES:
+        return module_tree_to_state_dict(params)
     if stage in _WANSYNTH_STAGES:
         if not meta.get("use_wan", 1):
             return params_to_state_dict(params, _WANSYNTH_STAGES[stage])

@@ -2,7 +2,9 @@
 service (port of models/loading.py: the two maze denoisers, the keypoint
 selector and the segment-cost model D_phi, and the D_phi cost function of
 the kp_feat channels), and the wansynth checkpoints of both phases
-(`load_wansynth_model`: WanDiT + frame projector, or the token denoisers).
+(`load_wansynth_model`: WanDiT + frame projector, or the token denoisers),
+and the video interpolators' stages (`load_stage_model`: the flow and
+Sinkhorn interpolators, the straighteners, the video selector and D_phi).
 
 Reads the port's own checkpoints and the JAX package's (utils/checkpoint.py
 routes a directory with `params.msgpack` through utils/jax_checkpoint.py and
@@ -133,6 +135,48 @@ def make_dphi_seg_cost_fn(path: str, T: int, use_sdf=None, bf16: bool = True, de
             return model(cond, build_segment_features_from_idx(idx, T, seg_feat_dim))
 
     return seg_cost_fn, meta
+
+
+def load_stage_model(path: str, stage: str, from_meta, device="cuda", bf16: bool = False):
+    """(model, meta) of a checkpoint of `stage` (or the newest under a run
+    dir), either package's: `from_meta(meta)` builds the module, the params
+    fill it (f32, on `device`), bf16 compute under `bf16`, eval mode without
+    gradients. The video interpolators' stages use it."""
+    path = resolve_ckpt(path)
+    _, meta = read_meta(path)
+    _check_meta(meta, path, stage)
+    with torch.device("meta"):
+        model = from_meta(meta)
+    model = model.to_empty(device=device)
+    return _fill(model, path, bf16, False, device), meta
+
+
+def load_flow_interpolator(path: str, device="cuda", bf16: bool = False):
+    """(LatentFlowInterpolator, meta) of a flow_interpolator checkpoint."""
+    from .flow_interpolator import flow_interpolator_from_meta
+
+    return load_stage_model(path, "flow_interpolator", flow_interpolator_from_meta, device, bf16)
+
+
+def load_sinkhorn_interp(path: str, device="cuda"):
+    """(SinkhornWarpInterpolator, meta) of a sinkhorn_interp checkpoint (f32)."""
+    from .sinkhorn_warp import SinkhornWarpInterpolator
+
+    return load_stage_model(path, "sinkhorn_interp", SinkhornWarpInterpolator.from_meta, device)
+
+
+def load_video_selector(path: str, device="cuda", bf16: bool = False):
+    """(VideoKeyframeSelector, meta) of a video_selector checkpoint."""
+    from .video_selector import video_selector_from_meta
+
+    return load_stage_model(path, "video_selector", video_selector_from_meta, device, bf16)
+
+
+def load_video_segment_cost(path: str, device="cuda", bf16: bool = False):
+    """(VideoSegmentCostPredictor, meta) of a segment_cost_wansynth checkpoint."""
+    from ..train.train_segment_cost_wansynth import segment_cost_from_meta
+
+    return load_stage_model(path, "segment_cost_wansynth", segment_cost_from_meta, device, bf16)
 
 
 WANSYNTH_STAGES = ("keypoints_wansynth", "interp_levels_wansynth")

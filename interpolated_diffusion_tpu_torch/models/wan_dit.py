@@ -5,8 +5,9 @@ RMS-normed q/k, 3D RoPE with the Wan t/h/w head-dim split (absolute-time
 frame indices as a forward argument), cross-attention to text (plus optional
 extra context tokens), runtime-form LoRA, and a head modulated by the time
 embedding. The compute dtype is the parameters' dtype unless
-`set_compute_dtype` names another: the trainer keeps the LoRA and
-frame-conditioning leaves as f32 masters and computes in bf16, casting them
+`set_compute_dtype` names another, and every module honours it: the trainer
+keeps its trainable leaves (the LoRA and frame-conditioning leaves, or with
+lora_rank 0 every weight) as f32 masters and computes in bf16, casting them
 per call, so that their gradients arrive in f32.
 
 Attention dispatch is the JAX package's: attn_mode "sla" / "sage_sla" route
@@ -152,7 +153,9 @@ class LoRALinear(nn.Linear):
 
 class RMSNorm(nn.Module):
     """f32 mean square, x * rsqrt(ms + eps) rounded to the compute dtype,
-    then times the scale (eps 1e-6)."""
+    then times the scale cast to it (eps 1e-6)."""
+
+    compute_dtype: Optional[torch.dtype] = None
 
     def __init__(self, dim: int, eps: float = 1e-6):
         super().__init__()
@@ -163,9 +166,9 @@ class RMSNorm(nn.Module):
         self.weight.fill_(1.0)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        dtype = self.weight.dtype
+        dtype = self.compute_dtype or self.weight.dtype
         var = x.float().square().mean(dim=-1, keepdim=True)
-        return (x.float() * torch.rsqrt(var + self.eps)).to(dtype) * self.weight
+        return (x.float() * torch.rsqrt(var + self.eps)).to(dtype) * self.weight.to(dtype)
 
 
 def _gelu(x: torch.Tensor) -> torch.Tensor:

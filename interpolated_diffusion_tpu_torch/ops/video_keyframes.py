@@ -1,8 +1,8 @@
 """Interpolation corruption for video latents and token grids (port of
 ops/video_keyframes.py).
 
-Segment lerp with an optional smoothing refinement, anchors re-scattered
-exactly; `distance_alpha`, the noise scale of the distance-scaled corruption;
+Segment lerp with an optional smoothing or learned (`interp_fn`)
+refinement, anchors re-scattered exactly; `distance_alpha`, the noise scale of the distance-scaled corruption;
 and the Phase-2 corruption batch builders for flat latents [B, T, D] and
 token grids [B, T, N, D]: level (x0 mode) and adjacent-level (adj mode)
 batches with student-anchor replacement (noisy teacher values, or
@@ -13,12 +13,11 @@ computed and the sampled one gathered, as in the JAX package.
 Every random draw is an argument: the builders take the dict of
 `make_video_interp_draws` (the nested masks' uniforms, the sampled level, and
 per level the replacement uniforms, the student noise and the corruption
-noise), so that a test can hand in JAX's draws. The learned refinement
-(`interp_mode="learned"`, models/interpolators.py) is not ported.
+noise), so that a test can hand in JAX's draws.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -52,11 +51,13 @@ def smooth_latents(z: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
 
 def interpolate_video_from_indices(idx: torch.Tensor, vals: torch.Tensor, T: int,
                                    mode: str = "linear",
-                                   smooth_kernel: Optional[torch.Tensor] = None
-                                   ) -> torch.Tensor:
+                                   smooth_kernel: Optional[torch.Tensor] = None,
+                                   interp_fn: Optional[Callable[[torch.Tensor], torch.Tensor]]
+                                   = None) -> torch.Tensor:
     """idx [B, K] sorted anchor frames, vals [B, K, D] -> [B, T, D]: segment
-    lerp (`linear`), or the lerp smoothed by `smooth_kernel` (default
-    [0.25, 0.5, 0.25]) with the anchors written back exactly (`smooth`)."""
+    lerp (`linear`), the lerp smoothed by `smooth_kernel` (default
+    [0.25, 0.5, 0.25]; `smooth`) or refined by `interp_fn` ([B, T, D] ->
+    [B, T, D]; `learned`), the anchors written back exactly after either."""
     z = interpolate_from_indices(idx, vals, T, recompute_velocity=False)
     if mode == "linear":
         return z
@@ -64,11 +65,14 @@ def interpolate_video_from_indices(idx: torch.Tensor, vals: torch.Tensor, T: int
         if smooth_kernel is None:
             smooth_kernel = torch.tensor([0.25, 0.5, 0.25], dtype=z.dtype, device=z.device)
         z = smooth_latents(z, smooth_kernel)
-        index = idx.long()[..., None].expand(-1, -1, z.shape[-1])
-        return z.scatter(1, index, vals.to(z.dtype))
-    if mode == "learned":
-        raise NotImplementedError("video_interp_mode='learned' is not ported yet")
-    raise ValueError(f"unknown interpolation mode {mode!r}")
+    elif mode == "learned":
+        if interp_fn is None:
+            raise ValueError("interp_fn is required for mode='learned'")
+        z = interp_fn(z)
+    else:
+        raise ValueError(f"unknown interpolation mode {mode!r}")
+    index = idx.long()[..., None].expand(-1, -1, z.shape[-1])
+    return z.scatter(1, index, vals.to(z.dtype))
 
 
 def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

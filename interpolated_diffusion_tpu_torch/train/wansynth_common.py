@@ -187,7 +187,9 @@ def build_wan(args, bf16: bool = True, *, generator: torch.Generator,
     """
     check_wan_args(args)
     frame_cond = bool(getattr(args, "frame_cond", 0))
-    dtype = torch.bfloat16 if bf16 else torch.float32
+    # a LoRA run's frozen base lives in the compute dtype; a full fine-tune
+    # (lora_rank 0) keeps every weight as an f32 master from the start
+    dtype = torch.bfloat16 if bf16 and int(args.lora_rank) > 0 else torch.float32
     wan = build_model(
         WanDiT, generator=generator, device=device, dtype=dtype,
         zero_init_scale=zero_init_scale,
@@ -307,9 +309,10 @@ def init_wan_trainables(args, wan: WanDiT, fc: Optional[FrameCondProjector],
     gradients; every other WanDiT parameter is the frozen base, kept in the
     compute dtype and requiring none. Both modules then compute in the
     compute dtype (bf16 or f32), casting the masters per call. Without LoRA
-    the whole model trains (`trainable["wan"]`, base None); that needs f32
-    compute, since only the LoRA leaves, the projector and the embedder MLPs
-    separate their compute dtype from their parameters'.
+    the whole model trains (`trainable["wan"]`, base None): every WanDiT
+    weight becomes an f32 master that requires gradients, computing in the
+    compute dtype, as JAX's init_wan_trainables keeps wan_params as the
+    trainable tree under flax's dtype=bfloat16.
     """
     check_wan_args(args)
     compute = torch.bfloat16 if bf16 else torch.float32
@@ -329,10 +332,6 @@ def init_wan_trainables(args, wan: WanDiT, fc: Optional[FrameCondProjector],
             p.requires_grad_(False)
         trainable["lora"] = lora
     else:
-        if bf16:
-            raise NotImplementedError(
-                "training every WanDiT weight (lora_rank 0) under bf16 needs f32 masters for "
-                "all modules, which is not ported; use --bf16 0 or --lora_rank > 0")
         wan.float().requires_grad_(True)
         trainable["wan"], base = named, None
     set_compute_dtype(wan, compute)

@@ -16,6 +16,8 @@ models/loading.py) on the CPU.
   projector) into the port's WanDiT over the same seeded frozen base, equal
   to JAX's forward (dense attention, f32, head dim 32, 1e-4 of the output
   scale, as tests/test_torch_wan_model.py's f32 tolerance).
+- runs/wansynth_debug/flow (flow_interpolator) through the port's loader,
+  equal to JAX's forward on its params (f32, 1e-4).
 - What does not cross over raises: unported stages, a resume (the optax
   optimizer state).
 """
@@ -318,10 +320,39 @@ def test_lora_layouts_convert_alike():
         assert all(torch.equal(got[k], want[k]) for k in want)
 
 
-@pytest.mark.parametrize("fixture,match", [(2, "models/flow_interpolator.py")])
-def test_unported_stages_raise_naming_what_is_missing(fixture, match):
+@pytest.mark.parametrize("stage,match", [("video_interpolator", "models/interpolators.py")])
+def test_unported_stages_raise_naming_what_is_missing(tmp_path, stage, match):
+    """A JAX checkpoint of a stage whose module the port lacks (the learned
+    video interpolators), written by JAX's save_checkpoint."""
+    path = str(tmp_path / "ckpt_1")
+    jckpt.save_checkpoint(path, {"dwconv_0": {"kernel": jnp.zeros((3, 1, 4)),
+                                              "bias": jnp.zeros((4,))}}, None, 1, None,
+                          {"stage": stage})
     with pytest.raises(NotImplementedError, match=match):
-        checkpoint.load_checkpoint(FIXTURES[fixture], with_opt_state=False)
+        checkpoint.load_checkpoint(path, with_opt_state=False)
+
+
+def test_flow_fixture_loads_and_matches_jax():
+    """runs/wansynth_debug/flow/ckpt_2 (stage flow_interpolator, written by
+    JAX's trainer) through the port's loader: its forward equals JAX's on the
+    checkpoint's params, 1e-4 of the output's scale (f32)."""
+    from interpolated_diffusion_tpu.models import flow_interpolator as jfi
+
+    from test_torch_interpolators import japply, jparams, rel
+
+    pm, meta = loading.load_flow_interpolator(FIXTURES[2], device="cpu")
+    assert meta["stage"] == "flow_interpolator" and pm.gap_cond and pm.time_mask
+    r = np.random.default_rng(4)
+    lat = r.normal(size=(2, 9, 4, 8, 8)).astype(np.float32)
+    idx = np.array([[0, 4, 8], [0, 3, 8]], np.int32)
+    jm = jfi.LatentFlowInterpolator(
+        in_channels=4, base_channels=8, max_flow=20.0, residual_blocks=1, time_mask=True,
+        gap_cond=True, use_cost_volume=True, cv_radius=2)
+    _, payload = jckpt.load_checkpoint(FIXTURES[2], jparams(jm, lat, idx))
+    ref_out, ref_conf = japply(jm, payload["params"], lat, idx)
+    with torch.no_grad():
+        out, conf = pm(torch.tensor(lat), torch.tensor(idx).long())
+    assert rel(out, ref_out) <= 1e-4 and rel(conf, ref_conf) <= 1e-4
 
 
 def test_a_wan_tree_with_other_leaves_raises():

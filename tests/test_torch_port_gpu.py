@@ -769,3 +769,84 @@ def test_merged_lora_on_the_card_is_apply_lora(cuda):
     t = torch.tensor([100, 200], device=cuda)
     with torch.no_grad():
         assert _rel(wan(lat, t, ctx), plain(lat, t, ctx)) <= 2.0 ** -7
+
+
+def _interp_models(T=21):
+    """Seeded interpolators and selector at small widths, each with an input
+    maker: (name, model, inputs(device)) for the card-vs-CPU forwards."""
+    from interpolated_diffusion_tpu_torch.models.flow_interpolator import LatentFlowInterpolator
+    from interpolated_diffusion_tpu_torch.models.init import build_model
+    from interpolated_diffusion_tpu_torch.models.sinkhorn_warp import SinkhornWarpInterpolator
+    from interpolated_diffusion_tpu_torch.models.straightener import (
+        LatentStraightener, LatentStraightenerTokenTransformer)
+    from interpolated_diffusion_tpu_torch.models.video_selector import VideoKeyframeSelector
+
+    g = torch.Generator().manual_seed(8)
+    lat = torch.randn(2, T, 16, 60, 104, generator=g)
+    idx = torch.tensor([[0, 5, 10, 15, 20], [0, 3, 9, 14, 20]])
+    text = torch.randn(2, 16, 64, generator=g)
+    seeded = lambda cls, **kw: build_model(cls, generator=torch.Generator().manual_seed(9),
+                                           zero_init_scale=0.05, **kw).eval()
+    return [
+        ("flow", seeded(LatentFlowInterpolator, in_channels=16, time_mask=True, gap_cond=True,
+                        use_cost_volume=True), lambda d: (lat.to(d), idx.to(d))),
+        ("straightener", seeded(LatentStraightener, in_channels=16),
+         lambda d: (lat[:, 0].to(d),)),
+        ("straightener_token", seeded(LatentStraightenerTokenTransformer, in_channels=16,
+                                      d_model=64, n_layers=2, n_heads=4, d_ff=128),
+         lambda d: (lat[:, 0].to(d),)),
+        ("sinkhorn", seeded(SinkhornWarpInterpolator, in_channels=16, learn_tau=True,
+                            learn_dustbin=True, fb_sigma=2.0, global_mode="none"),
+         lambda d: (lat.to(d), idx.to(d))),
+        ("video_selector", seeded(VideoKeyframeSelector, T=T, text_dim=64, d_model=64,
+                                  d_cond=32, n_layers=2, n_heads=4, d_ff=128),
+         lambda d: ({"text_embed": text.to(d)},)),
+    ]
+
+
+@pytest.mark.gpu
+def test_interpolators_on_the_card_match_the_cpu(cuda):
+    """The video interpolators and the selector have no kernel of their own:
+    their f32 forward on the card (cuDNN convolutions, grid_sample, FFTs,
+    TF32 off) equals the CPU forward of the same weights and inputs within
+    1e-4 of the output's scale, at the Wan latent size 16 x 60 x 104. The
+    Sinkhorn output is held where its confidence is at least 1e-2: below it
+    the blend divides rounding noise, and f32 does not determine the output
+    (chip_smoke.py's phase 5g gate)."""
+    torch.backends.cudnn.allow_tf32 = False
+    as_tuple = lambda out: out if isinstance(out, tuple) else (out,)
+    for name, model, inputs in _interp_models():
+        with torch.no_grad():
+            ref = as_tuple(model(*inputs(torch.device("cpu"))))
+            got = as_tuple(model.to(cuda)(*inputs(cuda)))
+        for k, (a, b) in enumerate(zip(got, ref)):
+            d = (a.cpu() - b).abs()
+            if name == "sinkhorn" and k == 0:
+                d = d * (ref[1] >= 1e-2)[:, :, None]
+            assert float(d.max()) <= 1e-4 * float(b.abs().max()), (name, k, _rel(a.cpu(), b))
+
+
+@pytest.mark.gpu
+def test_full_finetune_step_on_the_card(cuda):
+    """--lora_rank 0 --bf16 1 at head dim 128 under sla: every WanDiT weight
+    an f32 master, the SLA and flash kernels launched, every weight moved."""
+    from interpolated_diffusion_tpu_torch.train import train_keypoints_wansynth as p1
+    from interpolated_diffusion_tpu_torch.train.state import tree_leaves
+
+    args = p1.build_argparser().parse_args(
+        ["--T", "9", "--latent_c", "4", "--latent_h", "32", "--latent_w", "64",
+         "--text_len", "8", "--text_dim", "64", "--wan_dim", "256", "--wan_layers", "2",
+         "--wan_heads", "2", "--wan_ffn", "512", "--lora_rank", "0", "--K", "5",
+         "--sla_block", "64", "--sla_topk", "0.5", "--attn_mode", "sla", "--device", "cuda"])
+    state, base, step, wan, fc = p1.make_trainer(args, cuda)
+    assert base is None and all(p.dtype == torch.float32 for p in tree_leaves(state.params))
+    g = torch.Generator(cuda).manual_seed(10)
+    batch = {"latents": torch.randn(2, 9, 4, 32, 64, generator=g, device=cuda),
+             "text_embed": torch.randn(2, 8, 64, generator=g, device=cuda)}
+    before = [p.detach().clone() for p in tree_leaves(state.params)]
+    launches = bsa.block_sparse_attention.launches
+    state, metrics = step(state, base, batch, g)
+    assert bsa.block_sparse_attention.launches > launches
+    assert np.isfinite(float(metrics["loss"]))
+    moved = sum(not torch.equal(a, b) for a, b in zip(before, tree_leaves(state.params)))
+    assert moved == len(before)

@@ -186,7 +186,21 @@ def test_wan_port_import_pulls_in_no_jax():
             "interpolated_diffusion_tpu_torch.models.lora, "
             "interpolated_diffusion_tpu_torch.models.wan_convert, "
             "interpolated_diffusion_tpu_torch.models.video_denoisers, "
-            "interpolated_diffusion_tpu_torch.utils.safetensors; "
+            "interpolated_diffusion_tpu_torch.utils.safetensors, "
+            "interpolated_diffusion_tpu_torch.ops.image, "
+            "interpolated_diffusion_tpu_torch.models.flow_interpolator, "
+            "interpolated_diffusion_tpu_torch.models.straightener, "
+            "interpolated_diffusion_tpu_torch.models.sinkhorn_warp, "
+            "interpolated_diffusion_tpu_torch.models.video_selector, "
+            "interpolated_diffusion_tpu_torch.train.interp_common, "
+            "interpolated_diffusion_tpu_torch.train.train_flow_interpolator_wansynth, "
+            "interpolated_diffusion_tpu_torch.train.train_latent_straightener_wansynth, "
+            "interpolated_diffusion_tpu_torch.train.train_sinkhorn_interp_wansynth, "
+            "interpolated_diffusion_tpu_torch.train.train_segment_cost_wansynth, "
+            "interpolated_diffusion_tpu_torch.train.train_video_selector_wansynth, "
+            "interpolated_diffusion_tpu_torch.teachers.teacher, "
+            "interpolated_diffusion_tpu_torch.data.precompute_teacher, "
+            "interpolated_diffusion_tpu_torch.diagnostics.eval_interpolators; "
             "bad = [m for m in sys.modules if m in ('jax', 'flax', 'optax', 'msgpack') "
             "or m.startswith(('jax.', 'flax.', 'optax.', 'msgpack.')) "
             "or m == 'interpolated_diffusion_tpu' or m.startswith('interpolated_diffusion_tpu.')]; "

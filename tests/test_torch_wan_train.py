@@ -393,7 +393,13 @@ def test_midpoints_meanpool_and_video_interpolation_match_jax():
         assert rel_err(got.numpy(), ref) <= 1e-6, mode
         anchors = torch.gather(got, 1, torch.tensor(idx).long()[..., None].expand(B, K, D))
         assert torch.equal(anchors, torch.tensor(vals))   # anchors written back exactly
-    with pytest.raises(NotImplementedError):
+    # learned: the lerp refined by interp_fn, the anchors written back exactly
+    ref = j_interp(jnp.asarray(idx), jnp.asarray(vals), T, mode="learned",
+                   interp_fn=lambda z: jnp.tanh(2.0 * z) + 0.5)
+    got = p_interp(torch.tensor(idx).long(), torch.tensor(vals), T, mode="learned",
+                   interp_fn=lambda z: torch.tanh(2.0 * z) + 0.5)
+    assert rel_err(got.numpy(), ref) <= 1e-6
+    with pytest.raises(ValueError, match="interp_fn"):
         p_interp(torch.tensor(idx).long(), torch.tensor(vals), T, mode="learned")
 
 

@@ -174,12 +174,34 @@ def test_cli_resume_continues_from_checkpoint(tmp_path, capsys):
     assert any(not torch.equal(a[k], c[k]) for k in a)
 
 
+def test_cli_trains_every_weight_under_bf16(tmp_path):
+    """--lora_rank 0 --bf16 1: every WanDiT weight is an f32 master computing
+    in bf16; two steps move every one of them, and the checkpoint holds them
+    in f32 under "wan" (no frozen base)."""
+    out = str(tmp_path / "full")
+    args = ptrainer.build_argparser().parse_args(
+        TINY + ["--device", "cpu", "--attn_mode", "dense", "--lora_rank", "0", "--bf16", "1",
+                "--frame_cond", "0", "--out_dir", out])
+    wan, _ = pcommon.build_wan(args, bf16=True, generator=torch.Generator().manual_seed(args.seed))
+    before = {k: v.detach().float().clone() for k, v in wan.named_parameters()}
+    state = ptrainer.main(TINY + ["--device", "cpu", "--attn_mode", "dense", "--lora_rank", "0",
+                                  "--bf16", "1", "--frame_cond", "0", "--out_dir", out])
+    leaves = state.params["wan"]
+    assert set(state.params) == {"wan"} and leaves.keys() == before.keys()
+    assert all(p.dtype == torch.float32 for p in leaves.values())
+    still = [k for k, p in leaves.items() if torch.equal(p.detach(), before[k])
+             and ".sla." not in k]
+    assert not still, still[:3]
+    _, payload = load_checkpoint(os.path.join(out, "ckpt_2"))
+    assert set(payload["params"]) == {"wan"}
+    assert all(v.dtype == torch.float32 for v in payload["params"]["wan"].values())
+
+
 def test_cli_refuses_what_is_not_ported(tmp_path):
     base = TINY + ["--device", "cpu", "--out_dir", str(tmp_path / "x")]
     for flags, what in ((["--ckpt_async", "1"], "ckpt_async"),
                         (["--n_data_shards", "2"], "n_data_shards"),
-                        (["--ffn_mode", "moe"], "ffn_mode"),
-                        (["--lora_rank", "0", "--bf16", "1"], "lora_rank")):
+                        (["--ffn_mode", "moe"], "ffn_mode")):
         with pytest.raises(NotImplementedError, match=what):
             ptrainer.main(base + flags)
     with pytest.raises(RuntimeError, match="CUDA"):
