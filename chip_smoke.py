@@ -2,6 +2,7 @@
 """Drive the PyTorch/CUDA port's sampling paths and its trainers once on one GPU.
 
     python3 chip_smoke.py [--profile] [--kernels] [--gemm-ab] [--wan-phase2] [--wan-interp]
+                          [--video-toy]
 
 Phases, each on its own lines; any failure exits non-zero:
   1. device       the card's name and power limit (nvidia-smi); CUDA required
@@ -164,6 +165,30 @@ Phases, each on its own lines; any failure exits non-zero:
                   layers, 2 steps each under sla and sage_sla (launches per
                   step of rows 4-8, s/step, peak memory, every weight f32
                   and moved)
+  5h. video toy   the toy-video and DiDeMo slice at the JAX trainers' default
+                  width (512d x 8 layers x 8 heads, d_ff 2048), after 5e
+                  (`--video-toy` alone): rows 1 and 2 against their twins at
+                  the slice's shapes with times, bounds and library times;
+                  both toy trainers (batch 64, T 16, 16x16x3 latents; loss and
+                  every leaf's gradient of the kernel path vs the twin path
+                  under block, then each CLI for 4 steps under fused and
+                  block: launches per step, no forward twin call, s/step,
+                  peak memory, the checkpoint read back); sample_toy_video
+                  (16 x 2, DDIM-20) on those checkpoints under both policies
+                  (launches per call, samples/s), then its pipeline at B 16
+                  with a seeded Stage-2 head, kernel path vs twin path on the
+                  same draws (z_pred and each refinement's step; --profile:
+                  one call's device time by kind and busy share);
+                  train_video_interpolator --workload toy
+                  (batch 32); the card's f32 forward against the CPU's for
+                  the temporal-conv and lerp-residual interpolators, FrameVAE
+                  and the full-width SDVAE (64x64 and 256x256 frames, with
+                  encode / decode times); eval_interpolators --rgb 1 on 32x32
+                  SD latents; both DiDeMo trainers at batch 16 on the
+                  synthetic clip cache and on a cache of DiDeMo's own shapes
+                  (SD latents [16, 4, 8, 8] by the seeded SDVAE, text [77,
+                  512]), under fused and block, each with the gate where a
+                  kernel runs and a 4-step CLI run
 Every timing phase also times the one PyTorch library call that computes the
 same function, where there is one (scaled_dot_product_attention, for SLA
 under the LUT as a mask; F.linear; or for the block a chain of them), as a
@@ -180,7 +205,9 @@ first run for a changed kernel. --gemm-ab reads what the block GEMM's
 W-resident kernel buys: the maze part of phases 3 and 5 (--maze-kernels) in four
 processes, two on a build that sends every product to the streaming kernel.
 --wan-phase2 runs the build and phase 5f alone and prints neither JSON line,
---wan-interp the build and phase 5g alone.
+--wan-interp the build and phase 5g alone. --video-toy runs the build and
+phase 5h alone, then a JSON line of its launches and times and the
+{"ok": true, ...} line.
 """
 from __future__ import annotations
 
@@ -1349,12 +1376,34 @@ def anchor_choices(replay=None):
         anchor_search.dp_mix_anchors = real
 
 
+def _profile_call(call, tag, what=None):
+    """Where one call of `call` spends its time: the median wall time of 5
+    calls (after a first) and the device time of one more under
+    torch.profiler, whose table and device time by kind of kernel are printed
+    when `what` names the call. Returns (wall seconds, device ms)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    walls = []
+    for _ in range(6):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    if what:
+        _print_profile(prof, tag, what)
+    return sorted(walls[1:])[2], sum(_device_us(e) for e in prof.key_averages()) / 1e3
+
+
 def _sample_cli_profile(dev, card, runs, cfg_of):
     """Where one CLI-shaped call (B=256, policy block, 5b's checkpoints)
     spends its time, per Stage-1 solver: the median wall time of 5 calls, and
     the device time of one more under torch.profiler."""
     import torch
-    from torch.profiler import ProfilerActivity, profile as torch_profile
     from interpolated_diffusion_tpu_torch.models.loading import (load_interp_model,
                                                                   load_keypoint_model)
     from interpolated_diffusion_tpu_torch.ops.schedules import make_schedule
@@ -1374,18 +1423,7 @@ def _sample_cli_profile(dev, card, runs, cfg_of):
         pipe = generate.make_pipeline(kp, it, sched, cfg, BENCH["data_dim"])
         draws = generate.make_draws(cfg, len(idx), BENCH["data_dim"],
                                     torch.Generator(device=dev).manual_seed(41))
-        walls = []
-        for _ in range(6):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            pipe(idx, cond, **draws)
-            torch.cuda.synchronize()
-            walls.append(time.perf_counter() - t0)
-        wall = sorted(walls[1:])[2]
-        with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            pipe(idx, cond, **draws)
-            torch.cuda.synchronize()
-        device = sum(_device_us(e) for e in prof.key_averages()) / 1e3
+        wall, device = _profile_call(lambda: pipe(idx, cond, **draws), f"[{card}]")
         print(f"[profile] [{card}] sampling CLI call, {label}, B={len(idx)}, block: median wall "
               f"{wall * 1e3:.1f} ms of 5 calls ({len(idx) / wall:.1f} samples/s), device time "
               f"{device:.1f} ms under the profiler: the device is busy {device / (wall * 1e3):.2f} "
@@ -2085,7 +2123,6 @@ def _causal_profile(dev, card, kp_dir, il_dir):
     ddim): the median wall time of 5 calls beside the device time of one more
     under torch.profiler."""
     import torch
-    from torch.profiler import ProfilerActivity, profile as torch_profile
     from interpolated_diffusion_tpu_torch.models.loading import (load_interp_model,
                                                                   load_keypoint_model)
     from interpolated_diffusion_tpu_torch.ops.schedules import make_schedule
@@ -2105,19 +2142,8 @@ def _causal_profile(dev, card, kp_dir, il_dir):
     draws = generate_causal.make_causal_draws(BENCH["T"], c["K_min"], c["chunk"], c["batch"],
                                               BENCH["data_dim"],
                                               torch.Generator(device=dev).manual_seed(71))
-    walls = []
-    for _ in range(6):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        pipe(cond, draws=draws)
-        torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t0)
-    wall = sorted(walls[1:])[2]
-    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        pipe(cond, draws=draws)
-        torch.cuda.synchronize()
-    _print_profile(prof, f"[{card}]", f"one causal sampling call (ddim, B={c['batch']}, block)")
-    device = sum(_device_us(e) for e in prof.key_averages()) / 1e3
+    wall, device = _profile_call(lambda: pipe(cond, draws=draws), f"[{card}]",
+                                 f"one causal sampling call (ddim, B={c['batch']}, block)")
     print(f"[causal] [{card}] causal sampling call, ddim, B={c['batch']}, block: median wall "
           f"{wall * 1e3:.1f} ms of 5 calls ({c['batch'] / wall:.1f} samples/s), device time "
           f"{device:.1f} ms under the profiler: the device is busy {device / (wall * 1e3):.2f} of "
@@ -3272,19 +3298,26 @@ WAN2_BH, WAN2_L, WAN2_LK = 24, 21 * 30 * 52, 512 + 21
 WAN2_EVAL_TOL = 5e-2
 
 
-def _cli_run(main_fn, argv):
-    """main_fn(argv) with every Wan kernel's launch count set to 0 just
-    before and read just after, and the twins' calls counted: (result,
-    {kernel: launches}, twin calls, the printed log, seconds, peak GiB)."""
+def _cli_run(main_fn, argv, maze=False):
+    """main_fn(argv) with every Wan kernel's launch count (or, with `maze`,
+    every maze kernel's) set to 0 just before and read just after, and the
+    twins' calls counted: (result, {kernel: launches}, twin calls, the
+    printed log, seconds, peak GiB). Twin calls are a count for the Wan
+    kernels and {"forward", "backward", "total"} for the maze kernels."""
     import torch
 
-    _set_train_counts((0,) * len(TRAIN_KERNELS))
+    if maze:
+        _set_maze_counts(dict.fromkeys(("fused_film_block", "small_mha_packed", "small_mha"), 0))
+        counter, read = count_maze_twin_calls, _maze_counts
+    else:
+        _set_train_counts((0,) * len(TRAIN_KERNELS))
+        counter, read = count_twin_calls, lambda: dict(zip(TRAIN_KERNELS, _train_counts()))
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    with count_twin_calls() as twin, _tee_stdout() as log:
+    with counter() as twin, _tee_stdout() as log:
         result = main_fn(list(argv))
     torch.cuda.synchronize()
-    return (result, dict(zip(TRAIN_KERNELS, _train_counts())), twin[0], log.getvalue(),
+    return (result, read(), dict(twin) if maze else twin[0], log.getvalue(),
             time.perf_counter() - t0, torch.cuda.max_memory_allocated() / 2 ** 30)
 
 
@@ -4078,6 +4111,486 @@ def phase_wan_interp(dev, card):
     return launches
 
 
+# Phase 5h: the toy-video and DiDeMo slice at the JAX trainers' default width
+# (512d x 8 layers x 8 heads of 64, d_ff 2048). Toy video: T 16, 16x16x3 flat
+# latents (768), K 4, levels 2; the trainers at batch 64, the sampler at 16
+# x 2 batches with DDIM-20, the temporal-conv interpolator at batch 32 (T 21).
+# DiDeMo: batch 16 on two caches of 32 clips, the synthetic one of
+# precompute_clip_cache (T 16, [3, 16, 16] latents: 64 tokens a frame at
+# patch 2, so K * N = 256 and T * N = 1024) and one of DiDeMo's own shapes
+# (T 16, frame size 64: SD latents [4, 8, 8], 16 tokens a frame, K * N = 64,
+# T * N = 256; CLIP ViT-B/32 unpooled text [77, 512]) built by the full-width
+# SDVAE (seeded) from the toy frames. Each block takes fused_film_block under
+# policy block where L <= 256, and under fused its attention takes
+# small_mha_packed where 256 < H * L and L <= 256 (models/transformer.py):
+# toy video (H * L = 32 and 128) then runs plain attention, as JAX does.
+VTOY = dict(d_model=512, n_layers=8, n_heads=8, d_ff=2048, T=16, K=4, levels=2, batch=64)
+VTOY_STEPS = 4                  # CLI steps per run
+VTOY_SAMPLE = dict(batch=16, ddim_steps=20, n_batches=2)
+DIDEMO_BATCH, DIDEMO_CLIPS = 16, 32
+DIDEMO_SD = dict(T=16, frame_size=64, text_len=77, text_dim=512)
+VIDEO_POLICIES = ("fused", "block")
+# the block at the slice's shapes [B, L, 512] (toy Stage 1 / 2 at the trainers'
+# batch and at the sampler's, DiDeMo's K * N and T * N at batch 16);
+# small_mha_packed at DiDeMo's
+VIDEO_BLOCK_SHAPES = ((64, 4), (64, 16), (16, 4), (16, 16), (16, 64), (16, 256))
+VIDEO_PACKED_SHAPES = ((16, 64), (16, 256))
+
+
+def _video_rule(policy, L):
+    """Launches of each maze kernel in one forward of one block at length L."""
+    from interpolated_diffusion_tpu_torch.models.transformer import (_use_fused_block_policy,
+                                                                      _use_fused_packed)
+
+    H = VTOY["n_heads"]
+    return {"fused_film_block": int(_use_fused_block_policy(policy, H, L, False)),
+            "small_mha_packed": int(_use_fused_packed(policy, H, L, False)), "small_mha": 0}
+
+
+def _video_block_bound(B, L):
+    D, F = VTOY["d_model"], VTOY["d_ff"]
+    flops = B * L * (2 * D * 3 * D + 4 * L * D + 2 * D * D + 4 * D * F)
+    return bound_ms(2 * (2 * B * L * D + 4 * B * D + 4 * D * D + 2 * D * F + 9 * D + F), flops)
+
+
+def _video_kernel_times(dev, card):
+    """Rows 1 and 2 at the slice's shapes against their twins (BLOCK_TOL /
+    ATTN_TOL), with times beside the twins', the library's and the bounds."""
+    import torch
+    import torch.nn.functional as Fn
+    from interpolated_diffusion_tpu_torch.kernels.fused_block import _torch_block, fused_film_block
+    from interpolated_diffusion_tpu_torch.kernels.small_mha import (_torch_attention,
+                                                                   small_mha_packed)
+
+    D, H, F = VTOY["d_model"], VTOY["n_heads"], VTOY["d_ff"]
+    gen = torch.Generator(device=dev).manual_seed(80)
+    out = {"fused_film_block": {}, "small_mha_packed": {}}
+    saved = fused_film_block.launches, small_mha_packed.launches
+    with torch.inference_mode():
+        for B, L in VIDEO_BLOCK_SHAPES:
+            x, args = _block_inputs(B, L, D, H, F, True, gen, dev)
+            err = _errors(fused_film_block(x, *args, n_heads=H),
+                          _torch_block(x, *args, n_heads=H, use_film=True))[1]
+            require(err <= BLOCK_TOL, f"fused_film_block [{B},{L},{D}]: {err:.3e} from its twin")
+            k_ms = _time_ms(lambda: fused_film_block(x, *args, n_heads=H))
+            p_ms = _time_ms(lambda: _torch_block(x, *args, n_heads=H, use_film=True), iters=5)
+            lib_ms = _time_ms(lambda: _library_block(x, args, H, True))
+            bound = _video_block_bound(B, L)
+            dev_ms = _graph_ms(lambda: fused_film_block(x, *args, n_heads=H), launches=20)
+            lib_dev = _graph_ms(lambda: _library_block(x, args, H, True), launches=20)
+            out["fused_film_block"][f"[{B},{L},{D}]"] = dict(
+                ms=k_ms, plain_ms=p_ms, library_ms=lib_ms, bound_ms=bound[0],
+                bound_by=bound[1], max_abs_err=err, device_ms=dev_ms, library_device_ms=lib_dev)
+            print(f"[video] [{card}] fused_film_block [{B},{L},{D}] H={H} F={F}: kernel "
+                  f"{k_ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}), plain twin {p_ms:.4f} "
+                  f"ms, library chain {lib_ms:.4f} ms; device time by graph replay "
+                  f"{dev_ms:.4f} ms, library chain {lib_dev:.4f} ms; max|d|/max|twin| {err:.2e} "
+                  f"(tol {BLOCK_TOL})", flush=True)
+        for B, L in VIDEO_PACKED_SHAPES:
+            q, k, v = (torch.randn((B, L, D), generator=gen, device=dev).to(torch.bfloat16)
+                       for _ in range(3))
+            err = _errors(small_mha_packed(q, k, v, H), _torch_attention(q, k, v, H))[1]
+            require(err <= ATTN_TOL, f"small_mha_packed [{B},{L},{D}]: {err:.3e} from its twin")
+            heads = lambda t: t.reshape(B, L, H, D // H).transpose(1, 2)
+            k_ms = _time_ms(lambda: small_mha_packed(q, k, v, H))
+            p_ms = _time_ms(lambda: _torch_attention(q, k, v, H))
+            lib_ms = _time_ms(lambda: Fn.scaled_dot_product_attention(heads(q), heads(k),
+                                                                      heads(v)))
+            bound = bound_ms(2 * 4 * B * L * D, 4.0 * B * L * L * D)
+            dev_ms = _graph_ms(lambda: small_mha_packed(q, k, v, H))
+            lib_dev = _graph_ms(lambda: Fn.scaled_dot_product_attention(heads(q), heads(k),
+                                                                        heads(v)))
+            out["small_mha_packed"][f"[{B},{L},{D}]"] = dict(
+                ms=k_ms, plain_ms=p_ms, library_ms=lib_ms, bound_ms=bound[0],
+                bound_by=bound[1], max_abs_err=err, device_ms=dev_ms, library_device_ms=lib_dev)
+            print(f"[video] [{card}] small_mha_packed [{B},{L},{D}] H={H}: kernel {k_ms:.4f} ms, "
+                  f"bound {bound[0]:.4f} ms ({bound[1]}), plain twin {p_ms:.4f} ms, library "
+                  f"(scaled_dot_product_attention) {lib_ms:.4f} ms; device time by graph "
+                  f"replay {dev_ms:.4f} ms, library {lib_dev:.4f} ms; max|d|/max|twin| "
+                  f"{err:.2e} (tol {ATTN_TOL})", flush=True)
+    fused_film_block.launches, small_mha_packed.launches = saved
+    return out
+
+
+def _video_gate(label, loss_of, leaves, names, per_layer, zero_ok=()):
+    """One loss + every leaf's gradient from the same weights, batch and
+    draws on the kernel path and on the twin path (MAZE_LOSS_TOL /
+    MAZE_GRAD_TOL); the kernel path's launches and twin calls. Leaves named
+    in `zero_ok` may have a zero gradient (those that read the toy models'
+    zero condition vector)."""
+    import torch
+
+    n = VTOY["n_layers"]
+
+    def loss_and_grads():
+        loss = loss_of()
+        return loss.detach(), torch.autograd.grad(loss, leaves)
+
+    _set_maze_counts(dict.fromkeys(per_layer, 0))
+    with count_maze_twin_calls() as calls:
+        loss_k, grads_k = loss_and_grads()
+    counts = _maze_counts()
+    with plain_twins():
+        loss_t, grads_t = loss_and_grads()
+    rel_loss = abs(loss_k.item() - loss_t.item()) / abs(loss_t.item())
+    worst = max((_errors(a, b)[1], nm) for nm, a, b in zip(names, grads_k, grads_t))
+    zero = [nm for nm, g in zip(names, grads_t)
+            if nm not in zero_ok and not bool(g.abs().max() > 0)]
+    want = {k: v * n for k, v in per_layer.items()}
+    print(f"[video] {label}: kernels vs plain twins, same weights / batch / draws: loss "
+          f"{loss_k.item():.6f} vs {loss_t.item():.6f} (rel {rel_loss:.3e}, tol "
+          f"{MAZE_LOSS_TOL}); worst gradient of {len(names)} leaves {worst[0]:.3e} at "
+          f"{worst[1]} (tol {MAZE_GRAD_TOL}); launches {counts}", flush=True)
+    require(counts == want and calls["forward"] == 0 and calls["backward"] == n,
+            f"{label}: launches {counts}, twin calls {dict(calls)}; expected {want}, forward 0, "
+            f"backward {n}")
+    require(not zero, f"{label}: identically zero gradients at {zero[:3]}")
+    require(rel_loss <= MAZE_LOSS_TOL, f"{label}: loss disagrees ({rel_loss:.3e})")
+    require(worst[0] <= MAZE_GRAD_TOL, f"{label}: gradient of {worst[1]} ({worst[0]:.3e})")
+
+
+def _video_trainer_cli(label, main_fn, argv, per_layer, out_dir, load):
+    """A trainer CLI for VTOY_STEPS steps: finite losses, launches per step,
+    no forward twin call, s/step, peak memory; the checkpoint read back."""
+    import numpy as np
+
+    state, counts, calls, log, secs, peak = _cli_run(main_fn, argv + [
+        "--steps", str(VTOY_STEPS), "--log_every", "1", "--save_every", str(VTOY_STEPS),
+        "--out_dir", out_dir], maze=True)
+    n = VTOY["n_layers"]
+    losses = [float(x) for x in __import__("re").findall(r"step \d+ loss (\S+)", log)]
+    want = {k: per_layer.get(k, 0) * n * VTOY_STEPS for k in _maze_counts()}
+    backward = n * VTOY_STEPS if any(per_layer.values()) else 0
+    require(len(losses) == VTOY_STEPS and all(np.isfinite(losses)),
+            f"{label}: losses {losses}")
+    require(counts == want and calls["forward"] == 0 and calls["backward"] == backward,
+            f"{label}: launches {counts}, twin calls {calls}; expected {want}")
+    model, _ = load(out_dir)
+    got = dict(model.named_parameters())
+    require(all(bool((got[k].float() == state.params[k].detach().float()).all())
+                for k in state.params), f"{label}: the checkpoint does not read back")
+    per = {k: v // VTOY_STEPS for k, v in counts.items() if v}
+    print(f"[video] {label}: {VTOY_STEPS} steps, {_s_per_step(log):.4f} s/step (mean with the "
+          f"first), peak memory {peak:.2f} GiB, losses {[round(x, 4) for x in losses]}, "
+          f"launches per step {per or 0}, no forward twin call; checkpoint read back; "
+          f"{secs:.1f} s", flush=True)
+    return per, _s_per_step(log)
+
+
+def _card_vs_cpu(label, dev, build, inputs, forward):
+    """The f32 forward of one seeded model on the card and on the CPU, same
+    weights and inputs (TF32 off): max|d| / max|cpu| of each output."""
+    import copy
+
+    import torch
+
+    cpu = build()
+    card = copy.deepcopy(cpu).to(dev)
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        on_card = forward(card, *(x.to(dev) for x in inputs))
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        on_cpu = forward(cpu, *inputs)
+    errs = [_errors(a.cpu(), b)[1] for a, b in zip(on_card, on_cpu)]
+    print(f"[video] {label}: f32 forward on the card vs the CPU, max|d|/max|cpu| "
+          f"{['%.2e' % e for e in errs]} (tol {INTERP_CARD_TOL}); first call on the card "
+          f"{card_s * 1e3:.1f} ms", flush=True)
+    require(max(errs) <= INTERP_CARD_TOL, f"{label}: card vs CPU {errs}")
+    return card
+
+
+def _toy_frames(n, T, size, seed):
+    """RGB frames [n, T, 3, size, size] in [0, 1] of the moving-shapes videos."""
+    import numpy as np
+    from interpolated_diffusion_tpu_torch.data.toy_video import MovingShapesVideoDataset
+
+    ds = MovingShapesVideoDataset(T=T, H=size, seed=seed)
+    return np.stack([np.transpose(ds._simulate(np.random.RandomState(seed + i)), (0, 3, 1, 2))
+                     for i in range(n)]).astype(np.float32)
+
+
+def _sd_cache(dev, card, root):
+    """A cache of DiDeMo's own shapes: toy frames (T 16, 64x64) through the
+    full-width SDVAE (seeded) to [16, 4, 8, 8] latents, unpooled text [77,
+    512], written by data/didemo.write_clip_cache."""
+    import numpy as np
+    import torch
+    from interpolated_diffusion_tpu_torch.data.didemo import write_clip_cache
+    from interpolated_diffusion_tpu_torch.models.init import build_model
+    from interpolated_diffusion_tpu_torch.models.sd_vae import SDVAE
+
+    c = DIDEMO_SD
+    frames = _toy_frames(DIDEMO_CLIPS, c["T"], c["frame_size"], seed=90)
+    vae = build_model(SDVAE, generator=torch.Generator(device=dev).manual_seed(0),
+                      device=dev).eval()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        lat = torch.cat([vae.encode(torch.from_numpy(frames[i:i + 8]).to(dev))
+                         for i in range(0, DIDEMO_CLIPS, 8)]).cpu().numpy()
+    took = time.perf_counter() - t0
+    require(lat.shape == (DIDEMO_CLIPS, c["T"], 4, 8, 8) and bool(np.isfinite(lat).all()),
+            f"SD cache: latents {lat.shape}")
+    r = np.random.RandomState(91)
+    write_clip_cache(root, "train", [
+        {"latents": lat[i], "text_embed": (r.randn(c["text_len"], c["text_dim"]) * 0.02)
+         .astype(np.float32)} for i in range(DIDEMO_CLIPS)], shard_size=DIDEMO_CLIPS)
+    print(f"[video] [{card}] SD cache: {DIDEMO_CLIPS} clips x {c['T']} frames of "
+          f"{c['frame_size']}x{c['frame_size']} through the full-width SDVAE to latents "
+          f"{list(lat.shape[1:])} in {took:.2f} s (first calls included); text "
+          f"[{c['text_len']}, {c['text_dim']}]", flush=True)
+    del vae
+    torch.cuda.empty_cache()
+
+
+def phase_video_toy(dev, card, profile=False):
+    """Phase 5h. Returns (launches {kernel: {what: launches per step or
+    call}}, times {kernel: {shape: {...}}})."""
+    import shutil
+
+    import numpy as np
+    import torch
+    from interpolated_diffusion_tpu_torch.data import precompute_clip_cache
+    from interpolated_diffusion_tpu_torch.data.dataset import BatchLoader
+    from interpolated_diffusion_tpu_torch.data.didemo import CachedClipDataset
+    from interpolated_diffusion_tpu_torch.data.toy_video import MovingShapesVideoDataset
+    from interpolated_diffusion_tpu_torch.diagnostics import eval_interpolators as ev
+    from interpolated_diffusion_tpu_torch.models import loading
+    from interpolated_diffusion_tpu_torch.models.frame_vae import FrameVAE
+    from interpolated_diffusion_tpu_torch.models.init import build_model
+    from interpolated_diffusion_tpu_torch.models.interpolators import (
+        LatentLerpResidualInterpolator)
+    from interpolated_diffusion_tpu_torch.models.sd_vae import SDVAE
+    from interpolated_diffusion_tpu_torch.ops.ddpm import make_timesteps
+    from interpolated_diffusion_tpu_torch.ops.schedules import make_schedule
+    from interpolated_diffusion_tpu_torch.sample import sample_toy_video as sampler
+    from interpolated_diffusion_tpu_torch.train import (train_interp_levels_didemo as il_dd,
+                                                        train_interp_levels_toy_video as il_toy,
+                                                        train_keypoints_didemo as kp_dd,
+                                                        train_keypoints_toy_video as kp_toy,
+                                                        train_video_interpolator as vi)
+    from interpolated_diffusion_tpu_torch.train.common import to_device
+
+    t_phase = time.perf_counter()
+    tag = f"[{card}]"
+    n, T, K, levels = VTOY["n_layers"], VTOY["T"], VTOY["K"], VTOY["levels"]
+    launches = {"fused_film_block": {}, "small_mha_packed": {}}
+
+    def record(what, per):
+        for k in launches:
+            launches[k][what] = per.get(k, 0)
+
+    times = _video_kernel_times(dev, card)
+    work = tempfile.mkdtemp(prefix="video_toy_")
+    try:
+        # 1. the toy trainers: the gate under block at batch 64, then the CLIs
+        ds = MovingShapesVideoDataset(T=T)
+        toy_batch = to_device({"x": ds.get_batch(np.arange(VTOY["batch"]))["x"]}, dev)
+        toy = (("toy stage 1", kp_toy, K, "keypoints_toy_video"),
+               ("toy stage 2", il_toy, T, "interp_levels_toy_video"))
+        ckpts = {}
+        for label, mod, L, stage in toy:
+            args = mod.build_argparser().parse_args(["--attn_policy", "block", "--seed", "81"])
+            require((args.d_model, args.n_layers, args.n_heads, args.d_ff, args.T,
+                     args.batch, args.bf16) == (512, n, 8, 2048, T, VTOY["batch"], 1),
+                    f"{label}: trainer defaults changed")
+            model = mod.build_model(args, 768, dev)
+            _nonzero_head(model)
+            leaves = dict(model.named_parameters())
+            if mod is kp_toy:
+                sched = make_schedule(args.schedule, args.N_train, device=dev)
+                loss_of = lambda: kp_toy.keypoint_loss(
+                    model, args, sched, toy_batch, torch.Generator(device=dev).manual_seed(82))[0]
+            else:
+                loss_of = lambda: il_toy.interp_loss(
+                    model, args, toy_batch, torch.Generator(device=dev).manual_seed(82))[0]
+            # no maze encoder: the condition vector is zero, and so are the
+            # gradients of the weights that read it (cond_proj, film1, film2)
+            zero_ok = {k for k in leaves if k == "cond_proj.weight" or
+                       (".film" in k and k.endswith(".weight"))}
+            _video_gate(f"{tag} {label} [{VTOY['batch']},{L},512] loss + gradients", loss_of,
+                        list(leaves.values()), list(leaves), _video_rule("block", L), zero_ok)
+            del model, leaves
+            for policy in VIDEO_POLICIES:
+                out = os.path.join(work, f"{stage}_{policy}")
+                per, _ = _video_trainer_cli(
+                    f"{tag} {label} CLI at its defaults (batch {VTOY['batch']}) policy {policy}",
+                    mod.main, ["--attn_policy", policy], _video_rule(policy, L), out,
+                    lambda d: loading.load_toy_video_model(d, stage, True, False, dev))
+                record(f"toy_{stage.split('_')[0]}_train_{policy}_per_step", per)
+                ckpts[stage] = out
+            torch.cuda.empty_cache()
+
+        # 2. the toy sampler on the block runs' checkpoints, both policies
+        s = VTOY_SAMPLE
+        evals = len(make_timesteps(100, s["ddim_steps"], "linear")) - 1
+        argv = ["--kp_ckpt", ckpts["keypoints_toy_video"], "--interp_ckpt",
+                ckpts["interp_levels_toy_video"], "--batch", str(s["batch"]), "--num_batches",
+                str(s["n_batches"]), "--ddim_steps", str(s["ddim_steps"])]
+        for policy in VIDEO_POLICIES:
+            summ, counts, calls, log, secs, peak = _cli_run(sampler.main, argv + [
+                "--attn_policy", policy, "--out_dir", os.path.join(work, f"sample_{policy}")],
+                maze=True)
+            per_call = {k: v // s["n_batches"] for k, v in counts.items()}
+            want = {k: (evals * r * n + 2 * levels * n * _video_rule(policy, T)[k])
+                    for k, r in _video_rule(policy, K).items()}
+            require(per_call == want and calls["total"] == 0,
+                    f"toy sampler {policy}: launches per call {per_call}, twin calls {calls}; "
+                    f"expected {want}")
+            require(all(np.isfinite(v) for v in summ.values()), f"toy sampler: {summ}")
+            record(f"toy_sample_{policy}_per_call", per_call)
+            print(f"[video] {tag} sample_toy_video policy {policy} (B {s['batch']} x "
+                  f"{s['n_batches']}, ddim-{s['ddim_steps']}: {evals} Stage-1 evaluations, "
+                  f"{levels} levels x 2 refinements): launches per call "
+                  f"{ {k: v for k, v in per_call.items() if v} or 0}, no twin call; "
+                  f"{summ.get('samples_per_sec', 0):.1f} samples/s, peak {peak:.2f} GiB; "
+                  + ", ".join(f"{k} {v:.5f}" for k, v in summ.items() if k.endswith("_gt")),
+                  flush=True)
+        # the pipeline on the block runs' checkpoints at the CLI's batch, kernel
+        # path against twin path on the same clips and draws; Stage 2's
+        # zero-initialised head (still ~0 after 4 steps) gets small seeded
+        # values, so that its blocks move each refinement
+        kp, kp_meta = loading.load_toy_video_model(ckpts["keypoints_toy_video"],
+                                                   "keypoints_toy_video", device=dev)
+        il, il_meta = loading.load_toy_video_model(ckpts["interp_levels_toy_video"],
+                                                   "interp_levels_toy_video", device=dev)
+        _nonzero_head(il)
+        for m in (kp, il):
+            m.set_attn_policy("block")
+        pipe = sampler.make_toy_pipeline(kp, kp_meta, il, il_meta, "ddim", s["ddim_steps"])
+        x0 = torch.as_tensor(ds.get_batch(np.arange(s["batch"]))["x"]).to(dev)
+        gen = torch.Generator(device=dev).manual_seed(92)
+        draws = {"noise": torch.randn((s["batch"], K, 768), generator=gen, device=dev),
+                 "mask_rand": torch.rand((s["batch"], T), generator=gen, device=dev)}
+        want = {k: evals * r * n + 2 * levels * n * _video_rule("block", T)[k]
+                for k, r in _video_rule("block", K).items()}
+        _set_maze_counts(dict.fromkeys(want, 0))
+        with count_maze_twin_calls() as calls:
+            out_k = pipe(x0, draws)
+        counts = _maze_counts()
+        with plain_twins():
+            out_t = pipe(x0, draws)
+        require(counts == want and calls["total"] == 0 and _maze_counts() == counts,
+                f"toy pipeline: launches {counts} then {_maze_counts()}, twin calls {calls}; "
+                f"expected {want}, none on the twin path")
+        _, z_k, xi_k, xr_k, xoi_k, xor_k = out_k
+        _, z_t, xi_t, xr_t, xoi_t, xor_t = out_t
+        pairs = {"z_pred": (z_k, z_t), "refined - interp": (xr_k - xi_k, xr_t - xi_t),
+                 "oracle_refined - oracle_interp": (xor_k - xoi_k, xor_t - xoi_t)}
+        errs = {name: _errors(a, b)[1] for name, (a, b) in pairs.items()}
+        scale = {name: b.abs().max().item() for name, (_, b) in pairs.items()}
+        require(all(bool(torch.isfinite(t).all()) for t in out_k[1:]) and
+                min(scale.values()) > 0 and max(errs.values()) <= PIPE_TOL,
+                f"toy pipeline: kernel path vs twin path {errs}, twin max|.| {scale}")
+        print(f"[video] {tag} toy pipeline B {s['batch']} ddim-{s['ddim_steps']} block, Stage-2 "
+              f"head seeded, kernels vs plain twins on the same clips and draws: max|d|/max|twin| "
+              + ", ".join(f"{k} {v:.3e} (twin max {scale[k]:.3e})" for k, v in errs.items())
+              + f" (tol {PIPE_TOL}); launches {counts}, none on the twin path", flush=True)
+        if profile:
+            what = f"one toy sampler call (ddim-{s['ddim_steps']}, B={s['batch']}, block)"
+            wall, device = _profile_call(lambda: pipe(x0, draws), tag, what)
+            print(f"[video] {tag} {what}: median wall {wall * 1e3:.1f} ms of 5 calls "
+                  f"({s['batch'] / wall:.1f} samples/s), device time {device:.1f} ms under the "
+                  f"profiler: the device is busy {device / (wall * 1e3):.2f} of the call",
+                  flush=True)
+        del kp, il, pipe
+
+        # 3. the temporal-conv interpolator (toy, batch 32) and the VAEs / the
+        # residual interpolator: the card's f32 forward against the CPU's
+        out = os.path.join(work, "video_interp")
+        per, _ = _video_trainer_cli(f"{tag} train_video_interpolator --workload toy (batch 32)",
+                                    vi.main, ["--workload", "toy"], {}, out,
+                                    lambda d: loading.load_video_interpolator(d, device=dev))
+        z = torch.as_tensor(MovingShapesVideoDataset(T=21).get_batch(range(2))["x"])
+        _card_vs_cpu(f"{tag} TinyTemporalInterpolator [2, 21, 768]", dev,
+                     lambda: loading.load_video_interpolator(out, device="cpu")[0], (z,),
+                     lambda m, x: (m(x),))
+        g = torch.Generator().manual_seed(83)
+        za, zb = torch.randn((2, 16, 768), generator=g), torch.randn((2, 16, 768), generator=g)
+        alpha = torch.rand((2, 16), generator=g)
+        _card_vs_cpu(f"{tag} LatentLerpResidualInterpolator (768, hidden 256)", dev,
+                     lambda: build_model(LatentLerpResidualInterpolator, data_dim=768,
+                                         generator=torch.Generator().manual_seed(84),
+                                         zero_init_scale=0.05).eval(),
+                     (za, zb, alpha), lambda m, a, b, al: m(a, b, al))
+        frames64 = torch.from_numpy(_toy_frames(1, 2, 64, seed=85))
+        _card_vs_cpu(f"{tag} FrameVAE (base 32) encode + decode [1, 2, 3, 64, 64]", dev,
+                     lambda: build_model(FrameVAE, generator=torch.Generator().manual_seed(86))
+                     .eval(), (frames64,), lambda m, f: (m.encode(f), m.decode(m.encode(f))))
+        for frames in (frames64, torch.from_numpy(_toy_frames(1, 1, 256, seed=87))):
+            shp = list(frames.shape)
+            vae = _card_vs_cpu(f"{tag} SDVAE (SD 1.x widths) encode + decode {shp}", dev,
+                               lambda: build_model(SDVAE, generator=torch.Generator()
+                                                   .manual_seed(0)).eval(), (frames,),
+                               lambda m, f: (m.encode(f), m.decode(m.encode(f))))
+            f_dev = frames.to(dev)
+            with torch.no_grad():
+                enc_ms = _time_ms(lambda: vae.encode(f_dev), iters=5, warmup=1)
+                lat = vae.encode(f_dev)
+                dec_ms = _time_ms(lambda: vae.decode(lat), iters=5, warmup=1)
+            print(f"[video] {tag} SDVAE {shp} f32: encode {enc_ms:.2f} ms, decode {dec_ms:.2f} "
+                  f"ms", flush=True)
+            del vae
+        torch.cuda.empty_cache()
+
+        # 4. eval_interpolators --rgb: SD latents 32x32 (256x256 RGB), batch 1
+        t0 = time.perf_counter()
+        report = ev.main(["--rgb", "1", "--latent_c", "4", "--latent_h", "32", "--latent_w",
+                          "32", "--batch", "1", "--num_batches", "2"])
+        require(all(k in report and np.isfinite(report[k]) for k in
+                    ("rgb_psnr", "rgb_psnr_lerp", "rgb_ssim", "rgb_ssim_lerp")),
+                f"eval --rgb: {report}")
+        print(f"[video] {tag} eval_interpolators --rgb 1 --latent_c 4 (T 21, 32x32 latents, "
+              f"batch 1 x 2, seeded SDVAE): rgb_psnr {report['rgb_psnr']:.3f} (lerp "
+              f"{report['rgb_psnr_lerp']:.3f}), rgb_ssim {report['rgb_ssim']:.4f}; "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+        # 5. DiDeMo: the synthetic cache and one of DiDeMo's own shapes
+        caches = {"synthetic": os.path.join(work, "cache_synth"),
+                  "sd": os.path.join(work, "cache_sd")}
+        precompute_clip_cache.main(["--cache_dir", caches["synthetic"], "--synthetic", "1",
+                                    "--max_samples", str(DIDEMO_CLIPS), "--shard_size",
+                                    str(DIDEMO_CLIPS)])
+        _sd_cache(dev, card, caches["sd"])
+        for cname, root in caches.items():
+            batch0 = next(iter(BatchLoader(CachedClipDataset(root), DIDEMO_BATCH, seed=0)))
+            b = to_device({k: batch0[k] for k in ("latents", "text_embed")}, dev)
+            Tc, C, Hh, W = batch0["latents"].shape[1:]
+            N = (Hh // 2) * (W // 2)
+            for label, mod, L in (("stage 1", kp_dd, K * N), ("stage 2", il_dd, Tc * N)):
+                stage = "keypoints_didemo" if mod is kp_dd else "interp_levels_didemo"
+                what = f"didemo {cname} cache {label} [{DIDEMO_BATCH},{L},512]"
+                for policy in VIDEO_POLICIES:
+                    rule = _video_rule(policy, L)
+                    if any(rule.values()):
+                        args = mod.build_argparser().parse_args(
+                            ["--cache_dir", root, "--attn_policy", policy, "--seed", "88"])
+                        _, _, model = mod.make_trainer(args, dev, batch0)
+                        _nonzero_head(model)
+                        leaves = dict(model.named_parameters())
+                        gen_of = lambda: torch.Generator(device=dev).manual_seed(89)
+                        if mod is kp_dd:
+                            sched = make_schedule(args.schedule, args.N_train, device=dev)
+                            loss_of = lambda: kp_dd.keypoint_loss(model, args, sched, b,
+                                                                  gen_of())[0]
+                        else:
+                            loss_of = lambda: il_dd.interp_loss(model, args, b, gen_of())[0]
+                        _video_gate(f"{tag} {what} policy {policy} loss + gradients", loss_of,
+                                    list(leaves.values()), list(leaves), rule)
+                        del model, leaves
+                    per, _ = _video_trainer_cli(
+                        f"{tag} {what} CLI (batch {DIDEMO_BATCH}) policy {policy}", mod.main,
+                        ["--cache_dir", root, "--batch", str(DIDEMO_BATCH), "--attn_policy",
+                         policy], rule, os.path.join(work, f"{cname}_{stage}_{policy}"),
+                        lambda d, st=stage: loading.load_didemo_model(d, st, True, False, dev))
+                    record(f"didemo_{cname}_{stage.split('_')[0]}_train_{policy}_per_step", per)
+                    torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print(f"[video] phase 5h took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches, times
+
+
 def gemm_ab(card) -> int:
     """`--gemm-ab`: what the W-resident GEMM kernel buys over the streaming one.
     Four runs of this script's `--maze-kernels` part in processes of their own,
@@ -4151,6 +4664,14 @@ def main() -> int:
             phase_wan_interp(dev, card)
             print("[wan interp] phase 5g passed", flush=True)
             return 0
+        if "--video-toy" in sys.argv[1:]:    # phase 5h alone: its own summary, the last line
+            video_launches, video_times = phase_video_toy(dev, card, profile)
+            print(json.dumps({"video_toy": {"launches": video_launches, "times": video_times}}),
+                  flush=True)
+            print(json.dumps({"ok": True, "device": {
+                "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                "count": torch.cuda.device_count()}}), flush=True)
+            return 0
         if "--kernels" in sys.argv[1:]:   # the kernels alone: no model, no summary
             phase_timings(dev, card, cases)
             del cases
@@ -4180,6 +4701,8 @@ def main() -> int:
             serve_launches, select_launches = phase_serve_select(dev, card, runs, workdir)
             torch.cuda.empty_cache()
             causal_launches, sk_launches = phase_causal(dev, card, runs, workdir, profile)
+        torch.cuda.empty_cache()
+        video_launches, video_times = phase_video_toy(dev, card, profile)
         torch.cuda.empty_cache()
         wan_errs, wan_cases = phase_wan_kernels(dev)
         model, sampler, inputs, wan_launches = phase_wan_main(dev)
@@ -4244,6 +4767,8 @@ def main() -> int:
                   gemm=times["gemm"],
                   gemm_max_abs_err=max(c[1] for c in cases["gemm"])),
               "small_mha_packed": dict(device_ms=g_ms, library_device_ms=g_lib)}
+    for name in extras:      # phase 5h: the toy-video and DiDeMo shapes and launches
+        extras[name].update(video_launches=video_launches[name], video_shapes=video_times[name])
     for name in ("fused_film_block", "small_mha_packed"):
         k_ms, p_ms, lib_ms = times[(name, B, L)]
         row(name, launches[name], max(grad_errs[name], *(c[1] for c in cases[name])), k_ms, p_ms,

@@ -9,9 +9,17 @@ latent L1 against the lerp's, PSNR and SSIM (global per-frame statistics),
 and the count of clips whose L1 exceeds the lerp's by more than
 `--outlier_delta`. The report is printed as JSON (and written to
 `--out_json`) with the port's `samples_per_sec` beside JAX's keys. The
-interpolator runs in f32 on `--device` (cuda unless asked). Not ported
-(each raises, naming what is missing): `--interpolator tiny`
-(models/interpolators.py) and `--rgb` (models/sd_vae.py).
+interpolator runs in f32 on `--device` (cuda unless asked). `--rgb 1`
+decodes prediction, lerp and ground truth of 4-channel SD latents through
+models/sd_vae.SDVAE (the weights of `--vae_sd`, else seeded ones: a smoke
+run) and adds pixel-space PSNR / SSIM on the hidden frames (`rgb_psnr`,
+`rgb_psnr_lerp`, `rgb_ssim`, `rgb_ssim_lerp`).
+
+`--interpolator tiny` is refused, as in the JAX CLI: that CLI binds a model
+only for flow and sinkhorn, so its `tiny` ends in an UnboundLocalError
+before any batch; here it raises NotImplementedError saying so. (The model
+itself is models/interpolators.TinyTemporalInterpolator, trained by
+train/train_video_interpolator.py.)
 """
 from __future__ import annotations
 
@@ -69,8 +77,12 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="recorded only: the interpolators run in f32, as in the JAX CLI")
     p.add_argument("--out_json", type=str, default=None)
     p.add_argument("--rgb", type=int, default=0,
-                   help="decode 4-channel SD latents for pixel metrics (not ported)")
-    p.add_argument("--vae_sd", type=str, default=None)
+                   help="also decode 4-channel SD latents through the SD VAE and report "
+                        "pixel-space PSNR / SSIM (16-channel Wan latents have no decoder in "
+                        "the repo: latent metrics only for those)")
+    p.add_argument("--vae_sd", type=str, default=None,
+                   help="diffusers SD-VAE checkpoint (dir or .safetensors) for --rgb; "
+                        "seeded random weights if omitted (smoke only)")
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (default; no fallback when there is no GPU) or cpu")
     return p
@@ -82,8 +94,10 @@ def load_interp_fn(args, device: torch.device):
     if args.interpolator == "lerp":
         return None
     if args.interpolator == "tiny":
-        raise NotImplementedError("--interpolator tiny: the learned video interpolators "
-                                  "(models/interpolators.py) are not ported yet")
+        raise NotImplementedError("--interpolator tiny: the JAX CLI builds no model for tiny "
+                                  "(it binds one only for flow and sinkhorn, and its tiny run "
+                                  "ends in UnboundLocalError), so there is no behaviour to "
+                                  "port; train_video_interpolator trains the model")
     if not args.ckpt:
         raise ValueError(f"--ckpt required for {args.interpolator}")
     from ..models.loading import load_flow_interpolator, load_sinkhorn_interp
@@ -101,15 +115,34 @@ def load_interp_fn(args, device: torch.device):
     return interp_fn
 
 
+def make_decode_fn(args, device: torch.device):
+    """SD latents [B, T, 4, h, w] -> RGB [B, T, 3, 8h, 8w] in [0, 1]: the SD
+    VAE decoder, f32, with the weights of --vae_sd or seeded ones."""
+    if args.latent_c != 4:
+        raise SystemExit(f"--rgb needs 4-channel SD latents (got C={args.latent_c}); "
+                         "16-channel Wan latents have no in-repo decoder")
+    from ..models.init import build_model
+    from ..models.sd_vae import SDVAE, load_sd_vae_safetensors
+
+    vae = build_model(SDVAE, generator=torch.Generator(device=device).manual_seed(0),
+                      device=device)
+    if args.vae_sd:
+        vae.load_state_dict(load_sd_vae_safetensors(args.vae_sd))
+    vae.eval().requires_grad_(False)
+
+    @torch.no_grad()
+    def decode_fn(latents):
+        return vae.decode(latents)
+
+    return decode_fn
+
+
 def main(argv=None, draws: Optional[Iterable[Dict[str, np.ndarray]]] = None) -> Dict:
     """The report. `draws` (one {"idx_rand": [B, T - 2]} per batch) replaces
     the anchor draws of the CLI's generator, so that a test can hand in JAX's."""
     from ..train.common import resolve_device
 
     args = build_argparser().parse_args(argv)
-    if args.rgb:
-        raise NotImplementedError("--rgb: the SD VAE decoder (models/sd_vae.py) is not "
-                                  "ported yet")
     device = resolve_device(args.device)
     interp_fn = load_interp_fn(args, device)
     if args.data == "tar":
@@ -121,9 +154,11 @@ def main(argv=None, draws: Optional[Iterable[Dict[str, np.ndarray]]] = None) -> 
                                  text_len=4, text_dim=8, seed=args.seed + 7)
         rng = np.random.RandomState(args.seed)
         get_batch = lambda: ds.get_batch(rng.randint(0, len(ds), args.batch))
+    decode_fn = make_decode_fn(args, device) if args.rgb else None
     gen = torch.Generator(device=device).manual_seed(args.seed)
     draws = iter(draws) if draws is not None else None
 
+    rgb_psnrs, rgb_psnrs_lerp, rgb_ssims, rgb_ssims_lerp = [], [], [], []
     deltas, l1s, l1s_lerp, psnrs, ssims = [], [], [], [], []
     n_seen, busy = 0, 0.0
     for _ in range(args.num_batches):
@@ -151,6 +186,14 @@ def main(argv=None, draws: Optional[Iterable[Dict[str, np.ndarray]]] = None) -> 
             deltas.append(l1 - l1_l)
             psnrs.append(psnr(p_np, t_np))
             ssims.append(ssim(p_np, t_np))
+        if decode_fn is not None:
+            rgb_pred, rgb_lerp, rgb_gt = (decode_fn(z).cpu().numpy() for z in (pred, lerp, lat))
+            for b in range(B):
+                hb = hidden[b]
+                rgb_psnrs.append(psnr(rgb_pred[b][hb], rgb_gt[b][hb], 1.0))
+                rgb_psnrs_lerp.append(psnr(rgb_lerp[b][hb], rgb_gt[b][hb], 1.0))
+                rgb_ssims.append(ssim(rgb_pred[b][hb], rgb_gt[b][hb]))
+                rgb_ssims_lerp.append(ssim(rgb_lerp[b][hb], rgb_gt[b][hb]))
     deltas = np.asarray(deltas)
     report = {
         "interpolator": args.interpolator,
@@ -164,6 +207,11 @@ def main(argv=None, draws: Optional[Iterable[Dict[str, np.ndarray]]] = None) -> 
         "n_samples": int(deltas.size),
         "samples_per_sec": n_seen / max(busy, 1e-9),
     }
+    if rgb_psnrs:
+        report.update({"rgb_psnr": float(np.mean(rgb_psnrs)),
+                       "rgb_psnr_lerp": float(np.mean(rgb_psnrs_lerp)),
+                       "rgb_ssim": float(np.mean(rgb_ssims)),
+                       "rgb_ssim_lerp": float(np.mean(rgb_ssims_lerp))})
     out = json.dumps(report, indent=2)
     print(out, flush=True)
     if args.out_json:

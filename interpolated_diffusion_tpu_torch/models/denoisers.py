@@ -58,6 +58,8 @@ class _Denoiser(nn.Module):
         if cond is not None and "cond_vec" in cond:
             return cond["cond_vec"].to(dtype)
         if cond is not None and "occ" in cond:
+            if self.cond_enc is None:
+                raise ValueError("occ given to a denoiser built without the maze encoder")
             return self.cond_enc(cond)
         return torch.zeros((B, self.d_cond), dtype=dtype, device=device)
 
@@ -71,14 +73,17 @@ class KeypointDenoiser(_Denoiser):
 
     Inputs per token: [z_t, sinusoid(idx/(T-1)), known_mask, kp_feat]; the
     timestep enters via sinusoid -> MLP added to every token; the cond vector
-    is added and FiLM-modulates every block.
+    is added and FiLM-modulates every block. `maze_cond=False` builds no maze
+    encoder (the toy-video stages: the JAX module then has no cond_enc
+    parameters and the cond vector is zero).
     """
 
     def __init__(self, d_model: int = 256, n_layers: int = 8, n_heads: int = 8,
                  d_ff: int = 1024, d_cond: int = 128, use_sdf: bool = False,
                  use_start_goal: bool = True, data_dim: int = 2,
                  pos_dim: Optional[int] = None, kp_feat_dim: int = 0,
-                 maze_channels: Sequence[int] = (32, 64), attn_policy: str = "fused"):
+                 maze_channels: Sequence[int] = (32, 64), attn_policy: str = "fused",
+                 maze_cond: bool = True):
         super().__init__()
         self.d_model, self.d_cond, self.kp_feat_dim = d_model, d_cond, kp_feat_dim
         self.pos_dim = pos_dim if pos_dim is not None else d_model // 2
@@ -86,7 +91,8 @@ class KeypointDenoiser(_Denoiser):
         self.in_proj = Linear(in_dim, d_model)
         self.t_embed = nn.Sequential(Linear(d_model, d_model), nn.SiLU(),
                                      Linear(d_model, d_model))
-        self.cond_enc = MazeConditionEncoder(use_sdf, d_cond, use_start_goal, maze_channels)
+        self.cond_enc = (MazeConditionEncoder(use_sdf, d_cond, use_start_goal, maze_channels)
+                         if maze_cond else None)
         self.cond_proj = Linear(d_cond, d_model)
         self.transformer = TransformerEncoder(d_model, n_layers, n_heads, d_ff, d_cond,
                                               True, attn_policy)
@@ -135,7 +141,7 @@ class InterpLevelDenoiser(_Denoiser):
                  d_ff: int = 1024, d_cond: int = 128, use_sdf: bool = False,
                  use_start_goal: bool = True, data_dim: int = 2, max_levels: int = 8,
                  mask_channels: int = 1, maze_channels: Sequence[int] = (32, 64),
-                 attn_policy: str = "fused", causal: bool = False):
+                 attn_policy: str = "fused", causal: bool = False, maze_cond: bool = True):
         super().__init__()
         self.d_model, self.d_cond, self.mask_channels = d_model, d_cond, mask_channels
         self.causal = causal
@@ -143,7 +149,8 @@ class InterpLevelDenoiser(_Denoiser):
         self.level_emb = Embedding(max_levels + 1, d_model)
         self.level_proj = nn.Sequential(Linear(d_model, d_model), nn.SiLU(),
                                         Linear(d_model, d_model))
-        self.cond_enc = MazeConditionEncoder(use_sdf, d_cond, use_start_goal, maze_channels)
+        self.cond_enc = (MazeConditionEncoder(use_sdf, d_cond, use_start_goal, maze_channels)
+                         if maze_cond else None)
         self.cond_proj = Linear(d_cond, d_model)
         self.transformer = TransformerEncoder(d_model, n_layers, n_heads, d_ff, d_cond,
                                               True, attn_policy, causal=causal)

@@ -7,8 +7,11 @@ not: the causal mask has no parameters); `selector_to_state_dict` and
 convert_segment_cost; `wan_params_to_state_dict` converts a WanDiT (and
 FrameCondProjector) tree and `lora_params_to_state_dict` a Wan trainer's LoRA
 tree; `module_tree_to_state_dict` converts the modules that keep the flax
-names. `checkpoint_to_state_dict` picks the converter from a checkpoint's
-meta (utils/jax_checkpoint.py reads the trees).
+names, `tiny_interpolator_to_state_dict` the temporal-conv interpolator
+(depthwise kernel [k, 1, D] -> Conv1d weight [D, 1, k]) and
+`sd_vae_params_to_state_dict` an SDVAE (to the diffusers names).
+`checkpoint_to_state_dict` picks the converter from a checkpoint's meta
+(utils/jax_checkpoint.py reads the trees).
 `lora_to_params` / `frame_cond_to_params` go the other way for the leaves the
 Wan trainer updates (values or gradients), so that a test compares them with
 the JAX trees leaf by leaf. All take or give param trees with numpy (or
@@ -381,15 +384,31 @@ def module_tree_to_state_dict(params: Params, prefix: str = "") -> Dict[str, tor
     return sd
 
 
+def tiny_interpolator_to_state_dict(params: Params) -> Dict[str, torch.Tensor]:
+    """flax TinyTemporalInterpolator params (dwconv_i kernel [k, 1, D]) ->
+    the port's state_dict (net.{2i}.weight [D, 1, k], the reference's names)."""
+    sd: Dict[str, torch.Tensor] = {}
+    for i in range(sum(1 for k in params if k.startswith("dwconv_"))):
+        p = params[f"dwconv_{i}"]
+        sd[f"net.{2 * i}.weight"] = _t(np.asarray(p["kernel"]).transpose(2, 1, 0))
+        sd[f"net.{2 * i}.bias"] = _t(p["bias"])
+    return sd
+
+
+def sd_vae_params_to_state_dict(params: Params) -> Dict[str, torch.Tensor]:
+    """flax SDVAE params -> the port's SDVAE state_dict (the diffusers names)."""
+    from .sd_vae import export_sd_vae_state_dict
+
+    return {k: _t(v) for k, v in export_sd_vae_state_dict(params).items()}
+
+
 # stages whose port keeps the flax module names
 _FLAX_NAMED_STAGES = ("flow_interpolator", "straightener", "sinkhorn_interp", "video_selector",
                       "segment_cost_wansynth")
-# stages whose module the port does not have yet, and what is missing
-_UNPORTED_STAGES = {
-    "video_interpolator": "the learned video interpolators (models/interpolators.py)",
-}
-_WANSYNTH_STAGES = {"keypoints_wansynth": "video_keypoint",
-                    "interp_levels_wansynth": "video_interp"}
+# stages of the token denoisers (text-conditioned) and of the toy-video denoisers
+_TOKEN_STAGES = {"keypoints_wansynth": "video_keypoint", "interp_levels_wansynth": "video_interp",
+                 "keypoints_didemo": "video_keypoint", "interp_levels_didemo": "video_interp"}
+_TOY_STAGES = {"keypoints_toy_video": "keypoint", "interp_levels_toy_video": "interp"}
 
 
 def _numpy_tree(tree):
@@ -405,12 +424,16 @@ def checkpoint_to_state_dict(meta: Dict, params: Params) -> Dict[str, Any]:
     """A JAX checkpoint's params (or EMA) tree -> what the port's checkpoint
     of the same stage holds under `params`: the model's state_dict for the
     maze stages (keypoints, interp_levels causal or not, segment_cost,
-    selector) and the video interpolators' stages (flow_interpolator,
-    straightener, sinkhorn_interp, video_selector, segment_cost_wansynth);
-    for keypoints_wansynth the LoRA partition the Wan trainer
-    saves ({"lora": LoRA leaves, "frame_cond": projector state_dict,
-    "wan_base" and, for a run that trained every weight, "wan": WanDiT
-    state_dicts). Other stages, and a Wan tree with other leaves, raise
+    selector), the video interpolators' stages (flow_interpolator,
+    straightener, sinkhorn_interp, video_selector, segment_cost_wansynth,
+    video_interpolator), the toy-video denoisers (keypoints_toy_video,
+    interp_levels_toy_video), the DiDeMo token denoisers (keypoints_didemo,
+    interp_levels_didemo) and the wansynth stages under use_wan 0; for
+    keypoints_wansynth / interp_levels_wansynth with use_wan the LoRA
+    partition the Wan trainer saves ({"lora": LoRA leaves, "frame_cond":
+    projector state_dict, "wan_base" and, for a run that trained every
+    weight, "wan": WanDiT state_dicts). Other stages (every stage of the JAX
+    package has a port), and a Wan tree with other leaves, raise
     NotImplementedError naming what is missing."""
     stage = meta.get("stage")
     params = _numpy_tree(params)
@@ -424,9 +447,13 @@ def checkpoint_to_state_dict(meta: Dict, params: Params) -> Dict[str, Any]:
         return segment_cost_to_state_dict(params)
     if stage in _FLAX_NAMED_STAGES:
         return module_tree_to_state_dict(params)
-    if stage in _WANSYNTH_STAGES:
-        if not meta.get("use_wan", 1):
-            return params_to_state_dict(params, _WANSYNTH_STAGES[stage])
+    if stage == "video_interpolator":
+        return tiny_interpolator_to_state_dict(params)
+    if stage in _TOY_STAGES:
+        return params_to_state_dict(params, _TOY_STAGES[stage])
+    if stage in _TOKEN_STAGES:
+        if stage.endswith("_didemo") or not meta.get("use_wan", 1):
+            return params_to_state_dict(params, _TOKEN_STAGES[stage])
         extra = sorted(set(params) - {"lora", "frame_cond", "wan_base", "wan"})
         if extra:
             raise NotImplementedError(f"JAX {stage} checkpoint with {extra}: only the LoRA, "
@@ -442,6 +469,5 @@ def checkpoint_to_state_dict(meta: Dict, params: Params) -> Dict[str, Any]:
             if key in params:
                 out[key] = wan_params_to_state_dict(params[key])[0]
         return out
-    missing = _UNPORTED_STAGES.get(stage, f"the module of stage {stage!r}")
-    raise NotImplementedError(f"JAX checkpoint of stage {stage!r}: {missing} is not ported "
-                              "yet, so its parameters have no counterpart in the port")
+    raise NotImplementedError(f"JAX checkpoint of stage {stage!r}: the module of that stage "
+                              "is not ported, so its parameters have no counterpart in the port")

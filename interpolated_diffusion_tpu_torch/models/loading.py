@@ -4,7 +4,10 @@ selector and the segment-cost model D_phi, and the D_phi cost function of
 the kp_feat channels), and the wansynth checkpoints of both phases
 (`load_wansynth_model`: WanDiT + frame projector, or the token denoisers),
 and the video interpolators' stages (`load_stage_model`: the flow and
-Sinkhorn interpolators, the straighteners, the video selector and D_phi).
+Sinkhorn interpolators, the straighteners, the video selector and D_phi),
+the toy-video denoisers (`load_toy_video_model`), the temporal-conv
+interpolator (`load_video_interpolator`) and the DiDeMo token denoisers
+(`load_didemo_model`).
 
 Reads the port's own checkpoints and the JAX package's (utils/checkpoint.py
 routes a directory with `params.msgpack` through utils/jax_checkpoint.py and
@@ -137,18 +140,65 @@ def make_dphi_seg_cost_fn(path: str, T: int, use_sdf=None, bf16: bool = True, de
     return seg_cost_fn, meta
 
 
-def load_stage_model(path: str, stage: str, from_meta, device="cuda", bf16: bool = False):
+def load_stage_model(path: str, stage: str, from_meta, device="cuda", bf16: bool = False,
+                     use_ema: bool = False):
     """(model, meta) of a checkpoint of `stage` (or the newest under a run
     dir), either package's: `from_meta(meta)` builds the module, the params
-    fill it (f32, on `device`), bf16 compute under `bf16`, eval mode without
-    gradients. The video interpolators' stages use it."""
+    (the EMA weights with `use_ema` when saved) fill it (f32, on `device`),
+    bf16 compute under `bf16`, eval mode without gradients. The video
+    interpolators', toy-video and DiDeMo stages use it."""
     path = resolve_ckpt(path)
     _, meta = read_meta(path)
     _check_meta(meta, path, stage)
     with torch.device("meta"):
         model = from_meta(meta)
     model = model.to_empty(device=device)
-    return _fill(model, path, bf16, False, device), meta
+    return _fill(model, path, bf16, use_ema, device), meta
+
+
+TOY_VIDEO_STAGES = ("keypoints_toy_video", "interp_levels_toy_video")
+
+
+def toy_video_model_from_meta(meta: Dict, stage: str):
+    """The toy-video denoiser of `stage` (the maze denoisers over flat frame
+    latents, no maze encoder; Stage 2 with max(8, levels) level embeddings)."""
+    common = dict(d_model=int(meta["d_model"]), n_layers=int(meta["n_layers"]),
+                  n_heads=int(meta["n_heads"]), d_ff=int(meta["d_ff"]),
+                  data_dim=int(meta["data_dim"]), use_start_goal=False, maze_cond=False)
+    if stage == "keypoints_toy_video":
+        return KeypointDenoiser(**common)
+    return InterpLevelDenoiser(max_levels=max(8, int(meta["levels"])),
+                               mask_channels=int(meta["mask_channels"]), **common)
+
+
+def load_toy_video_model(path: str, stage: str, bf16: bool = True, use_ema: bool = True,
+                         device="cuda"):
+    """(model, meta) of a toy-video checkpoint of `stage` (either package's),
+    its EMA weights by default, as JAX's sample_toy_video loads them."""
+    if stage not in TOY_VIDEO_STAGES:
+        raise ValueError(f"{stage!r} is not a toy-video stage {TOY_VIDEO_STAGES}")
+    return load_stage_model(path, stage, lambda m: toy_video_model_from_meta(m, stage), device,
+                            bf16, use_ema)
+
+
+def load_video_interpolator(path: str, device="cuda", bf16: bool = False):
+    """(TinyTemporalInterpolator, meta) of a video_interpolator checkpoint."""
+    from .interpolators import TinyTemporalInterpolator
+
+    return load_stage_model(path, "video_interpolator", lambda m: TinyTemporalInterpolator(
+        int(m["data_dim"]), int(m["kernel_size"]), int(m["n_layers"])), device, bf16)
+
+
+DIDEMO_STAGES = ("keypoints_didemo", "interp_levels_didemo")
+
+
+def load_didemo_model(path: str, stage: str, bf16: bool = True, use_ema: bool = True,
+                      device="cuda"):
+    """(model, meta) of a DiDeMo checkpoint of `stage` (either package's):
+    the text-conditioned token denoiser, its EMA weights by default."""
+    if stage not in DIDEMO_STAGES:
+        raise ValueError(f"{stage!r} is not a DiDeMo stage {DIDEMO_STAGES}")
+    return load_stage_model(path, stage, lambda m: _token_model(m, stage), device, bf16, use_ema)
 
 
 def load_flow_interpolator(path: str, device="cuda", bf16: bool = False):
@@ -189,7 +239,7 @@ def _token_model(meta: Dict, stage: str):
     common = dict(d_model=int(meta["d_model"]), n_layers=int(meta["n_layers"]),
                   n_heads=int(meta["n_heads"]), d_ff=int(meta["d_ff"]),
                   data_dim=int(meta["latent_c"]) * p * p, text_dim=int(meta["text_dim"]))
-    if stage == "keypoints_wansynth":
+    if stage.startswith("keypoints"):
         return VideoTokenKeypointDenoiser(**common)
     return VideoTokenInterpLevelDenoiser(max_levels=max(8, int(meta["levels"])),
                                          mask_channels=int(meta["mask_channels"]), **common)

@@ -192,11 +192,12 @@ def resume_state(state, resume: str, device: torch.device):
 
 def run_training(args, device, loader, first_batch, state: TrainState, train_step, make_host_batch,
                  meta: Dict, start_step: int) -> TrainState:
-    """The loop both maze trainers share: `--steps_per_call` host batches per
-    call in one transfer, the log line, checkpoints."""
+    """The loop the maze, toy-video and DiDeMo trainers share:
+    `--steps_per_call` host batches per call in one transfer (one without
+    that flag), the log line, checkpoints."""
     from ..utils.checkpoint import save_checkpoint
 
-    spc = max(1, args.steps_per_call)
+    spc = max(1, getattr(args, "steps_per_call", 1))
     rng = torch.Generator(device=device).manual_seed(args.seed + 2 + start_step)
     t0 = time.time()
     batch, step = first_batch, start_step

@@ -10,7 +10,9 @@ interpolator evaluation and full WanDiT fine-tuning under bf16, on the CPU.
   through WanSynthTarDataset(teacher_root=...).
 - eval_interpolators' report under lerp, flow (the fixture) and sinkhorn (a
   checkpoint JAX's save_checkpoint wrote) against the JAX CLI's on the same
-  clips and anchor draws: every key, 1e-4 relative (counts equal).
+  clips and anchor draws: every key, 1e-4 relative (counts equal); with
+  `--rgb 1 --vae_sd FILE` too (the four rgb_* keys: prediction, lerp and
+  ground truth decoded by each package's SDVAE from one safetensors file).
 - WanDiT with every weight an f32 master computing in bf16
   (init_wan_trainables at lora_rank 0) against JAX's WanDiT(dtype=bfloat16)
   over f32 params: the loss within 1e-2 and every weight's gradient within
@@ -21,7 +23,9 @@ interpolator evaluation and full WanDiT fine-tuning under bf16, on the CPU.
   differ by 0.9%, the port's gradients sit 1.3% (median leaf) and 4.5%
   (worst, an RMSNorm scale) from the jitted run, against which it is held.
 """
+import functools
 import os
+from typing import Sequence
 
 import jax
 import jax.numpy as jnp
@@ -31,6 +35,7 @@ import torch
 
 from interpolated_diffusion_tpu.diagnostics import eval_interpolators as jeval
 from interpolated_diffusion_tpu.models import flow_interpolator as jfi
+from interpolated_diffusion_tpu.models import sd_vae as jsd
 from interpolated_diffusion_tpu.models import sinkhorn_warp as jsw
 from interpolated_diffusion_tpu.teachers import teacher as jteach
 from interpolated_diffusion_tpu.utils import checkpoint as jckpt
@@ -39,6 +44,7 @@ from interpolated_diffusion_tpu_torch.data import precompute_teacher as pprep
 from interpolated_diffusion_tpu_torch.data.wan_synth import WanSynthTarDataset, iter_tar_samples
 from interpolated_diffusion_tpu_torch.diagnostics import eval_interpolators as peval
 from interpolated_diffusion_tpu_torch.models import loading
+from interpolated_diffusion_tpu_torch.models import sd_vae as psd
 from interpolated_diffusion_tpu_torch.models.straightener import load_latent_straightener
 from interpolated_diffusion_tpu_torch.teachers import teacher as pteach
 from interpolated_diffusion_tpu_torch.train import train_flow_interpolator_wansynth as pflow
@@ -47,6 +53,7 @@ from interpolated_diffusion_tpu_torch.train import train_segment_cost_wansynth a
 from interpolated_diffusion_tpu_torch.train import train_sinkhorn_interp_wansynth as psk
 from interpolated_diffusion_tpu_torch.train import train_video_selector_wansynth as psel
 from interpolated_diffusion_tpu_torch.utils.checkpoint import read_meta
+from interpolated_diffusion_tpu_torch.utils.safetensors import write_safetensors
 
 from test_torch_interpolators import jparams
 
@@ -117,9 +124,9 @@ def test_clis_refuse_what_is_not_ported(tmp_path):
         if not torch.cuda.is_available():
             with pytest.raises(RuntimeError, match="CUDA"):
                 module.main(argv)                    # --device defaults to cuda
-    with pytest.raises(NotImplementedError, match="models/interpolators.py"):
+    with pytest.raises(NotImplementedError, match="JAX CLI builds no model for tiny"):
         peval.main(["--interpolator", "tiny", "--ckpt", FLOW, "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="models/sd_vae.py"):
+    with pytest.raises(SystemExit, match="4-channel SD latents"):   # --rgb on Wan latents
         peval.main(["--rgb", "1", "--device", "cpu"])
     with pytest.raises(SystemExit, match="LDMVFI"):
         pprep.main(["--data_root", str(tmp_path), "--out_root", str(tmp_path / "t"),
@@ -178,20 +185,73 @@ def test_eval_interpolators_report_matches_jax(tmp_path, fast_flax_init, interp)
             "8", "--latent_w", "8", "--batch", "2", "--num_batches", "2"]
     if interp != "lerp":
         argv += ["--ckpt", FLOW if interp == "flow" else _sinkhorn_ckpt(tmp_path)]
+    got, want = _both_reports(argv)
+    if interp == "lerp":
+        assert got["l1_vs_lerp_pct"] == 0.0
+
+
+def _both_reports(argv, batch=2, T=9, n_batches=2):
+    """The JAX CLI's report and the port's (on the CPU, with the JAX CLI's
+    anchor draws: one split of its key per batch), held key by key at 1e-4
+    relative, counts and names equal."""
     want = jeval.main(argv)
     key, draws = jax.random.PRNGKey(0), []
-    for _ in range(2):    # the JAX CLI's anchor draws: one split of its key per batch
+    for _ in range(n_batches):
         key, k = jax.random.split(key)
-        draws.append({"idx_rand": np.asarray(jax.random.uniform(k, (2, 7)))})
+        draws.append({"idx_rand": np.asarray(jax.random.uniform(k, (batch, T - 2)))})
     got = peval.main(argv + ["--device", "cpu"], draws=draws)
-    assert set(got) == set(want) | {"samples_per_sec"} and got["interpolator"] == interp
+    assert set(got) == set(want) | {"samples_per_sec"}
     for k, v in want.items():
         if isinstance(v, int) or isinstance(v, str):
             assert got[k] == v, k
         else:
             assert abs(got[k] - v) <= 1e-4 * max(abs(v), 1e-6), (k, got[k], v)
-    if interp == "lerp":
-        assert got["l1_vs_lerp_pct"] == 0.0
+    return got, want
+
+
+SD_NARROW = (32, 32)
+
+
+@pytest.fixture
+def narrow_sd_vae(monkeypatch):
+    """Both CLIs' SD VAE, and the safetensors loader of each package, at two
+    levels of 32 channels: at SD 1.x width a 64x64 frame decodes in ~1 s on
+    the CPU in each framework, and a report decodes every frame three times.
+    The full width is held to the card's CPU forward by chip_smoke.py."""
+
+    class JaxNarrow(jsd.SDVAE):
+        block_out: Sequence[int] = SD_NARROW
+
+    class PortNarrow(psd.SDVAE):
+        def __init__(self, block_out=SD_NARROW, **kw):
+            super().__init__(block_out, **kw)
+
+    monkeypatch.setattr(jsd, "SDVAE", JaxNarrow)
+    monkeypatch.setattr(psd, "SDVAE", PortNarrow)
+    for mod in (jsd, psd):
+        monkeypatch.setattr(mod, "load_sd_vae_safetensors", functools.partial(
+            mod.load_sd_vae_safetensors, block_out=SD_NARROW))
+    return JaxNarrow
+
+
+@pytest.mark.parametrize("interp", ["flow", "sinkhorn"])
+def test_eval_interpolators_rgb_report_matches_jax(tmp_path, fast_flax_init, narrow_sd_vae,
+                                                   interp):
+    """`--rgb 1 --vae_sd FILE`: one diffusers-named safetensors file of
+    seeded SDVAE params, read by both CLIs; the four rgb_* keys (and every
+    other) at 1e-4, on pixel values that are neither saturated nor the lerp's."""
+    params = jparams(narrow_sd_vae(), np.zeros((1, 1, 3, 16, 16), np.float32), seed=5)
+    vae_file = str(tmp_path / "vae.safetensors")
+    write_safetensors(vae_file, {k: torch.from_numpy(np.ascontiguousarray(v))
+                                 for k, v in psd.export_sd_vae_state_dict(params).items()})
+    argv = ["--interpolator", interp, "--ckpt", FLOW if interp == "flow" else
+            _sinkhorn_ckpt(tmp_path), "--T", "5", "--K", "3", "--latent_c", "4", "--latent_h",
+            "8", "--latent_w", "8", "--batch", "2", "--num_batches", "1", "--rgb", "1",
+            "--vae_sd", vae_file]
+    got, want = _both_reports(argv, T=5, n_batches=1)
+    rgb = ("rgb_psnr", "rgb_psnr_lerp", "rgb_ssim", "rgb_ssim_lerp")
+    assert all(k in want for k in rgb)
+    assert 0.0 < got["rgb_psnr"] < 60.0 and got["rgb_psnr"] != got["rgb_psnr_lerp"]
 
 
 def test_full_finetune_bf16_matches_jax():

@@ -50,9 +50,18 @@ def jparams(jm, *args, seed=0, method=None, **kwargs):
     """Params of flax module `jm` in the shapes its init would make, drawn
     from numpy: Dense / Conv kernels N(0, 1/fan_in), LayerNorm scales
     1 + N(0, 0.1^2), every other leaf (biases, zero-initialised heads, tau,
-    the dustbin, embeddings) N(0, 0.1^2), so that no leaf is zero."""
-    shapes = jax.eval_shape(functools.partial(nn.Module.init, jm, method=method, **kwargs),
-                            jax.random.PRNGKey(0), *args)["params"]
+    the dustbin, embeddings) N(0, 0.1^2), so that no leaf is zero. Arrays
+    and dicts of them are traced; other arguments (T, a spatial shape) stay
+    Python values."""
+    traced = [i for i, a in enumerate(args) if isinstance(a, (np.ndarray, jax.Array, dict))]
+
+    def init(key, *arrays):
+        full = list(args)
+        for i, a in zip(traced, arrays):
+            full[i] = a
+        return nn.Module.init(jm, key, *full, method=method, **kwargs)
+
+    shapes = jax.eval_shape(init, jax.random.PRNGKey(0), *[args[i] for i in traced])["params"]
     r = np.random.default_rng(seed)
     out = {}
     for k, v in traverse_util.flatten_dict(shapes).items():

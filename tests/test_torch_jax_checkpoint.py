@@ -320,10 +320,12 @@ def test_lora_layouts_convert_alike():
         assert all(torch.equal(got[k], want[k]) for k in want)
 
 
-@pytest.mark.parametrize("stage,match", [("video_interpolator", "models/interpolators.py")])
+@pytest.mark.parametrize("stage,match", [("no_such_stage", "stage 'no_such_stage'")])
 def test_unported_stages_raise_naming_what_is_missing(tmp_path, stage, match):
-    """A JAX checkpoint of a stage whose module the port lacks (the learned
-    video interpolators), written by JAX's save_checkpoint."""
+    """A JAX checkpoint of a stage the port has no module for, written by
+    JAX's save_checkpoint. (Every stage of the JAX package has one: the
+    video_interpolator stage, which raised here before, is read in
+    tests/test_torch_toy_video.py.)"""
     path = str(tmp_path / "ckpt_1")
     jckpt.save_checkpoint(path, {"dwconv_0": {"kernel": jnp.zeros((3, 1, 4)),
                                               "bias": jnp.zeros((4,))}}, None, 1, None,

@@ -200,7 +200,21 @@ def test_wan_port_import_pulls_in_no_jax():
             "interpolated_diffusion_tpu_torch.train.train_video_selector_wansynth, "
             "interpolated_diffusion_tpu_torch.teachers.teacher, "
             "interpolated_diffusion_tpu_torch.data.precompute_teacher, "
-            "interpolated_diffusion_tpu_torch.diagnostics.eval_interpolators; "
+            "interpolated_diffusion_tpu_torch.diagnostics.eval_interpolators, "
+            "interpolated_diffusion_tpu_torch.data.toy_video, "
+            "interpolated_diffusion_tpu_torch.data.didemo, "
+            "interpolated_diffusion_tpu_torch.data.precompute_clip_cache, "
+            "interpolated_diffusion_tpu_torch.models.interpolators, "
+            "interpolated_diffusion_tpu_torch.models.sd_vae, "
+            "interpolated_diffusion_tpu_torch.models.frame_vae, "
+            "interpolated_diffusion_tpu_torch.models.clip_text, "
+            "interpolated_diffusion_tpu_torch.train.train_keypoints_toy_video, "
+            "interpolated_diffusion_tpu_torch.train.train_interp_levels_toy_video, "
+            "interpolated_diffusion_tpu_torch.train.train_video_interpolator, "
+            "interpolated_diffusion_tpu_torch.train.train_video_interpolator_wansynth, "
+            "interpolated_diffusion_tpu_torch.train.train_keypoints_didemo, "
+            "interpolated_diffusion_tpu_torch.train.train_interp_levels_didemo, "
+            "interpolated_diffusion_tpu_torch.sample.sample_toy_video; "
             "bad = [m for m in sys.modules if m in ('jax', 'flax', 'optax', 'msgpack') "
             "or m.startswith(('jax.', 'flax.', 'optax.', 'msgpack.')) "
             "or m == 'interpolated_diffusion_tpu' or m.startswith('interpolated_diffusion_tpu.')]; "
