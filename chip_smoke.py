@@ -2,7 +2,7 @@
 """Drive the PyTorch/CUDA port's sampling paths and its trainers once on one GPU.
 
     python3 chip_smoke.py [--profile] [--kernels] [--gemm-ab] [--wan-phase2] [--wan-interp]
-                          [--video-toy]
+                          [--video-toy] [--multi-device]
 
 Phases, each on its own lines; any failure exits non-zero:
   1. device       the card's name and power limit (nvidia-smi); CUDA required
@@ -189,6 +189,30 @@ Phases, each on its own lines; any failure exits non-zero:
                   (SD latents [16, 4, 8, 8] by the seeded SDVAE, text [77,
                   512]), under fused and block, each with the gate where a
                   kernel runs and a 4-step CLI run
+  5i. multi-    torch.distributed, after 5e (`--multi-device` alone, on seeded
+      device      checkpoints, prints its own JSON line and the ok line). (a) One
+                  process on NCCL, torchrun's variables (RANK 0, WORLD_SIZE 1, a
+                  free port) set here: the maze Stage-2 trainer CLI at bench
+                  width (batch 256, block) for 3 steps with --n_data_shards 1
+                  against the run without it, losses and checkpoint bit for
+                  bit; the Wan Phase-1 trainer with --ffn_mode moe --n_experts 8
+                  --lora_rank 0 --bf16 1 at full width (batch 2, L 7800, sla):
+                  at 2 of 30 layers the loss and every weight's gradient of the
+                  kernel path vs the twin path (SLA LUTs and expert routes
+                  replayed), then its CLI at 8 of 30 layers (what fits one
+                  card: 3.83 GB of f32 state a block) for 3 steps with
+                  --ckpt_async 1 (launches of rows 4-8 per step, s/step, peak
+                  memory, the sharded checkpoint read back equal). (b) Two
+                  processes on the one card over gloo (NCCL refuses two ranks
+                  on one GPU; CUDA compute, hops staged through host memory,
+                  so their times show that the path runs, not its speed):
+                  ring-SLA at BH 12, L 32768, Dh 128, top-k 0.1, blocks 128
+                  and 256 (row-4 launches, hops x ranks; each rank's output vs
+                  one process's block_sparse_attention on the full sequence
+                  with the same global LUT) and the kernel's all-sentinel lse;
+                  dense ring attention, causal and not, vs plain attention;
+                  the causal CLI with --seq_shard 2 vs --seq_shard 0 at bench
+                  width (64 x 1, chunk 16, DDIM-10, block)
 Every timing phase also times the one PyTorch library call that computes the
 same function, where there is one (scaled_dot_product_attention, for SLA
 under the LUT as a mask; F.linear; or for the block a chain of them), as a
@@ -207,7 +231,8 @@ processes, two on a build that sends every product to the streaming kernel.
 --wan-phase2 runs the build and phase 5f alone and prints neither JSON line,
 --wan-interp the build and phase 5g alone. --video-toy runs the build and
 phase 5h alone, then a JSON line of its launches and times and the
-{"ok": true, ...} line.
+{"ok": true, ...} line; --multi-device the build, phase 3 and phase 5i, then
+its JSON line of launches and the ok line.
 """
 from __future__ import annotations
 
@@ -4624,7 +4649,569 @@ def gemm_ab(card) -> int:
     return 0
 
 
+# Phase 5i: multi-device (torch.distributed). (a) one process on NCCL with
+# torchrun's variables set here (world 1): the maze Stage-2 trainer CLI with
+# --n_data_shards 1 against the run without it, and the Wan Phase-1 trainer
+# with Switch-MoE blocks; (b) two processes on the one card over gloo (NCCL
+# refuses two ranks on one GPU), CUDA compute with host-staged hops:
+# ring-SLA, dense ring attention and the causal CLI with --seq_shard 2.
+# Host-staged gloo times show that the path runs; they are not the speed of
+# the port's multi-GPU path (NCCL over NVLink).
+MD_MAZE_STEPS = 3
+# The MoE trainer's depth on one card: each MoE block holds 2 x 8 x 1536 x 8960
+# = 220.2 M expert weights beside ~19 M attention weights; with f32 masters,
+# gradients and Adam's two moments (16 B a weight) that is 3.83 GB a block,
+# 30.6 GB at 8 blocks (30 would need ~115 GB), leaving room for a step's
+# activations at L = 7800, batch 2 (remat) and the 7.7 GB checkpoint's host copy.
+MD_MOE_LAYERS = 8
+MD_MOE_GATE_LAYERS = 2
+MD_MOE_STEPS = 3
+MD_MOE_ARGS = ["--ffn_mode", "moe", "--n_experts", "8", "--lora_rank", "0", "--bf16", "1",
+               "--attn_mode", "sla"]
+# launches of rows 4-8 per MoE step under sla at MD_MOE_LAYERS (TRAIN_EXPECT's per-layer counts)
+MD_MOE_EXPECT = tuple(c // TRAIN_LAYERS * MD_MOE_LAYERS for c in TRAIN_EXPECT["sla"])
+MD_WORLD = 2
+# ring-SLA at the 33k geometry of scripts/bench_wan33k.py (BH 12, Dh 128), L
+# rounded up from 32760 so that each rank's shard divides both block sizes
+MD_RING_SLA = dict(BH=12, L=32768, D=128, topk=0.1, blocks=(128, 256))
+MD_RING = dict(B=1, H=12, L=4096, D=128)      # dense ring attention, f32
+MD_RING_TOL = 1e-4                             # f32 ring vs f32 plain attention (TF32 off)
+MD_CAUSAL = dict(batch=64, n_batches=1, chunk=16, K_min=4, ddim_steps=10)
+MD_CAUSAL_TOL = 5e-2                           # positions in [0, 1], as PIPE_TOL
+MD_TIMEOUT = 900
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+@contextlib.contextmanager
+def _torchrun_world1():
+    """torchrun's variables for one process (RANK 0, WORLD_SIZE 1, a free
+    port on 127.0.0.1): the port's CLIs bring up NCCL from them. The group
+    is destroyed and the variables removed on the way out."""
+    import torch.distributed as dist
+
+    env = dict(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(_free_port()), RANK="0",
+               WORLD_SIZE="1", LOCAL_RANK="0")
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+@contextlib.contextmanager
+def moe_routes(routes, replay=False):
+    """Record into `routes`, in call order, every SwitchFFN's choice of
+    expert per token; with `replay`, hand those back instead of the path's
+    own argmax. Top-1 routing is discrete: an ulp upstream flips a token whose
+    two best experts are near, on one path only. Yields [calls, tokens,
+    tokens whose own choice differs]."""
+    from interpolated_diffusion_tpu_torch.models.moe import SwitchFFN
+
+    own, stats = SwitchFFN.route, [0, 0, 0]
+
+    def route(self, probs):
+        got = own(self, probs)
+        if not replay:
+            routes.append(got)
+            return got
+        kept = routes[stats[0] % len(routes)]   # remat recomputes a block: same order again
+        stats[0] += 1
+        stats[1] += kept.numel()
+        stats[2] += int((got != kept).sum())
+        return kept
+
+    SwitchFFN.route = route
+    try:
+        yield stats
+    finally:
+        SwitchFFN.route = own
+
+
+def _md_maze_dp(dev, card, workdir):
+    """The maze Stage-2 trainer CLI at bench width (batch 256, policy block),
+    MD_MAZE_STEPS steps: twice without --n_data_shards, then on NCCL at world
+    1 with --n_data_shards 1. Where the two plain runs agree bit for bit, the
+    NCCL run must too; where they do not (atomic adds in a backward sum in
+    another order from run to run), its distance from the first plain run
+    must not exceed theirs, and the script says so."""
+    import re
+
+    import torch
+    from interpolated_diffusion_tpu_torch.train import train_interp_levels
+    from interpolated_diffusion_tpu_torch.utils.checkpoint import load_checkpoint
+
+    flags = ["--num_samples", str(MAZE_SAMPLES), "--attn_policy", "block", "--steps",
+             str(MD_MAZE_STEPS), "--save_every", str(MD_MAZE_STEPS), "--log_every", "1",
+             "--steps_per_call", "1", "--cache_dir", os.path.join(workdir, "data")]
+    out = {}
+    for name, extra in (("plain", []), ("again", []), ("dp1", ["--n_data_shards", "1"])):
+        run_dir = os.path.join(workdir, f"md_maze_{name}")
+        ctx = _torchrun_world1() if name == "dp1" else contextlib.nullcontext()
+        with ctx, _tee_stdout() as log:
+            t0 = time.perf_counter()
+            train_interp_levels.main(flags + ["--out_dir", run_dir] + extra)
+            torch.cuda.synchronize()
+            if name == "dp1":
+                import torch.distributed as dist
+
+                backend = dist.get_backend()
+                require(backend == "nccl" and dist.get_world_size() == 1,
+                        f"--n_data_shards 1: backend {backend}, world {dist.get_world_size()}")
+        losses = re.findall(r"step \d+ loss (\S+)", log.getvalue())
+        _, payload = load_checkpoint(os.path.join(run_dir, f"ckpt_{MD_MAZE_STEPS}"))
+        out[name] = (losses, payload["params"], time.perf_counter() - t0)
+    (l0, p0, s0), (la, pa, _), (l1, p1, s1) = out["plain"], out["again"], out["dp1"]
+
+    def distance(p):
+        differ = [k for k in p0 if not torch.equal(p0[k], p[k])]
+        return differ, max((float((p0[k].float() - p[k].float()).abs().max()) for k in differ),
+                           default=0.0)
+
+    differ_a, d_a = distance(pa)
+    differ, d = distance(p1)
+    why = (f"; the device run is not bitwise reproducible: {', '.join(differ_a[:3])}"
+           if differ_a else "")
+    print(f"[multi] {card} maze Stage-2 trainer CLI at bench width (384d x 12 x 12, batch 256, "
+          f"block), {MD_MAZE_STEPS} steps: without --n_data_shards losses {l0} ({s0:.1f} s), "
+          f"again {la}: {len(differ_a)} of {len(p0)} parameters differ between the two (max |d| "
+          f"{d_a:.3e}{why}); "
+          f"with --n_data_shards 1 on NCCL, world 1 (torchrun's variables set here) losses {l1} "
+          f"({s1:.1f} s): {len(differ)} parameters differ from the first run (max |d| {d:.3e})",
+          flush=True)
+    if not differ_a:
+        require(l0 == l1 and not differ, "--n_data_shards 1 on NCCL at world 1 changed a "
+                f"bitwise-reproducible run: losses {l0} vs {l1}, parameters {differ[:3]}")
+    else:
+        require(d <= d_a and set(differ) <= set(differ_a),
+                f"--n_data_shards 1 on NCCL at world 1: {differ[:3]} differ by {d:.3e}, more "
+                f"than the run-to-run {d_a:.3e} of {differ_a[:3]}")
+
+
+def _md_moe_gate(dev):
+    """At MD_MOE_GATE_LAYERS of 30 layers, full width, the MoE Phase-1 loss
+    and every weight's gradient, kernel path vs twin path (the kernel path's
+    SLA LUTs and expert routes replayed)."""
+    import torch
+    from interpolated_diffusion_tpu_torch.ops.schedules import make_schedule
+    from interpolated_diffusion_tpu_torch.train import train_keypoints_wansynth as p1
+    from interpolated_diffusion_tpu_torch.train.state import flatten_dict, tree_leaves
+    from interpolated_diffusion_tpu_torch.train.wansynth_common import (build_wan,
+                                                                        make_wansynth_loader)
+    from interpolated_diffusion_tpu_torch.utils.prefetch import pinned_put
+
+    args = p1.build_argparser().parse_args(MD_MOE_ARGS + [
+        "--wan_layers", str(MD_MOE_GATE_LAYERS), "--num_samples", "8", "--seed", "61"])
+    wan, fc = build_wan(args, True, device=dev, zero_init_scale=1e-2,
+                        generator=torch.Generator(device=dev).manual_seed(args.seed))
+    batch = pinned_put(dev, keys=("latents", "text_embed"))(
+        next(make_wansynth_loader(args, args.seed)))
+    schedule = make_schedule(args.schedule, args.N_train, device=dev)
+    N = (args.latent_h // 2) * (args.latent_w // 2)
+    state, base, _, _, _ = p1.make_trainer(args, dev, wan, fc)
+    names, leaves = list(flatten_dict(state.params)), tree_leaves(state.params)
+    draws = p1.draw_phase1(torch.Generator(device=dev).manual_seed(62), args, args.batch,
+                           (args.batch, args.K, N, args.latent_c * 4))
+
+    def loss_and_grads():
+        loss, _ = p1.phase1_loss(wan, fc, args, schedule, batch, draws)
+        return loss.detach(), torch.autograd.grad(loss, leaves)
+
+    luts, routes = [], []
+    with sla_luts(luts), moe_routes(routes):
+        loss_k, grads_k = loss_and_grads()
+    with wan_plain_twins(), sla_luts(luts, replay=True) as lut_stats, \
+            moe_routes(routes, replay=True) as route_stats:
+        loss_t, grads_t = loss_and_grads()
+    rel_loss = abs(loss_k.item() - loss_t.item()) / abs(loss_t.item())
+    top = max(float(b.abs().max()) for b in grads_t)
+    scale = lambda b: max(float(b.abs().max()), FULL_FT_GRAD_FLOOR * top)
+    worst = max((float((a - b).abs().max()) / scale(b), n)
+                for n, a, b in zip(names, grads_k, grads_t))
+    n_moe = sum(".moe_ffn." in n for n in names)
+    print(f"[multi] MoE Phase-1 step (--ffn_mode moe, 8 experts, --lora_rank 0 --bf16 1, "
+          f"{MD_MOE_GATE_LAYERS} of 30 layers, full width, batch 2, L = 7800, sla): kernels vs "
+          f"plain twins, same state / batch / draws, the kernel path's LUTs and routes replayed "
+          f"({lut_stats[0]} SLA calls, own LUTs differ in {lut_stats[2]} of {lut_stats[1]} rows; "
+          f"{route_stats[0]} routings, own routes differ in {route_stats[2]} of "
+          f"{route_stats[1]} tokens): loss {loss_k.item():.6f} vs {loss_t.item():.6f} (rel "
+          f"{rel_loss:.3e}, tol {TRAIN_LOSS_TOL}); {len(names)} weights ({n_moe} of the MoE "
+          f"FFNs), worst gradient max|d|/max|twin| = {worst[0]:.3e} at {worst[1]} (tol "
+          f"{TRAIN_GRAD_TOL}, floor {FULL_FT_GRAD_FLOOR} of the largest leaf's {top:.3e})",
+          flush=True)
+    require(base is None and n_moe == 5 * MD_MOE_GATE_LAYERS,
+            f"MoE gate: base {base is None}, {n_moe} MoE leaves")
+    require(rel_loss <= TRAIN_LOSS_TOL, f"MoE gate: loss disagrees ({rel_loss})")
+    require(worst[0] <= TRAIN_GRAD_TOL, f"MoE gate: gradient of {worst[1]} disagrees "
+            f"({worst[0]:.3e})")
+    del state, grads_k, grads_t, wan, fc, batch, luts, routes
+    torch.cuda.empty_cache()
+
+
+def _md_moe_cli(dev, card, workdir):
+    """The MoE Phase-1 trainer CLI at MD_MOE_LAYERS of 30 layers, full width,
+    on NCCL at world 1 with --ckpt_async 1: launches per step of rows 4-8, no
+    twin call, s/step, peak memory, the sharded checkpoint read back equal.
+    Returns {kernel: launches per step}."""
+    import re
+    import shutil
+
+    import numpy as np
+    import torch
+    from interpolated_diffusion_tpu_torch.train import train_keypoints_wansynth as p1
+    from interpolated_diffusion_tpu_torch.train.state import flatten_dict
+    from interpolated_diffusion_tpu_torch.utils.checkpoint import load_checkpoint
+
+    out = os.path.join(workdir, "md_moe")
+    argv = MD_MOE_ARGS + ["--wan_layers", str(MD_MOE_LAYERS), "--num_samples", "8",
+                          "--steps", str(MD_MOE_STEPS), "--save_every", str(MD_MOE_STEPS),
+                          "--log_every", "1", "--ckpt_async", "1", "--n_data_shards", "1",
+                          "--out_dir", out]
+    with _torchrun_world1():
+        state, counts, twin, log, secs, peak = _cli_run(p1.main, argv)
+    steps = [(int(a), float(b), float(c)) for a, b, c in re.findall(_STEP_LINE, log)]
+    want = {k: c * MD_MOE_STEPS for k, c in zip(TRAIN_KERNELS, MD_MOE_EXPECT)}
+    require([s[0] for s in steps] == list(range(MD_MOE_STEPS)) and
+            all(np.isfinite(s[1]) for s in steps), f"MoE trainer CLI: steps {steps}")
+    require(counts == want and twin == 0,
+            f"MoE trainer CLI: launches {counts}, twin calls {twin}, expected {want} and 0")
+    ckpt = os.path.join(out, f"ckpt_{MD_MOE_STEPS}")
+    header = json.load(open(os.path.join(ckpt, "meta.json")))
+    t0 = time.perf_counter()
+    _, payload = load_checkpoint(ckpt)
+    t_read = time.perf_counter() - t0
+    saved, live = flatten_dict(payload["params"]), flatten_dict(state.params)
+    differ = [k for k, p in live.items() if not torch.equal(saved[k], p.detach().cpu())]
+    n_weights = sum(p.numel() for p in live.values())
+    n_expert = sum(p.numel() for k, p in live.items() if ".moe_ffn.ffn_" in k)
+    meta = header["meta"]
+    del state, payload, saved, live
+    torch.cuda.empty_cache()
+    shutil.rmtree(out, ignore_errors=True)
+    per = sum(s[2] for s in steps[1:]) / max(1, len(steps) - 1)
+    print(f"[multi] {card} MoE Phase-1 trainer CLI on NCCL, world 1 (--ffn_mode moe, 8 experts, "
+          f"capacity factor 1.25, --lora_rank 0 --bf16 1, {MD_MOE_LAYERS} of 30 layers at full "
+          f"width, batch 2, L = 7800, sla, remat; {n_weights / 1e6:.1f} M weights, "
+          f"{n_expert / 1e6:.1f} M of them experts): {per:.3f} s/step after the first "
+          f"({steps[0][2]:.3f} s), peak memory {peak:.2f} GiB, launches per step "
+          f"{dict(zip(TRAIN_KERNELS, MD_MOE_EXPECT))}, twin calls 0; losses "
+          f"{[round(s[1], 4) for s in steps]}; --ckpt_async 1 checkpoint format "
+          f"{header['format']} ({header['n_shards']} shard), meta ffn_mode {meta['ffn_mode']} "
+          f"n_experts {meta['n_experts']} capacity_factor {meta['capacity_factor']}, read back "
+          f"in {t_read:.1f} s: {len(differ)} leaves differ; {secs:.1f} s in all", flush=True)
+    require(header["format"] == "torch_sharded" and meta["ffn_mode"] == "moe" and
+            meta["n_experts"] == 8 and not differ,
+            f"MoE trainer CLI checkpoint: {header['format']}, meta {meta.get('ffn_mode')}, "
+            f"leaves that differ {differ[:3]}")
+    return dict(zip(TRAIN_KERNELS, MD_MOE_EXPECT))
+
+
+def _seeded_causal_ckpts(dev, workdir):
+    """Bench-width Stage-1 and causal Stage-2 checkpoints from seeded weights
+    (the Stage-2 head made non-zero), for --multi-device alone."""
+    import torch
+    from interpolated_diffusion_tpu_torch.train import train_interp_levels as ps2
+    from interpolated_diffusion_tpu_torch.train import train_keypoints as ps1
+    from interpolated_diffusion_tpu_torch.utils.checkpoint import save_checkpoint
+
+    paths = []
+    for name, mod, flags in (("kp", ps1, []), ("ilc", ps2, ["--causal", "1"])):
+        args = mod.build_argparser().parse_args(flags + ["--device", "cuda", "--seed", "71"])
+        model = mod.build_model(args, BENCH["data_dim"], dev)
+        if name == "ilc":
+            _nonzero_head(model)
+        params = {k: v.detach() for k, v in model.named_parameters()}
+        path = os.path.join(workdir, f"md_{name}")
+        save_checkpoint(os.path.join(path, "ckpt_1"), params, None, 1, params,
+                        mod.make_meta(args, BENCH["data_dim"]))
+        paths.append(path)
+    return paths
+
+
+def _md_spawn(jobs, workdir, world=MD_WORLD):
+    """`world` processes of this script on the one card (gloo), each running
+    `jobs` [(name, payload)]; returns each rank's {name: result}. A rank's
+    non-zero exit or a run past MD_TIMEOUT fails the phase (the others are
+    killed)."""
+    import torch
+
+    job_file = os.path.join(workdir, "md_jobs.pt")
+    torch.save(jobs, job_file)
+    init = os.path.join(workdir, f"md_store_{os.getpid()}")
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE")}
+    env["LOCAL_RANK"] = "0"       # every rank computes on the one card
+    procs = []
+    for r in range(world):
+        out = os.path.join(workdir, f"md_out_{r}.pt")
+        procs.append((subprocess.Popen([sys.executable, os.path.abspath(__file__), "--md-worker",
+                                        str(r), str(world), init, job_file, out], env=env,
+                                       cwd=ROOT), out))
+    failed = None
+    try:
+        for r, (p, _) in enumerate(procs):
+            if p.wait(timeout=MD_TIMEOUT) != 0 and failed is None:
+                failed = f"rank {r} exited with {p.returncode}"
+    except subprocess.TimeoutExpired:
+        failed = f"ranks still running after {MD_TIMEOUT} s"
+    finally:
+        for p, _ in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    require(failed is None, f"multi-device ranks: {failed}")
+    return [torch.load(out, weights_only=False) for _, out in procs]
+
+
+def md_worker(argv) -> int:
+    """One rank of _md_spawn: gloo over a file store, CUDA compute on the card."""
+    import torch
+    import torch.distributed as dist
+
+    rank, world, init, job_file, out = int(argv[0]), int(argv[1]), argv[2], argv[3], argv[4]
+    sys.path.insert(0, ROOT)
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"file://{init}", world_size=world, rank=rank)
+    results = {name: MD_JOBS[name](rank, world, payload)
+               for name, payload in torch.load(job_file, weights_only=False)}
+    torch.save(results, out)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def _md_job_ring_sla(rank, world, payload):
+    """Ring-SLA on this rank's shard: the global LUT from the ring, the
+    hops through the row-4 kernel (launches counted), against one process's
+    block_sparse_attention on the full sequence with the same global LUT
+    (kernel against kernel); the kernel's all-sentinel lse."""
+    import torch
+    import torch.distributed as dist
+    from interpolated_diffusion_tpu_torch.kernels import block_sparse_attention as bsa
+    from interpolated_diffusion_tpu_torch.kernels.sla import get_block_map
+    from interpolated_diffusion_tpu_torch.parallel.collectives import all_gather
+    from interpolated_diffusion_tpu_torch.parallel.ring_sla import (ring_block_sparse_attention,
+                                                                     ring_sla_block_map)
+
+    c = MD_RING_SLA
+    group = dist.group.WORLD
+    res = {}
+    for block in c["blocks"]:
+        g = torch.Generator(device="cuda").manual_seed(80 + block)
+        q, k, v = (torch.randn((c["BH"], c["L"], c["D"]), generator=g, device="cuda")
+                   .to(torch.bfloat16) for _ in range(3))
+        n = c["L"] // world
+        mine = slice(rank * n, (rank + 1) * n)
+        ql, kl, vl = (x[:, mine].contiguous() for x in (q, k, v))
+        with torch.no_grad():
+            lut = ring_sla_block_map(ql, kl, group, c["topk"], block, block)
+            bsa.block_sparse_attention.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            o = ring_block_sparse_attention(ql, kl, vl, lut, group, block, block)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            launches = bsa.block_sparse_attention.launches
+            lut_full = all_gather(lut, group, dim=1).contiguous()
+            ref = bsa.block_sparse_attention(q, k, v, lut_full, block, block)[:, mine]
+            _, own, _ = get_block_map(q, k, c["topk"], block, block)
+        err = float((o.float() - ref.float()).abs().max()) / float(ref.float().abs().max())
+        differ = int((own.sort(-1).values != lut_full.sort(-1).values).any(-1).sum())
+        res[block] = dict(err=err, launches=launches, ms=ms, topk=lut.shape[-1],
+                          lut_rows=lut_full.shape[0] * lut_full.shape[1], lut_differ=differ,
+                          finite=bool(torch.isfinite(o.float()).all()))
+    # a row of sentinels only, on the kernel: o = 0 and an lse far below any real one
+    n_loc = n // 128
+    sent = torch.full((1, n // 128, 3), n_loc, dtype=torch.int32, device="cuda")
+    o_s, lse_s = bsa.block_sparse_attention_lse(ql[:1], kl[:1], vl[:1], sent, 128, 128)
+    res["sentinel"] = dict(o_max=float(o_s.float().abs().max()), lse_max=float(lse_s.max()))
+    return res
+
+
+def _md_job_ring(rank, world, payload):
+    """Dense ring attention (f32) on this rank's chunk, causal and not,
+    against plain full attention on the card."""
+    import torch
+    import torch.distributed as dist
+    from interpolated_diffusion_tpu_torch.parallel.ring import ring_self_attention
+
+    c = MD_RING
+    g = torch.Generator(device="cuda").manual_seed(90)
+    q, k, v = (torch.randn((c["B"], c["H"], c["L"], c["D"]), generator=g, device="cuda")
+               for _ in range(3))
+    n = c["L"] // world
+    mine = slice(rank * n, (rank + 1) * n)
+    res = {}
+    for causal in (False, True):
+        with torch.no_grad():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            o = ring_self_attention(q[:, :, mine].contiguous(), k[:, :, mine].contiguous(),
+                                    v[:, :, mine].contiguous(), dist.group.WORLD, causal)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            s = q[:, :, mine] @ k.transpose(-1, -2) * c["D"] ** -0.5
+            if causal:
+                keep = (torch.arange(c["L"], device="cuda")[None, :]
+                        <= torch.arange(c["L"], device="cuda")[mine, None])
+                s = s.masked_fill(~keep, float("-inf"))
+            ref = torch.softmax(s, dim=-1) @ v
+        res[causal] = dict(err=float((o - ref).abs().max()) / float(ref.abs().max()), ms=ms)
+    return res
+
+
+@contextlib.contextmanager
+def _record_causal_outputs(outs):
+    """Append every x_gen the causal CLI's pipeline returns to `outs`."""
+    from interpolated_diffusion_tpu_torch.sample import generate_causal
+
+    real = generate_causal.make_causal_pipeline
+
+    def making(*a, **kw):
+        pipe = real(*a, **kw)
+
+        def recorded(*pa, **pkw):
+            out = pipe(*pa, **pkw)
+            outs.append((out[0] if isinstance(out, tuple) else out).detach().cpu())
+            return out
+
+        return recorded
+
+    generate_causal.make_causal_pipeline = making
+    try:
+        yield outs
+    finally:
+        generate_causal.make_causal_pipeline = real
+
+
+def _md_job_causal_cli(rank, world, payload):
+    """The causal sampling CLI with --seq_shard `world` (Stage 2's delta as
+    causal ring attention over the ranks): x_gen and the row-1 launches."""
+    from interpolated_diffusion_tpu_torch.kernels.fused_block import fused_film_block
+    from interpolated_diffusion_tpu_torch.sample import generate_causal
+
+    fused_film_block.launches = 0
+    outs = []
+    t0 = time.perf_counter()
+    with _record_causal_outputs(outs):
+        generate_causal.main(payload["argv"] + ["--seq_shard", str(world)])
+    return dict(x_gen=outs, launches=fused_film_block.launches,
+                secs=time.perf_counter() - t0)
+
+
+MD_JOBS = {"ring_sla": _md_job_ring_sla, "ring": _md_job_ring, "causal_cli": _md_job_causal_cli}
+
+
+def phase_multi_device(dev, card, workdir, causal_ckpts=None):
+    """Phase 5i. `causal_ckpts` (Stage 1, causal Stage 2): 5e's checkpoints in
+    the full run, seeded ones under --multi-device. Returns {kernel:
+    {what: launches}} of the phase's runs."""
+    import numpy as np
+    import torch
+    from interpolated_diffusion_tpu_torch.kernels.fused_block import fused_film_block
+    from interpolated_diffusion_tpu_torch.sample import generate_causal
+
+    t_phase = time.perf_counter()
+    tag = f"[{card}]"
+    # (a) one process on NCCL
+    _md_maze_dp(dev, card, workdir)
+    _md_moe_gate(dev)
+    moe_launches = _md_moe_cli(dev, card, workdir)
+
+    # (b) two processes on the one card over gloo
+    if causal_ckpts is None:
+        causal_ckpts = _seeded_causal_ckpts(dev, workdir)
+    kp_dir, il_dir = causal_ckpts
+    c = MD_CAUSAL
+    argv = ["--kp_ckpt", kp_dir, "--interp_ckpt", il_dir, "--device", "cuda", "--attn_policy",
+            "block", "--batch", str(c["batch"]), "--num_batches", str(c["n_batches"]),
+            "--chunk", str(c["chunk"]), "--K_min", str(c["K_min"]), "--ddim_steps",
+            str(c["ddim_steps"]), "--num_samples", str(MAZE_SAMPLES), "--cache_dir",
+            os.path.join(workdir, "data"), "--out_dir", os.path.join(workdir, "md_causal")]
+    outs = []
+    fused_film_block.launches = 0
+    with _record_causal_outputs(outs):     # one process, --seq_shard 0 (also builds the data)
+        generate_causal.main(argv + ["--seq_shard", "0"])
+    one_launches = fused_film_block.launches
+    t0 = time.perf_counter()
+    ranks = _md_spawn([("ring_sla", None), ("ring", None), ("causal_cli", {"argv": argv})],
+                      workdir)
+    secs = time.perf_counter() - t0
+    print(f"[multi] {tag} {MD_WORLD} processes on one card, torch.distributed backend gloo "
+          f"(NCCL refuses two ranks on one GPU), CUDA compute, hops staged through host memory "
+          f"(these times show the path runs; they are not the port's multi-GPU speed): "
+          f"{secs:.1f} s for the three jobs with the ranks' start", flush=True)
+
+    sla_launches = 0
+    for block in MD_RING_SLA["blocks"]:
+        per = [r["ring_sla"][block] for r in ranks]
+        sla_launches += sum(p["launches"] for p in per)
+        worst = max(p["err"] for p in per)
+        print(f"[multi] ring-SLA, BH {MD_RING_SLA['BH']}, L {MD_RING_SLA['L']} over "
+              f"{MD_WORLD} ranks ({MD_RING_SLA['L'] // MD_WORLD} a rank), Dh 128, top-k "
+              f"{MD_RING_SLA['topk']} ({per[0]['topk']} blocks), block {block}: row-4 launches "
+              f"{[p['launches'] for p in per]} (hops x ranks), each rank's output vs one "
+              f"process's block_sparse_attention on the full sequence with the same global LUT "
+              f"max|d|/max|ref| = {worst:.3e} (tol {ATTN_TOL}); the single-device block map "
+              f"differs from the ring's in {per[0]['lut_differ']} of {per[0]['lut_rows']} rows "
+              f"(smooth-k mean and pooling rounded per shard in bf16); ring call "
+              f"{[round(p['ms'], 2) for p in per]} ms (host-staged gloo)", flush=True)
+        require(all(p["launches"] == MD_WORLD and p["finite"] for p in per) and
+                worst <= ATTN_TOL, f"ring-SLA block {block}: launches "
+                f"{[p['launches'] for p in per]}, err {worst:.3e}")
+    sent = ranks[0]["ring_sla"]["sentinel"]
+    print(f"[multi] the SLA kernel on a LUT of sentinels only: max|o| = {sent['o_max']:.1e}, "
+          f"max lse = {sent['lse_max']:.4g} (base 2; the twin gives log2(1e-30) = -99.66)",
+          flush=True)
+    require(sent["o_max"] == 0.0 and sent["lse_max"] <= -99.0,
+            f"all-sentinel hop: max|o| {sent['o_max']}, max lse {sent['lse_max']}")
+    for causal in (False, True):
+        per = [r["ring"][causal] for r in ranks]
+        worst = max(p["err"] for p in per)
+        print(f"[multi] dense ring attention, causal={causal}, [{MD_RING['B']}, {MD_RING['H']}, "
+              f"{MD_RING['L']}, {MD_RING['D']}] f32 over {MD_WORLD} ranks vs plain full "
+              f"attention: max|d|/max|ref| = {worst:.3e} (tol {MD_RING_TOL}); "
+              f"{[round(p['ms'], 2) for p in per]} ms (host-staged gloo)", flush=True)
+        require(worst <= MD_RING_TOL, f"dense ring attention causal={causal}: {worst:.3e}")
+    got = [r["causal_cli"] for r in ranks]
+    ref = outs[0]
+    d = max(float((g["x_gen"][0] - ref).abs().max()) for g in got)
+    print(f"[multi] causal CLI (generate_causal.main) at bench width, {c['batch']} x "
+          f"{c['n_batches']}, chunk {c['chunk']}, K_min {c['K_min']}, DDIM-{c['ddim_steps']}, "
+          f"block: --seq_shard {MD_WORLD} (Stage 2 as causal ring attention over the ranks) vs "
+          f"--seq_shard 0 on the same checkpoints and seed: max |d| of positions = {d:.3e} (tol "
+          f"{MD_CAUSAL_TOL}); row-1 launches {one_launches} alone, {[g['launches'] for g in got]}"
+          f" a rank; {[round(g['secs'], 1) for g in got]} s a rank", flush=True)
+    require(all(len(g["x_gen"]) == c["n_batches"] and
+                bool(torch.isfinite(g["x_gen"][0]).all()) for g in got) and
+            d <= MD_CAUSAL_TOL and all(g["launches"] == one_launches for g in got),
+            f"causal CLI --seq_shard {MD_WORLD}: max |d| {d}, launches "
+            f"{[g['launches'] for g in got]} vs {one_launches}")
+    print(f"[multi] phase 5i passed in {time.perf_counter() - t_phase:.1f} s", flush=True)
+    launches = {name: {"multi_device_moe_step": n} for name, n in moe_launches.items()}
+    launches["block_sparse_attention"]["ring_sla"] = sla_launches
+    launches["fused_film_block"] = {"causal_seq_shard_rank": got[0]["launches"]}
+    return launches
+
+
 def main() -> int:
+    if sys.argv[1:2] == ["--md-worker"]:   # one rank of phase 5i's gloo processes
+        return md_worker(sys.argv[2:])
     try:
         import torch
     except ImportError:
@@ -4664,6 +5251,14 @@ def main() -> int:
             phase_wan_interp(dev, card)
             print("[wan interp] phase 5g passed", flush=True)
             return 0
+        if "--multi-device" in sys.argv[1:]:  # phase 5i alone: its own summary, the last line
+            with tempfile.TemporaryDirectory() as workdir:
+                md_launches = phase_multi_device(dev, card, workdir)
+            print(json.dumps({"multi_device": {"launches": md_launches}}), flush=True)
+            print(json.dumps({"ok": True, "device": {
+                "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                "count": torch.cuda.device_count()}}), flush=True)
+            return 0
         if "--video-toy" in sys.argv[1:]:    # phase 5h alone: its own summary, the last line
             video_launches, video_times = phase_video_toy(dev, card, profile)
             print(json.dumps({"video_toy": {"launches": video_launches, "times": video_times}}),
@@ -4701,6 +5296,9 @@ def main() -> int:
             serve_launches, select_launches = phase_serve_select(dev, card, runs, workdir)
             torch.cuda.empty_cache()
             causal_launches, sk_launches = phase_causal(dev, card, runs, workdir, profile)
+            torch.cuda.empty_cache()
+            md_launches = phase_multi_device(
+                dev, card, workdir, (runs["stage1"], os.path.join(workdir, "stage2_causal")))
         torch.cuda.empty_cache()
         video_launches, video_times = phase_video_toy(dev, card, profile)
         torch.cuda.empty_cache()
@@ -4769,6 +5367,7 @@ def main() -> int:
               "small_mha_packed": dict(device_ms=g_ms, library_device_ms=g_lib)}
     for name in extras:      # phase 5h: the toy-video and DiDeMo shapes and launches
         extras[name].update(video_launches=video_launches[name], video_shapes=video_times[name])
+    extras["fused_film_block"]["multi_device_launches"] = md_launches["fused_film_block"]
     for name in ("fused_film_block", "small_mha_packed"):
         k_ms, p_ms, lib_ms = times[(name, B, L)]
         row(name, launches[name], max(grad_errs[name], *(c[1] for c in cases[name])), k_ms, p_ms,
@@ -4816,7 +5415,8 @@ def main() -> int:
         extra.update(phase2(name, *(("cross", "self") if name == "flash_attention" else ())))
         row(name, wan_launches[name], max(*wan_errs[name], wan2_errs.get(name, 0.0)), k_ms, p_ms,
             wan_times["bounds"][name], lib_ms, train_launches=train_launches[name],
-            full_ft_launches=full_ft_launches.get(name, {}), **extra)
+            full_ft_launches=full_ft_launches.get(name, {}),
+            multi_device_launches=md_launches.get(name, {}), **extra)
     # backward kernels: times at the trainer's shapes (flash: cross-attention,
     # and its self-attention shape too; SLA also by graph replay); the twin and
     # the library call compute dq, dk and dv in one call
@@ -4836,7 +5436,7 @@ def main() -> int:
         row(name, train_launches[name], max(bwd_errs[name], wan2_errs.get(name, 0.0)),
             bwd_times[name], bwd_times[f"{kind}_twin"], bwd_bounds[name],
             bwd_times.get(f"{kind}_library"), full_ft_launches=full_ft_launches.get(name, {}),
-            **extra)
+            multi_device_launches=md_launches.get(name, {}), **extra)
     idle = [r["name"] for r in summary if r["launches"] <= 0]
     if idle:
         print(f"FAIL: kernels never launched on their main path: {idle}", flush=True)

@@ -7,8 +7,10 @@ key-join streams for precomputed anchors and teacher outputs with the
 bounded-buffer ordering guard. Shards are plain .tar files of
 `{key}.{field}.npy` members read with the stdlib tarfile; a synthetic
 generator provides the same sample contract (latents [T,16,H,W] + text_embed
-[L,4096], the Wan2.1 dataset shapes). The native tar reader and the
-multi-host default of `split_by_process` are not ported.
+[L,4096], the Wan2.1 dataset shapes). `split_by_process` takes this
+process's rank and the world size from torch.distributed when a process
+group is up (one process per GPU under torchrun), as the JAX package takes
+jax.process_index(). The native tar reader is not ported.
 """
 from __future__ import annotations
 
@@ -45,10 +47,15 @@ def list_shards(root: str, pattern: str = ".tar") -> List[str]:
     return shards
 
 
-def split_by_process(shards: Sequence[str], process_index: int = 0,
-                     process_count: int = 1) -> List[str]:
+def split_by_process(shards: Sequence[str], process_index: Optional[int] = None,
+                     process_count: Optional[int] = None) -> List[str]:
     """Deterministic per-process shard assignment: shard i goes to process
-    i % process_count. The arguments are explicit (one process by default)."""
+    i % process_count; by default this process's rank among the processes of
+    the run (torch.distributed), one process without a process group."""
+    if process_index is None or process_count is None:
+        from ..parallel.multihost import process_count as count, process_index as index
+
+        process_index, process_count = index(), count()
     return [s for i, s in enumerate(shards) if i % process_count == process_index]
 
 
@@ -121,8 +128,8 @@ class WanSynthTarDataset:
         seed: int = 0,
         anchors_root: Optional[str] = None,
         teacher_root: Optional[str] = None,
-        process_index: int = 0,
-        process_count: int = 1,
+        process_index: Optional[int] = None,
+        process_count: Optional[int] = None,
     ):
         self.shards = split_by_process(list_shards(root), process_index, process_count)
         self.T = T

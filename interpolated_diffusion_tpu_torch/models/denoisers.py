@@ -67,6 +67,12 @@ class _Denoiser(nn.Module):
         """Route every transformer block: "fused" | "block" | "dense"."""
         self.transformer.set_attn_policy(policy)
 
+    def set_attn_impl(self, impl: str, group=None) -> None:
+        """Every block's attention: "dense", or "ring" / "ring_sla" over the
+        sequence sharded on `group` (the forward then takes this rank's chunk
+        and its global positions, pos_frac)."""
+        self.transformer.set_attn_impl(impl, group)
+
 
 class KeypointDenoiser(_Denoiser):
     """Eps-prediction transformer over K keypoint tokens.
@@ -160,7 +166,9 @@ class InterpLevelDenoiser(_Denoiser):
         nn.init.zeros_(self.out.bias)
 
     def forward(self, x_s: torch.Tensor, s: torch.Tensor, mask: torch.Tensor,
-                cond: Cond) -> torch.Tensor:
+                cond: Cond, pos_frac: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """pos_frac [T]: the frames' global positions in [0, 1] (default
+        linspace over T; a sequence-sharded call passes its chunk's)."""
         B, T, _ = x_s.shape
         dtype = self.dtype
         mask_in = (mask[..., None] if mask.ndim == 2 else mask).to(x_s.dtype)
@@ -168,7 +176,7 @@ class InterpLevelDenoiser(_Denoiser):
             raise ValueError(f"mask has {mask_in.shape[-1]} channels, "
                              f"expected {self.mask_channels}")
         h = self.in_proj(torch.cat([x_s, mask_in], dim=-1).to(dtype))
-        pos = torch.linspace(0.0, 1.0, T, device=x_s.device)
+        pos = torch.linspace(0.0, 1.0, T, device=x_s.device) if pos_frac is None else pos_frac
         h = h + continuous_time_embedding(pos, self.d_model).to(dtype)[None]
         h = h + self.level_proj(self.level_emb(s.long()))[:, None, :]
         cond_vec = self._cond_vec(cond, B, x_s.device)

@@ -152,12 +152,16 @@ def _wan_attention(sd, pre: str, p: Params) -> None:
 
 
 def _wan_block(sd, pre: str, blk: Params) -> None:
-    if "moe_ffn" in blk:
-        raise NotImplementedError("WanDiT ffn_mode='moe' is not ported yet")
     sd[f"{pre}scale_shift_table"] = _t(blk["scale_shift_table"])
     _wan_attention(sd, f"{pre}attn1", blk["self_attn"])
     _wan_attention(sd, f"{pre}attn2", blk["cross_attn"])
     _layernorm(sd, f"{pre}norm2", blk["norm2"])
+    if "moe_ffn" in blk:   # SwitchFFN: the router a Dense, the experts stacked [E, ...]
+        moe = blk["moe_ffn"]
+        _linear(sd, f"{pre}moe_ffn.router", moe["router"])
+        for leaf in ("ffn_in", "ffn_in_bias", "ffn_out"):
+            sd[f"{pre}moe_ffn.{leaf}"] = _t(moe[leaf])
+        return
     _lora_linear(sd, f"{pre}ffn.net.0.proj", blk["ffn_in"])
     _lora_linear(sd, f"{pre}ffn.net.2", blk["ffn_out"])
 

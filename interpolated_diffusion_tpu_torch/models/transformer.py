@@ -22,6 +22,14 @@ off its block and packed kernels; JAX's block-diagonal packing of heads
 under causal (kron(eye(G), tril)) is per-head causal attention, which is
 what runs here.
 
+Sequence sharding (`set_attn_impl`, JAX's attn_impl field): "ring" runs
+attention as ring attention over a process group (parallel/ring.py, causal
+or not), "ring_sla" as ring-SLA's block-sparse branch (parallel/ring_sla.py,
+non-causal; its linear branch is left out, as JAX leaves it out: its
+zero-initialised projection adds nothing for checkpoints trained dense).
+The block then sees this rank's chunk of the sequence and the caller passes
+global positions (the denoisers' pos_frac); the parameters are unchanged.
+
 Parameters and compute dtype are separate, as in the JAX package
 (`dtype=bfloat16` over f32 parameters): `set_compute_dtype(model,
 torch.bfloat16)` makes every layer cast its f32 master parameters per call,
@@ -166,8 +174,35 @@ def _film(h: torch.Tensor, gb: torch.Tensor) -> torch.Tensor:
     return h * (1.0 + gamma[:, None, :]) + beta[:, None, :]
 
 
+ATTN_IMPLS = ("dense", "ring", "ring_sla")
+
+
+def sequence_sharded_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, n_heads: int,
+                               causal: bool, impl: str, group) -> torch.Tensor:
+    """Attention of this rank's sequence chunk [B, L_loc, H*Dh] (packed) over
+    the whole sequence sharded on `group`: ring or ring-SLA (JAX's
+    TransformerBlock attn_impl branch)."""
+    from ..parallel.ring import ring_self_attention
+    from ..parallel.ring_sla import ring_sla_self_attention
+
+    B, L, D = q.shape
+    dh = D // n_heads
+    heads = lambda t: t.reshape(B, L, n_heads, dh).transpose(1, 2)
+    if impl == "ring":
+        attn = ring_self_attention(heads(q), heads(k), heads(v), group, causal)
+    else:
+        if causal:
+            raise ValueError("ring_sla attention has no causal mask")
+        flat = lambda t: heads(t).reshape(B * n_heads, L, dh)
+        o_s, _ = ring_sla_self_attention(flat(q), flat(k), flat(v), group)
+        attn = o_s.reshape(B, n_heads, L, dh)
+    return attn.transpose(1, 2).reshape(B, L, D)
+
+
 class TransformerBlock(nn.Module):
     compute_dtype: Optional[torch.dtype] = None
+    attn_impl: str = "dense"     # "ring" / "ring_sla": see the module docstring
+    seq_group = None             # the process group the sequence is sharded over
 
     def __init__(self, d_model: int, n_heads: int, d_ff: int, d_cond: int = 128,
                  use_film: bool = True, attn_policy: str = "fused",
@@ -191,7 +226,8 @@ class TransformerBlock(nn.Module):
         film_on = self.use_film and cond is not None
         dt = self.compute_dtype or self.attn.in_proj_weight.dtype
         x = x.to(dt)
-        if _use_fused_block_policy(self.attn_policy, H, L, self.causal):
+        if self.attn_impl == "dense" and _use_fused_block_policy(self.attn_policy, H, L,
+                                                                 self.causal):
             # FiLM gamma/beta projections stay outside the kernel, as in JAX
             if film_on:
                 gb1, gb2 = self.film1(cond), self.film2(cond)
@@ -210,7 +246,10 @@ class TransformerBlock(nn.Module):
             h = _film(h, self.film1(cond))
         q, k, v = F.linear(h, self.attn.in_proj_weight.to(dt),
                            self.attn.in_proj_bias.to(dt)).split(D, dim=-1)
-        if self.use_small_mha and not self.causal and H * L <= SMALL_MHA_MAX_ROWS:
+        if self.attn_impl != "dense":
+            attn = sequence_sharded_attention(q, k, v, H, self.causal, self.attn_impl,
+                                              self.seq_group)
+        elif self.use_small_mha and not self.causal and H * L <= SMALL_MHA_MAX_ROWS:
             attn = small_mha(q, k, v, H)
         elif _use_fused_packed(self.attn_policy, H, L, self.causal):
             attn = small_mha_packed(q, k, v, H, fused_group_b(L))
@@ -238,6 +277,13 @@ class TransformerEncoder(nn.Module):
             raise ValueError(f"attn_policy {policy!r} not in {ATTN_POLICIES}")
         for layer in self.layers:
             layer.attn_policy = policy
+
+    def set_attn_impl(self, impl: str, group=None) -> None:
+        """dense, or attention over the sequence sharded on `group`."""
+        if impl not in ATTN_IMPLS:
+            raise ValueError(f"attn_impl {impl!r} not in {ATTN_IMPLS}")
+        for layer in self.layers:
+            layer.attn_impl, layer.seq_group = impl, group
 
     def forward(self, x: torch.Tensor, cond: Optional[torch.Tensor] = None) -> torch.Tensor:
         for layer in self.layers:

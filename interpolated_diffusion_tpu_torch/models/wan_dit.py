@@ -4,7 +4,9 @@ Patch embed (1, 2, 2), adaLN-zero blocks with per-block scale-shift tables,
 RMS-normed q/k, 3D RoPE with the Wan t/h/w head-dim split (absolute-time
 frame indices as a forward argument), cross-attention to text (plus optional
 extra context tokens), runtime-form LoRA, and a head modulated by the time
-embedding. The compute dtype is the parameters' dtype unless
+embedding. `ffn_mode="moe"` makes every block's FFN the Switch-MoE FFN
+(models/moe.py; `n_experts`, `capacity_factor`), whose aux loss the block
+keeps in `moe_aux`. The compute dtype is the parameters' dtype unless
 `set_compute_dtype` names another, and every module honours it: the trainer
 keeps its trainable leaves (the LoRA and frame-conditioning leaves, or with
 lora_rank 0 every weight) as f32 masters and computes in bf16, casting them
@@ -42,6 +44,7 @@ from torch.utils.checkpoint import checkpoint
 from ..kernels.block_sparse_attention import flash_attention
 from ..kernels.sla import SparseLinearAttention
 from .denoisers import timestep_embedding
+from .moe import SwitchFFN
 from .transformer import LayerNorm, dense_attention, set_compute_dtype  # noqa: F401
 
 ATTN_MODES = ("dense", "flash", "sla", "sage_sla")
@@ -119,6 +122,8 @@ class LoRALinear(nn.Linear):
 
     zero_init_params = ("lora_B",)
     compute_dtype: Optional[torch.dtype] = None
+    tp_mode: Optional[str] = None   # "column" / "row" under parallel/tp.apply_tp
+    tp_group = None
 
     def __init__(self, in_features: int, out_features: int, rank: int = 0,
                  alpha: float = 16.0, form: str = "runtime"):
@@ -140,6 +145,8 @@ class LoRALinear(nn.Linear):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dtype = self.compute_dtype or self.weight.dtype
         x = x.to(dtype)   # keep the residual stream in the compute dtype
+        if self.tp_mode is not None:
+            return self._tp_forward(x, dtype)
         if self.rank > 0 and self.form == "merged":
             delta = (self.lora_B.float() @ self.lora_A.float()) * (self.alpha / float(self.rank))
             weight = self.weight + delta.to(self.weight.dtype)
@@ -150,16 +157,39 @@ class LoRALinear(nn.Linear):
         delta = (x @ self.lora_A.to(dtype).t()) @ self.lora_B.to(dtype).t()
         return y + delta * (self.alpha / float(self.rank))
 
+    def _tp_forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        """Megatron's split (parallel/tp.py): "column" holds a slice of the
+        output features (weight rows, bias, lora_B rows) and takes the whole
+        input; "row" holds a slice of the input features (weight columns,
+        lora_A columns), sums the partial outputs over the group and adds the
+        whole bias once. Runtime LoRA only."""
+        from ..parallel.collectives import copy_to, reduce_from
+
+        g = self.tp_group
+        a = self.alpha / float(max(self.rank, 1))
+        if self.tp_mode == "column":
+            y = _linear(self, copy_to(x, g), dtype)
+            if self.rank > 0:
+                z = copy_to(x @ self.lora_A.to(dtype).t(), g)
+                y = y + (z @ self.lora_B.to(dtype).t()) * a
+            return y
+        y = reduce_from(F.linear(x, self.weight.to(dtype)), g)
+        if self.rank > 0:
+            z = reduce_from(x @ self.lora_A.to(dtype).t(), g)
+            y = y + (z @ self.lora_B.to(dtype).t()) * a
+        return y + self.bias.to(dtype)
+
 
 class RMSNorm(nn.Module):
     """f32 mean square, x * rsqrt(ms + eps) rounded to the compute dtype,
     then times the scale cast to it (eps 1e-6)."""
 
     compute_dtype: Optional[torch.dtype] = None
+    tp_group = None       # features split over this group (parallel/tp.py)
 
     def __init__(self, dim: int, eps: float = 1e-6):
         super().__init__()
-        self.eps = eps
+        self.eps, self.dim = eps, dim
         self.weight = nn.Parameter(torch.ones(dim))
 
     def init_seeded(self, uniform_) -> None:
@@ -167,7 +197,12 @@ class RMSNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dtype = self.compute_dtype or self.weight.dtype
-        var = x.float().square().mean(dim=-1, keepdim=True)
+        if self.tp_group is not None:   # the mean square over every member's features
+            from ..parallel.collectives import psum
+
+            var = psum(x.float().square().sum(dim=-1, keepdim=True), self.tp_group) / self.dim
+        else:
+            var = x.float().square().mean(dim=-1, keepdim=True)
         return (x.float() * torch.rsqrt(var + self.eps)).to(dtype) * self.weight.to(dtype)
 
 
@@ -260,10 +295,11 @@ class WanBlock(nn.Module):
     def __init__(self, dim: int, n_heads: int, ffn_dim: int, attn_mode: str = "dense",
                  sla_topk: float = 0.1, sla_block: int = 256, lora_rank: int = 0,
                  lora_alpha: float = 16.0, lora_targets: str = "attn,ffn",
-                 ffn_mode: str = "dense", lora_form: str = "runtime"):
+                 ffn_mode: str = "dense", lora_form: str = "runtime", n_experts: int = 8,
+                 capacity_factor: float = 1.25):
         super().__init__()
-        if ffn_mode != "dense":
-            raise NotImplementedError(f"ffn_mode={ffn_mode!r} (Switch MoE) is not ported yet")
+        if ffn_mode not in ("dense", "moe"):
+            raise ValueError(f"ffn_mode {ffn_mode!r} not in ('dense', 'moe')")
         targets = {t.strip() for t in lora_targets.split(",")}
         r_attn = lora_rank if "attn" in targets else 0
         r_ffn = lora_rank if "ffn" in targets else 0
@@ -275,7 +311,11 @@ class WanBlock(nn.Module):
         self.attn2 = WanAttention(dim, n_heads, "dense", lora_rank=r_attn, lora_alpha=lora_alpha,
                                   lora_form=lora_form)
         self.norm3 = LayerNorm(dim, affine=False)
-        self.ffn = FeedForward(dim, ffn_dim, r_ffn, lora_alpha, lora_form)
+        if ffn_mode == "moe":   # Switch top-1 experts (no LoRA on them, as in JAX)
+            self.moe_ffn = SwitchFFN(dim, ffn_dim, n_experts, capacity_factor)
+            self.moe_aux: Optional[torch.Tensor] = None   # the JAX block's sown aux loss
+        else:
+            self.ffn = FeedForward(dim, ffn_dim, r_ffn, lora_alpha, lora_form)
 
     def init_seeded(self, uniform_) -> None:
         uniform_(self.scale_shift_table, 0.02 * math.sqrt(3.0))  # std 0.02, as the JAX init
@@ -289,6 +329,10 @@ class WanBlock(nn.Module):
         x = x + gate1 * self.attn1(h, rope=rope)
         x = x + self.attn2(self.norm2(x), context=context)
         h = self.norm3(x) * (1 + scale2) + shift2
+        if hasattr(self, "moe_ffn"):
+            h, aux = self.moe_ffn(h)
+            self.moe_aux = aux.detach()
+            return x + gate2 * h
         return x + gate2 * self.ffn(h)
 
 
@@ -356,6 +400,8 @@ class WanDiT(nn.Module):
     """
 
     compute_dtype: Optional[torch.dtype] = None
+    # (x, ctx, t_mod, rope) -> x in place of the block stack (models/wan_pp.py)
+    blocks_fn = None
 
     def __init__(self, dim: int = 1536, n_layers: int = 30, n_heads: int = 12,
                  ffn_dim: int = 8960, in_channels: int = 16, out_channels: int = 16,
@@ -364,7 +410,8 @@ class WanDiT(nn.Module):
                  sla_topk: float = 0.1, sla_block: int = 256, lora_rank: int = 0,
                  lora_alpha: float = 16.0, lora_targets: str = "attn,ffn",
                  ffn_mode: str = "dense", extra_context: bool = False,
-                 use_remat: bool = False, remat_group: int = 1, lora_form: str = "runtime"):
+                 use_remat: bool = False, remat_group: int = 1, lora_form: str = "runtime",
+                 n_experts: int = 8, capacity_factor: float = 1.25):
         super().__init__()
         self.dim, self.n_heads, self.out_channels = dim, n_heads, out_channels
         self.use_remat, self.remat_group = use_remat, max(1, int(remat_group))
@@ -376,7 +423,8 @@ class WanDiT(nn.Module):
         self.condition_embedder = WanConditionEmbedder(dim, freq_dim, text_dim, extra_context)
         self.blocks = nn.ModuleList([
             WanBlock(dim, n_heads, ffn_dim, attn_mode, sla_topk, sla_block, lora_rank,
-                     lora_alpha, lora_targets, ffn_mode, lora_form) for _ in range(n_layers)])
+                     lora_alpha, lora_targets, ffn_mode, lora_form, n_experts, capacity_factor)
+            for _ in range(n_layers)])
         self.scale_shift_table = nn.Parameter(torch.empty(1, 2, dim))
         self.norm_out = LayerNorm(dim, affine=False)
         self.proj_out = nn.Linear(dim, out_channels * math.prod(self.patch_size))
@@ -458,6 +506,8 @@ class WanDiT(nn.Module):
         x_embed = x
         if blocks_delta is not None:
             x = x_embed + blocks_delta.to(x.dtype)
+        elif self.blocks_fn is not None:
+            x = self.blocks_fn(x, ctx, t_mod, rope)
         else:
             x = self._run_blocks(x, ctx, t_mod, rope)
         delta = x - x_embed if return_delta else None

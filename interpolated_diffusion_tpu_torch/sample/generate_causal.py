@@ -25,8 +25,12 @@ the chunk has interior anchors) and the Stage-1 noise `z` normal
 key, k_idx, k_s1 = split(key, 3) per chunk, uniform(k_idx, (B, L - 1)),
 normal(k_s1, ...) or normal(split(k_s1, N)[n], ...).
 
-`--seq_shard` (the Stage-2 forward as causal ring attention over a sequence
-mesh) is not ported: it needs parallel/ring.py.
+`--seq_shard N` (launched with `torchrun --nproc_per_node N`) shards the
+only O(T^2) term, Stage 2's full-buffer delta, over T: each rank runs the
+causal denoiser on its T / N frames with their global positions (pos_frac)
+and causal ring attention (parallel/ring.py), and the chunks are gathered
+back. Stage 1 runs the same on every rank (same draws); rank 0 writes the
+outputs.
 """
 from __future__ import annotations
 
@@ -51,6 +55,9 @@ from ..ops.keyframes import (interpolate_from_indices, recompute_velocity_channe
 from ..ops.normalize import logit_pos, sigmoid_pos
 from ..ops.schedules import DiffusionSchedule, make_schedule
 from ..ops.selection import build_kp_feat_full
+from ..parallel.collectives import all_gather, axis_index, axis_size
+from ..parallel.multihost import is_main_process
+from ..parallel.ring import make_seq_mesh
 from ..train.batches import build_known_mask_values
 from ..train.common import add_data_args, make_dataset, resolve_device
 from .generate import _repeat, check_summary_sanity, hoist_cond_vec
@@ -95,7 +102,7 @@ def make_causal_pipeline(kp_model, interp_model, kp_schedule: DiffusionSchedule,
                          mask_channels: int = 1, collect_chunks: bool = False,
                          kp_feat_dim: int = 0, dphi_fn=None, stage1_cache_interval: int = 1,
                          stage1_solver: str = "ddim", stage1_best_of: int = 1,
-                         stage1_best_of_mode: str = "set"):
+                         stage1_best_of_mode: str = "set", seq_group=None):
     """Returns pipeline(cond, *, generator=None, draws=None) -> x_gen [B, T, D]
     (and, with collect_chunks, the buffer after each chunk [n_chunks, B, T, D]).
 
@@ -105,7 +112,25 @@ def make_causal_pipeline(kp_model, interp_model, kp_schedule: DiffusionSchedule,
     kp_feat_dim > 0 each chunk's Stage 1 gets the index features of its local
     indices over its L + 1 frames, their cost channels from dphi_fn(cond,
     idx), which normalises by the full T (models/loading.make_dphi_seg_cost_fn).
+
+    seq_group (a process group, parallel/ring.make_seq_mesh): the Stage-2
+    delta runs sequence-sharded over its ranks as causal ring attention; the
+    interp model is switched to attn_impl "ring" for it.
     """
+    stage2 = lambda x, s, m, cv: interp_model(x, s, m, cv)
+    if seq_group is not None:
+        n, me = axis_size(seq_group), axis_index(seq_group)
+        if T % n:
+            raise ValueError(f"T={T} not divisible by seq_shard={n}")
+        interp_model.set_attn_impl("ring", seq_group)
+        c = T // n
+        mine = slice(me * c, (me + 1) * c)
+
+        def stage2(x, s, m, cv):
+            pos = torch.linspace(0.0, 1.0, T, device=x.device)[mine]
+            delta = interp_model(x[:, mine], s, m[:, mine], cv, pos_frac=pos)
+            return all_gather(delta, seq_group, dim=1)
+
     if clamp_policy not in ("endpoints", "all_anchors", "none"):
         raise ValueError(f"unknown clamp_policy {clamp_policy!r}")
     if stage1_solver not in SOLVERS:
@@ -200,8 +225,8 @@ def make_causal_pipeline(kp_model, interp_model, kp_schedule: DiffusionSchedule,
 
             # one causal Stage-2 delta at s = levels over the whole buffer
             s_level = torch.full((B,), levels, dtype=torch.long, device=device)
-            x_hat = x_full + interp_model(x_full, s_level, mask_channels_of(mask_full),
-                                          hoist_cond_vec(interp_model, cond_chunk))
+            x_hat = x_full + stage2(x_full, s_level, mask_channels_of(mask_full),
+                                    hoist_cond_vec(interp_model, cond_chunk))
             if clamp_policy == "all_anchors":
                 x_hat = apply_clamp(x_hat, x_full, mask_full, clamp_dims)
             elif clamp_policy == "endpoints":
@@ -268,7 +293,8 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="per-chunk best-of-N anchor search (collision-scored)")
     p.add_argument("--stage1_best_of_mode", type=str, default="set", choices=["set", "dp"])
     p.add_argument("--seq_shard", type=int, default=0,
-                   help="N > 1: the Stage-2 forward over a sequence mesh (not ported)")
+                   help="N > 1: the Stage-2 forward sequence-sharded over N processes "
+                        "(torchrun --nproc_per_node N), causal ring attention")
     p.add_argument("--ddim_steps", type=int, default=10)
     p.add_argument("--num_batches", type=int, default=2)
     p.add_argument("--batch", type=int, default=32)
@@ -291,12 +317,25 @@ def build_argparser() -> argparse.ArgumentParser:
     return p
 
 
+def _write_outputs(args, rows: List[Dict], summary: Dict) -> None:
+    """metrics.csv, summary.json, run_config.json and the evidence archive."""
+    from ..utils.run_config import archive_evidence, write_run_config
+
+    with open(os.path.join(args.out_dir, "metrics.csv"), "w", newline="") as f:
+        writer = csv.DictWriter(f, fieldnames=list(rows[0].keys()))
+        writer.writeheader()
+        writer.writerows(rows)
+    with open(os.path.join(args.out_dir, "summary.json"), "w") as f:
+        json.dump(summary, f, indent=2)
+    write_run_config(args.out_dir, args)
+    archive_evidence(args.out_dir)
+
+
 def main(argv=None):
     args = build_argparser().parse_args(argv)
-    if args.seq_shard > 1:
-        raise NotImplementedError("--seq_shard > 1: the causal ring attention over a sequence "
-                                  "mesh (parallel/ring.py) is not ported yet")
     device = resolve_device(args.device)
+    seq_group = make_seq_mesh(args.seq_shard) if args.seq_shard > 1 else None
+    main_rank = is_main_process()
     kp_model, kp_meta = load_keypoint_model(args.kp_ckpt, bool(args.bf16), bool(args.use_ema),
                                             device=device)
     interp_model, il_meta = load_interp_model(args.interp_ckpt, bool(args.bf16),
@@ -329,7 +368,7 @@ def main(argv=None):
         kp_feat_dim=int(kp_meta.get("kp_feat_dim", 0)) if kp_meta.get("use_kp_feat") else 0,
         dphi_fn=dphi_fn, stage1_cache_interval=args.stage1_cache_interval,
         stage1_solver=args.stage1_solver, stage1_best_of=args.stage1_best_of,
-        stage1_best_of_mode=args.stage1_best_of_mode)
+        stage1_best_of_mode=args.stage1_best_of_mode, seq_group=seq_group)
 
     args.T = T  # for make_dataset
     ds, _ = make_dataset(args)
@@ -361,28 +400,21 @@ def main(argv=None):
         m = {k: v.cpu().numpy() for k, v in m.items()}
         for b in range(args.batch):
             rows.append({"batch": bi, "sample": b, **{k: float(v[b]) for k, v in m.items()}})
-        print(f"batch {bi}: {dt:.3f}s coll={m['collision_rate'].mean():.4f} "
-              f"goal={m['goal_dist'].mean():.4f}", flush=True)
-        if bi == 0 and args.save_chunks:
+        if main_rank:
+            print(f"batch {bi}: {dt:.3f}s coll={m['collision_rate'].mean():.4f} "
+                  f"goal={m['goal_dist'].mean():.4f}", flush=True)
+        if bi == 0 and args.save_chunks and main_rank:
             _export_chunks(args, batch, chunks, x_gen)
 
-    with open(os.path.join(args.out_dir, "metrics.csv"), "w", newline="") as f:
-        writer = csv.DictWriter(f, fieldnames=list(rows[0].keys()))
-        writer.writeheader()
-        writer.writerows(rows)
     summary = {k: float(np.mean([r[k] for r in rows]))
                for k in rows[0] if k not in ("batch", "sample")}
     if n_total:
         summary["samples_per_sec"] = n_total / t_total
     sanity = check_summary_sanity(summary)
     summary["sanity"] = sanity
-    with open(os.path.join(args.out_dir, "summary.json"), "w") as f:
-        json.dump(summary, f, indent=2)
-    from ..utils.run_config import archive_evidence, write_run_config
-
-    write_run_config(args.out_dir, args)
-    archive_evidence(args.out_dir)
-    print("summary:", json.dumps(summary, indent=2), flush=True)
+    if main_rank:
+        _write_outputs(args, rows, summary)
+        print("summary:", json.dumps(summary, indent=2), flush=True)
     if sanity["failures"] and args.sanity:
         print("SANITY FAILED:", "; ".join(sanity["failures"]), file=sys.stderr)
         sys.exit(2)

@@ -5,10 +5,17 @@ the device, and the model state the trainers hand to the train step.
 Conventions of the JAX package: int-as-bool flags, "name:weight" policy
 mixes, meta-rich checkpoints, per-run seeding. `--device` is new here: cuda
 by default, with no fallback when there is no GPU.
+
+Data parallelism: launched with `torchrun --nproc_per_node N`, each rank
+builds the same global host batch (same seeds), keeps its rows
+(parallel/mesh.shard_batch) and trains on `cuda:LOCAL_RANK`; the train step
+averages the gradients over the data group (train/state.py). Rank 0 alone
+writes checkpoints, run_config.json and the log lines.
 """
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import time
 from typing import Dict, Optional, Tuple
@@ -17,6 +24,8 @@ import numpy as np
 import torch
 
 from ..data.dataset import BatchLoader, ParticleMazeDataset, PreparedTrajectoryDataset
+from ..parallel.mesh import Mesh, make_mesh_for_batch, shard_batch, shard_superbatch
+from ..parallel.multihost import is_main_process, local_device, maybe_initialize_distributed
 from .batches import parse_policy_mix
 from .state import TrainState, stack_batches
 
@@ -49,7 +58,8 @@ def add_train_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--log_every", type=int, default=100)
     p.add_argument("--resume", type=str, default=None)
     p.add_argument("--n_data_shards", type=int, default=None,
-                   help="data-parallel shards of the batch (not ported)")
+                   help="DP width; defaults to all local devices (the processes of a "
+                        "torchrun launch, one per GPU)")
     p.add_argument("--steps_per_call", type=int, default=10,
                    help="train steps per call: their batches go to the device in one "
                         "transfer and the host waits for the device once per call")
@@ -130,17 +140,29 @@ def sample_idx_policy(
 
 
 def resolve_device(name: str) -> torch.device:
+    """The rank's device: under torchrun the process group comes up first
+    (NCCL for cuda, gloo for cpu) and "cuda" is cuda:LOCAL_RANK."""
     device = torch.device(name)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda: no CUDA device is available (pass --device cpu to "
                            "run on the CPU)")
-    return device
+    maybe_initialize_distributed(device_type=device.type)
+    return local_device(name)
 
 
-def check_train_args_ported(args) -> None:
-    if args.n_data_shards is not None:
-        raise NotImplementedError("--n_data_shards: the data-parallel mesh (parallel/mesh.py) "
-                                  "is not ported yet")
+def data_mesh(args) -> Mesh:
+    """The data-parallel mesh of --batch over --n_data_shards (default: every
+    process of the run). More shards than processes raises, naming torchrun."""
+    return make_mesh_for_batch(args.batch, getattr(args, "n_data_shards", None))
+
+
+def write_run_config(args, payload: Dict) -> None:
+    """run_config.json under --out_dir, written by rank 0 alone."""
+    if not is_main_process():
+        return
+    os.makedirs(args.out_dir, exist_ok=True)
+    with open(os.path.join(args.out_dir, "run_config.json"), "w") as f:
+        json.dump(payload, f, indent=2)
 
 
 def build_seeded(cls, args, device: torch.device, **kwargs):
@@ -194,9 +216,12 @@ def run_training(args, device, loader, first_batch, state: TrainState, train_ste
                  meta: Dict, start_step: int) -> TrainState:
     """The loop the maze, toy-video and DiDeMo trainers share:
     `--steps_per_call` host batches per call in one transfer (one without
-    that flag), the log line, checkpoints."""
+    that flag), the log line, checkpoints. Each rank moves its rows of the
+    global host batch; rank 0 logs and saves."""
     from ..utils.checkpoint import save_checkpoint
 
+    mesh = data_mesh(args)
+    main = is_main_process()
     spc = max(1, getattr(args, "steps_per_call", 1))
     rng = torch.Generator(device=device).manual_seed(args.seed + 2 + start_step)
     t0 = time.time()
@@ -207,16 +232,19 @@ def run_training(args, device, loader, first_batch, state: TrainState, train_ste
         for mi in range(n_micro):
             micro.append(make_host_batch(batch, step + mi))
             batch = next(loader)
-        dev = to_device(stack_batches(micro) if spc > 1 else micro[0], device)
+        host = (shard_superbatch(stack_batches(micro), mesh) if spc > 1
+                else shard_batch(micro[0], mesh))
+        dev = to_device(host, device)
         state, metrics = train_step(state, dev, rng)
         step += n_micro
-        if (step // spc) % max(1, args.log_every // spc) == 0 or step >= args.steps:
+        if main and ((step // spc) % max(1, args.log_every // spc) == 0
+                     or step >= args.steps):
             loss = float(metrics["loss"])   # waits for the device: true step timing
             dt = time.time() - t0
             done = step - start_step
             print(f"step {step} loss {loss:.4f} | {dt / done:.4f} s/step | "
                   f"{args.batch * done / max(dt, 1e-9):.1f} samples/s", flush=True)
-        if step % args.save_every < n_micro or step >= args.steps:
+        if main and (step % args.save_every < n_micro or step >= args.steps):
             ckpt = os.path.join(args.out_dir, f"ckpt_{step}")
             save_checkpoint(ckpt, state.params, state.opt_state.state_dict(), step,
                             state.ema_params, meta)

@@ -6,13 +6,14 @@ line, run_config.json, checkpoints).
 Each trainer's loss takes its random draws as an argument (a dict, or a
 torch.Generator to draw them from), so that a test can hand in JAX's.
 Models hold f32 master parameters and compute in bf16 under `--bf16 1`, as
-the JAX trainers' `dtype=bfloat16` over f32 params.
+the JAX trainers' `dtype=bfloat16` over f32 params. Under torchrun each rank
+trains on its rows of the batch (the loader yields them,
+train/wansynth_common.make_wansynth_loader) and rank 0 logs and saves.
 """
 from __future__ import annotations
 
 import argparse
 import itertools
-import json
 import os
 import time
 from typing import Callable, Dict, Optional, Sequence, Tuple, Union
@@ -22,7 +23,8 @@ import torch
 from ..utils.checkpoint import save_checkpoint
 from ..utils.memguard import check_cpu_mem
 from ..utils.prefetch import DevicePrefetcher, pinned_put
-from .common import check_train_args_ported, model_params, resolve_device
+from ..parallel.multihost import is_main_process
+from .common import data_mesh, model_params, resolve_device, write_run_config
 from .state import TrainState, init_train_state, make_optimizer, make_train_step
 from .wansynth_common import add_wansynth_data_args, make_wansynth_loader
 
@@ -45,24 +47,26 @@ def add_interp_train_args(p: argparse.ArgumentParser, *, batch: int, steps: int,
     p.add_argument("--save_every", type=int, default=save_every)
     p.add_argument("--log_every", type=int, default=50)
     p.add_argument("--n_data_shards", type=int, default=None,
-                   help="data-parallel shards of the batch (not ported)")
+                   help="DP width; defaults to all local devices (the processes of a "
+                        "torchrun launch, one per GPU)")
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (default; no fallback when there is no GPU) or cpu")
 
 
 def setup(args):
-    """(device, loader, first batch); raises for what is not ported and
-    when --device cuda finds no GPU."""
-    check_train_args_ported(args)
+    """(device, loader of this rank's rows, first batch); raises when
+    --device cuda finds no GPU and when --n_data_shards asks for more shards
+    than the run has processes."""
     device = resolve_device(args.device)
-    loader = make_wansynth_loader(args, args.seed)
+    loader = make_wansynth_loader(args, args.seed, mesh=data_mesh(args))
     return device, loader, next(loader)
 
 
 def make_state(model: torch.nn.Module, args, loss_fn) -> Tuple[TrainState, Callable]:
     """AdamW behind a global-norm clip over every parameter, no EMA."""
     tx = make_optimizer(args.lr, args.weight_decay, args.grad_clip)
-    return init_train_state(model_params(model), tx, use_ema=False), make_train_step(loss_fn)
+    return (init_train_state(model_params(model), tx, use_ema=False),
+            make_train_step(loss_fn, mesh=data_mesh(args)))
 
 
 def make_triplet_draws(generator: torch.Generator, B: int, T: int, min_gap: int) -> Draws:
@@ -90,12 +94,6 @@ def draws_or(rng: Union[torch.Generator, Draws], make: Callable[[torch.Generator
     return rng if isinstance(rng, dict) else make(rng)
 
 
-def write_run_config(args, meta: Dict) -> None:
-    os.makedirs(args.out_dir, exist_ok=True)
-    with open(os.path.join(args.out_dir, "run_config.json"), "w") as f:
-        json.dump({"args": vars(args), "meta": meta}, f, indent=2)
-
-
 def train_loop(args, device: torch.device, loader, batch0: Dict, state: TrainState, train_step,
                keys: Sequence[str], meta: Dict, *, prefetch: bool = True,
                prepare: Optional[Callable[[Dict], Dict]] = None,
@@ -109,7 +107,8 @@ def train_loop(args, device: torch.device, loader, batch0: Dict, state: TrainSta
     is taken from `loader` right after the step, before `after_step` (which
     may read validation batches from the loader), as the JAX trainers that
     validate do; otherwise a background thread prefetches --prefetch_depth."""
-    write_run_config(args, meta)
+    write_run_config(args, {"args": vars(args), "meta": meta})
+    main = is_main_process()
     put = pinned_put(device, keys=tuple(keys))
     use_thread = prefetch and args.prefetch_depth > 0
     dev_iter = (DevicePrefetcher(itertools.chain([batch0], loader), put,
@@ -129,7 +128,7 @@ def train_loop(args, device: torch.device, loader, batch0: Dict, state: TrainSta
                 nxt = put(next(loader))
             if after_step is not None:
                 after_step(step, state, batch)
-            if step % args.log_every == 0 or step + 1 == args.steps:
+            if main and (step % args.log_every == 0 or step + 1 == args.steps):
                 loss = float(metrics["loss"])   # waits for the device: true step timing
                 now = time.time()
                 extra = "".join(f" {k} {float(metrics[k]):.5f}" for k in log_keys)
@@ -138,7 +137,7 @@ def train_loop(args, device: torch.device, loader, batch0: Dict, state: TrainSta
                       f"{args.batch * (step + 1) / max(now - t0, 1e-9):.1f} samples/s",
                       flush=True)
                 t_prev, last = now, step
-            if (step + 1) % args.save_every == 0 or step + 1 == args.steps:
+            if main and ((step + 1) % args.save_every == 0 or step + 1 == args.steps):
                 save_checkpoint(os.path.join(args.out_dir, f"ckpt_{step + 1}"), state.params,
                                 None, step + 1, None, meta)
     finally:

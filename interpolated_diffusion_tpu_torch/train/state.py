@@ -10,6 +10,16 @@ modules own their tensors), so the state returned by a step aliases the one
 passed in. `make_train_step` differentiates with respect to every leaf of
 state.params, with microbatch gradient accumulation; `make_train_multi_step`
 takes several steps per call from a stacked superbatch.
+
+Tensor parallelism (a mesh with a `model` axis, parallel/tp.apply_tp): the
+split leaves' squares are summed over the model group in the global norm.
+
+Data parallelism (`mesh`, parallel/mesh.py, one process per GPU): each rank
+runs the loss on its rows of the global batch inside
+`parallel.mesh.data_parallel_step` (draws at the global batch, `dp_sum`
+over the data group), and the gradients are averaged over the data group
+before the global-norm clip, so `loss` and `grad_norm` are the global
+batch's and N ranks take the step one process takes at the global batch.
 """
 from __future__ import annotations
 
@@ -20,6 +30,8 @@ from typing import Any, Callable, Dict, List, NamedTuple, Optional, Sequence, Tu
 import numpy as np
 import torch
 
+from ..parallel.collectives import psum
+from ..parallel.mesh import Mesh, data_parallel_step, replicate, shard_draws
 from ..utils.ema import ema_init, ema_update
 
 
@@ -83,10 +95,12 @@ class Optimizer:
                                        weight_decay=weight_decay)
 
     @torch.no_grad()
-    def update(self, grads: List[torch.Tensor]) -> torch.Tensor:
+    def update(self, grads: List[torch.Tensor], norm: Optional[torch.Tensor] = None
+               ) -> torch.Tensor:
         """One update from `grads` (one per leaf, in order); returns the
-        gradients' global norm before the clip."""
-        norm = global_norm(grads)
+        gradients' global norm before the clip (`norm` when the caller gives
+        it: a tensor-parallel step sums the split leaves over its group)."""
+        norm = global_norm(grads) if norm is None else norm
         scale = self.grad_clip / torch.clamp(norm, min=self.grad_clip)
         group = self.adamw.param_groups[0]
         for p, g in zip(group["params"], grads):
@@ -126,7 +140,65 @@ def init_train_state(params: Dict, tx: Callable[[Dict], Optimizer],
                       ema_params=ema_init(params) if use_ema else None)
 
 
-def make_train_step_frozen(loss_fn, ema_decay: float = 0.999):
+def _local_batch(batch) -> int:
+    """Rows of the (local) batch: the leading dimension of its first array."""
+    for v in batch.values():
+        if hasattr(v, "shape") and len(v.shape):
+            return int(v.shape[0])
+    return 0
+
+
+def _dp_call(loss_fn, mesh: Optional[Mesh], batch, rng, *args):
+    """loss_fn(*args, batch, rng) on this rank's rows, inside the
+    data-parallel step context (global draws, dp_sum)."""
+    if mesh is None or mesh.n_data == 1:
+        return loss_fn(*args, batch, rng)
+    B = _local_batch(batch)
+    with data_parallel_step(mesh, rng, B):
+        return loss_fn(*args, batch, shard_draws(rng, mesh, B))
+
+
+def _dp_reduce(mesh: Optional[Mesh], loss, aux, grads):
+    """(loss, aux, grads) averaged over the data group, in one flat buffer
+    for the gradients (the global batch's gradient before the clip)."""
+    if mesh is None or mesh.n_data == 1:
+        return loss, aux, grads
+    n, g = mesh.n_data, mesh.data_group
+    with torch.no_grad():
+        flat = torch.cat([x.reshape(-1).float() for x in grads])
+        flat = psum(flat, g) / n
+        out, off = [], 0
+        for x in grads:
+            out.append(flat[off:off + x.numel()].view_as(x).to(x.dtype))
+            off += x.numel()
+        loss = psum(loss.detach().float(), g) / n
+        aux = {k: psum(torch.as_tensor(v, dtype=torch.float32, device=loss.device), g) / n
+               for k, v in (aux.items() if isinstance(aux, dict) else [])}
+    return loss, aux, out
+
+
+def _tp_norm(mesh: Optional[Mesh], grads, leaves) -> Optional[torch.Tensor]:
+    """The whole gradient's global norm under tensor parallelism (None
+    without a model group: the optimizer's own)."""
+    if mesh is None or mesh.n_model == 1:
+        return None
+    from ..parallel.tp import tp_global_norm
+
+    return tp_global_norm(grads, leaves, mesh.model_group)
+
+
+def _replicate_once(state: "TrainState", mesh: Optional[Mesh], done: List[bool]) -> None:
+    """Broadcast params and EMA from the data group's first rank before the
+    first step (every rank builds them from the same seed; this guards it)."""
+    if done or mesh is None or mesh.n_data == 1:
+        return
+    replicate(state.params, mesh)
+    if state.ema_params is not None:
+        replicate(state.ema_params, mesh)
+    done.append(True)
+
+
+def make_train_step_frozen(loss_fn, ema_decay: float = 0.999, mesh: Optional[Mesh] = None):
     """step(state, frozen, batch, rng) -> (state, metrics) for
     loss_fn(params, frozen, batch, rng) -> (loss, aux dict).
 
@@ -134,13 +206,17 @@ def make_train_step_frozen(loss_fn, ema_decay: float = 0.999):
     (e.g. a 1.3B LoRA base) is a plain argument whose tensors require no
     gradient and get none. metrics: aux, `loss`, and the pre-clip
     `grad_norm`. `rng` is whatever loss_fn draws from: a torch.Generator or
-    a dict of injected draws."""
+    a dict of injected draws. With `mesh`, data parallel as the module
+    docstring says."""
+    replicated: List[bool] = []
 
     def step_fn(state: TrainState, frozen, batch, rng) -> Tuple[TrainState, Dict]:
+        _replicate_once(state, mesh, replicated)
         leaves = tree_leaves(state.params)
-        loss, aux = loss_fn(state.params, frozen, batch, rng)
+        loss, aux = _dp_call(loss_fn, mesh, batch, rng, state.params, frozen)
         grads = torch.autograd.grad(loss, leaves)
-        grad_norm = state.opt_state.update(grads)
+        loss, aux, grads = _dp_reduce(mesh, loss, aux, grads)
+        grad_norm = state.opt_state.update(grads, _tp_norm(mesh, grads, leaves))
         ema = (ema_update(state.ema_params, state.params, ema_decay)
                if state.ema_params is not None else None)
         metrics = dict(aux) if isinstance(aux, dict) else {}
@@ -174,17 +250,18 @@ def _grads(loss: torch.Tensor, leaves: List[torch.Tensor]) -> List[torch.Tensor]
     return [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
 
 
-def _loss_and_grads(loss_fn, params, batch, rng, grad_accum: int):
+def _loss_and_grads(loss_fn, params, batch, rng, grad_accum: int, mesh: Optional[Mesh] = None):
     """(loss, aux, grads), with microbatch accumulation when grad_accum > 1:
     loss, gradients and aux metrics are means over the microbatches. `rng`
-    is then one generator, drawn from in turn, or one rng per microbatch."""
+    is then one generator, drawn from in turn, or one rng per microbatch.
+    With `mesh` each rank splits its own rows into microbatches."""
     leaves = tree_leaves(params)
     if grad_accum <= 1:
-        loss, aux = loss_fn(params, batch, rng)
+        loss, aux = _dp_call(loss_fn, mesh, batch, rng, params)
         return loss.detach(), aux, _grads(loss, leaves)
     loss_sum, grads, auxes = 0.0, None, []
     for i, mb in enumerate(_split_micro(batch, grad_accum)):
-        loss, aux = loss_fn(params, mb, _rng_at(rng, i))
+        loss, aux = _dp_call(loss_fn, mesh, mb, _rng_at(rng, i), params)
         g = _grads(loss, leaves)
         grads = g if grads is None else [a + b for a, b in zip(grads, g)]
         loss_sum = loss_sum + loss.detach()
@@ -193,18 +270,24 @@ def _loss_and_grads(loss_fn, params, batch, rng, grad_accum: int):
     return loss_sum / grad_accum, aux, [g / grad_accum for g in grads]
 
 
-def make_train_step(loss_fn, ema_decay: float = 0.999, grad_accum: int = 1):
+def make_train_step(loss_fn, ema_decay: float = 0.999, grad_accum: int = 1,
+                    mesh: Optional[Mesh] = None):
     """step(state, batch, rng) -> (state, metrics) for
     loss_fn(params, batch, rng) -> (loss, aux dict).
 
     With grad_accum > 1 the batch's leading axis must be divisible by
     grad_accum; the microbatches' gradients are averaged before the one
     optimizer update. metrics: aux, then `loss` and the pre-clip `grad_norm`
-    (aux can never overwrite them)."""
+    (aux can never overwrite them). With `mesh`, data parallel as the
+    module docstring says: `batch` holds this rank's rows."""
+    replicated: List[bool] = []
 
     def step_fn(state: TrainState, batch: Dict, rng) -> Tuple[TrainState, Dict]:
-        loss, aux, grads = _loss_and_grads(loss_fn, state.params, batch, rng, grad_accum)
-        grad_norm = state.opt_state.update(grads)
+        _replicate_once(state, mesh, replicated)
+        loss, aux, grads = _loss_and_grads(loss_fn, state.params, batch, rng, grad_accum, mesh)
+        loss, aux, grads = _dp_reduce(mesh, loss, aux, grads)
+        grad_norm = state.opt_state.update(grads, _tp_norm(mesh, grads,
+                                                           tree_leaves(state.params)))
         ema = (ema_update(state.ema_params, state.params, ema_decay)
                if state.ema_params is not None else None)
         metrics = dict(aux) if isinstance(aux, dict) else {}
@@ -216,13 +299,13 @@ def make_train_step(loss_fn, ema_decay: float = 0.999, grad_accum: int = 1):
 
 
 def make_train_multi_step(loss_fn, ema_decay: float = 0.999, grad_accum: int = 1,
-                          steps_per_call: int = 1):
+                          steps_per_call: int = 1, mesh: Optional[Mesh] = None):
     """S train steps per call over a superbatch whose entries have a leading
     S axis (`stack_batches`): one transfer to the device and one host
     synchronisation per S steps. Returns (state, metrics of the last step).
     `rng` is one generator, or one rng per step. A superbatch with fewer than
     S entries takes that many steps."""
-    step = make_train_step(loss_fn, ema_decay, grad_accum)
+    step = make_train_step(loss_fn, ema_decay, grad_accum, mesh)
     if steps_per_call <= 1:
         return step
 

@@ -9,7 +9,7 @@ on the L1 reconstruction of the midpoint (optionally weighted by the gap),
 an uncertainty head regressed onto the clipped per-pixel error, and the
 optional edge-gradient, multi-scale L1 and flow-smoothness terms. AdamW
 behind a global-norm clip, no EMA. Runs on the GPU unless `--device cpu`;
-`--n_data_shards` is not ported and raises.
+`--n_data_shards N` runs data parallel under torchrun.
 """
 from __future__ import annotations
 
@@ -20,6 +20,7 @@ import torch
 
 from ..models.flow_interpolator import LatentFlowInterpolator
 from ..ops.image import avg_pool2d
+from ..parallel.mesh import dp_mean
 from .common import build_seeded
 from .interp_common import (Draws, add_interp_train_args, draws_or, make_state,
                             make_triplet_draws, setup, take_triplets, train_loop)
@@ -78,7 +79,7 @@ def make_loss_fn(model: LatentFlowInterpolator, args):
         z_hat, unc = model.interpolate_pair(z0, z1, alpha, gap=gap_in)
         err = torch.abs(z_hat - zt)
         err_per = err.mean(dim=(1, 2, 3))
-        recon = (err_per * (gap / gap.mean())).mean() if args.gap_weighting else err_per.mean()
+        recon = (err_per * (gap / dp_mean(gap))).mean() if args.gap_weighting else err_per.mean()
         # uncertainty regressed onto the clipped per-pixel error
         u_target = torch.clamp(err.mean(dim=1, keepdim=True), 0.0, 1.0).detach()
         loss = recon + args.uncertainty_loss_weight * torch.abs(unc - u_target).mean()

@@ -21,14 +21,13 @@ selector_level: one logit row per level). `--causal 1` trains the causal
 parameters and computes in bf16 (`--bf16 1`). Runs on the GPU unless
 `--device cpu`.
 
-Not ported (raises, naming what is missing): `--n_data_shards`.
+`--n_data_shards N` under `torchrun --nproc_per_node N`: data parallel, one
+process per GPU (train/common.py, train/state.py).
 """
 from __future__ import annotations
 
 import argparse
-import json
 import math
-import os
 from typing import Dict, Optional
 
 import numpy as np
@@ -44,11 +43,12 @@ from ..ops.keyframes import (build_nested_masks_batch, build_nested_masks_from_b
 from ..ops.normalize import logit_pos, sigmoid_pos
 from ..ops.schedules import make_schedule
 from ..ops.selection import build_kp_feat_full
+from ..parallel.mesh import dp_sum
 from .batches import (Rng, build_interp_adjacent_batch, build_interp_level_batch,
                       build_known_mask_values, draw, gather_keypoints, parse_policy_mix)
-from .common import (add_data_args, add_train_args, build_seeded, check_train_args_ported,
-                     make_dataset, make_loader, model_params, resolve_device, resume_state,
-                     run_training, sample_idx_policy)
+from .common import (add_data_args, add_train_args, build_seeded, data_mesh, make_dataset,
+                     make_loader, model_params, resolve_device, resume_state, run_training,
+                     sample_idx_policy, write_run_config)
 from .state import TrainState, init_train_state, make_optimizer, make_train_multi_step
 
 
@@ -451,15 +451,15 @@ def make_loss_fn(model: InterpLevelDenoiser, args, bootstrap_sample=None,
             w = args.w_missing + (args.w_anchor - args.w_missing) * weight
         else:
             w = torch.where(weight > 0.5, args.w_anchor, args.w_missing)
-        loss = (diff * w).sum() / (w.sum() * D + 1e-8)
+        loss = dp_sum((diff * w).sum()) / (dp_sum(w.sum()) * D + 1e-8)
         if args.smooth_weight > 0:
             # curvature of the residual, not of the prediction: the target's
             # own anchor kinks stay free
             r = delta_hat - target
             d2 = r[:, 2:] - 2.0 * r[:, 1:-1] + r[:, :-2]
             w2 = w[:, 1:-1]
-            loss = loss + args.smooth_weight * ((d2 ** 2).sum(dim=-1) * w2).sum() / (
-                w2.sum() * D + 1e-8)
+            loss = loss + args.smooth_weight * dp_sum(((d2 ** 2).sum(dim=-1) * w2).sum()) / (
+                dp_sum(w2.sum()) * D + 1e-8)
         return loss, {}
 
     return loss_fn
@@ -485,7 +485,8 @@ def make_trainer(args, device: torch.device, data_dim: int, model=None):
     tx = make_optimizer(args.lr, args.weight_decay, args.grad_clip)
     state = init_train_state(model_params(model), tx, use_ema=bool(args.use_ema))
     train_step = make_train_multi_step(loss_fn, args.ema_decay, args.grad_accum,
-                                       max(1, args.steps_per_call))
+                                       max(1, args.steps_per_call),
+                                       mesh=data_mesh(args))
     return state, train_step, model
 
 
@@ -526,8 +527,8 @@ def host_batch(args, batch: Dict[str, np.ndarray], step: int,
 
 def main(argv=None) -> TrainState:
     args = build_argparser().parse_args(argv)
-    check_train_args_ported(args)
     device = resolve_device(args.device)
+    data_mesh(args)
     ds, data_dim = make_dataset(args)
     loader = iter(make_loader(ds, args))
     first = next(loader)
@@ -542,9 +543,7 @@ def main(argv=None) -> TrainState:
 
     host_rng = np.random.RandomState(args.seed + 1)
     meta = make_meta(args, data_dim)
-    os.makedirs(args.out_dir, exist_ok=True)
-    with open(os.path.join(args.out_dir, "run_config.json"), "w") as f:
-        json.dump({"args": vars(args), "meta": meta, "n_params": n_params}, f, indent=2)
+    write_run_config(args, {"args": vars(args), "meta": meta, "n_params": n_params})
     return run_training(args, device, loader, first, state, train_step,
                         lambda b, step: host_batch(args, b, step, host_rng), meta, start_step)
 

@@ -12,7 +12,8 @@ attention takes small_mha_packed under the default `fused` where 256 < H *
 T * N and T * N <= 256, every block the fused block kernel under `block`
 where T * N <= 256. Runs on the GPU unless `--device cpu`.
 
-Not ported (raises, naming what is missing): `--n_data_shards`.
+`--n_data_shards N` under `torchrun --nproc_per_node N`: data parallel, one
+process per GPU (train/common.py, train/state.py).
 """
 from __future__ import annotations
 
@@ -25,7 +26,8 @@ from ..models.video_denoisers import VideoTokenInterpLevelDenoiser
 from ..ops.video_keyframes import (Draws, build_video_token_interp_adjacent_batch,
                                    build_video_token_interp_level_batch, make_video_interp_draws)
 from ..utils.video_tokens import patchify_latents
-from .common import build_seeded, model_params
+from ..parallel.mesh import dp_sum
+from .common import build_seeded, data_mesh, model_params
 from .state import TrainState, init_train_state, make_optimizer, make_train_step
 from .train_keypoints_didemo import _text, add_didemo_train_args, cache_shapes, run
 
@@ -90,7 +92,7 @@ def interp_loss(model: VideoTokenInterpLevelDenoiser, args, batch: Dict[str, tor
     delta = model(z_s, s_idx, mask_in, {"text_embed": text}, spatial)
     diff = ((delta - target) ** 2).sum(dim=-1)
     w = args.w_missing + (args.w_anchor - args.w_missing) * weight
-    return (diff * w).sum() / (w.sum() * D_tok + 1e-8), {}
+    return dp_sum((diff * w).sum()) / (dp_sum(w.sum()) * D_tok + 1e-8), {}
 
 
 def make_trainer(args, device: torch.device, batch0: Dict, model=None):
@@ -105,7 +107,8 @@ def make_trainer(args, device: torch.device, batch0: Dict, model=None):
     loss_fn = lambda params, batch, rng: interp_loss(model, args, batch, rng)
     tx = make_optimizer(args.lr, args.weight_decay, args.grad_clip)
     state = init_train_state(model_params(model), tx, use_ema=bool(args.use_ema))
-    return state, make_train_step(loss_fn, args.ema_decay, args.grad_accum), model
+    return state, make_train_step(loss_fn, args.ema_decay, args.grad_accum,
+                                  mesh=data_mesh(args)), model
 
 
 def main(argv=None) -> TrainState:

@@ -13,7 +13,8 @@ mask's 0/1 weight without it). The denoiser is the maze InterpLevelDenoiser
 without the maze encoder; under `--attn_policy block` its blocks take the
 fused block kernel at [B, T, d_model]. Runs on the GPU unless `--device cpu`.
 
-Not ported (raises, naming what is missing): `--n_data_shards`.
+`--n_data_shards N` under `torchrun --nproc_per_node N`: data parallel, one
+process per GPU (train/common.py, train/state.py).
 """
 from __future__ import annotations
 
@@ -25,7 +26,8 @@ import torch
 from ..models.denoisers import InterpLevelDenoiser
 from ..ops.video_keyframes import (Draws, build_video_interp_adjacent_batch,
                                    build_video_interp_level_batch, make_video_interp_draws)
-from .common import build_seeded, model_params
+from ..parallel.mesh import dp_sum
+from .common import build_seeded, data_mesh, model_params
 from .state import TrainState, init_train_state, make_optimizer, make_train_step
 from .train_keypoints_toy_video import add_toy_train_args, run
 
@@ -114,7 +116,7 @@ def interp_loss(model: InterpLevelDenoiser, args, batch: Dict[str, torch.Tensor]
         w = args.w_missing + (args.w_anchor - args.w_missing) * weight
     else:
         w = torch.where(weight > 0.5, args.w_anchor, args.w_missing)
-    return (diff * w).sum() / (w.sum() * D + 1e-8), {}
+    return dp_sum((diff * w).sum()) / (dp_sum(w.sum()) * D + 1e-8), {}
 
 
 def make_trainer(args, device: torch.device, data_dim: int, model=None):
@@ -124,7 +126,8 @@ def make_trainer(args, device: torch.device, data_dim: int, model=None):
     loss_fn = lambda params, batch, rng: interp_loss(model, args, batch, rng)
     tx = make_optimizer(args.lr, args.weight_decay, args.grad_clip)
     state = init_train_state(model_params(model), tx, use_ema=bool(args.use_ema))
-    return state, make_train_step(loss_fn, args.ema_decay, args.grad_accum), model
+    return state, make_train_step(loss_fn, args.ema_decay, args.grad_accum,
+                                  mesh=data_mesh(args)), model
 
 
 def main(argv=None) -> TrainState:

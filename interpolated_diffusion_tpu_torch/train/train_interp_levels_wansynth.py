@@ -18,14 +18,14 @@ hold the frozen base (`wan_base`) beside the LoRA and projector leaves, and
 the data-stream position in the meta, so that `--resume` continues mid-epoch.
 Runs on the GPU unless `--device cpu`.
 
-Not ported (raises, naming what is missing): `--n_data_shards`.
+`--n_data_shards N` under `torchrun --nproc_per_node N`: data parallel, one
+process per GPU (train/common.py, train/state.py).
 `--grad_accum` is parsed and not applied, as in the JAX trainer.
 """
 from __future__ import annotations
 
 import argparse
 import itertools
-import json
 import os
 import time
 from typing import Dict, Optional, Tuple, Union
@@ -43,7 +43,9 @@ from ..utils.frame_features import frame_features_from_mask
 from ..utils.memguard import check_cpu_mem
 from ..utils.prefetch import DevicePrefetcher, pinned_put
 from ..utils.video_tokens import patchify_latents, unpatchify_tokens
-from .common import resolve_device
+from ..parallel.mesh import dp_sum
+from ..parallel.multihost import is_main_process
+from .common import data_mesh, resolve_device, write_run_config
 from .state import TrainState, flatten_dict, init_train_state, make_optimizer, make_train_step_frozen
 from .wansynth_common import (WAN_HEAD_MOD_VERSION, add_wan_model_args, add_wansynth_data_args,
                               build_wan, check_wan_meta, init_wan_trainables,
@@ -86,7 +88,8 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--log_every", type=int, default=10)
     p.add_argument("--resume", type=str, default=None)
     p.add_argument("--n_data_shards", type=int, default=None,
-                   help="data-parallel shards of the batch (not ported)")
+                   help="DP width; defaults to all local devices (the processes of a "
+                        "torchrun launch, one per GPU)")
     # token-transformer fallback (use_wan=0)
     p.add_argument("--d_model", type=int, default=512)
     p.add_argument("--n_layers", type=int, default=8)
@@ -176,7 +179,7 @@ def phase2_loss(model, fc, args, batch: Dict[str, torch.Tensor],
 
     diff = ((delta_hat - target) ** 2).sum(dim=-1)                       # [B, T, N]
     w = (args.w_missing + (args.w_anchor - args.w_missing) * weight[..., None]).expand_as(diff)
-    loss = (diff * w).sum() / (w.sum() * D_tok + 1e-8)
+    loss = dp_sum((diff * w).sum()) / (dp_sum(w.sum()) * D_tok + 1e-8)
     return loss, {}
 
 
@@ -214,7 +217,8 @@ def make_trainer(args, device: torch.device, model=None, fc=None):
 
     tx = make_optimizer(args.lr, args.weight_decay, args.grad_clip)
     state = init_train_state(trainable, tx, use_ema=bool(args.use_ema))
-    return state, base, make_train_step_frozen(loss_fn, args.ema_decay), model, fc
+    return (state, base, make_train_step_frozen(loss_fn, args.ema_decay, data_mesh(args)),
+            model, fc)
 
 
 def run_meta(args, C: int, H: int, W: int) -> Dict:
@@ -240,10 +244,9 @@ def run_meta(args, C: int, H: int, W: int) -> Dict:
 
 def main(argv=None) -> TrainState:
     args = build_argparser().parse_args(argv)
-    if args.n_data_shards is not None:
-        raise NotImplementedError("--n_data_shards: the data-parallel mesh (parallel/mesh.py) "
-                                  "is not ported yet")
     device = resolve_device(args.device)
+    mesh = data_mesh(args)
+    main_rank = is_main_process()
     resume_path: Optional[str] = None
     data_state = None
     if args.resume:
@@ -251,7 +254,7 @@ def main(argv=None) -> TrainState:
                        else latest_checkpoint(args.resume))
         if resume_path:
             data_state = (read_meta(resume_path)[1] or {}).get("data_state")
-    loader = make_wansynth_loader(args, args.seed, state=data_state)
+    loader = make_wansynth_loader(args, args.seed, state=data_state, mesh=mesh)
     batch0 = next(loader)
     _, _, C, H, W = batch0["latents"].shape
 
@@ -275,9 +278,7 @@ def main(argv=None) -> TrainState:
         state = state._replace(step=start_step)
 
     meta = run_meta(args, C, H, W)
-    os.makedirs(args.out_dir, exist_ok=True)
-    with open(os.path.join(args.out_dir, "run_config.json"), "w") as f:
-        json.dump({"args": vars(args), "meta": meta}, f, indent=2)
+    write_run_config(args, {"args": vars(args), "meta": meta})
 
     put = pinned_put(device, keys=("latents", "text_embed", "anchors", "anchor_idx"))
     host_iter = itertools.chain([batch0], loader)
@@ -287,7 +288,7 @@ def main(argv=None) -> TrainState:
     for step in range(start_step, args.steps):
         check_cpu_mem(args.max_cpu_mem_percent)
         state, metrics = train_step(state, base, next(dev_iter), rng)
-        if step % args.log_every == 0:
+        if main_rank and step % args.log_every == 0:
             loss = float(metrics["loss"])  # device sync = true step timing
             now = time.time()
             dt = now - t_prev
@@ -295,7 +296,7 @@ def main(argv=None) -> TrainState:
             n = max(1, args.log_every if step > start_step else 1)
             print(f"step {step} loss {loss:.4f} | {dt / n:.3f}s/step "
                   f"| {args.batch * n / dt:.2f} samples/s")
-        if (step + 1) % args.save_every == 0 or step + 1 == args.steps:
+        if main_rank and ((step + 1) % args.save_every == 0 or step + 1 == args.steps):
             to_save = dict(state.params)
             if base is not None:
                 to_save["wan_base"] = base

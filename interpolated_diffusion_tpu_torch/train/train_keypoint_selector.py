@@ -16,9 +16,7 @@ unless `--device cpu`.
 from __future__ import annotations
 
 import argparse
-import json
 import math
-import os
 from typing import Dict
 
 import numpy as np
@@ -27,9 +25,9 @@ import torch
 from ..models.selector import KeypointSelector
 from ..ops.keyframes import compute_k_schedule
 from .batches import Rng, draw
-from .common import (add_data_args, add_train_args, build_seeded, check_train_args_ported,
-                     make_dataset, make_loader, model_params, resolve_device, resume_state,
-                     run_training)
+from .common import (add_data_args, add_train_args, build_seeded, data_mesh, make_dataset,
+                     make_loader, model_params, resolve_device, resume_state, run_training,
+                     write_run_config)
 from .state import TrainState, init_train_state, make_optimizer, make_train_multi_step
 
 
@@ -164,7 +162,8 @@ def make_trainer(args, device: torch.device, has_levels: bool, model=None):
     tx = make_optimizer(args.lr, args.weight_decay, args.grad_clip)
     state = init_train_state(model_params(model), tx, use_ema=False)
     train_step = make_train_multi_step(make_loss_fn(model, args, has_levels), args.ema_decay,
-                                       args.grad_accum, max(1, args.steps_per_call))
+                                       args.grad_accum, max(1, args.steps_per_call),
+                                       mesh=data_mesh(args))
     return state, train_step, model
 
 
@@ -185,8 +184,8 @@ def host_batch(args, batch: Dict[str, np.ndarray], step: int,
 
 def main(argv=None) -> TrainState:
     args = build_argparser().parse_args(argv)
-    check_train_args_ported(args)
     device = resolve_device(args.device)
+    data_mesh(args)
     ds, _ = make_dataset(args)
     loader = iter(make_loader(ds, args))
     first = next(loader)
@@ -201,9 +200,7 @@ def main(argv=None) -> TrainState:
     if args.resume:
         state, start_step = resume_state(state, args.resume, device)
     meta = make_meta(args)
-    os.makedirs(args.out_dir, exist_ok=True)
-    with open(os.path.join(args.out_dir, "run_config.json"), "w") as f:
-        json.dump({"args": vars(args), "meta": meta}, f, indent=2)
+    write_run_config(args, {"args": vars(args), "meta": meta})
     return run_training(args, device, loader, first, state, train_step,
                         lambda b, step: host_batch(args, b, step, has_levels), meta, start_step)
 

@@ -21,13 +21,12 @@ their cost channels from a frozen D_phi (`--dphi_ckpt`, F >= 5); the
 selector (`--selector_ckpt`, top-K of its logits, Gumbel-perturbed under
 `--selector_stochastic` from a generator seeded by `--seed`).
 
-Not ported (raises, naming what is missing): `--n_data_shards`.
+`--n_data_shards N` under `torchrun --nproc_per_node N`: data parallel, one
+process per GPU (train/common.py, train/state.py).
 """
 from __future__ import annotations
 
 import argparse
-import json
-import os
 from typing import Dict, Optional
 
 import numpy as np
@@ -40,10 +39,11 @@ from ..ops.normalize import logit_pos
 from ..ops.rectified_flow import rf_integrate, rf_interpolate
 from ..ops.schedules import DiffusionSchedule, make_schedule
 from ..ops.selection import build_kp_feat_full
+from ..parallel.mesh import dp_sum
 from .batches import Rng, build_known_mask_values, draw, gather_keypoints, parse_policy_mix
-from .common import (add_data_args, add_train_args, build_seeded, check_train_args_ported,
-                     make_dataset, make_loader, model_params, resolve_device, resume_state,
-                     run_training, sample_idx_policy)
+from .common import (add_data_args, add_train_args, build_seeded, data_mesh, make_dataset,
+                     make_loader, model_params, resolve_device, resume_state, run_training,
+                     sample_idx_policy, write_run_config)
 from .state import TrainState, init_train_state, make_optimizer, make_train_multi_step
 
 
@@ -84,10 +84,6 @@ def build_argparser() -> argparse.ArgumentParser:
     add_data_args(p)
     add_train_args(p)
     return p
-
-
-def check_ported(args) -> None:
-    check_train_args_ported(args)
 
 
 def make_meta(args, data_dim: int) -> Dict:
@@ -184,14 +180,14 @@ def make_loss_fn(model: KeypointDenoiser, args, schedule: DiffusionSchedule,
             v_hat = model(z_t, (tau * (args.N_train - 1)).to(torch.int32), idx, known_mask,
                           cond, T)
             v = v * (~known_mask)
-            return ((v_hat - v) ** 2 * valid).sum() / (valid.sum() + 1e-8), {}
+            return dp_sum(((v_hat - v) ** 2 * valid).sum()) / (dp_sum(valid.sum()) + 1e-8), {}
         t = draw(rng, "t", "randint", (B,), 0, args.N_train).to(dev).long()
         z_t, eps = q_sample(z0, t, schedule,
                             noise=draw(rng, "eps", "normal", tuple(z0.shape)).to(z0))
         z_t = torch.where(known_mask, known_values, z_t)
         eps = eps * valid
         eps_hat = model(z_t, t, idx, known_mask, cond, T)
-        loss = ((eps_hat - eps) ** 2 * valid).sum() / (valid.sum() + 1e-8)
+        loss = dp_sum(((eps_hat - eps) ** 2 * valid).sum()) / (dp_sum(valid.sum()) + 1e-8)
         return loss, {}
 
     return loss_fn
@@ -247,7 +243,8 @@ def make_trainer(args, device: torch.device, data_dim: int, model=None):
     tx = make_optimizer(args.lr, args.weight_decay, args.grad_clip)
     state = init_train_state(model_params(model), tx, use_ema=bool(args.use_ema))
     train_step = make_train_multi_step(loss_fn, args.ema_decay, args.grad_accum,
-                                       max(1, args.steps_per_call))
+                                       max(1, args.steps_per_call),
+                                       mesh=data_mesh(args))
     return state, train_step, model
 
 
@@ -296,8 +293,8 @@ def host_batch(args, batch: Dict[str, np.ndarray], device_policy: Optional[str],
 
 def main(argv=None) -> TrainState:
     args = build_argparser().parse_args(argv)
-    check_ported(args)
     device = resolve_device(args.device)
+    data_mesh(args)
     ds, data_dim = make_dataset(args)
     loader = iter(make_loader(ds, args))
     first = next(loader)
@@ -315,9 +312,7 @@ def main(argv=None) -> TrainState:
                    else None)
     host_rng = np.random.RandomState(args.seed + 1)
     meta = make_meta(args, data_dim)
-    os.makedirs(args.out_dir, exist_ok=True)
-    with open(os.path.join(args.out_dir, "run_config.json"), "w") as f:
-        json.dump({"args": vars(args), "meta": meta, "n_params": n_params}, f, indent=2)
+    write_run_config(args, {"args": vars(args), "meta": meta, "n_params": n_params})
     return run_training(args, device, loader, first, state, train_step,
                         lambda b, _step: host_batch(args, b, device_policy, host_rng,
                                                     selector_fn), meta,

@@ -14,13 +14,12 @@ tokens, with the text embedding dropped (zeroed) per sample at
 K * N <= 256. f32 master parameters, bf16 compute under `--bf16 1`, AdamW
 behind a global-norm clip, EMA. Runs on the GPU unless `--device cpu`.
 
-Not ported (raises, naming what is missing): `--n_data_shards`.
+`--n_data_shards N` under `torchrun --nproc_per_node N`: data parallel, one
+process per GPU (train/common.py, train/state.py).
 """
 from __future__ import annotations
 
 import argparse
-import json
-import os
 from typing import Dict, Tuple, Union
 
 import torch
@@ -31,8 +30,8 @@ from ..models.video_denoisers import VideoTokenKeypointDenoiser
 from ..ops.keyframes import sample_fixed_k_indices_uniform_batch
 from ..ops.schedules import DiffusionSchedule, make_schedule
 from ..utils.video_tokens import patchify_latents
-from .common import (build_seeded, check_train_args_ported, model_params, resolve_device,
-                     resume_state, run_training)
+from .common import (build_seeded, data_mesh, model_params, resolve_device, resume_state,
+                     run_training, write_run_config)
 from .state import TrainState, init_train_state, make_optimizer, make_train_step
 
 Draws = Dict[str, torch.Tensor]
@@ -60,7 +59,8 @@ def add_didemo_train_args(p: argparse.ArgumentParser, out_dir: str) -> None:
     p.add_argument("--log_every", type=int, default=100)
     p.add_argument("--resume", type=str, default=None)
     p.add_argument("--n_data_shards", type=int, default=None,
-                   help="data-parallel shards of the batch (not ported)")
+                   help="DP width; defaults to all local devices (the processes of a "
+                        "torchrun launch, one per GPU)")
     p.add_argument("--attn_policy", type=str, default="fused", choices=["fused", "block", "dense"],
                    help="small-L attention route of every block (models/transformer.py)")
     p.add_argument("--device", type=str, default="cuda",
@@ -145,14 +145,15 @@ def make_trainer(args, device: torch.device, batch0: Dict, model=None):
     loss_fn = lambda params, batch, rng: keypoint_loss(model, args, schedule, batch, rng)
     tx = make_optimizer(args.lr, args.weight_decay, args.grad_clip)
     state = init_train_state(model_params(model), tx, use_ema=bool(args.use_ema))
-    return state, make_train_step(loss_fn, args.ema_decay, args.grad_accum), model
+    return state, make_train_step(loss_fn, args.ema_decay, args.grad_accum,
+                                  mesh=data_mesh(args)), model
 
 
 def run(args, make_meta_fn, make) -> TrainState:
     """The DiDeMo trainers' main: the cache and its loader, the model
     (`make(args, device, batch0)`), resume, run_config.json, the loop."""
-    check_train_args_ported(args)
     device = resolve_device(args.device)
+    data_mesh(args)
     ds = CachedClipDataset(args.cache_dir, args.split)
     loader = iter(BatchLoader(ds, batch_size=args.batch, seed=args.seed))
     first = next(loader)
@@ -164,9 +165,7 @@ def run(args, make_meta_fn, make) -> TrainState:
     if args.resume:
         state, start_step = resume_state(state, args.resume, device)
     meta = make_meta_fn(args, first)
-    os.makedirs(args.out_dir, exist_ok=True)
-    with open(os.path.join(args.out_dir, "run_config.json"), "w") as f:
-        json.dump({"args": vars(args), "meta": meta, "n_params": n_params}, f, indent=2)
+    write_run_config(args, {"args": vars(args), "meta": meta, "n_params": n_params})
     host = lambda b, _step: {"latents": b["latents"], "text_embed": b["text_embed"]}
     return run_training(args, device, loader, first, state, train_step, host, meta, start_step)
 

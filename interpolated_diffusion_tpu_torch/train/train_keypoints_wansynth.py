@@ -16,15 +16,17 @@ dropout, throughput telemetry. `--use_wan 0` trains the token transformer
 (models/video_denoisers.VideoTokenKeypointDenoiser) instead. Runs on the GPU
 unless `--device cpu`.
 
-Not ported (each raises, naming what is missing): `--ckpt_async`,
-`--n_data_shards`, `--ffn_mode moe`. `--grad_accum` is parsed and not
-applied, as in the JAX trainer.
+`--ffn_mode moe` swaps every block's FFN for the Switch-MoE FFN
+(models/moe.py); `--n_data_shards N` under `torchrun --nproc_per_node N`
+trains data parallel, one process per GPU; `--ckpt_async 1` writes sharded
+checkpoints on a background thread (utils/checkpoint_sharded.py), the last
+one joined before exit. `--grad_accum` is parsed and not applied, as in the
+JAX trainer.
 """
 from __future__ import annotations
 
 import argparse
 import itertools
-import json
 import os
 import time
 from typing import Dict, Optional, Tuple, Union
@@ -38,11 +40,13 @@ from ..ops.keyframes import sample_fixed_k_indices_uniform_batch
 from ..ops.schedules import DiffusionSchedule, make_schedule
 from ..ops.video_keyframes import interpolate_video_from_indices
 from ..utils.checkpoint import latest_checkpoint, load_checkpoint, read_meta, save_checkpoint
+from ..utils.checkpoint_sharded import save_checkpoint_sharded, wait_for_async_saves
 from ..utils.frame_features import frame_features_from_mask
 from ..utils.memguard import check_cpu_mem
 from ..utils.prefetch import DevicePrefetcher, pinned_put
 from ..utils.video_tokens import patchify_latents, unpatchify_tokens
-from .common import resolve_device
+from ..parallel.multihost import is_main_process
+from .common import data_mesh, resolve_device, write_run_config
 from .state import TrainState, flatten_dict, init_train_state, make_optimizer, make_train_step_frozen
 from .wansynth_common import (
     WAN_HEAD_MOD_VERSION,
@@ -85,11 +89,13 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--out_dir", type=str, default="runs/kp_wansynth")
     p.add_argument("--save_every", type=int, default=500)
     p.add_argument("--ckpt_async", type=int, default=0,
-                   help="asynchronous sharded checkpoints (not ported)")
+                   help="1: sharded checkpoints written on a background thread "
+                        "(utils/checkpoint_sharded.py)")
     p.add_argument("--log_every", type=int, default=10)
     p.add_argument("--resume", type=str, default=None)
     p.add_argument("--n_data_shards", type=int, default=None,
-                   help="data-parallel shards of the batch (not ported)")
+                   help="DP width; defaults to all local devices (the processes of a "
+                        "torchrun launch, one per GPU)")
     p.add_argument("--profile_dir", type=str, default=None,
                    help="write a torch.profiler trace (trace.json, viewable in "
                         "chrome://tracing or Perfetto) of a window of steps into this dir")
@@ -187,13 +193,14 @@ def phase1_loss(wan, fc, args, schedule: DiffusionSchedule, batch: Dict[str, tor
     return torch.mean((pred_tokens - eps) ** 2), {}
 
 
-def _check_ported(args) -> None:
-    if args.ckpt_async:
-        raise NotImplementedError("--ckpt_async: asynchronous sharded checkpoints "
-                                  "(utils/checkpoint_sharded.py) are not ported yet")
-    if args.n_data_shards is not None:
-        raise NotImplementedError("--n_data_shards: the data-parallel mesh (parallel/mesh.py) "
-                                  "is not ported yet")
+def _save_meta(meta: Dict, loader) -> Dict:
+    """The checkpoint meta with the data-stream position, so that --resume
+    continues the stream mid-epoch (it may overshoot by the prefetch depth:
+    resume skips, never repeats, those batches)."""
+    save_meta = dict(meta)
+    if getattr(loader, "state", None) is not None:
+        save_meta["data_state"] = loader.state
+    return save_meta
 
 
 def run_meta(args, C: int, H: int, W: int) -> Dict:
@@ -252,13 +259,14 @@ def make_trainer(args, device: torch.device, wan=None, fc=None):
 
     tx = make_optimizer(args.lr, args.weight_decay, args.grad_clip)
     state = init_train_state(trainable, tx, use_ema=bool(args.use_ema))
-    return state, base, make_train_step_frozen(loss_fn, args.ema_decay), wan, fc
+    return state, base, make_train_step_frozen(loss_fn, args.ema_decay, data_mesh(args)), wan, fc
 
 
 def main(argv=None) -> TrainState:
     args = build_argparser().parse_args(argv)
-    _check_ported(args)
     device = resolve_device(args.device)
+    mesh = data_mesh(args)
+    main_rank = is_main_process()
     # the resume checkpoint first: its meta carries the data-stream position,
     # so a preempted run resumes mid-epoch instead of replaying the stream
     resume_path: Optional[str] = None
@@ -268,7 +276,7 @@ def main(argv=None) -> TrainState:
                        else latest_checkpoint(args.resume))
         if resume_path:
             data_state = (read_meta(resume_path)[1] or {}).get("data_state")
-    loader = make_wansynth_loader(args, args.seed, state=data_state)
+    loader = make_wansynth_loader(args, args.seed, state=data_state, mesh=mesh)
     T = args.T
     batch0 = next(loader)
     _, _, C, H, W = batch0["latents"].shape
@@ -293,9 +301,7 @@ def main(argv=None) -> TrainState:
         state = state._replace(step=start_step)
 
     meta = run_meta(args, C, H, W)
-    os.makedirs(args.out_dir, exist_ok=True)
-    with open(os.path.join(args.out_dir, "run_config.json"), "w") as f:
-        json.dump({"args": vars(args), "meta": meta}, f, indent=2)
+    write_run_config(args, {"args": vars(args), "meta": meta})
 
     put = pinned_put(device, keys=("latents", "text_embed"))
     host_iter = itertools.chain([batch0], loader)
@@ -321,7 +327,7 @@ def main(argv=None) -> TrainState:
             profiler.export_chrome_trace(os.path.join(args.profile_dir, "trace.json"))
             profiler = None
             print(f"profiler trace written to {args.profile_dir}")
-        if step % args.log_every == 0:
+        if main_rank and step % args.log_every == 0:
             loss = float(metrics["loss"])  # device sync = true step timing
             now = time.time()
             dt = now - t_prev
@@ -334,17 +340,20 @@ def main(argv=None) -> TrainState:
             to_save = dict(state.params)
             if base is not None:
                 to_save["wan_base"] = base
-            # the data-stream position rides in the meta so that --resume
-            # continues the stream mid-epoch (it may overshoot by the prefetch
-            # depth: resume skips, never repeats, those batches)
-            save_meta = dict(meta)
-            if getattr(loader, "state", None) is not None:
-                save_meta["data_state"] = loader.state
-            save_checkpoint(os.path.join(args.out_dir, f"ckpt_{step + 1}"), to_save, None,
-                            step + 1, state.ema_params, save_meta)
+            ckpt = os.path.join(args.out_dir, f"ckpt_{step + 1}")
+            if args.ckpt_async:
+                # every rank writes its shard: the device->host copy here,
+                # the file IO on a background thread
+                save_checkpoint_sharded(ckpt, to_save, None, step + 1, state.ema_params,
+                                        _save_meta(meta, loader), async_save=True)
+            elif main_rank:
+                save_checkpoint(ckpt, to_save, None, step + 1, state.ema_params,
+                                _save_meta(meta, loader))
     if profiler is not None:   # the run ended inside the window
         sync()
         profiler.__exit__(None, None, None)
+    if args.ckpt_async:
+        wait_for_async_saves()   # the last checkpoint must be durable
     if hasattr(dev_iter, "close"):
         dev_iter.close()   # stop the prefetch thread, free queued batches
     return state

@@ -8,7 +8,7 @@ their midpoint frame), a reconstruction (autoencoding) loss and an isotropy
 regulariser on the straightened channel covariance; `--arch conv` or
 `token`, `--loss_type l2` or `l1`. Triplet draws as the flow trainer's.
 AdamW behind a global-norm clip, no EMA. Runs on the GPU unless `--device
-cpu`; `--n_data_shards` is not ported and raises.
+cpu`; `--n_data_shards N` runs data parallel under torchrun.
 """
 from __future__ import annotations
 
@@ -18,6 +18,7 @@ from typing import Dict, Union
 import torch
 
 from ..models.straightener import LatentStraightener, LatentStraightenerTokenTransformer
+from ..parallel.mesh import dp_mean, dp_sum
 from .common import build_seeded
 from .interp_common import (Draws, add_interp_train_args, draws_or, make_state,
                             make_triplet_draws, setup, take_triplets, train_loop)
@@ -48,11 +49,13 @@ def _err(pred: torch.Tensor, target: torch.Tensor, loss_type: str) -> torch.Tens
 
 
 def iso_loss(s: torch.Tensor) -> torch.Tensor:
-    """Squared distance of the channel covariance from (its mean variance) * I."""
+    """Squared distance of the channel covariance from (its mean variance) * I;
+    the covariance is over the global batch in a data-parallel step."""
     C = s.shape[1]
     flat = s.transpose(0, 1).reshape(C, -1).float()
-    flat = flat - flat.mean(dim=1, keepdim=True)
-    cov = (flat @ flat.t()) / max(flat.shape[1] - 1, 1)
+    flat = flat - dp_mean(flat, dim=1)[:, None]
+    n = round(float(dp_sum(torch.tensor(float(flat.shape[1]), device=flat.device))))
+    cov = dp_sum(flat @ flat.t()) / max(n - 1, 1)
     target = torch.eye(C, device=s.device) * torch.diagonal(cov).mean()
     return ((cov - target) ** 2).mean()
 

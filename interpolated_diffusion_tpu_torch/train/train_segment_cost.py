@@ -12,8 +12,6 @@ the GPU unless `--device cpu`.
 from __future__ import annotations
 
 import argparse
-import json
-import os
 from typing import Dict
 
 import numpy as np
@@ -23,9 +21,9 @@ from ..models.selector import SegmentCostPredictor
 from ..ops.selection import (build_segment_features, build_segment_precompute,
                              build_snr_weights, compute_segment_costs_batch,
                              sample_timesteps_log_snr, snr_weight_scale)
-from .common import (add_data_args, add_train_args, build_seeded, check_train_args_ported,
-                     make_dataset, make_loader, model_params, resolve_device, resume_state,
-                     run_training)
+from .common import (add_data_args, add_train_args, build_seeded, data_mesh, make_dataset,
+                     make_loader, model_params, resolve_device, resume_state, run_training,
+                     write_run_config)
 from .state import TrainState, init_train_state, make_optimizer, make_train_multi_step
 
 
@@ -129,7 +127,8 @@ def make_trainer(args, device: torch.device, ds, model=None):
     tx = make_optimizer(args.lr, args.weight_decay, args.grad_clip)
     state = init_train_state(model_params(model), tx, use_ema=False)
     train_step = make_train_multi_step(make_loss_fn(model, targets), args.ema_decay,
-                                       args.grad_accum, max(1, args.steps_per_call))
+                                       args.grad_accum, max(1, args.steps_per_call),
+                                       mesh=data_mesh(args))
     return state, train_step, model, targets
 
 
@@ -142,8 +141,8 @@ def host_batch(args, batch: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
 
 def main(argv=None) -> TrainState:
     args = build_argparser().parse_args(argv)
-    check_train_args_ported(args)
     device = resolve_device(args.device)
+    data_mesh(args)
     ds, _ = make_dataset(args)
     loader = iter(make_loader(ds, args))
     first = next(loader)
@@ -154,9 +153,7 @@ def main(argv=None) -> TrainState:
     if args.resume:
         state, start_step = resume_state(state, args.resume, device)
     meta = make_meta(args, targets)
-    os.makedirs(args.out_dir, exist_ok=True)
-    with open(os.path.join(args.out_dir, "run_config.json"), "w") as f:
-        json.dump({"args": vars(args), "meta": meta}, f, indent=2)
+    write_run_config(args, {"args": vars(args), "meta": meta})
     return run_training(args, device, loader, first, state, train_step,
                         lambda b, _step: host_batch(args, b), meta, start_step)
 

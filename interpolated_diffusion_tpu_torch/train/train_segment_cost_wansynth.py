@@ -9,8 +9,8 @@ by the first batch's mean and std (`--normalize_targets`); the predictor
 maps the pooled text embedding and the segment's [i, j, gap] / (T - 1) to
 a cost. As in the JAX trainer the model computes in f32 whatever `--bf16`
 says (its class fixes the dtype). AdamW behind a global-norm clip, no EMA.
-Runs on the GPU unless `--device cpu`; `--n_data_shards` is not ported and
-raises.
+Runs on the GPU unless `--device cpu`; `--n_data_shards N` runs data parallel
+under torchrun.
 """
 from __future__ import annotations
 

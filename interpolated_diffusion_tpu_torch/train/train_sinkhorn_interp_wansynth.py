@@ -8,8 +8,8 @@ the warp: K fixed anchors per clip (endpoints forced, the interior drawn),
 the MSE over the hidden frames. Every --val_every steps the interpolator
 and plain lerp are scored on --val_batches fresh batches
 (`[val] sinkhorn X vs lerp Y`). AdamW behind a global-norm clip, no EMA.
-Runs on the GPU unless `--device cpu`; `--n_data_shards` is not ported and
-raises.
+Runs on the GPU unless `--device cpu`; `--n_data_shards N` runs data parallel
+under torchrun.
 """
 from __future__ import annotations
 
@@ -21,6 +21,7 @@ import torch
 
 from ..models.sinkhorn_warp import SinkhornWarpInterpolator
 from ..ops.keyframes import interpolate_from_indices, sample_fixed_k_indices_batch
+from ..parallel.mesh import dp_sum
 from .common import build_seeded
 from .interp_common import Draws, add_interp_train_args, draws_or, make_state, setup, \
     train_loop
@@ -81,7 +82,8 @@ def make_loss_fn(model: SinkhornWarpInterpolator, args):
         idx, mask = sample_fixed_k_indices_batch(B, T, args.K, rand=draws["idx_rand"])
         out, _ = model(latents, idx)
         hidden = (~mask)[..., None, None, None].float()
-        loss = (((out - latents) ** 2) * hidden).sum() / (hidden.sum() * C * H * W + 1e-8)
+        loss = (dp_sum((((out - latents) ** 2) * hidden).sum())
+                / (dp_sum(hidden.sum()) * C * H * W + 1e-8))
         return loss, {}
 
     return loss_fn

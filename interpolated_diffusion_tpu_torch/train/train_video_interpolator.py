@@ -10,7 +10,8 @@ the model computes in bf16 under `--bf16 1`. No kernel runs (the conv is a
 cuDNN depthwise convolution, as XLA's is on the TPU side). Runs on the GPU
 unless `--device cpu`.
 
-Not ported (raises, naming what is missing): `--n_data_shards`.
+`--n_data_shards N` under `torchrun --nproc_per_node N`: data parallel, one
+process per GPU (train/common.py, train/state.py).
 """
 from __future__ import annotations
 
@@ -23,8 +24,9 @@ from ..data.dataset import BatchLoader
 from ..data.toy_video import MovingShapesVideoDataset
 from ..models.interpolators import TinyTemporalInterpolator
 from ..ops.keyframes import interpolate_from_indices, sample_fixed_k_indices_batch
+from ..parallel.mesh import dp_sum, shard_batch
 from .batches import gather_keypoints
-from .common import build_seeded, check_train_args_ported, resolve_device
+from .common import build_seeded, data_mesh, resolve_device
 from .interp_common import Draws, make_state, setup, train_loop
 from .state import TrainState
 from .wansynth_common import add_wansynth_data_args
@@ -49,7 +51,8 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--save_every", type=int, default=1000)
     p.add_argument("--log_every", type=int, default=100)
     p.add_argument("--n_data_shards", type=int, default=None,
-                   help="data-parallel shards of the batch (not ported)")
+                   help="DP width; defaults to all local devices (the processes of a "
+                        "torchrun launch, one per GPU)")
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (default; no fallback when there is no GPU) or cpu")
     return p
@@ -78,7 +81,7 @@ def interpolator_loss(model: TinyTemporalInterpolator, args, batch: Dict[str, to
     z_lerp = interpolate_from_indices(idx, gather_keypoints(z0, idx), T)
     z_hat = z_lerp + model(z_lerp)
     hidden = (~mask)[..., None].float()
-    return (((z_hat - z0) ** 2) * hidden).sum() / (hidden.sum() * D + 1e-8), {}
+    return dp_sum((((z_hat - z0) ** 2) * hidden).sum()) / (dp_sum(hidden.sum()) * D + 1e-8), {}
 
 
 def run_meta(args) -> Dict:
@@ -90,11 +93,13 @@ def run_meta(args) -> Dict:
 def main(argv=None) -> TrainState:
     args = build_argparser().parse_args(argv)
     if args.workload == "toy":
-        check_train_args_ported(args)
         device = resolve_device(args.device)
+        mesh = data_mesh(args)
         ds = MovingShapesVideoDataset(T=args.T, n_samples=args.num_samples, seed=args.seed,
                                       latent_size=args.latent_size)
-        loader = iter(BatchLoader(ds, batch_size=args.batch, seed=args.seed))
+        # every rank draws the global batch and keeps its rows
+        loader = (shard_batch(b, mesh) for b in BatchLoader(ds, batch_size=args.batch,
+                                                            seed=args.seed))
         batch0, key = next(loader), "x"
     else:
         device, loader, batch0 = setup(args)

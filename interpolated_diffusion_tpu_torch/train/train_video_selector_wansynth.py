@@ -9,7 +9,7 @@ the selector is trained with a positive-weighted BCE on its per-frame
 logits, optionally conditioned on the level K / (T - 1), and every
 --eval_every steps reports the top-K overlap with the DP labels. AdamW
 behind a global-norm clip, no EMA. Runs on the GPU unless `--device cpu`;
-`--n_data_shards` is not ported and raises.
+`--n_data_shards N` runs data parallel under torchrun.
 """
 from __future__ import annotations
 

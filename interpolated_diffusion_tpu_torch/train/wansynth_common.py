@@ -13,8 +13,8 @@ splits the model into the trainable dict (LoRA leaves and the projector, f32
 masters) and the frozen base (compute dtype). LoRA takes either form
 (models/wan_dit.LoRALinear: runtime, or merged as models/lora.py merges);
 `split_lora_state_dict` / `join_lora_state_dict` / `merged_wan_params` are
-the partition and its join. The Switch-MoE FFN (--ffn_mode moe) is not
-ported.
+the partition and its join. `--ffn_mode moe` builds every block's FFN as the
+Switch-MoE FFN (models/moe.py, `--n_experts`, `--capacity_factor`).
 """
 from __future__ import annotations
 
@@ -29,6 +29,7 @@ from ..data.wan_synth import SyntheticWanDataset, WanSynthTarDataset
 from ..models.init import build_model
 from ..models.lora import apply_lora, init_lora, leaves_to_tree, tree_to_leaves
 from ..models.wan_dit import FrameCondProjector, WanDiT, set_compute_dtype
+from ..parallel.mesh import Mesh, shard_batch
 from ..utils.memguard import add_memguard_args
 
 _LORA_LEAVES = ("lora_A", "lora_B")
@@ -71,7 +72,7 @@ def add_wan_model_args(p: argparse.ArgumentParser) -> None:
                    help="runtime: y += (a/r)(x A)B inside each Linear, no merged "
                         "weight copy; merged: W' = W + a/r A B per call (the reference form)")
     p.add_argument("--ffn_mode", type=str, default="dense", choices=["dense", "moe"],
-                   help="moe (Switch top-1 expert FFN) is not ported")
+                   help="moe: Switch top-1 expert FFN in every block (models/moe.py)")
     p.add_argument("--n_experts", type=int, default=8)
     p.add_argument("--capacity_factor", type=float, default=1.25)
     p.add_argument("--use_remat", type=int, default=1,
@@ -89,10 +90,7 @@ def add_wan_model_args(p: argparse.ArgumentParser) -> None:
 
 
 def check_wan_args(args) -> None:
-    """Raise for the options whose code is not ported, naming what is missing."""
-    if str(getattr(args, "ffn_mode", "dense")) != "dense":
-        raise NotImplementedError("--ffn_mode moe: the Switch-MoE FFN (models/moe.py) is not "
-                                  "ported yet")
+    """Raise for options the Wan builders do not take."""
     if _lora_form(args) not in ("runtime", "merged"):
         raise ValueError(f"--lora_form {_lora_form(args)!r} not in ('runtime', 'merged')")
 
@@ -100,8 +98,8 @@ def check_wan_args(args) -> None:
 class _StatefulIter:
     """next()-able view of a BatchLoader that exposes its resume marker."""
 
-    def __init__(self, loader):
-        self._loader = loader
+    def __init__(self, loader, mesh: Optional[Mesh] = None):
+        self._loader, self._mesh = loader, mesh
         self._it = iter(loader)
 
     @property
@@ -112,22 +110,30 @@ class _StatefulIter:
         return self
 
     def __next__(self):
-        return next(self._it)
+        batch = next(self._it)
+        return shard_batch(batch, self._mesh) if self._mesh is not None else batch
 
 
-def make_wansynth_loader(args, seed: int, state: Optional[dict] = None):
+def make_wansynth_loader(args, seed: int, state: Optional[dict] = None,
+                         mesh: Optional[Mesh] = None):
     """The streaming batch loader; `state` (a previous loader's `.state`)
     resumes the data stream where a checkpoint left it. Both iterator kinds
     expose `.state` (JSON-able) for the checkpoint meta. With the device
     prefetcher in front, the marker can run ahead of the consumed position by
     the prefetch depth: resume then skips (never repeats) at most that many
-    batches."""
+    batches.
+
+    With a data-parallel `mesh` the loader yields this rank's rows: tar
+    shards are split over the processes (split_by_process) and each rank
+    reads --batch / n_data samples from its own; the synthetic data is the
+    same global batch on every rank, cut to the rank's rows."""
+    n_data = mesh.n_data if mesh is not None else 1
     if args.data == "tar":
         if not args.data_root:
             raise ValueError("--data_root required for --data tar")
         ds = WanSynthTarDataset(args.data_root, T=args.T, seed=seed,
                                 anchors_root=args.anchors_root)
-        return ds.batches(args.batch, state=state)
+        return ds.batches(args.batch // n_data, state=state)
     if getattr(args, "anchors_root", None):
         raise ValueError("--anchors_root joins are defined over tar shards; write the synthetic "
                          "data to tar shards first (data/wan_synth.write_tar_shard) and pass "
@@ -137,7 +143,7 @@ def make_wansynth_loader(args, seed: int, state: Optional[dict] = None):
                              H=args.latent_h, W=args.latent_w, text_len=args.text_len,
                              text_dim=args.text_dim, seed=seed)
     return _StatefulIter(BatchLoader(ds, batch_size=args.batch, seed=seed,
-                                     start_batch=int((state or {}).get("batches", 0))))
+                                     start_batch=int((state or {}).get("batches", 0))), mesh)
 
 
 # WanDiT head-modulation semantics version. "t_emb": the final layer's
@@ -175,7 +181,7 @@ def build_wan(args, bf16: bool = True, *, generator: torch.Generator,
     """(WanDiT, FrameCondProjector or None) from wansynth arguments
     (wan_dim, wan_layers, wan_heads, wan_ffn, latent_c, text_dim, attn_mode,
     sla_topk, sla_block, lora_rank, lora_alpha, lora_form, lora_targets,
-    ffn_mode, use_remat, remat_group, frame_cond, frame_cond_dim,
+    ffn_mode, n_experts, capacity_factor, use_remat, remat_group, frame_cond, frame_cond_dim,
     wan_pretrained), parameters drawn from `generator`.
 
     LoRA lives inside the model (LoRALinear) in either form; the merged
@@ -199,7 +205,9 @@ def build_wan(args, bf16: bool = True, *, generator: torch.Generator,
         sla_block=args.sla_block, lora_rank=int(args.lora_rank),
         lora_alpha=float(args.lora_alpha),
         lora_targets=str(getattr(args, "lora_targets", "attn,ffn")),
-        ffn_mode=str(getattr(args, "ffn_mode", "dense")), extra_context=frame_cond,
+        ffn_mode=str(getattr(args, "ffn_mode", "dense")),
+        n_experts=int(getattr(args, "n_experts", 8)),
+        capacity_factor=float(getattr(args, "capacity_factor", 1.25)), extra_context=frame_cond,
         use_remat=bool(getattr(args, "use_remat", 0)),
         remat_group=int(getattr(args, "remat_group", 1)), lora_form=_lora_form(args))
     if int(args.lora_rank) > 0 and _lora_form(args) == "merged":

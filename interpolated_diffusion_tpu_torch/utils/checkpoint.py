@@ -11,7 +11,8 @@ samplers and downstream trainers rebuild models from it.
 wrote (`params.msgpack` beside its `meta.json`, which has no "format" key):
 utils/jax_checkpoint.py decodes its trees and models/jax_import converts
 them to the port's state_dicts. Only params and EMA cross over; the optax
-optimizer state does not.
+optimizer state does not. The port's sharded checkpoints ("format":
+"torch_sharded", utils/checkpoint_sharded.py) load through the same call.
 """
 from __future__ import annotations
 
@@ -105,8 +106,12 @@ def load_checkpoint(path: str, map_location="cpu", with_opt_state: bool = True
         header = json.load(f)
     if header.get("format") == "orbax":
         raise NotImplementedError(
-            f"{path}: sharded (orbax) JAX checkpoints are not read; the sharded checkpoint "
-            "reader (utils/checkpoint_sharded.py) is not ported yet")
+            f"{path}: sharded (orbax) JAX checkpoints are not read (that needs orbax); the "
+            "port's own sharded format is utils/checkpoint_sharded.py")
+    if header.get("format") == "torch_sharded":
+        from .checkpoint_sharded import load_checkpoint_sharded
+
+        return load_checkpoint_sharded(path, map_location, with_opt_state)
     if header.get("format", "torch") != "torch":
         raise NotImplementedError(
             f"checkpoint format {header.get('format')!r} is not read here; convert the JAX "

@@ -307,8 +307,9 @@ def test_cli_flags_match_the_jax_cli(module, jax_module, required):
 
 def test_causal_cli_refuses_seq_shard_and_needs_a_gpu(tmp_path):
     base = ["--kp_ckpt", str(tmp_path), "--interp_ckpt", str(tmp_path)]
-    with pytest.raises(NotImplementedError, match="parallel/ring.py"):
-        generate_causal.main(base + ["--seq_shard", "2"])
+    # --seq_shard 2 needs two processes (torchrun): one process says so
+    with pytest.raises(ValueError, match="torchrun --nproc_per_node 2"):
+        generate_causal.main(base + ["--seq_shard", "2", "--device", "cpu"])
     if not torch.cuda.is_available():
         for module in (generate_causal, sample_keypoints):
             with pytest.raises(RuntimeError, match="no CUDA device"):

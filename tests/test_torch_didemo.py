@@ -247,7 +247,8 @@ def test_clis_flags_run_and_read_jax_checkpoints(cache, tmp_path, monkeypatch):
         want = params_to_state_dict(jax.tree_util.tree_map(np.asarray, ema), kind)
         assert model.state_dict().keys() == want.keys()
         assert all(torch.equal(p, want[k]) for k, p in model.state_dict().items())
-    with pytest.raises(NotImplementedError, match="n_data_shards"):
+    # data parallel: two shards need two processes (torchrun), never a silent shrink
+    with pytest.raises(ValueError, match="torchrun --nproc_per_node 2"):
         pkp.main(["--cache_dir", cache, "--device", "cpu", "--n_data_shards", "2"])
     with pytest.raises(ValueError, match="not a DiDeMo stage"):
         loading.load_didemo_model(out, "keypoints_wansynth", device="cpu")

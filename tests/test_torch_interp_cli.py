@@ -3,7 +3,8 @@ interpolator evaluation and full WanDiT fine-tuning under bf16, on the CPU.
 
 - Each of the five trainer CLIs runs tiny (`--device cpu`) and writes a
   checkpoint that the port's loader reads back into the trained weights;
-  each refuses `--n_data_shards` and, without a GPU, the default device.
+  each refuses `--n_data_shards 2` in one process (the error names torchrun)
+  and, without a GPU, the default device.
 - The teacher shards (lerp, and the JAX fixture runs/wansynth_debug/flow as
   a model teacher) equal the JAX package's precompute_teacher_shards on the
   same tar shards (lerp exactly, the model 1e-4 of the scale) and join back
@@ -119,7 +120,7 @@ def test_cli_trains_tiny_and_its_checkpoint_reads_back(tmp_path, capsys, name):
 def test_clis_refuse_what_is_not_ported(tmp_path):
     for name, (module, extra, _) in CLIS.items():
         argv = TINY + extra + ["--out_dir", str(tmp_path / name)]
-        with pytest.raises(NotImplementedError, match="n_data_shards"):
+        with pytest.raises(ValueError, match="torchrun --nproc_per_node 2"):
             module.main(argv + ["--device", "cpu", "--n_data_shards", "2"])
         if not torch.cuda.is_available():
             with pytest.raises(RuntimeError, match="CUDA"):

@@ -367,3 +367,28 @@ def test_a_wan_tree_with_other_leaves_raises():
         with pytest.raises(NotImplementedError, match="moe"):
             checkpoint_to_state_dict({"stage": stage, "use_wan": 1},
                                      {"moe": {"kernel": np.zeros((2, 2), np.float32)}})
+    # a WanDiT with Switch-MoE blocks (ffn_mode moe) is a tree it reads: the
+    # router and the stacked experts, loop and scan layouts alike
+    from interpolated_diffusion_tpu_torch.models import jax_import
+
+    r = np.random.default_rng(0)
+    moe = {"router": {"kernel": r.normal(size=(8, 2)).astype(np.float32),
+                      "bias": np.zeros(2, np.float32)},
+           "ffn_in": r.normal(size=(2, 8, 16)).astype(np.float32),
+           "ffn_in_bias": np.zeros((2, 16), np.float32),
+           "ffn_out": r.normal(size=(2, 16, 8)).astype(np.float32)}
+    attn = {n: {"kernel": np.zeros((8, 8), np.float32), "bias": np.zeros(8, np.float32)}
+            for n in ("q_proj", "k_proj", "v_proj", "o_proj")}
+    attn.update(q_norm={"scale": np.ones(8, np.float32)}, k_norm={"scale": np.ones(8, np.float32)})
+    block = {"scale_shift_table": np.zeros((1, 6, 8), np.float32), "self_attn": attn,
+             "cross_attn": attn, "norm2": {"scale": np.ones(8, np.float32),
+                                           "bias": np.zeros(8, np.float32)}, "moe_ffn": moe}
+    for tree in ({"block_0": block},
+                 {"blocks": {"block": jax.tree.map(lambda a: np.stack([a, a]), block)}}):
+        sd = {}
+        for i, blk in enumerate(jax_import._wan_blocks(tree)):
+            jax_import._wan_block(sd, f"blocks.{i}.", blk)
+        router = sd["blocks.0.moe_ffn.router.weight"].numpy()
+        assert np.array_equal(router, moe["router"]["kernel"].T)
+        assert np.array_equal(sd["blocks.0.moe_ffn.ffn_out"].numpy(), moe["ffn_out"])
+        assert not any(".ffn.net." in k for k in sd)

@@ -461,10 +461,12 @@ def test_stage2_selection_options_match_jax(case, sel_ckpts, tmp_path):
 # --- what is not ported raises ------------------------------------------------------
 
 @pytest.mark.parametrize("mod,flags,match", [
-    (ps1, ["--n_data_shards", "2"], "mesh"),
-    (ps2, ["--n_data_shards", "2"], "mesh")])
+    (ps1, ["--n_data_shards", "2"], "mesh 2x1 needs 2 processes.*torchrun --nproc_per_node 2"),
+    (ps2, ["--n_data_shards", "2"], "mesh 2x1 needs 2 processes.*torchrun --nproc_per_node 2")])
 def test_unported_flags_raise_naming_what_is_missing(mod, flags, match, tmp_path):
-    with pytest.raises(NotImplementedError, match=match):
+    """--n_data_shards is ported: more data shards than processes is an error
+    that names torchrun (one process per GPU), never a silent shrink."""
+    with pytest.raises(ValueError, match=match):
         mod.main(["--device", "cpu", "--out_dir", str(tmp_path)] + flags)
 
 

@@ -222,7 +222,7 @@ def test_trainer_clis_flags_run_and_read_back(tmp_path):
     model, meta = loading.load_video_interpolator(vi, device="cpu")
     assert meta["workload"] == "toy" and meta["data_dim"] == 48
     assert all(torch.equal(p, state.params[k]) for k, p in model.named_parameters())
-    with pytest.raises(NotImplementedError, match="n_data_shards"):
+    with pytest.raises(ValueError, match="torchrun --nproc_per_node 2"):
         pkp.main(TINY + ["--device", "cpu", "--n_data_shards", "2"])
 
 

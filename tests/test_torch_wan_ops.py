@@ -213,6 +213,17 @@ def test_wan_port_import_pulls_in_no_jax():
             "interpolated_diffusion_tpu_torch.train.train_video_interpolator, "
             "interpolated_diffusion_tpu_torch.train.train_video_interpolator_wansynth, "
             "interpolated_diffusion_tpu_torch.train.train_keypoints_didemo, "
+            "interpolated_diffusion_tpu_torch.parallel.multihost, "
+            "interpolated_diffusion_tpu_torch.parallel.mesh, "
+            "interpolated_diffusion_tpu_torch.parallel.collectives, "
+            "interpolated_diffusion_tpu_torch.parallel.ring, "
+            "interpolated_diffusion_tpu_torch.parallel.ring_sla, "
+            "interpolated_diffusion_tpu_torch.parallel.ep, "
+            "interpolated_diffusion_tpu_torch.parallel.tp, "
+            "interpolated_diffusion_tpu_torch.parallel.pp, "
+            "interpolated_diffusion_tpu_torch.models.moe, "
+            "interpolated_diffusion_tpu_torch.models.wan_pp, "
+            "interpolated_diffusion_tpu_torch.utils.checkpoint_sharded, "
             "interpolated_diffusion_tpu_torch.train.train_interp_levels_didemo, "
             "interpolated_diffusion_tpu_torch.sample.sample_toy_video; "
             "bad = [m for m in sys.modules if m in ('jax', 'flax', 'optax', 'msgpack') "

@@ -306,5 +306,5 @@ def test_clis_default_to_cuda_and_refuse_without_a_gpu(tmp_path):
         assert mod.build_argparser().parse_args(argv).device == "cuda"
         with pytest.raises(RuntimeError, match="no CUDA device"):
             mod.main(argv)
-    with pytest.raises(NotImplementedError, match="parallel/mesh.py"):
+    with pytest.raises(ValueError, match="torchrun --nproc_per_node 2"):
         p2.main(["--n_data_shards", "2", "--device", "cpu"])

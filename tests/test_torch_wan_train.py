@@ -230,9 +230,13 @@ def test_init_wan_trainables_partition():
     assert all(p.dtype == torch.float32 and p.requires_grad for p in leaves)   # f32 masters
     assert all(p.dtype == torch.bfloat16 and not p.requires_grad for p in base.values())
     assert wan.compute_dtype == fc.compute_dtype == torch.bfloat16 and wan.use_remat
-    bad = types.SimpleNamespace(**{**vars(args), "ffn_mode": "moe"})
-    with pytest.raises(NotImplementedError, match="ffn_mode"):
-        pcommon.build_wan(bad, bf16=True, generator=torch.Generator().manual_seed(0))
+    # ffn_mode moe: Switch-MoE blocks, no LoRA on the experts (as JAX), frozen in the base
+    moe = types.SimpleNamespace(**{**vars(args), "ffn_mode": "moe", "n_experts": 4,
+                                   "capacity_factor": 2.0})
+    wan, fc = pcommon.build_wan(moe, bf16=True, generator=torch.Generator().manual_seed(0))
+    trainable, base = pcommon.init_wan_trainables(moe, wan, fc, bf16=True)
+    assert wan.blocks[0].moe_ffn.ffn_in.shape == (4, 48, 96) and not hasattr(wan.blocks[0], "ffn")
+    assert len(trainable["lora"]) == 2 * 8 * 2 and "blocks.1.moe_ffn.ffn_out" in base
     # the merged LoRA form: the same leaves and partition, merged into the weights per call
     merged = types.SimpleNamespace(**{**vars(args), "lora_form": "merged"})
     wan, fc = pcommon.build_wan(merged, bf16=True, generator=torch.Generator().manual_seed(0))

@@ -198,12 +198,22 @@ def test_cli_trains_every_weight_under_bf16(tmp_path):
 
 
 def test_cli_refuses_what_is_not_ported(tmp_path):
+    """What the CLI took as not ported now runs: --ckpt_async 1 writes the
+    port's sharded checkpoint (read back by load_checkpoint), --ffn_mode moe
+    builds Switch-MoE blocks; --n_data_shards 2 in one process names torchrun."""
     base = TINY + ["--device", "cpu", "--out_dir", str(tmp_path / "x")]
-    for flags, what in ((["--ckpt_async", "1"], "ckpt_async"),
-                        (["--n_data_shards", "2"], "n_data_shards"),
-                        (["--ffn_mode", "moe"], "ffn_mode")):
-        with pytest.raises(NotImplementedError, match=what):
-            ptrainer.main(base + flags)
+    with pytest.raises(ValueError, match="torchrun --nproc_per_node 2"):
+        ptrainer.main(base + ["--n_data_shards", "2"])
+    state = ptrainer.main(base + ["--ckpt_async", "1", "--ffn_mode", "moe", "--n_experts", "2",
+                                  "--attn_mode", "dense", "--use_remat", "0", "--bf16", "0"])
+    ckpt = str(tmp_path / "x" / "ckpt_2")
+    header = json.load(open(os.path.join(ckpt, "meta.json")))
+    assert header["format"] == "torch_sharded" and header["meta"]["ffn_mode"] == "moe"
+    _, payload = load_checkpoint(ckpt)
+    saved = flatten_dict(payload["params"])
+    assert any(".moe_ffn.ffn_in" in k for k in saved)
+    for k, p in flatten_dict(state.params).items():
+        assert torch.equal(saved[k], p.detach())
     with pytest.raises(RuntimeError, match="CUDA"):
         if torch.cuda.is_available():
             raise RuntimeError("CUDA present: nothing to refuse")
