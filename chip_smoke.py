@@ -2,7 +2,7 @@
 """Drive the PyTorch/CUDA port's sampling paths and its trainers once on one GPU.
 
     python3 chip_smoke.py [--profile] [--kernels] [--gemm-ab] [--wan-phase2] [--wan-interp]
-                          [--video-toy] [--multi-device]
+                          [--video-toy] [--multi-device] [--diagnostics]
 
 Phases, each on its own lines; any failure exits non-zero:
   1. device       the card's name and power limit (nvidia-smi); CUDA required
@@ -213,6 +213,36 @@ Phases, each on its own lines; any failure exits non-zero:
                   dense ring attention, causal and not, vs plain attention;
                   the causal CLI with --seq_shard 2 vs --seq_shard 0 at bench
                   width (64 x 1, chunk 16, DDIM-10, block)
+  5j. d4rl and    last (`--diagnostics` alone, which prints its own JSON line
+      diagnostics and the ok line): the native tar reader built and used, its
+                  yields equal to tarfile's on the phase's shards; (A) the
+                  D4RL maze2d route at T 128: maze2d_synth episodes on
+                  maze2d-large-v1, d4rl windows with velocities (D 4), DP
+                  keypoints on the card; rows 1 and 2 at [256,128,384] H 12
+                  against their twins (times, bounds, library); the Stage-2
+                  trainer at bench width on that data under the JAX regression
+                  configuration (K_min 8, levels 8, geom, adj, dist
+                  corruption, pos_clip), block and fused: loss and every
+                  leaf's gradient kernel vs twin path, 1 + 3 timed steps, 12
+                  launches a step, then one Muon step through the trainer's
+                  step; Muon on the card vs the CPU (one update, 2 layers);
+                  Stage 1, Stage 2 and the selector CLIs (4 steps), the
+                  sampling CLI with --compare_oracle (256 x 2, 420 row-1
+                  launches a call); diagnose_stage2_model_error kernel vs twin
+                  path under block and fused (seeded head), the masks and both
+                  selector diagnostics; (B) the Wan evaluations: pred_sla,
+                  pred_sage_sla and pred_dense at 4 of 30 layers, full width,
+                  L 32760, kernel vs twin path (LUTs replayed; the self- and
+                  cross-attention outputs and the SLA kernels' own outputs
+                  apart, sage_sla against the int8 twin, its layer-0 output
+                  nearer that twin than the bf16 kernel's); the TPU
+                  registry's SLA block 512 at L 32760 and row 4 at that block
+                  against its twin; eval_wan_sla_gap at its defaults (30
+                  layers, 2 batches) under sla and sage_sla and
+                  eval_wan_fullseq_eps under sla, launches per run;
+                  diagnose_oracle_dp, and the latent straightness and Sinkhorn
+                  outlier diagnostics on a straightener and a Sinkhorn
+                  interpolator trained 2 steps by their CLIs
 Every timing phase also times the one PyTorch library call that computes the
 same function, where there is one (scaled_dot_product_attention, for SLA
 under the LUT as a mask; F.linear; or for the block a chain of them), as a
@@ -232,7 +262,8 @@ processes, two on a build that sends every product to the streaming kernel.
 --wan-interp the build and phase 5g alone. --video-toy runs the build and
 phase 5h alone, then a JSON line of its launches and times and the
 {"ok": true, ...} line; --multi-device the build, phase 3 and phase 5i, then
-its JSON line of launches and the ok line.
+its JSON line of launches and the ok line; --diagnostics the build and phase
+5j alone, then its JSON line of launches and times and the ok line.
 """
 from __future__ import annotations
 
@@ -537,7 +568,6 @@ def phase_kernels(dev):
                                                                      gemm_bias_act)
     from interpolated_diffusion_tpu_torch.kernels.small_mha import (_torch_attention, small_mha,
                                                                    small_mha_packed)
-    from interpolated_diffusion_tpu_torch.models.transformer import fused_group_b
 
     gen = torch.Generator(device=dev).manual_seed(0)
     D, H, F = BENCH["d_model"], BENCH["n_heads"], BENCH["d_ff"]
@@ -571,8 +601,7 @@ def phase_kernels(dev):
         for B, L, film in ((1024, 8, True), (1024, 64, True), (1, 8, True), (37, 64, True),
                            (37, 8, False), (1024, 4, True), (37, 3, True)):
             x, args = _block_inputs(B, L, D, H, F, film, gen, dev)
-            out = fused_film_block(x, *args, n_heads=H, group_b=fused_group_b(L),
-                                   use_film=film)
+            out = fused_film_block(x, *args, n_heads=H, use_film=film)
             ref = _torch_block(x, *args, n_heads=H, use_film=film)
             torch.cuda.synchronize()
             require(out.shape == ref.shape and out.dtype == torch.bfloat16,
@@ -592,7 +621,7 @@ def phase_kernels(dev):
         for B, L in ((1024, 64), (1024, 8)):
             qkv = torch.randn((B, L, 3 * D), generator=gen, device=dev).to(torch.bfloat16)
             q, k, v = qkv.split(D, dim=-1)   # strided views, as the model passes them
-            out = small_mha_packed(q, k, v, H, max(1, 512 // L))
+            out = small_mha_packed(q, k, v, H)
             ref = _torch_attention(q, k, v, H)
             torch.cuda.synchronize()
             require(bool(torch.isfinite(out).all()), "small_mha_packed: non-finite output")
@@ -4172,27 +4201,28 @@ def _video_rule(policy, L):
             "small_mha_packed": int(_use_fused_packed(policy, H, L, False)), "small_mha": 0}
 
 
-def _video_block_bound(B, L):
-    D, F = VTOY["d_model"], VTOY["d_ff"]
+def _video_block_bound(B, L, D=VTOY["d_model"], F=VTOY["d_ff"]):
     flops = B * L * (2 * D * 3 * D + 4 * L * D + 2 * D * D + 4 * D * F)
     return bound_ms(2 * (2 * B * L * D + 4 * B * D + 4 * D * D + 2 * D * F + 9 * D + F), flops)
 
 
-def _video_kernel_times(dev, card):
-    """Rows 1 and 2 at the slice's shapes against their twins (BLOCK_TOL /
-    ATTN_TOL), with times beside the twins', the library's and the bounds."""
+def _video_kernel_times(dev, card, dims=VTOY, block_shapes=VIDEO_BLOCK_SHAPES,
+                        packed_shapes=VIDEO_PACKED_SHAPES, tag="video"):
+    """Rows 1 and 2 at the slice's shapes (`dims`: d_model, n_heads, d_ff)
+    against their twins (BLOCK_TOL / ATTN_TOL), with times beside the twins',
+    the library's and the bounds."""
     import torch
     import torch.nn.functional as Fn
     from interpolated_diffusion_tpu_torch.kernels.fused_block import _torch_block, fused_film_block
     from interpolated_diffusion_tpu_torch.kernels.small_mha import (_torch_attention,
                                                                    small_mha_packed)
 
-    D, H, F = VTOY["d_model"], VTOY["n_heads"], VTOY["d_ff"]
+    D, H, F = dims["d_model"], dims["n_heads"], dims["d_ff"]
     gen = torch.Generator(device=dev).manual_seed(80)
     out = {"fused_film_block": {}, "small_mha_packed": {}}
     saved = fused_film_block.launches, small_mha_packed.launches
     with torch.inference_mode():
-        for B, L in VIDEO_BLOCK_SHAPES:
+        for B, L in block_shapes:
             x, args = _block_inputs(B, L, D, H, F, True, gen, dev)
             err = _errors(fused_film_block(x, *args, n_heads=H),
                           _torch_block(x, *args, n_heads=H, use_film=True))[1]
@@ -4200,18 +4230,18 @@ def _video_kernel_times(dev, card):
             k_ms = _time_ms(lambda: fused_film_block(x, *args, n_heads=H))
             p_ms = _time_ms(lambda: _torch_block(x, *args, n_heads=H, use_film=True), iters=5)
             lib_ms = _time_ms(lambda: _library_block(x, args, H, True))
-            bound = _video_block_bound(B, L)
+            bound = _video_block_bound(B, L, D, F)
             dev_ms = _graph_ms(lambda: fused_film_block(x, *args, n_heads=H), launches=20)
             lib_dev = _graph_ms(lambda: _library_block(x, args, H, True), launches=20)
             out["fused_film_block"][f"[{B},{L},{D}]"] = dict(
                 ms=k_ms, plain_ms=p_ms, library_ms=lib_ms, bound_ms=bound[0],
                 bound_by=bound[1], max_abs_err=err, device_ms=dev_ms, library_device_ms=lib_dev)
-            print(f"[video] [{card}] fused_film_block [{B},{L},{D}] H={H} F={F}: kernel "
+            print(f"[{tag}] [{card}] fused_film_block [{B},{L},{D}] H={H} F={F}: kernel "
                   f"{k_ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}), plain twin {p_ms:.4f} "
                   f"ms, library chain {lib_ms:.4f} ms; device time by graph replay "
                   f"{dev_ms:.4f} ms, library chain {lib_dev:.4f} ms; max|d|/max|twin| {err:.2e} "
                   f"(tol {BLOCK_TOL})", flush=True)
-        for B, L in VIDEO_PACKED_SHAPES:
+        for B, L in packed_shapes:
             q, k, v = (torch.randn((B, L, D), generator=gen, device=dev).to(torch.bfloat16)
                        for _ in range(3))
             err = _errors(small_mha_packed(q, k, v, H), _torch_attention(q, k, v, H))[1]
@@ -4228,7 +4258,7 @@ def _video_kernel_times(dev, card):
             out["small_mha_packed"][f"[{B},{L},{D}]"] = dict(
                 ms=k_ms, plain_ms=p_ms, library_ms=lib_ms, bound_ms=bound[0],
                 bound_by=bound[1], max_abs_err=err, device_ms=dev_ms, library_device_ms=lib_dev)
-            print(f"[video] [{card}] small_mha_packed [{B},{L},{D}] H={H}: kernel {k_ms:.4f} ms, "
+            print(f"[{tag}] [{card}] small_mha_packed [{B},{L},{D}] H={H}: kernel {k_ms:.4f} ms, "
                   f"bound {bound[0]:.4f} ms ({bound[1]}), plain twin {p_ms:.4f} ms, library "
                   f"(scaled_dot_product_attention) {lib_ms:.4f} ms; device time by graph "
                   f"replay {dev_ms:.4f} ms, library {lib_dev:.4f} ms; max|d|/max|twin| "
@@ -4237,15 +4267,15 @@ def _video_kernel_times(dev, card):
     return out
 
 
-def _video_gate(label, loss_of, leaves, names, per_layer, zero_ok=()):
+def _video_gate(label, loss_of, leaves, names, per_layer, zero_ok=(), n=VTOY["n_layers"],
+                tag="video"):
     """One loss + every leaf's gradient from the same weights, batch and
     draws on the kernel path and on the twin path (MAZE_LOSS_TOL /
-    MAZE_GRAD_TOL); the kernel path's launches and twin calls. Leaves named
-    in `zero_ok` may have a zero gradient (those that read the toy models'
-    zero condition vector)."""
+    MAZE_GRAD_TOL); the kernel path's launches and twin calls (per layer
+    `per_layer`, n layers). Leaves named in `zero_ok` may have a zero
+    gradient (those that read the toy models' zero condition vector)."""
     import torch
 
-    n = VTOY["n_layers"]
 
     def loss_and_grads():
         loss = loss_of()
@@ -4262,7 +4292,7 @@ def _video_gate(label, loss_of, leaves, names, per_layer, zero_ok=()):
     zero = [nm for nm, g in zip(names, grads_t)
             if nm not in zero_ok and not bool(g.abs().max() > 0)]
     want = {k: v * n for k, v in per_layer.items()}
-    print(f"[video] {label}: kernels vs plain twins, same weights / batch / draws: loss "
+    print(f"[{tag}] {label}: kernels vs plain twins, same weights / batch / draws: loss "
           f"{loss_k.item():.6f} vs {loss_t.item():.6f} (rel {rel_loss:.3e}, tol "
           f"{MAZE_LOSS_TOL}); worst gradient of {len(names)} leaves {worst[0]:.3e} at "
           f"{worst[1]} (tol {MAZE_GRAD_TOL}); launches {counts}", flush=True)
@@ -5209,6 +5239,603 @@ def phase_multi_device(dev, card, workdir, causal_ckpts=None):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 5j: the D4RL maze2d route at T = 128 and the diagnostics
+# ---------------------------------------------------------------------------
+
+# The D4RL route on maze2d-large-v1's layout (12 x 9 cells): synthetic
+# episodes (data/maze2d_synth.py), windowed at T = 128 with velocities (D = 4;
+# data/d4rl.py), DP keypoints for the selector (data/prepare_dp_keypoints.py);
+# the JAX regression test's Stage-2 configuration
+# (tests/test_d4rl_stage2_regression.py) at the trainers' bench width.
+D4RL = dict(env_id="maze2d-large-v1", T=128, maze_h=12, maze_w=9, episodes=300, samples=1024,
+            K=8, levels=8)
+D4RL_STAGE2 = ["--K_min", "8", "--levels", "8", "--k_schedule", "geom", "--mode", "adj",
+               "--mask_policy", "uniform", "--anchor_conf", "1", "--anchor_conf_anneal", "1",
+               "--w_anchor", "0.1", "--corrupt_mode", "dist", "--corrupt_sigma_max", "0.02",
+               "--corrupt_sigma_min", "0.003", "--corrupt_sigma_pow", "0.75",
+               "--corrupt_anchor_frac", "0.25", "--pos_clip", "1"]
+D4RL_STEPS = (1, 3)           # (warm-up, timed) Stage-2 steps through the trainer's own step
+D4RL_CLI_STEPS = 4
+D4RL_SAMPLE = (256, 2)        # --batch, --num_batches of the sampling CLI
+MUON_CARD_TOL = 1e-3          # Muon on the card vs the CPU, max|d| / max|cpu| of each leaf
+# The Wan evaluations: the kernel-vs-twin gate at 4 of 30 layers, the report
+# and its times at all 30 (eval_wan_sla_gap's defaults: T 21 of 16x60x104,
+# L = 32760, batch 1)
+DIAG_GATE_LAYERS, DIAG_WAN_BATCHES = 4, 2
+
+
+def _d4rl_flags(path, with_T=True):
+    """The data flags of the D4RL route (the sampler and the Stage-2
+    diagnostic take T from the checkpoint)."""
+    return ["--dataset", "prepared", "--prepared_path", path] + (
+        ["--T", str(D4RL["T"])] if with_T else []) + [
+        "--with_velocity", "1", "--maze_h", str(D4RL["maze_h"]), "--maze_w", str(D4RL["maze_w"])]
+
+
+def _d4rl_data(work):
+    """Episodes, the T = 128 windows and their DP keypoints through the CLIs."""
+    import numpy as np
+    from interpolated_diffusion_tpu_torch.data import d4rl, maze2d_synth, prepare_dp_keypoints
+
+    ep, prep, dp = (os.path.join(work, n) for n in ("ep.npz", "prep.npz", "dp.npz"))
+    t0 = time.perf_counter()
+    maze2d_synth.main(["--env_id", D4RL["env_id"], "--n_episodes", str(D4RL["episodes"]),
+                       "--out_path", ep])
+    t1 = time.perf_counter()
+    d4rl.main(["--episodes", ep, "--env_id", D4RL["env_id"], "--T", str(D4RL["T"]),
+               "--with_velocity", "1", "--num_samples", str(D4RL["samples"]), "--out_path", prep])
+    t2 = time.perf_counter()
+    prepare_dp_keypoints.main(_d4rl_flags(prep)[2:] + [
+        "--K", str(D4RL["K"]), "--levels", str(D4RL["levels"]), "--k_schedule", "geom",
+        "--store_kp_mask_levels", "1", "--out_path", dp, "--device", "cuda"])
+    t3 = time.perf_counter()
+    with np.load(dp) as f:
+        shapes = {k: f[k].shape for k in f.files}
+    T = D4RL["T"]
+    require(shapes["x"][1:] == (T, 4) and shapes["occ"][1:] == (1, D4RL["maze_h"], D4RL["maze_w"])
+            and shapes["kp_mask_levels"][1:] == (D4RL["levels"] + 1, T)
+            and shapes["kp_idx"][1:] == (D4RL["K"],), f"D4RL prepared arrays {shapes}")
+    print(f"[d4rl] {D4RL['env_id']}: {D4RL['episodes']} synthetic episodes {t1 - t0:.1f} s, "
+          f"{shapes['x'][0]} windows of T {T} (D 4) {t2 - t1:.1f} s, DP keypoints (K 8, 8 geom "
+          f"levels) on the card {t3 - t2:.1f} s; arrays {shapes}", flush=True)
+    return dp
+
+
+def _d4rl_stage2(dev, card, data, work):
+    """The Stage-2 trainer at bench width on the D4RL data under block (row 1
+    at [256,128,384]) and fused (row 2 at [256,128,384] H 12): the gate, timed
+    steps through the trainer's own step, then one Muon step. Returns
+    (launches per step, s/step per policy, the block model's checkpoint)."""
+    import numpy as np
+    import torch
+    from interpolated_diffusion_tpu_torch.train import state as tstate
+    from interpolated_diffusion_tpu_torch.train import train_interp_levels as ps2
+    from interpolated_diffusion_tpu_torch.train.common import make_dataset, make_loader, to_device
+    from interpolated_diffusion_tpu_torch.utils.checkpoint import save_checkpoint
+
+    n = BENCH["n_layers"]
+    out, s_per_step, ckpt = {}, {}, None
+    for policy in ("block", "fused"):
+        args = ps2.build_argparser().parse_args(_d4rl_flags(data) + D4RL_STAGE2 + [
+            "--attn_policy", policy, "--seed", "91"])
+        require((args.d_model, args.n_layers, args.n_heads, args.batch, args.bf16) ==
+                (384, n, 12, 256, 1), "Stage-2 trainer defaults changed")
+        args.steps_per_call = 1
+        ds, D = make_dataset(args)
+        require(D == 4, f"D4RL data_dim {D}")
+        loader = iter(make_loader(ds, args))
+        model = ps2.build_model(args, D, dev)
+        _nonzero_head(model)
+        state, train_step, _ = ps2.make_trainer(args, dev, D, model)
+        names, leaves = list(state.params), list(state.params.values())
+        host_rng = np.random.RandomState(1)
+        batch = to_device(ps2.host_batch(args, next(loader), 0, host_rng), dev)
+        loss_fn = ps2.make_loss_fn(model, args)
+        per_layer = {"fused_film_block": int(policy == "block"),
+                     "small_mha_packed": int(policy == "fused"), "small_mha": 0}
+        _video_gate(f"Stage 2 T 128 policy {policy} loss + gradients",
+                    lambda: loss_fn(None, batch, torch.Generator(device=dev).manual_seed(92))[0],
+                    leaves, names, per_layer, n=n, tag="d4rl")
+        warm, timed = D4RL_STEPS
+        rng = torch.Generator(device=dev).manual_seed(93)
+        before = [p.detach().clone() for p in leaves]
+        _set_maze_counts(dict.fromkeys(per_layer, 0))
+        step_s = []
+        with count_maze_twin_calls() as calls:
+            for i in range(warm + timed):
+                nxt = ps2.host_batch(args, next(loader), i + 1, host_rng)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, metrics = train_step(state, batch, rng)
+                loss = float(metrics["loss"])
+                torch.cuda.synchronize()
+                step_s.append(time.perf_counter() - t0)
+                require(np.isfinite(loss), f"Stage 2 {policy} step {i}: loss {loss}")
+                batch = to_device(nxt, dev)
+        counts = _maze_counts()
+        want = {k: v * n * (warm + timed) for k, v in per_layer.items()}
+        require(counts == want and calls["forward"] == 0
+                and calls["backward"] == n * (warm + timed),
+                f"Stage 2 {policy}: launches {counts}, twin calls {dict(calls)}; expected {want}")
+        require(all(not torch.equal(a, b) for a, b in zip(before, leaves)),
+                f"Stage 2 {policy}: a parameter did not move")
+        s_per_step[policy] = sum(step_s[warm:]) / timed
+        out[policy] = {k: v // (warm + timed) for k, v in counts.items() if v}
+        print(f"[d4rl] [{card}] Stage 2 T 128 D 4 policy {policy}, batch 256: "
+              f"{s_per_step[policy]:.4f} s/step over {timed} steps after {warm} warm-up "
+              f"(first {step_s[0]:.3f} s), launches per step {out[policy]}, no forward twin "
+              f"call", flush=True)
+        if policy == "block":   # the seeded head and these steps: a non-identity Stage 2
+            ckpt = os.path.join(work, "stage2_gate", f"ckpt_{warm + timed}")
+            save_checkpoint(ckpt, {k: v.detach() for k, v in state.params.items()}, None,
+                            warm + timed, None, ps2.make_meta(args, D))
+        else:                   # the same step once under Muon, through the trainer's step
+            mstate, mstep, _ = ps2.make_trainer(args, dev, D, model, optimizer="muon")
+            require(isinstance(mstate.opt_state, tstate.Muon)
+                    and set(mstate.opt_state.labels.values()) == {"muon", "adam"},
+                    "Muon: the optimizer or its labels")
+            before = [p.detach().clone() for p in leaves]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mstate, metrics = mstep(mstate, batch, rng)
+            loss = float(metrics["loss"])
+            torch.cuda.synchronize()
+            moved = sum(not torch.equal(a, b) for a, b in zip(before, leaves))
+            labels = list(mstate.opt_state.labels.values())
+            require(np.isfinite(loss) and moved == len(leaves) and mstate.opt_state.count == 1,
+                    f"Muon step: loss {loss}, {moved} of {len(leaves)} leaves moved")
+            print(f"[d4rl] [{card}] Stage 2 fused, one Muon step through the trainer's step: "
+                  f"loss {loss:.5f}, {time.perf_counter() - t0:.3f} s (first call), "
+                  f"{labels.count('muon')} Muon leaves and {labels.count('adam')} NAdamW "
+                  f"leaves, every leaf moved", flush=True)
+    return out, s_per_step, ckpt
+
+
+def _muon_card_vs_cpu(dev, data):
+    """One Muon update of a 2-layer Stage-2 model at full width on the card
+    and on the CPU, same parameters and (seeded) gradients, TF32 off."""
+    import copy
+
+    import numpy as np
+    import torch
+    from interpolated_diffusion_tpu_torch.train import state as tstate
+    from interpolated_diffusion_tpu_torch.train import train_interp_levels as ps2
+    from interpolated_diffusion_tpu_torch.train.common import model_params
+
+    args = ps2.build_argparser().parse_args(_d4rl_flags(data) + D4RL_STAGE2 + [
+        "--n_layers", "2", "--seed", "94"])
+    cpu = ps2.build_model(args, 4, torch.device("cpu"))
+    card = copy.deepcopy(cpu).to(dev)
+    tx = tstate.make_optimizer(args.lr, args.weight_decay, args.grad_clip, optimizer="muon")
+    p_cpu, p_card = model_params(cpu), model_params(card)
+    o_cpu, o_card = tx(p_cpu), tx(p_card)
+    r = np.random.default_rng(95)
+    grads = [torch.from_numpy((0.3 * r.normal(size=tuple(p.shape))).astype(np.float32))
+             for p in p_cpu.values()]
+    o_cpu.update(grads)
+    o_card.update([g.to(dev) for g in grads])
+    worst = max((_errors(p_card[k].detach().cpu(), p_cpu[k].detach())[1], k) for k in p_cpu)
+    print(f"[d4rl] Muon, one update of a 2-layer Stage-2 model at full width: card vs CPU "
+          f"max|d|/max|cpu| {worst[0]:.2e} at {worst[1]} (tol {MUON_CARD_TOL}; TF32 off)",
+          flush=True)
+    require(worst[0] <= MUON_CARD_TOL, f"Muon card vs CPU: {worst}")
+    return worst[0]
+
+
+def _d4rl_clis(dev, card, data, work):
+    """Stage 1, Stage 2 and the selector through their CLIs, then the
+    sampling CLI with --compare_oracle on their checkpoints."""
+    import numpy as np
+    from interpolated_diffusion_tpu_torch.sample import generate
+    from interpolated_diffusion_tpu_torch.train import (train_interp_levels, train_keypoint_selector,
+                                                        train_keypoints)
+
+    n, steps = BENCH["n_layers"], D4RL_CLI_STEPS
+    common = _d4rl_flags(data) + ["--steps", str(steps), "--save_every", str(steps),
+                                  "--log_every", "1", "--steps_per_call", "1"]
+    dirs = {k: os.path.join(work, k) for k in ("kp", "il", "sel")}
+    runs = (("Stage 1", train_keypoints.main, ["--K", "8", "--attn_policy", "block"], "kp"),
+            ("Stage 2", train_interp_levels.main, D4RL_STAGE2 + ["--attn_policy", "block"], "il"),
+            ("selector", train_keypoint_selector.main,
+             ["--K", "8", "--levels", "8", "--k_schedule", "geom"], "sel"))
+    out = {}
+    for label, main_fn, flags, key in runs:
+        _, counts, calls, log, secs, peak = _cli_run(
+            main_fn, common + flags + ["--out_dir", dirs[key]], maze=True)
+        losses = [float(x) for x in __import__("re").findall(r"step \d+ loss (\S+)", log)]
+        per_step = n if key != "sel" else 0
+        want = {"fused_film_block": per_step * steps, "small_mha_packed": 0, "small_mha": 0}
+        require(len(losses) == steps and all(np.isfinite(losses)) and counts == want
+                and calls["forward"] == 0, f"{label} CLI: losses {losses}, launches {counts}, "
+                f"twin calls {calls}")
+        out[label] = _s_per_step(log)
+        print(f"[d4rl] [{card}] {label} CLI on the D4RL data, {steps} steps: {out[label]:.4f} "
+              f"s/step (mean with the first), peak {peak:.2f} GiB, row-1 launches per step "
+              f"{counts['fused_film_block'] // steps}, {secs:.1f} s", flush=True)
+    B, nb = D4RL_SAMPLE
+    summary, counts, calls, log, secs, peak = _cli_run(generate.main, [
+        "--kp_ckpt", dirs["kp"], "--interp_ckpt", dirs["il"]] + _d4rl_flags(data, False) + [
+        "--batch", str(B), "--num_batches", str(nb), "--time_spacing", "linear",
+        "--compare_oracle", "1", "--attn_policy", "block", "--out_dir",
+        os.path.join(work, "samples")], maze=True)
+    per_call = _stage1_evals("ddim", 20) * n + 2 * D4RL["levels"] * n   # Stage 1, Stage 2 twice
+    require(counts["fused_film_block"] == per_call * nb and calls["forward"] == 0,
+            f"D4RL sampling CLI: launches {counts}, twin calls {calls}; expected {per_call} a call")
+    keys = ("samples_per_sec", "refined_collision_rate", "interp_collision_rate",
+            "oracle_refined_collision_rate", "oracle_interp_collision_rate")
+    require(all(k in summary and np.isfinite(summary[k]) for k in keys),
+            f"D4RL sampling CLI summary: {sorted(summary)}")
+    out["sample"] = {k: summary[k] for k in keys}
+    print(f"[d4rl] [{card}] sample.generate --compare_oracle 1, {nb} x {B} at T 128: "
+          f"{summary['samples_per_sec']:.1f} samples/s, collision refined "
+          f"{summary['refined_collision_rate']:.4f} / interp "
+          f"{summary['interp_collision_rate']:.4f}, oracle refined "
+          f"{summary['oracle_refined_collision_rate']:.4f} / interp "
+          f"{summary['oracle_interp_collision_rate']:.4f}; {per_call} row-1 launches a call "
+          f"({secs:.1f} s)", flush=True)
+    return out, dirs, per_call
+
+
+def _maze_diagnostics(dev, card, data, gate_ckpt, sel_dir):
+    """The maze diagnostics on the D4RL data and checkpoints; the per-level
+    Stage-2 errors on the kernel path against the twin path."""
+    import numpy as np
+    from interpolated_diffusion_tpu_torch.diagnostics import (diagnose_selector,
+                                                              diagnose_selector_per_maze,
+                                                              diagnose_stage2_masks,
+                                                              diagnose_stage2_model_error)
+
+    n, levels = BENCH["n_layers"], D4RL["levels"]
+    launches = {}
+    for policy in ("block", "fused"):
+        argv = ["--interp_ckpt", gate_ckpt, "--bf16", "1", "--attn_policy", policy, "--batch",
+                "64", "--num_batches", "2", "--seed", "96"] + _d4rl_flags(data, False)
+        report, counts, calls, _, secs, _ = _cli_run(diagnose_stage2_model_error.main, argv,
+                                                     maze=True)
+        with plain_twins():
+            twin = diagnose_stage2_model_error.main(argv)
+        row = "fused_film_block" if policy == "block" else "small_mha_packed"
+        want = dict(counts, **{row: levels * 2 * n})
+        require(counts == want and calls["total"] == 0,
+                f"diagnose_stage2_model_error {policy}: launches {counts}, twin calls {calls}")
+        errs = [abs(report[k]["model_mse"] - twin[k]["model_mse"]) / twin[k]["model_mse"]
+                for k in twin]
+        require(max(errs) <= PIPE_TOL and all(report[k]["model_mse"] > 0 for k in report),
+                f"diagnose_stage2_model_error {policy}: per-level errors {errs}")
+        launches[row] = counts[row]
+        print(f"[d4rl] [{card}] diagnose_stage2_model_error policy {policy}: {levels} levels x 2 "
+              f"batches of 64 ({secs:.1f} s), {counts[row]} {row} launches ({n} a forward); "
+              f"per-level model MSE kernel vs twin path worst rel {max(errs):.2e} (tol "
+              f"{PIPE_TOL}); improvement by level "
+              f"{[round(report[k]['improvement'], 4) for k in report]}", flush=True)
+    masks = diagnose_stage2_masks.main(["--T", str(D4RL["T"]), "--K_min", "8", "--levels",
+                                        str(levels), "--k_schedule", "geom", "--batch", "512"])
+    require(all(masks[p]["nestedness_violations"] == 0 for p in ("random_nested", "uniform_base")),
+            "diagnose_stage2_masks: nestedness violations")
+    sel = diagnose_selector.main(["--ckpt", sel_dir, "--prepared_path", data, "--batch", "512"])
+    per_maze = diagnose_selector_per_maze.main(["--ckpt", sel_dir, "--eval_npz", data])
+    require(np.isfinite(sel["mae"]) and per_maze is not None and len(per_maze) == 1,
+            f"selector diagnostics: {sel}, {per_maze}")
+    print(f"[d4rl] diagnose_stage2_masks (T 128, 8 geom levels, 512 rows): no nestedness "
+          f"violation; diagnose_selector mae {sel['mae']:.2f} overlap {sel['overlap']:.3f}; "
+          f"per maze: {len(per_maze)} maze (one layout)", flush=True)
+    return launches
+
+
+def _wan_eval_gate(dev, card):
+    """pred_sla, pred_sage_sla and pred_dense of the Wan evaluation at 4 of
+    30 layers, full width, L = 32760: the kernel path against the twin path
+    (the SLA LUTs replayed), launches per forward, no twin call. The eps
+    prediction carries the noised input through the head, so the gate also
+    holds every attention module's output, what the kernels move: the
+    self-attention outputs (rows 4 / 8 under sla / sage_sla, each against its
+    own twin, the int8 one for sage_sla), the SLA kernels' own outputs and
+    the cross-attention outputs (row 6) apart, all at ATTN_TOL; at layer 0
+    the int8 kernel's output must lie nearer its int8 twin than the bf16
+    kernel's output (it quantised); the sparse-vs-dense distance of the first layer's
+    self-attention is printed beside it as the scale a wrong kernel would
+    show at."""
+    import argparse as ap
+
+    import numpy as np
+    import torch
+    from interpolated_diffusion_tpu_torch.diagnostics import eval_wan_sla_gap as gap
+    from interpolated_diffusion_tpu_torch.ops.schedules import make_schedule
+    from interpolated_diffusion_tpu_torch.train.wansynth_common import make_wansynth_loader
+
+    args = gap.build_argparser().parse_args(["--wan_layers", str(DIAG_GATE_LAYERS)])
+    dense_args = ap.Namespace(**dict(vars(args), attn_mode="dense"))
+    gen = torch.Generator(device=dev).manual_seed(97)
+    sparse, dense = gap.build_eval_wan(args, dev, gen), gap.build_eval_wan(dense_args, dev, gen)
+    require(gap.copy_intersecting(sparse, dense)[0] == len(dict(dense.named_parameters())),
+            "copy_intersecting: the dense model has leaves the SLA model lacks")
+    batch = next(make_wansynth_loader(args, 0))
+    lat = torch.as_tensor(np.asarray(batch["latents"])).to(dev)
+    text = torch.as_tensor(np.asarray(batch["text_embed"])).to(dev).float()
+    sched = make_schedule(args.schedule, args.N_train, device=dev)
+    t = torch.randint(0, args.N_train, (lat.shape[0],), generator=gen, device=dev)
+    eps = torch.randn(lat.shape, generator=gen, device=dev)
+    L = lat.shape[1] * (lat.shape[3] // 2) * (lat.shape[4] // 2)
+    nl = DIAG_GATE_LAYERS
+
+    def forward(model):
+        """(eps prediction, every attention module's output in call order,
+        the SLA kernels' outputs: the self-attention's sparse branch)."""
+        outs, raw = [], []
+        keep = lambda into: lambda mod, a, out: into.append(out.float())
+        hooks = [m.register_forward_hook(keep(outs))
+                 for blk in model.blocks for m in (blk.attn1, blk.attn2)]
+        hooks += [blk.attn1.sla.register_forward_hook(keep(raw))
+                  for blk in model.blocks if blk.attn1.sla is not None]
+        try:
+            return gap.predict_eps(model, sched, lat, text, t, eps), outs, raw
+        finally:
+            for h in hooks:
+                h.remove()
+
+    errs, first_self, first_raw = {}, {}, {}
+    for mode, model, want in (("dense", dense, (0, 0, 2 * nl)), ("sla", sparse, (nl, 0, nl)),
+                              ("sage_sla", sparse, (0, nl, nl))):
+        if mode != "dense":
+            model.set_attn_mode(mode)
+        luts = []
+        _set_train_counts((0,) * len(TRAIN_KERNELS))
+        with count_twin_calls() as twin_calls, sla_luts(luts):
+            pred_k, attn_k, raw_k = forward(model)
+        counts = _wan_counts()
+        with wan_plain_twins(), sla_luts(luts, replay=True) as stats:
+            pred_t, attn_t, raw_t = forward(model)
+        # attn1 (self) and attn2 (cross) alternate: under sla / sage_sla the
+        # self-attention outputs are rows 4 / 8 against their own twins (the
+        # int8 twin for sage_sla) through to_out, the cross-attention outputs
+        # row 6; `raw` holds rows 4 / 8's own outputs
+        err = _errors(pred_k, pred_t)[1]
+        err_self, err_cross = (max(_errors(a, b)[1] for a, b in zip(attn_k[i::2], attn_t[i::2]))
+                               for i in (0, 1))
+        err_raw = max((_errors(a, b)[1] for a, b in zip(raw_k, raw_t)), default=0.0)
+        first_self[mode] = attn_k[0]
+        moved = _errors(attn_k[0], first_self["dense"])[1] if mode != "dense" else None
+        errs[mode] = dict(pred=err, self_attention=err_self, cross_attention=err_cross,
+                          sla_kernel=err_raw, first_self_vs_dense=moved)
+        require(tuple(counts) == want and twin_calls[0] == 0 and len(attn_k) == 2 * nl
+                and len(raw_k) == (0 if mode == "dense" else nl),
+                f"eval gate {mode}: launches {counts} (want {want}), twin calls {twin_calls[0]}")
+        require(bool(torch.isfinite(pred_k).all())
+                and max(err, err_self, err_cross, err_raw) <= ATTN_TOL,
+                f"eval gate {mode}: kernel vs twin pred {err:.3e}, self-attention outputs "
+                f"{err_self:.3e}, cross-attention outputs {err_cross:.3e}, SLA kernel outputs "
+                f"{err_raw:.3e} (tol {ATTN_TOL})")
+        quant = ""
+        if mode != "dense":
+            first_raw[mode] = (raw_k[0], raw_t[0])
+        if mode == "sage_sla":
+            # layer 0 sees the same input in both modes: the int8 kernel's
+            # output must lie nearer its int8 twin than the bf16 kernel's
+            # output, or it did not quantise
+            to_twin = _errors(raw_k[0], raw_t[0])[1]
+            to_bf16 = _errors(raw_k[0], first_raw["sla"][0])[1]
+            errs[mode].update(layer0_to_int8_twin=to_twin, layer0_to_bf16_kernel=to_bf16)
+            require(to_twin < to_bf16, f"eval gate sage_sla: layer-0 int8 kernel output "
+                                       f"{to_twin:.3e} from its int8 twin, {to_bf16:.3e} from "
+                                       f"the bf16 kernel's: not quantised")
+            quant = (f"; layer-0 int8 kernel output {to_twin:.2e} from its int8 twin, "
+                     f"{to_bf16:.2e} from the bf16 kernel's")
+        print(f"[diag] [{card}] eval_wan_sla_gap pred_{mode} at {nl} of 30 layers, full width, "
+              f"L {L}: kernel vs twin path max|d|/max|twin| {err:.2e} on the eps prediction, "
+              f"worst {err_self:.2e} over the {nl} self-attention outputs, {err_cross:.2e} "
+              f"over the {nl} cross-attention outputs" +
+              (f", {err_raw:.2e} over the {nl} SLA kernel outputs" if raw_k else "") +
+              f" (tol {ATTN_TOL}; twin {'int8 SLA' if mode == 'sage_sla' else 'bf16'}; LUTs "
+              f"replayed: {stats[0]} calls)" + quant +
+              (f"; layer-0 self-attention {mode} vs dense {moved:.2e}" if moved else "") +
+              f"; launches {dict(zip(WAN_KERNELS, counts))}, no twin call", flush=True)
+    del sparse, dense, first_self, first_raw
+    torch.cuda.empty_cache()
+    return errs
+
+
+def _wan_registry_block(dev, card):
+    """Under ID_TPU_ATTN_TUNE=docs/attn_autotune.json (the TPU's registry) the
+    SLA attention at L = 32760 takes block 512; row 4 at that block against
+    its twin, with its time."""
+    import torch
+    from interpolated_diffusion_tpu_torch.kernels import block_sparse_attention as bsa
+    from interpolated_diffusion_tpu_torch.kernels import tuning
+    from interpolated_diffusion_tpu_torch.kernels.sla import get_block_map
+    from interpolated_diffusion_tpu_torch.models.wan_dit import WanAttention
+
+    BH, L = WAN_33K
+    saved = os.environ.get("ID_TPU_ATTN_TUNE")
+    os.environ["ID_TPU_ATTN_TUNE"] = os.path.join(ROOT, "docs", "attn_autotune.json")
+    tuning._load.cache_clear()
+    try:
+        blk = tuning.sla_blocks(256, "none", L=L)
+        require(blk == 512 and tuning.sla_blocks(256, "int8", L=L) == 512,
+                f"registry SLA block at L {L}: {blk}")
+        attn = WanAttention(1536, 12, "sla", sla_topk=0.1, sla_block=256).to(dev)
+        luts = []
+        with torch.no_grad(), sla_luts(luts):
+            attn(torch.randn(1, L, 1536, device=dev))
+        require(len(luts) == 1 and luts[0].shape[1] == -(-L // 512),
+                f"WanAttention under the registry: LUT {[tuple(x.shape) for x in luts]}")
+    finally:
+        if saved is None:
+            os.environ.pop("ID_TPU_ATTN_TUNE")
+        else:
+            os.environ["ID_TPU_ATTN_TUNE"] = saved
+        tuning._load.cache_clear()
+    gen = torch.Generator(device=dev).manual_seed(98)
+    q, k, v = (torch.randn((BH, L, 128), generator=gen, device=dev).to(torch.bfloat16)
+               for _ in range(3))
+    with torch.no_grad():
+        _, lut, _ = get_block_map(q, k, 0.1, 512, 512)
+        saved_n = bsa.block_sparse_attention.launches
+        out = bsa.block_sparse_attention(q, k, v, lut, 512, 512)
+        err = _errors(out, bsa.block_sparse_attention_twin(q, k, v, lut, 512, 512))[1]
+        ms = _time_ms(lambda: bsa.block_sparse_attention(q, k, v, lut, 512, 512), iters=10)
+        bsa.block_sparse_attention.launches = saved_n
+    require(err <= ATTN_TOL, f"row 4 at block 512: {err:.3e} from its twin")
+    print(f"[diag] [{card}] ID_TPU_ATTN_TUNE=docs/attn_autotune.json: WanAttention at L {L} "
+          f"takes SLA block 512 (LUT {tuple(luts[0].shape)}); row 4 at [{BH},{L},128] block "
+          f"512 top-k {lut.shape[-1]}: {ms:.4f} ms, max|d|/max|twin| {err:.2e} (tol "
+          f"{ATTN_TOL})", flush=True)
+    return {"ms": ms, "max_abs_err": err, "shape": [BH, L, 128], "block": 512}
+
+
+def _wan_evals(dev, card):
+    """eval_wan_sla_gap at its defaults (30 layers, L = 32760, batch 1, 2
+    batches) under sla and sage_sla, eval_wan_fullseq_eps under sla."""
+    import numpy as np
+    from interpolated_diffusion_tpu_torch.diagnostics import eval_wan_fullseq_eps, eval_wan_sla_gap
+
+    nb, n = DIAG_WAN_BATCHES, TRAIN_LAYERS
+    out, launches = {}, {}
+    for mode in ("sla", "sage_sla"):
+        report, counts, twin, _, secs, peak = _cli_run(eval_wan_sla_gap.main, [
+            "--attn_mode", mode, "--max_batches", str(nb)])
+        row = "block_sparse_attention" if mode == "sla" else "int8_block_sparse_attention"
+        want = dict.fromkeys(TRAIN_KERNELS, 0)
+        want.update({row: n * nb, "flash_attention": 3 * n * nb})   # sparse: cross; dense: both
+        require(counts == want and twin == 0, f"eval_wan_sla_gap {mode}: launches {counts}, "
+                f"twin calls {twin}; expected {want}")
+        require(all(np.isfinite(report[k]) for k in ("mse_dense_eps", f"mse_{mode}_eps",
+                                                     "mse_sla_vs_dense", "mse_ratio")),
+                f"eval_wan_sla_gap {mode}: {report}")
+        out[mode] = dict(mse_sla_vs_dense=report["mse_sla_vs_dense"],
+                         mse_ratio=report["mse_ratio"], s_per_batch=report["elapsed_s"] / nb,
+                         peak_gib=peak)
+        launches[mode] = {k: v for k, v in counts.items() if v}
+        print(f"[diag] [{card}] eval_wan_sla_gap {mode} (30 layers, L 32760, {nb} batches of 1): "
+              f"mse_sla_vs_dense {report['mse_sla_vs_dense']:.6f}, mse_ratio "
+              f"{report['mse_ratio']:.6f}, {report['elapsed_s'] / nb:.3f} s per batch (both "
+              f"models), peak {peak:.2f} GiB, launches {launches[mode]}, no twin call "
+              f"({secs:.1f} s with the build)", flush=True)
+    ema, counts, twin, log, secs, peak = _cli_run(eval_wan_fullseq_eps.main, [
+        "--attn_mode", "sla", "--max_batches", str(nb)])
+    want = dict.fromkeys(TRAIN_KERNELS, 0)
+    want.update({"block_sparse_attention": n * nb, "flash_attention": n * nb})
+    require(counts == want and twin == 0 and np.isfinite(ema),
+            f"eval_wan_fullseq_eps: launches {counts}, twin calls {twin}, ema {ema}")
+    sps = float(__import__("re").findall(r"\| ([0-9.]+) samples/s", log)[-1])
+    out["fullseq_sla"] = dict(mse_eps_ema=ema, samples_per_sec=sps, peak_gib=peak)
+    launches["fullseq_sla"] = {k: v for k, v in counts.items() if v}
+    print(f"[diag] [{card}] eval_wan_fullseq_eps sla (30 layers, L 32760, {nb} batches): "
+          f"mse_eps_ema {ema:.5f}, {sps:.3f} samples/s, launches {launches['fullseq_sla']}, "
+          f"peak {peak:.2f} GiB ({secs:.1f} s)", flush=True)
+    return out, launches
+
+
+def _latent_diagnostics(dev, card, work):
+    """diagnose_oracle_dp on SyntheticWanDataset; a straightener and a
+    Sinkhorn interpolator trained 2 steps by their CLIs, then
+    diagnose_latent_straightness and diagnose_sinkhorn_outliers with them."""
+    import numpy as np
+    from interpolated_diffusion_tpu_torch.diagnostics import (diagnose_latent_straightness,
+                                                              diagnose_oracle_dp,
+                                                              diagnose_sinkhorn_outliers)
+    from interpolated_diffusion_tpu_torch.train import (train_latent_straightener_wansynth,
+                                                        train_sinkhorn_interp_wansynth)
+
+    t0 = time.perf_counter()
+    dp = diagnose_oracle_dp.main([])
+    require(np.isfinite(dp["index_entropy"]) and dp["unique_index_positions"] >= 5,
+            f"diagnose_oracle_dp: {dp}")
+    t1 = time.perf_counter()
+    st, sk = os.path.join(work, "straightener"), os.path.join(work, "sinkhorn")
+    common = ["--steps", "2", "--save_every", "2", "--log_every", "1", "--num_samples", "16"]
+    train_latent_straightener_wansynth.main(common + ["--out_dir", st])
+    train_sinkhorn_interp_wansynth.main(common + ["--val_every", "100", "--out_dir", sk])
+    t2 = time.perf_counter()
+    agg = diagnose_latent_straightness.main(["--straightener_ckpt", st, "--batch", "8",
+                                             "--num_batches", "2", "--num_samples", "32"])
+    summary = diagnose_sinkhorn_outliers.main(["--ckpt", sk, "--straightener_ckpt", st,
+                                               "--batch", "4", "--num_batches", "2",
+                                               "--num_samples", "16", "--out_dir",
+                                               os.path.join(work, "outliers")])
+    t3 = time.perf_counter()
+    require(all(np.isfinite(v).all() for v in agg.values()) and "s_lerp" in agg,
+            "diagnose_latent_straightness: non-finite measurements")
+    require(summary["n_cases"] == 8 and np.isfinite(summary["sinkhorn_mse_mean"]),
+            f"diagnose_sinkhorn_outliers: {summary}")
+    print(f"[diag] [{card}] diagnose_oracle_dp (64 clips, T 21, K 5): entropy "
+          f"{dp['index_entropy']:.3f} of {dp['max_entropy']:.3f}, {t1 - t0:.1f} s; straightener "
+          f"and Sinkhorn trained 2 steps by their CLIs {t2 - t1:.1f} s; straightness (16 "
+          f"triplets: lerp {agg['lerp'].mean():.4f}, copy {agg['copy'].mean():.4f}, s-lerp "
+          f"{agg['s_lerp'].mean():.4f}) and Sinkhorn outliers (8 cases: sinkhorn "
+          f"{summary['sinkhorn_mse_mean']:.4f} vs lerp {summary['lerp_mse_mean']:.4f}) "
+          f"{t3 - t2:.1f} s", flush=True)
+
+
+def _native_tar_check(card, work):
+    """The native tar reader is built and used: its yields equal tarfile's on
+    the phase's shards (a failed build may not hide behind the tarfile branch)."""
+    import numpy as np
+    from interpolated_diffusion_tpu_torch.data import make_synth_tars, native_tar, wan_synth
+
+    lib = native_tar.build_library()      # raises with g++'s output when it does not build
+    require(native_tar.native_tar_available(), f"native tar reader: {native_tar.build_error()}")
+    root = os.path.join(work, "tars")
+    make_synth_tars.main(["--out_root", root, "--num_samples", "4", "--shard_size", "2"])
+    shards = wan_synth.list_shards(root)
+    before = native_tar.NATIVE_READS["shards"]
+    t0 = time.perf_counter()
+    native = [s for p in shards for s in wan_synth.iter_tar_samples(p)]
+    t1 = time.perf_counter()
+    require(native_tar.NATIVE_READS["shards"] == before + len(shards),
+            "wan_synth.iter_tar_samples did not go through the native reader")
+    os.environ["IDT_NATIVE_TAR"] = "0"
+    try:
+        t2 = time.perf_counter()
+        plain = [s for p in shards for s in wan_synth.iter_tar_samples(p)]
+        t3 = time.perf_counter()
+    finally:
+        os.environ.pop("IDT_NATIVE_TAR")
+    same = len(native) == len(plain) == 4 and all(
+        a.keys() == b.keys() and a["__key__"] == b["__key__"]
+        and all(np.array_equal(a[k], b[k]) and a[k].dtype == b[k].dtype
+                for k in a if k != "__key__") for a, b in zip(native, plain))
+    require(same, "native tar yields differ from tarfile's")
+    mb = sum(a[k].nbytes for a in native for k in a if k != "__key__") / 2 ** 20
+    print(f"[diag] [{card}] native tar reader {os.path.relpath(lib, ROOT)}: {len(shards)} "
+          f"shards, {len(native)} samples ({mb:.0f} MiB) equal tarfile's; native "
+          f"{t1 - t0:.3f} s, tarfile {t3 - t2:.3f} s", flush=True)
+
+
+def phase_diagnostics(dev, card):
+    """Phase 5j; see the module docstring. Returns (launches, times)."""
+    import torch
+
+    t0 = time.perf_counter()
+    launches, times = {}, {}
+    with tempfile.TemporaryDirectory() as work:
+        _native_tar_check(card, work)
+        data = _d4rl_data(work)
+        times["rows"] = _video_kernel_times(
+            dev, card, dims=dict(d_model=BENCH["d_model"], n_heads=BENCH["n_heads"],
+                                 d_ff=BENCH["d_ff"]),
+            block_shapes=((256, D4RL["T"]),), packed_shapes=((256, D4RL["T"]),), tag="d4rl")
+        per_step, s_step, gate_ckpt = _d4rl_stage2(dev, card, data, work)
+        torch.cuda.empty_cache()
+        times["muon_card_vs_cpu"] = _muon_card_vs_cpu(dev, data)
+        cli, dirs, per_call = _d4rl_clis(dev, card, data, work)
+        diag = _maze_diagnostics(dev, card, data, gate_ckpt, dirs["sel"])
+        launches["d4rl"] = {"stage2_per_step": per_step, "sample_cli_per_call": {
+            "fused_film_block": per_call}, "diagnose_stage2_model_error": diag}
+        times["d4rl"] = {"stage2_s_per_step": s_step, "cli": cli}
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        times["wan_gate"] = _wan_eval_gate(dev, card)
+        times["registry_row4"] = _wan_registry_block(dev, card)
+        times["wan_evals"], launches["wan_evals"] = _wan_evals(dev, card)
+        torch.cuda.empty_cache()
+        _latent_diagnostics(dev, card, work)
+    print(f"[diag] phase 5j passed in {time.perf_counter() - t0:.1f} s (D4RL route "
+          f"{t1 - t0:.1f} s, Wan and latent diagnostics {time.perf_counter() - t1:.1f} s)",
+          flush=True)
+    return launches, times
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--md-worker"]:   # one rank of phase 5i's gloo processes
         return md_worker(sys.argv[2:])
@@ -5267,6 +5894,14 @@ def main() -> int:
                 "platform": "gpu", "kind": torch.cuda.get_device_name(0),
                 "count": torch.cuda.device_count()}}), flush=True)
             return 0
+        if "--diagnostics" in sys.argv[1:]:   # phase 5j alone: its own summary, the last line
+            diag_launches, diag_times = phase_diagnostics(dev, card)
+            print(json.dumps({"diagnostics": {"launches": diag_launches, "times": diag_times}}),
+                  flush=True)
+            print(json.dumps({"ok": True, "device": {
+                "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                "count": torch.cuda.device_count()}}), flush=True)
+            return 0
         if "--kernels" in sys.argv[1:]:   # the kernels alone: no model, no summary
             phase_timings(dev, card, cases)
             del cases
@@ -5315,6 +5950,8 @@ def main() -> int:
         wan2_errs, wan2_times, wan2_launches, _ = phase_wan_phase2(dev, card, profile)
         torch.cuda.empty_cache()
         full_ft_launches = phase_wan_interp(dev, card)
+        torch.cuda.empty_cache()
+        diag_launches, diag_times = phase_diagnostics(dev, card)
     except SmokeFailure as e:
         print(f"FAIL: {e}", flush=True)
         return 1
@@ -5368,6 +6005,14 @@ def main() -> int:
     for name in extras:      # phase 5h: the toy-video and DiDeMo shapes and launches
         extras[name].update(video_launches=video_launches[name], video_shapes=video_times[name])
     extras["fused_film_block"]["multi_device_launches"] = md_launches["fused_film_block"]
+    for name in extras:      # phase 5j: the D4RL route at [256, 128, 384]
+        rows = diag_times["rows"][name]
+        extras[name]["d4rl"] = dict(
+            rows, launches_per_stage2_step={p: n.get(name, 0) for p, n in
+                                            diag_launches["d4rl"]["stage2_per_step"].items()},
+            sample_cli_launches_per_call=diag_launches["d4rl"]["sample_cli_per_call"].get(name, 0),
+            diagnose_stage2_model_error_launches=diag_launches["d4rl"][
+                "diagnose_stage2_model_error"].get(name, 0))
     for name in ("fused_film_block", "small_mha_packed"):
         k_ms, p_ms, lib_ms = times[(name, B, L)]
         row(name, launches[name], max(grad_errs[name], *(c[1] for c in cases[name])), k_ms, p_ms,
@@ -5413,6 +6058,10 @@ def main() -> int:
             extra = dict(train_ms=t_ms, train_plain_ms=t_plain, train_library_ms=t_lib,
                          train_bound_ms=wan_times["bounds"][f"{name}/train"][0])
         extra.update(phase2(name, *(("cross", "self") if name == "flash_attention" else ())))
+        extra["diagnostics_launches"] = {run: n[name] for run, n in
+                                         diag_launches["wan_evals"].items() if name in n}
+        if name == "block_sparse_attention":
+            extra["registry_block512"] = diag_times["registry_row4"]
         row(name, wan_launches[name], max(*wan_errs[name], wan2_errs.get(name, 0.0)), k_ms, p_ms,
             wan_times["bounds"][name], lib_ms, train_launches=train_launches[name],
             full_ft_launches=full_ft_launches.get(name, {}),

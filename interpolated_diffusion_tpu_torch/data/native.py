@@ -31,29 +31,35 @@ GXX_FLAGS = ("-O3", "-shared", "-fPIC")
 _lib: Optional[ctypes.CDLL] = None
 
 
-def library_path() -> Path:
-    """Where the library for the current source lives (built or not)."""
-    h = hashlib.sha256(" ".join(GXX_FLAGS).encode())
-    h.update(SOURCE.read_bytes())
-    return BUILD_ROOT / h.hexdigest()[:16] / LIB_NAME
+def library_path(source: Optional[Path] = None, lib_name: str = LIB_NAME,
+                 flags: Tuple[str, ...] = GXX_FLAGS) -> Path:
+    """Where the library for the current source lives (built or not);
+    `source` defaults to the module's SOURCE, read at call time."""
+    source = SOURCE if source is None else source
+    h = hashlib.sha256(" ".join(flags).encode())
+    h.update(source.read_bytes())
+    return BUILD_ROOT / h.hexdigest()[:16] / lib_name
 
 
-def build() -> Path:
-    """Compile csrc/host/maze_gen.cpp unless the library for it exists;
-    raises RuntimeError (with g++'s output) when the build fails."""
-    out = library_path()
+def build(source: Optional[Path] = None, lib_name: str = LIB_NAME,
+          flags: Tuple[str, ...] = GXX_FLAGS) -> Path:
+    """Compile `source` (csrc/host/maze_gen.cpp by default) with g++ unless
+    the library for it exists; raises RuntimeError (with g++'s output) when
+    the build fails."""
+    source = SOURCE if source is None else source
+    out = library_path(source, lib_name, flags)
     if out.is_file():
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{LIB_NAME}.{os.getpid()}.tmp")
+    tmp = out.with_name(f"{lib_name}.{os.getpid()}.tmp")
     try:
-        proc = subprocess.run(["g++", *GXX_FLAGS, "-o", str(tmp), str(SOURCE)],
+        proc = subprocess.run(["g++", *flags, "-o", str(tmp), str(source)],
                               capture_output=True, text=True, timeout=120)
     except (OSError, subprocess.TimeoutExpired) as e:
-        raise RuntimeError(f"g++ could not build {SOURCE.name}: {e}") from e
+        raise RuntimeError(f"g++ could not build {source.name}: {e}") from e
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"g++ failed ({proc.returncode}) on {SOURCE.name}:\n"
+        raise RuntimeError(f"g++ failed ({proc.returncode}) on {source.name}:\n"
                            f"{proc.stdout}{proc.stderr}")
     os.replace(tmp, out)   # atomic: a concurrent loader never sees half a file
     return out

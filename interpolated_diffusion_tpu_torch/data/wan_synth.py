@@ -10,7 +10,9 @@ generator provides the same sample contract (latents [T,16,H,W] + text_embed
 [L,4096], the Wan2.1 dataset shapes). `split_by_process` takes this
 process's rank and the world size from torch.distributed when a process
 group is up (one process per GPU under torchrun), as the JAX package takes
-jax.process_index(). The native tar reader is not ported.
+jax.process_index(). `iter_tar_samples` reads a shard through the native
+GIL-free reader (data/native_tar.py) when it builds, else through tarfile,
+with the same yields either way.
 """
 from __future__ import annotations
 
@@ -60,7 +62,17 @@ def split_by_process(shards: Sequence[str], process_index: Optional[int] = None,
 
 
 def iter_tar_samples(path: str) -> Iterator[Dict[str, np.ndarray]]:
-    """Yield {field: array} dicts grouped by sample key from one tar shard."""
+    """Yield {field: array} dicts grouped by sample key from one tar shard.
+
+    Routes through the native reader (data/native_tar.py,
+    csrc/host/tar_reader.cpp) when it builds: prefetch threads then stream
+    shards concurrently. The yields are the same either way;
+    IDT_NATIVE_TAR=0 forces the tarfile loop below."""
+    from .native_tar import iter_tar_samples_native, native_tar_available
+
+    if native_tar_available():
+        yield from iter_tar_samples_native(path)
+        return
     current_key: Optional[str] = None
     sample: Dict[str, np.ndarray] = {}
     with tarfile.open(path, "r") as tf:

@@ -249,23 +249,21 @@ class _FusedFilmBlock(torch.autograd.Function):
 
 
 def fused_film_block(x, gb1, gb2, ln1s, ln1b, ln2s, ln2b, wqkv, bqkv, wout, bout,
-                     wff1, bff1, wff2, bff2, n_heads: int, group_b: int = 8,
+                     wff1, bff1, wff2, bff2, n_heads: int,
                      use_film: bool = True) -> torch.Tensor:
     """One FiLM pre-norm block: x [B, L, D] -> [B, L, D].
 
     gb1/gb2 are the per-sample FiLM (gamma|beta) rows [B, 2D] (zeros with
     use_film=False). wqkv [3D, D], wout [D, D], wff1 [F, D], wff2 [D, F] in
-    the torch Linear layout. `group_b` is the TPU kernel's batch-packing
-    factor, kept for parity; per-sample attention gives exactly its result,
-    so the CUDA path ignores it.
+    the torch Linear layout. The TPU kernel's batch-packing factor `group_b`
+    has no counterpart: per-sample attention gives exactly its result.
     """
     args = (gb1, gb2, ln1s, ln1b, ln2s, ln2b, wqkv, bqkv, wout, bout,
             wff1, bff1, wff2, bff2)
     return _FusedFilmBlock.apply(n_heads, use_film, False, x, *args)
 
 
-def fused_film_block_twin(x, *args, n_heads: int, group_b: int = 8,
-                          use_film: bool = True) -> torch.Tensor:
+def fused_film_block_twin(x, *args, n_heads: int, use_film: bool = True) -> torch.Tensor:
     """`fused_film_block` with the plain twin as forward, on any device."""
     return _FusedFilmBlock.apply(n_heads, use_film, True, x, *args)
 

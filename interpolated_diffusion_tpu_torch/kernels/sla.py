@@ -9,7 +9,7 @@ branch (the backward kernels), the linear branch and `proj_l`.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -90,15 +90,19 @@ class SparseLinearAttention(nn.Module):
         self.proj_l = nn.Linear(head_dim, head_dim)
         self.proj_l.zero_init = True
 
-    def forward(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    def forward(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                block: Optional[int] = None) -> torch.Tensor:
+        """`block`: a square block for this call in place of (block_q,
+        block_k) (WanAttention's tuned SLA block, kernels/tuning.sla_blocks)."""
         B, H, L, D = q.shape
+        bq, bk = (block, block) if block else (self.block_q, self.block_k)
         qf, kf, vf = (t.reshape(B * H, L, D) for t in (q, k, v))
         with torch.no_grad():   # the top-k indices carry no gradient
-            _, lut, _ = get_block_map(qf, kf, self.topk, self.block_q, self.block_k)
+            _, lut, _ = get_block_map(qf, kf, self.topk, bq, bk)
         bf = torch.bfloat16
         attend = int8_block_sparse_attention if self.quant == "int8" else block_sparse_attention
         o_s = attend(qf.to(bf).contiguous(), kf.to(bf).contiguous(), vf.to(bf).contiguous(),
-                     lut, self.block_q, self.block_k)
+                     lut, bq, bk)
         o_l = _linear_attention(qf, kf, vf, self.feature_map)
         proj = F.linear(o_l, self.proj_l.weight.float(), self.proj_l.bias.float())
         return (o_s.float() + proj).to(q.dtype).reshape(B, H, L, D)

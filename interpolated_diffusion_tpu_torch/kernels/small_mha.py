@@ -149,11 +149,11 @@ def small_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, n_heads: int) -
 
 
 def small_mha_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     n_heads: int, group_b: int = 8) -> torch.Tensor:
+                     n_heads: int) -> torch.Tensor:
     """Batch-packed multi-head attention: q/k/v [B, L, H*Dh] -> [B, L, H*Dh].
 
-    `group_b` is the TPU kernel's packing factor, kept for parity; attention
-    per (sample, head) gives exactly its result, so the CUDA kernel ignores it.
+    The TPU kernel's packing factor `group_b` has no counterpart: attention
+    per (sample, head) gives exactly its result.
     """
     return _SmallMHA.apply(q, k, v, n_heads, True, False)
 
@@ -163,7 +163,7 @@ def small_mha_twin(q, k, v, n_heads: int) -> torch.Tensor:
     return _SmallMHA.apply(q, k, v, n_heads, False, True)
 
 
-def small_mha_packed_twin(q, k, v, n_heads: int, group_b: int = 8) -> torch.Tensor:
+def small_mha_packed_twin(q, k, v, n_heads: int) -> torch.Tensor:
     """`small_mha_packed` with the plain twin as forward, on any device."""
     return _SmallMHA.apply(q, k, v, n_heads, True, True)
 

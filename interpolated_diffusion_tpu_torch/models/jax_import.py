@@ -29,6 +29,7 @@ array-like) leaves, so they need no JAX:
 """
 from __future__ import annotations
 
+import re
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
@@ -473,5 +474,38 @@ def checkpoint_to_state_dict(meta: Dict, params: Params) -> Dict[str, Any]:
             if key in params:
                 out[key] = wan_params_to_state_dict(params[key])[0]
         return out
-    raise NotImplementedError(f"JAX checkpoint of stage {stage!r}: the module of that stage "
-                              "is not ported, so its parameters have no counterpart in the port")
+    raise NotImplementedError(f"JAX checkpoint of stage {stage!r}: no model of the JAX package "
+                              "has that stage, so its parameters have no counterpart in the port")
+
+
+# ---------------------------------------------------------------------------
+# Which JAX leaves are matrices (train/state.py's Muon labels)
+# ---------------------------------------------------------------------------
+
+# a flax MultiHeadDotProductAttention (the KeypointSelector's blocks): its
+# query / key / value kernels are [d, H, Dh] and its out kernel [H, Dh, d]
+_FLAX_MHA = re.compile(r"(.*\.)?blocks\.\d+\.attn\.(in_proj_weight|out_proj\.weight)")
+
+
+def matrix_layout(name: str, shape) -> Optional[str]:
+    """How the JAX leaf behind the port's parameter `name` (a state_dict name,
+    or a path "a/b/<name>" of a trainable tree) of torch shape `shape` is a
+    matrix, by the converters above: "T" when the JAX leaf is 2-D and equals
+    this tensor flattened over its trailing axes and transposed (Dense and
+    qkv kernels [in, out] -> weight [out, in], the patch-embed kernel, LoRA
+    A / B), "N" when it is 2-D and this tensor as it is (Embed tables, the
+    video selector's time_embed, the MoE's ffn_in_bias [E, F]), None when
+    the JAX leaf is not 2-D (biases and norm scales, conv kernels, the
+    stacked MoE experts, the selector's multi-head attention kernels, the
+    Wan modulation tables)."""
+    leaf = name.rsplit("/", 1)[-1]
+    if leaf == "patch_embedding.weight":
+        return "T"
+    if len(shape) != 2 or _FLAX_MHA.fullmatch(leaf):
+        return None
+    if leaf.endswith("_emb.weight") or leaf.endswith("ffn_in_bias") or leaf.endswith("time_embed"):
+        return "N"
+    if leaf.endswith(".weight") or leaf.endswith("in_proj_weight") or leaf.endswith(
+            ("lora_A", "lora_B")):
+        return "T"
+    return "N"

@@ -1,8 +1,9 @@
 """Pre-norm FiLM transformer encoder (port of models/transformer.py).
 
 Each block dispatches its attention the way the JAX block does, under an
-explicit `attn_policy` instead of the JAX package's environment/registry
-lookup:
+explicit `attn_policy` instead of the JAX package's per-call registry
+lookup (the CLIs take their default policy from that registry,
+kernels/tuning.attn_policy_arg):
 
   block  whole block through kernels/fused_block.fused_film_block when
          L <= 256 and H*L <= 8192 (JAX _use_fused_block_policy);
@@ -53,12 +54,6 @@ from ..kernels.fused_block import fused_film_block
 from ..kernels.small_mha import SMALL_MHA_MAX_ROWS, small_mha, small_mha_packed
 
 ATTN_POLICIES = ("fused", "block", "dense")
-FUSED_ROWS = 512  # batch-pack row target of the JAX kernels (group_b = 512 // L)
-
-
-def fused_group_b(L: int) -> int:
-    """The JAX kernels' batch-pack group size G (kept for parity)."""
-    return max(1, min(64, FUSED_ROWS // max(1, L)))
 
 
 def _use_fused_block_policy(policy: str, H: int, L: int, causal: bool) -> bool:
@@ -239,7 +234,7 @@ class TransformerBlock(nn.Module):
                 self.attn.in_proj_weight, self.attn.in_proj_bias,
                 self.attn.out_proj.weight, self.attn.out_proj.bias,
                 self.ff[0].weight, self.ff[0].bias, self.ff[2].weight, self.ff[2].bias,
-                n_heads=H, group_b=fused_group_b(L), use_film=film_on)
+                n_heads=H, use_film=film_on)
 
         h = self.norm1(x)
         if film_on:
@@ -252,7 +247,7 @@ class TransformerBlock(nn.Module):
         elif self.use_small_mha and not self.causal and H * L <= SMALL_MHA_MAX_ROWS:
             attn = small_mha(q, k, v, H)
         elif _use_fused_packed(self.attn_policy, H, L, self.causal):
-            attn = small_mha_packed(q, k, v, H, fused_group_b(L))
+            attn = small_mha_packed(q, k, v, H)
         else:
             attn = dense_attention(q, k, v, H, self.causal)
         x = x + self.attn.out_proj(attn)

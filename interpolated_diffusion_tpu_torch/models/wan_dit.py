@@ -43,6 +43,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..kernels.block_sparse_attention import flash_attention
 from ..kernels.sla import SparseLinearAttention
+from ..kernels.tuning import sla_blocks
 from .denoisers import timestep_embedding
 from .moe import SwitchFFN
 from .transformer import LayerNorm, dense_attention, set_compute_dtype  # noqa: F401
@@ -225,7 +226,7 @@ class WanAttention(nn.Module):
         self.to_out = nn.ModuleList([LoRALinear(dim, dim, *lora)])
         self.norm_q = RMSNorm(dim)
         self.norm_k = RMSNorm(dim)
-        self.sla = None
+        self.sla, self.sla_block = None, sla_block
         if attn_mode in ("sla", "sage_sla"):
             self.sla = SparseLinearAttention(dim // n_heads, topk=sla_topk, block_q=sla_block,
                                              block_k=sla_block)
@@ -254,14 +255,17 @@ class WanAttention(nn.Module):
         if rope is not None:
             q, k = apply_rope(q, *rope), apply_rope(k, *rope)
         if self.attn_mode in ("sla", "sage_sla") and context is None:
-            out = self.sla(q, k, v).transpose(1, 2).reshape(B, L, self.dim)
+            # the registry's block where it applies at this L (kernels/tuning.py)
+            blk = sla_blocks(default=self.sla_block, quant=self.sla.quant, L=L)
+            out = self.sla(q, k, v, block=blk).transpose(1, 2).reshape(B, L, self.dim)
         elif L >= FLASH_MIN_L:
-            # the JAX package's tiles (flash_blocks defaults, key tile cut to
-            # Lk): they set where the twin rounds P, not what the kernel does
-            bn = FLASH_BLOCKS[1] if Lk >= FLASH_BLOCKS[1] else max(128, -(-Lk // 128) * 128)
-            bf = torch.bfloat16
-            out = flash_attention(q.reshape(B * H, L, Dh).to(bf), k.reshape(B * H, Lk, Dh).to(bf),
-                                  v.reshape(B * H, Lk, Dh).to(bf), FLASH_BLOCKS[0], bn)
+            # the JAX package's default tiles (key tile cut to Lk): they set
+            # where the twin rounds P, not what the kernel does
+            bm, bn = FLASH_BLOCKS
+            bn = bn if Lk >= bn else max(128, -(-Lk // 128) * 128)
+            # at B = 1 the head split is a strided view: the kernel takes contiguous rows
+            heads = lambda t, n: t.reshape(B * H, n, Dh).to(torch.bfloat16).contiguous()
+            out = flash_attention(heads(q, L), heads(k, Lk), heads(v, Lk), bm, bn)
             out = out.reshape(B, H, L, Dh).to(q.dtype).transpose(1, 2).reshape(B, L, self.dim)
         else:
             packed = lambda t: t.transpose(1, 2).reshape(B, t.shape[2], self.dim)

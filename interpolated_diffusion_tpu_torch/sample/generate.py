@@ -36,6 +36,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from ..kernels.tuning import add_attn_policy_arg
 from ..eval.metrics import compute_metrics_batch
 from ..models.loading import (load_interp_model, load_keypoint_model, load_selector_model,
                               make_dphi_seg_cost_fn)
@@ -454,8 +455,7 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="export per-step diffusion frames (PNG + GIF) for sample 0 of batch 0")
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (default; no fallback when there is no GPU) or cpu")
-    p.add_argument("--attn_policy", type=str, default="fused", choices=["fused", "block", "dense"],
-                   help="small-L attention route of every block (models/transformer.py)")
+    add_attn_policy_arg(p)
     add_data_args(p)
     return p
 

@@ -45,6 +45,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..kernels.tuning import add_attn_policy_arg
 from ..eval.metrics import compute_metrics_batch
 from ..models.loading import load_interp_model, load_keypoint_model, make_dphi_seg_cost_fn
 from ..ops.anchor_search import pick_anchors
@@ -311,8 +312,7 @@ def build_argparser() -> argparse.ArgumentParser:
                         "samples.npz (needs matplotlib)")
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (default; no fallback when there is no GPU) or cpu")
-    p.add_argument("--attn_policy", type=str, default="fused", choices=["fused", "block", "dense"],
-                   help="small-L attention route of every block (models/transformer.py)")
+    add_attn_policy_arg(p)
     add_data_args(p)
     return p
 

@@ -23,6 +23,7 @@ import time
 import numpy as np
 import torch
 
+from ..kernels.tuning import add_attn_policy_arg
 from ..eval.metrics import compute_metrics_batch
 from ..models.loading import load_keypoint_model, make_dphi_seg_cost_fn
 from ..ops.ddpm import SOLVERS, make_timesteps, run_solver
@@ -59,8 +60,7 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--out_dir", type=str, default="runs/samples_kp")
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (default; no fallback when there is no GPU) or cpu")
-    p.add_argument("--attn_policy", type=str, default="fused", choices=["fused", "block", "dense"],
-                   help="small-L attention route of every block (models/transformer.py)")
+    add_attn_policy_arg(p)
     add_data_args(p)
     return p
 

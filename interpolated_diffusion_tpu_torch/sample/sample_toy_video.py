@@ -29,6 +29,7 @@ from typing import Dict, Iterable, Optional
 import numpy as np
 import torch
 
+from ..kernels.tuning import add_attn_policy_arg
 from ..data.toy_video import MovingShapesVideoDataset, decode_latents
 from ..ops.ddpm import make_timesteps, run_solver
 from ..ops.keyframes import (build_nested_masks_from_base, interpolate_from_indices,
@@ -55,8 +56,7 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--bf16", type=int, default=1)
     p.add_argument("--decode_panels", type=int, default=1)
     p.add_argument("--out_dir", type=str, default="runs/samples_toy_video")
-    p.add_argument("--attn_policy", type=str, default="fused", choices=["fused", "block", "dense"],
-                   help="small-L attention route of both denoisers (models/transformer.py)")
+    add_attn_policy_arg(p, "both denoisers")
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (default; no fallback when there is no GPU) or cpu")
     return p

@@ -30,6 +30,7 @@ from typing import Optional
 
 import numpy as np
 
+from ..kernels.tuning import add_attn_policy_arg
 from .service import GenerationService
 
 
@@ -193,9 +194,7 @@ def main(argv=None):
                    choices=["ddim", "pfdiff"])
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (default; no fallback when there is no GPU) or cpu")
-    p.add_argument("--attn_policy", type=str, default="fused",
-                   choices=["fused", "block", "dense"],
-                   help="small-L attention route of every block (models/transformer.py)")
+    add_attn_policy_arg(p)
     p.add_argument("--stage1_best_of", type=int, default=1)
     p.add_argument("--buckets", type=str, default="1,4,16,64")
     p.add_argument("--idx_policy", type=str, default="uniform:1.0")

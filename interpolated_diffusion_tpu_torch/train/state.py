@@ -3,7 +3,10 @@
 `make_optimizer` is AdamW behind a global-norm clip, held to optax's
 arithmetic: the clip scales by clip / max(norm, clip) (not torch's
 clip / (norm + 1e-6)); AdamW decays every leaf, eps 1e-8 outside the root;
-the learning rate of update n (from 0) is schedule(n). `make_train_step_frozen`
+the learning rate of update n (from 0) is schedule(n). `optimizer="muon"` is
+optax.contrib.muon (optax 0.2.6) behind the same clip, written out
+(`Muon`): the leaves whose JAX leaf is a matrix take Nesterov momentum
+orthogonalised by Newton-Schulz, every other leaf NAdamW. `make_train_step_frozen`
 differentiates the loss with respect to the trainable dict only; the frozen
 base never requires a gradient. Parameters are updated in place (the
 modules own their tensors), so the state returned by a step aliases the one
@@ -30,6 +33,7 @@ from typing import Any, Callable, Dict, List, NamedTuple, Optional, Sequence, Tu
 import numpy as np
 import torch
 
+from ..models.jax_import import matrix_layout
 from ..parallel.collectives import psum
 from ..parallel.mesh import Mesh, data_parallel_step, replicate, shard_draws
 from ..utils.ema import ema_init, ema_update
@@ -38,7 +42,7 @@ from ..utils.ema import ema_init, ema_update
 class TrainState(NamedTuple):
     step: int
     params: Dict[str, Any]          # (nested) dict of trainable leaf tensors
-    opt_state: "Optimizer"
+    opt_state: "Optimizer | Muon"
     ema_params: Optional[Dict[str, Any]]
 
 
@@ -120,21 +124,124 @@ class Optimizer:
         self.adamw.load_state_dict(state["adamw"])
 
 
+NS_COEFFS = (3.4445, -4.7750, 2.0315)   # optax.contrib.muon's quintic Newton-Schulz
+
+
+def _f32_pow(base: float, count: int) -> torch.Tensor:
+    """base ** count in f32 as XLA computes optax's bias corrections: the f32
+    base raised in f64 and rounded once (f32 repeated products differ by an
+    ulp, which 1 - 0.999 ** count turns into 2e-5 of nu_hat at count 3)."""
+    return torch.tensor(float(np.float32(base)) ** count, dtype=torch.float32)
+
+
+def newton_schulz(x: torch.Tensor, steps: int = 5, eps: float = 1e-8) -> torch.Tensor:
+    """optax.contrib.orthogonalize_via_newton_schulz of one matrix in the JAX
+    orientation [reduction, output]: Frobenius-normalised, then `steps`
+    quintic iterations, on the transpose when rows > cols."""
+    transposed = x.shape[0] > x.shape[1]
+    if transposed:
+        x = x.T
+    x = x / (torch.linalg.norm(x) + eps)
+    c0, c1, c2 = NS_COEFFS
+    for _ in range(steps):
+        a = x @ x.T
+        b = c1 * a + c2 * a @ a
+        x = c0 * x + b @ x
+    return x.T if transposed else x
+
+
+class Muon:
+    """Global-norm clip + optax.contrib.muon over named leaves, in place.
+
+    Labels follow the JAX leaves (models/jax_import.matrix_layout): a
+    leaf whose JAX leaf is 2-D takes Muon, in that leaf's
+    orientation (reduction axis 0, output axis 1): Nesterov momentum (beta
+    0.95, bias corrections at count+1 and count+2), Newton-Schulz, the scale
+    sqrt(max(1, out / in)), no weight decay (the JAX trainers set only
+    adam_weight_decay). Every other leaf takes optax.adamw(nesterov=True, eps
+    1e-8) with `weight_decay`: NAdamW, not torch's AdamW. State: the count
+    and the moments by name (`state_dict` round-trips)."""
+
+    beta, b1, b2, eps = 0.95, 0.9, 0.999, 1e-8   # optax.contrib.muon's defaults
+
+    def __init__(self, named: Dict[str, torch.Tensor], lr_schedule: Callable[[int], float],
+                 weight_decay: float, grad_clip: float):
+        self.names, self.params = list(named), list(named.values())
+        self.layouts = [matrix_layout(n, tuple(p.shape)) for n, p in named.items()]
+        self.labels = {n: "adam" if lay is None else "muon"
+                       for n, lay in zip(self.names, self.layouts)}
+        self.lr_schedule, self.weight_decay, self.grad_clip = lr_schedule, weight_decay, grad_clip
+        self.count = 0
+        self.mu = [torch.zeros_like(p) for p in self.params]
+        self.nu = [None if lay else torch.zeros_like(p) for p, lay in zip(self.params, self.layouts)]
+
+    @staticmethod
+    def _to_jax(x: torch.Tensor, layout: str) -> torch.Tensor:
+        return x.reshape(x.shape[0], -1).T if layout == "T" else x
+
+    def _muon(self, g, mu, layout, c1, c2) -> torch.Tensor:
+        b = self.beta
+        mu.copy_((1 - b) * g + b * mu)
+        mu_hat = b * (mu / (1 - _f32_pow(b, c2))) + (1 - b) * (g / (1 - _f32_pow(b, c1)))
+        x = newton_schulz(self._to_jax(mu_hat, layout), eps=self.eps)
+        x = math.sqrt(max(1.0, x.shape[1] / x.shape[0])) * x
+        return (x.T.reshape(g.shape) if layout == "T" else x)
+
+    def _nadamw(self, g, p, mu, nu, c1, c2) -> torch.Tensor:
+        b1, b2 = self.b1, self.b2
+        mu.copy_((1 - b1) * g + b1 * mu)
+        nu.copy_((1 - b2) * (g * g) + b2 * nu)
+        mu_hat = b1 * (mu / (1 - _f32_pow(b1, c2))) + (1 - b1) * (g / (1 - _f32_pow(b1, c1)))
+        nu_hat = nu / (1 - _f32_pow(b2, c1))
+        return mu_hat / (torch.sqrt(nu_hat) + self.eps) + self.weight_decay * p
+
+    @torch.no_grad()
+    def update(self, grads: List[torch.Tensor], norm: Optional[torch.Tensor] = None
+               ) -> torch.Tensor:
+        """One update from `grads` (one per leaf, in order); returns the
+        gradients' global norm before the clip (optax's clip: g / norm * clip
+        when norm >= clip)."""
+        norm = global_norm(grads) if norm is None else norm
+        lr = self.lr_schedule(self.count)
+        c1, c2 = self.count + 1, self.count + 2
+        for p, g, mu, nu, layout in zip(self.params, grads, self.mu, self.nu, self.layouts):
+            g = g.to(p.dtype)
+            g = torch.where(norm < self.grad_clip, g, (g / norm.to(g.dtype)) * self.grad_clip)
+            u = (self._muon(g, mu, layout, c1, c2) if layout
+                 else self._nadamw(g, p, mu, nu, c1, c2))
+            p.add_(u * (-lr))
+        self.count += 1
+        return norm
+
+    def state_dict(self) -> Dict:
+        return {"count": self.count,
+                "mu": {n: m.detach().clone() for n, m in zip(self.names, self.mu)},
+                "nu": {n: v.detach().clone() for n, v in zip(self.names, self.nu) if v is not None}}
+
+    def load_state_dict(self, state: Dict) -> None:
+        self.count = int(state["count"])
+        for n, m, v in zip(self.names, self.mu, self.nu):
+            m.copy_(state["mu"][n])
+            if v is not None:
+                v.copy_(state["nu"][n])
+
+
 def make_optimizer(lr: float, weight_decay: float = 1e-2, grad_clip: float = 1.0,
                    warmup_steps: int = 0, total_steps: Optional[int] = None,
                    schedule: str = "constant", optimizer: str = "adamw"
-                   ) -> Callable[[Dict], Optimizer]:
-    """tx(params) -> Optimizer over the leaves of `params`: AdamW behind a
-    global-norm clip, with a constant, warm-up or warm-up + cosine schedule."""
-    if optimizer == "muon":
-        raise NotImplementedError("optimizer='muon' is not ported yet")
-    if optimizer != "adamw":
+                   ) -> Callable[[Dict], "Optimizer | Muon"]:
+    """tx(params) -> optimizer over the leaves of `params`, behind a global-norm
+    clip, with a constant, warm-up or warm-up + cosine schedule: AdamW, or
+    Muon (its leaves labelled by their names, `Muon`)."""
+    if optimizer not in ("adamw", "muon"):
         raise ValueError(f"unknown optimizer {optimizer!r}")
     sched = make_lr_schedule(lr, warmup_steps, total_steps, schedule)
+    if optimizer == "muon":
+        return lambda params: Muon(flatten_dict(params), sched, weight_decay, grad_clip)
     return lambda params: Optimizer(tree_leaves(params), sched, weight_decay, grad_clip)
 
 
-def init_train_state(params: Dict, tx: Callable[[Dict], Optimizer],
+def init_train_state(params: Dict, tx: Callable[[Dict], "Optimizer | Muon"],
                      use_ema: bool = True) -> TrainState:
     return TrainState(step=0, params=params, opt_state=tx(params),
                       ema_params=ema_init(params) if use_ema else None)

@@ -33,6 +33,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from ..kernels.tuning import add_attn_policy_arg
 from ..models.denoisers import InterpLevelDenoiser
 from ..models.loading import load_keypoint_model
 from ..ops.anchor_search import pick_anchors
@@ -130,8 +131,7 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--bootstrap_x0_clip", type=float, default=4.0,
                    help=">0: clamp the bootstrap DDIM's per-step x0 estimate to +-this across "
                         "all dims; ignored in logit space")
-    p.add_argument("--attn_policy", type=str, default="fused", choices=["fused", "block", "dense"],
-                   help="small-L attention route of every block (models/transformer.py)")
+    add_attn_policy_arg(p)
     add_data_args(p)
     add_train_args(p)
     return p
@@ -465,9 +465,11 @@ def make_loss_fn(model: InterpLevelDenoiser, args, bootstrap_sample=None,
     return loss_fn
 
 
-def make_trainer(args, device: torch.device, data_dim: int, model=None):
+def make_trainer(args, device: torch.device, data_dim: int, model=None,
+                 optimizer: str = "adamw"):
     """(state, train_step, model): the model (built from --seed unless
-    given), the optimizer state over its own parameters, and
+    given), the optimizer state over its own parameters (`optimizer`:
+    train/state.make_optimizer's adamw or muon), and
     train_step(state, batch or superbatch, rng) -> (state, metrics)."""
     if model is None:
         model = build_model(args, data_dim, device)
@@ -482,7 +484,7 @@ def make_trainer(args, device: torch.device, data_dim: int, model=None):
             raise ValueError("selector mask policy needs --selector_ckpt")
         selector_logits_fn = make_selector_logits_fn(args, device)
     loss_fn = make_loss_fn(model, args, bootstrap_sample, selector_logits_fn)
-    tx = make_optimizer(args.lr, args.weight_decay, args.grad_clip)
+    tx = make_optimizer(args.lr, args.weight_decay, args.grad_clip, optimizer=optimizer)
     state = init_train_state(model_params(model), tx, use_ema=bool(args.use_ema))
     train_step = make_train_multi_step(loss_fn, args.ema_decay, args.grad_accum,
                                        max(1, args.steps_per_call),

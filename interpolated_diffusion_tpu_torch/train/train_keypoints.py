@@ -32,6 +32,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from ..kernels.tuning import add_attn_policy_arg
 from ..models.denoisers import KeypointDenoiser
 from ..ops.ddpm import q_sample
 from ..ops.keyframes import sample_fixed_k_indices_batch, sample_fixed_k_indices_uniform_batch
@@ -79,8 +80,7 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--selector_ckpt", type=str, default=None)
     p.add_argument("--selector_stochastic", type=int, default=0)
     p.add_argument("--selector_tau", type=float, default=1.0)
-    p.add_argument("--attn_policy", type=str, default="fused", choices=["fused", "block", "dense"],
-                   help="small-L attention route of every block (models/transformer.py)")
+    add_attn_policy_arg(p)
     add_data_args(p)
     add_train_args(p)
     return p

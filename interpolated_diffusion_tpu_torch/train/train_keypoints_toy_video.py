@@ -24,6 +24,7 @@ from typing import Dict, Union
 
 import torch
 
+from ..kernels.tuning import add_attn_policy_arg
 from ..data.dataset import BatchLoader
 from ..data.toy_video import MovingShapesVideoDataset
 from ..models.denoisers import KeypointDenoiser
@@ -60,8 +61,7 @@ def add_toy_train_args(p: argparse.ArgumentParser, out_dir: str) -> None:
     p.add_argument("--n_data_shards", type=int, default=None,
                    help="DP width; defaults to all local devices (the processes of a "
                         "torchrun launch, one per GPU)")
-    p.add_argument("--attn_policy", type=str, default="fused", choices=["fused", "block", "dense"],
-                   help="small-L attention route of every block (models/transformer.py)")
+    add_attn_policy_arg(p)
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (default; no fallback when there is no GPU) or cpu")
 

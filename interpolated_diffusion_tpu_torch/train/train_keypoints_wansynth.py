@@ -26,6 +26,7 @@ JAX trainer.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import itertools
 import os
 import time
@@ -44,6 +45,7 @@ from ..utils.checkpoint_sharded import save_checkpoint_sharded, wait_for_async_s
 from ..utils.frame_features import frame_features_from_mask
 from ..utils.memguard import check_cpu_mem
 from ..utils.prefetch import DevicePrefetcher, pinned_put
+from ..utils.profiling import trace as profile_trace
 from ..utils.video_tokens import patchify_latents, unpatchify_tokens
 from ..parallel.multihost import is_main_process
 from .common import data_mesh, resolve_device, write_run_config
@@ -307,25 +309,15 @@ def main(argv=None) -> TrainState:
     host_iter = itertools.chain([batch0], loader)
     dev_iter = (DevicePrefetcher(host_iter, put, depth=args.prefetch_depth)
                 if args.prefetch_depth > 0 else map(put, host_iter))
-    sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
-    profiler = None
+    profiler = contextlib.ExitStack()   # holds the trace window while it is open
     t_prev = time.time()
     for step in range(start_step, args.steps):
         check_cpu_mem(args.max_cpu_mem_percent)
         if args.profile_dir and step == start_step + args.profile_start:
-            from torch.profiler import ProfilerActivity, profile
-
-            acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if device.type == "cuda"
-                                             else [])
-            profiler = profile(activities=acts)
-            profiler.__enter__()
+            profiler.enter_context(profile_trace(args.profile_dir))
         state, metrics = train_step(state, base, next(dev_iter), rng)
-        if profiler is not None and step == start_step + args.profile_start + args.profile_steps:
-            sync()
-            profiler.__exit__(None, None, None)
-            os.makedirs(args.profile_dir, exist_ok=True)
-            profiler.export_chrome_trace(os.path.join(args.profile_dir, "trace.json"))
-            profiler = None
+        if args.profile_dir and step == start_step + args.profile_start + args.profile_steps:
+            profiler.close()
             print(f"profiler trace written to {args.profile_dir}")
         if main_rank and step % args.log_every == 0:
             loss = float(metrics["loss"])  # device sync = true step timing
@@ -349,9 +341,7 @@ def main(argv=None) -> TrainState:
             elif main_rank:
                 save_checkpoint(ckpt, to_save, None, step + 1, state.ema_params,
                                 _save_meta(meta, loader))
-    if profiler is not None:   # the run ended inside the window
-        sync()
-        profiler.__exit__(None, None, None)
+    profiler.close()   # the run ended inside the window
     if args.ckpt_async:
         wait_for_async_saves()   # the last checkpoint must be durable
     if hasattr(dev_iter, "close"):

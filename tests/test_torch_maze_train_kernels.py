@@ -59,7 +59,7 @@ def test_small_mha_and_gradients_match_jax(B, L, H, Dh):
 @pytest.mark.parametrize("B,L,H,Dh,G", [(5, 64, 12, 8, 2), (4, 32, 12, 8, 4), (3, 100, 4, 16, 2)])
 def test_small_mha_packed_and_gradients_match_jax_interpret(B, L, H, Dh, G):
     q, k, v, do = _qkv(B, L, H * Dh, seed=L + 1)
-    out, grads = _torch_vjp(lambda a, b, c: small_mha.small_mha_packed(a, b, c, H, G),
+    out, grads = _torch_vjp(lambda a, b, c: small_mha.small_mha_packed(a, b, c, H),
                             (q, k, v), do)
     ref, vjp = jax.vjp(lambda a, b, c: jsm.small_mha_packed(a, b, c, H, G, True),
                        *map(jnp.asarray, (q, k, v)))
@@ -95,7 +95,7 @@ def test_fused_film_block_and_gradients_match_jax(L, film, interpret):
     # the port takes torch's [out, in] weight layout
     t_in = [a[n].T.copy() if n in _MATS else a[n] for n in _ORDER]
     out, grads = _torch_vjp(
-        lambda *t: fused_block.fused_film_block(*t, n_heads=H, group_b=G, use_film=film),
+        lambda *t: fused_block.fused_film_block(*t, n_heads=H, use_film=film),
         t_in, a["dy"])
     ref, vjp = jax.vjp(
         lambda *j: jfb.fused_film_block(*j, H, G, film, interpret),

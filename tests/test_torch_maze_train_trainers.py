@@ -476,7 +476,7 @@ def test_trainers_raise_without_a_gpu(tmp_path):
     for mod in (ps1, ps2):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             mod.main(["--out_dir", str(tmp_path), "--num_samples", "8"])
-    from interpolated_diffusion_tpu_torch.train.state import make_optimizer
+    from interpolated_diffusion_tpu_torch.train.state import Muon, make_optimizer
 
-    with pytest.raises(NotImplementedError, match="muon"):
-        make_optimizer(1e-3, optimizer="muon")
+    # optimizer="muon" builds the Muon optimizer now (tests/test_torch_tuning_muon.py)
+    assert isinstance(make_optimizer(1e-3, optimizer="muon")({"w": torch.ones(2, 3)}), Muon)

@@ -64,7 +64,7 @@ def test_fused_film_block_matches_pallas_interpret(L, group_b, film):
                                use_film=film, interpret=True)
     twin = jfb._xla_block(jnp.asarray(p["x"]), *jargs, n_heads=H, use_film=film)
     out = fused_block.fused_film_block(torch.tensor(p["x"]), *_torch_args(p), n_heads=H,
-                                       group_b=group_b, use_film=film)
+                                       use_film=film)
     assert out.shape == (B, L, D) and out.dtype == torch.float32
     close(out, ref)
     close(out, twin)
@@ -95,8 +95,7 @@ def test_small_mha_packed_matches_pallas_interpret(L, group_b):
     ref = jsm.small_mha_packed(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), H, group_b,
                                interpret=True)
     twin = jsm._xla_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), H)
-    out = small_mha.small_mha_packed(torch.tensor(q), torch.tensor(k), torch.tensor(v), H,
-                                     group_b)
+    out = small_mha.small_mha_packed(torch.tensor(q), torch.tensor(k), torch.tensor(v), H)
     close(out, ref)
     close(out, twin)
 

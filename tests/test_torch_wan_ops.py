@@ -213,6 +213,24 @@ def test_wan_port_import_pulls_in_no_jax():
             "interpolated_diffusion_tpu_torch.train.train_video_interpolator, "
             "interpolated_diffusion_tpu_torch.train.train_video_interpolator_wansynth, "
             "interpolated_diffusion_tpu_torch.train.train_keypoints_didemo, "
+            "interpolated_diffusion_tpu_torch.utils.seed, "
+            "interpolated_diffusion_tpu_torch.utils.logging, "
+            "interpolated_diffusion_tpu_torch.utils.profiling, "
+            "interpolated_diffusion_tpu_torch.kernels.tuning, "
+            "interpolated_diffusion_tpu_torch.data.d4rl, "
+            "interpolated_diffusion_tpu_torch.data.maze2d_synth, "
+            "interpolated_diffusion_tpu_torch.data.mujoco_walls, "
+            "interpolated_diffusion_tpu_torch.data.d4rl_live, "
+            "interpolated_diffusion_tpu_torch.data.native_tar, "
+            "interpolated_diffusion_tpu_torch.diagnostics.eval_wan_sla_gap, "
+            "interpolated_diffusion_tpu_torch.diagnostics.eval_wan_fullseq_eps, "
+            "interpolated_diffusion_tpu_torch.diagnostics.diagnose_stage2_masks, "
+            "interpolated_diffusion_tpu_torch.diagnostics.diagnose_stage2_model_error, "
+            "interpolated_diffusion_tpu_torch.diagnostics.diagnose_oracle_dp, "
+            "interpolated_diffusion_tpu_torch.diagnostics.diagnose_selector, "
+            "interpolated_diffusion_tpu_torch.diagnostics.diagnose_selector_per_maze, "
+            "interpolated_diffusion_tpu_torch.diagnostics.diagnose_latent_straightness, "
+            "interpolated_diffusion_tpu_torch.diagnostics.diagnose_sinkhorn_outliers, "
             "interpolated_diffusion_tpu_torch.parallel.multihost, "
             "interpolated_diffusion_tpu_torch.parallel.mesh, "
             "interpolated_diffusion_tpu_torch.parallel.collectives, "
