@@ -15,8 +15,13 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..utils.profiling import backward_span, span
 from .block_sparse_attention import block_sparse_attention
 from .int8_attention import int8_block_sparse_attention
+
+SLA, BLOCK_MAP, SPARSE, LINEAR, SLA_BWD = ("idt.wan.sla", "idt.wan.sla.block_map",
+                                           "idt.wan.sla.sparse", "idt.wan.sla.linear",
+                                           "idt.wan.sla.bwd")
 
 
 def mean_pool_blocks(x: torch.Tensor, block: int) -> torch.Tensor:
@@ -94,15 +99,22 @@ class SparseLinearAttention(nn.Module):
                 block: Optional[int] = None) -> torch.Tensor:
         """`block`: a square block for this call in place of (block_q,
         block_k) (WanAttention's tuned SLA block, kernels/tuning.sla_blocks)."""
+        with span(SLA):
+            return backward_span(SLA_BWD, self._attend, q, k, v, block)
+
+    def _attend(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                block: Optional[int]) -> torch.Tensor:
         B, H, L, D = q.shape
         bq, bk = (block, block) if block else (self.block_q, self.block_k)
         qf, kf, vf = (t.reshape(B * H, L, D) for t in (q, k, v))
-        with torch.no_grad():   # the top-k indices carry no gradient
+        with span(BLOCK_MAP), torch.no_grad():   # the top-k indices carry no gradient
             _, lut, _ = get_block_map(qf, kf, self.topk, bq, bk)
         bf = torch.bfloat16
         attend = int8_block_sparse_attention if self.quant == "int8" else block_sparse_attention
-        o_s = attend(qf.to(bf).contiguous(), kf.to(bf).contiguous(), vf.to(bf).contiguous(),
-                     lut, bq, bk)
-        o_l = _linear_attention(qf, kf, vf, self.feature_map)
-        proj = F.linear(o_l, self.proj_l.weight.float(), self.proj_l.bias.float())
+        with span(SPARSE):
+            o_s = attend(qf.to(bf).contiguous(), kf.to(bf).contiguous(),
+                         vf.to(bf).contiguous(), lut, bq, bk)
+        with span(LINEAR):
+            o_l = _linear_attention(qf, kf, vf, self.feature_map)
+            proj = F.linear(o_l, self.proj_l.weight.float(), self.proj_l.bias.float())
         return (o_s.float() + proj).to(q.dtype).reshape(B, H, L, D)

@@ -52,6 +52,7 @@ from torch import nn
 
 from ..kernels.fused_block import fused_film_block
 from ..kernels.small_mha import SMALL_MHA_MAX_ROWS, small_mha, small_mha_packed
+from ..utils.profiling import span
 
 ATTN_POLICIES = ("fused", "block", "dense")
 
@@ -194,6 +195,9 @@ def sequence_sharded_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     return attn.transpose(1, 2).reshape(B, L, D)
 
 
+BLOCK = "idt.block"
+
+
 class TransformerBlock(nn.Module):
     compute_dtype: Optional[torch.dtype] = None
     attn_impl: str = "dense"     # "ring" / "ring_sla": see the module docstring
@@ -216,45 +220,46 @@ class TransformerBlock(nn.Module):
             self.film2 = Linear(d_cond, 2 * d_model)
 
     def forward(self, x: torch.Tensor, cond: Optional[torch.Tensor] = None) -> torch.Tensor:
-        B, L, D = x.shape
-        H = self.n_heads
-        film_on = self.use_film and cond is not None
-        dt = self.compute_dtype or self.attn.in_proj_weight.dtype
-        x = x.to(dt)
-        if self.attn_impl == "dense" and _use_fused_block_policy(self.attn_policy, H, L,
-                                                                 self.causal):
-            # FiLM gamma/beta projections stay outside the kernel, as in JAX
-            if film_on:
-                gb1, gb2 = self.film1(cond), self.film2(cond)
-            else:
-                gb1 = gb2 = x.new_zeros((B, 2 * D))
-            return fused_film_block(
-                x, gb1, gb2, self.norm1.weight, self.norm1.bias,
-                self.norm2.weight, self.norm2.bias,
-                self.attn.in_proj_weight, self.attn.in_proj_bias,
-                self.attn.out_proj.weight, self.attn.out_proj.bias,
-                self.ff[0].weight, self.ff[0].bias, self.ff[2].weight, self.ff[2].bias,
-                n_heads=H, use_film=film_on)
+        with span(BLOCK):
+            B, L, D = x.shape
+            H = self.n_heads
+            film_on = self.use_film and cond is not None
+            dt = self.compute_dtype or self.attn.in_proj_weight.dtype
+            x = x.to(dt)
+            if self.attn_impl == "dense" and _use_fused_block_policy(self.attn_policy, H, L,
+                                                                     self.causal):
+                # FiLM gamma/beta projections stay outside the kernel, as in JAX
+                if film_on:
+                    gb1, gb2 = self.film1(cond), self.film2(cond)
+                else:
+                    gb1 = gb2 = x.new_zeros((B, 2 * D))
+                return fused_film_block(
+                    x, gb1, gb2, self.norm1.weight, self.norm1.bias,
+                    self.norm2.weight, self.norm2.bias,
+                    self.attn.in_proj_weight, self.attn.in_proj_bias,
+                    self.attn.out_proj.weight, self.attn.out_proj.bias,
+                    self.ff[0].weight, self.ff[0].bias, self.ff[2].weight, self.ff[2].bias,
+                    n_heads=H, use_film=film_on)
 
-        h = self.norm1(x)
-        if film_on:
-            h = _film(h, self.film1(cond))
-        q, k, v = F.linear(h, self.attn.in_proj_weight.to(dt),
-                           self.attn.in_proj_bias.to(dt)).split(D, dim=-1)
-        if self.attn_impl != "dense":
-            attn = sequence_sharded_attention(q, k, v, H, self.causal, self.attn_impl,
-                                              self.seq_group)
-        elif self.use_small_mha and not self.causal and H * L <= SMALL_MHA_MAX_ROWS:
-            attn = small_mha(q, k, v, H)
-        elif _use_fused_packed(self.attn_policy, H, L, self.causal):
-            attn = small_mha_packed(q, k, v, H)
-        else:
-            attn = dense_attention(q, k, v, H, self.causal)
-        x = x + self.attn.out_proj(attn)
-        h = self.norm2(x)
-        if film_on:
-            h = _film(h, self.film2(cond))
-        return x + self.ff(h)
+            h = self.norm1(x)
+            if film_on:
+                h = _film(h, self.film1(cond))
+            q, k, v = F.linear(h, self.attn.in_proj_weight.to(dt),
+                               self.attn.in_proj_bias.to(dt)).split(D, dim=-1)
+            if self.attn_impl != "dense":
+                attn = sequence_sharded_attention(q, k, v, H, self.causal, self.attn_impl,
+                                                  self.seq_group)
+            elif self.use_small_mha and not self.causal and H * L <= SMALL_MHA_MAX_ROWS:
+                attn = small_mha(q, k, v, H)
+            elif _use_fused_packed(self.attn_policy, H, L, self.causal):
+                attn = small_mha_packed(q, k, v, H)
+            else:
+                attn = dense_attention(q, k, v, H, self.causal)
+            x = x + self.attn.out_proj(attn)
+            h = self.norm2(x)
+            if film_on:
+                h = _film(h, self.film2(cond))
+            return x + self.ff(h)
 
 
 class TransformerEncoder(nn.Module):

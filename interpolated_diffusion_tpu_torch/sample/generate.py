@@ -53,6 +53,11 @@ from ..ops.schedules import DiffusionSchedule, make_schedule
 from ..train.batches import build_known_mask_values, compute_sigma_for_level, gather_keypoints
 from ..train.common import add_data_args, make_dataset, resolve_device, sample_idx_policy
 from ..train.train_interp_levels import anneal_conf, build_anchor_conf
+from ..utils.profiling import span
+
+
+CALL, ENCODE, STAGE1, LERP, LEVEL = ("idt.plan.call", "idt.plan.encode", "idt.plan.stage1",
+                                    "idt.plan.lerp", "idt.plan.level")
 
 
 @dataclass
@@ -256,50 +261,51 @@ def make_pipeline(kp_model, interp_model, schedule: DiffusionSchedule,
         end_mask = torch.zeros_like(masks[:, 0])
         end_mask[:, 0] = end_mask[:, -1] = True
         for s in ([levels] if cfg.stage2_mode == "x0" else range(levels, 0, -1)):
-            mask_s = masks[:, s]
-            conf_s = None
-            if cfg.anchor_conf:
-                conf_s = build_anchor_conf(mask_s, None, cfg.anchor_conf_teacher, 0.5,
-                                           cfg.anchor_conf_endpoints, cfg.anchor_conf_missing,
-                                           cfg.clamp_endpoints)
-                conf_s = anneal_conf(conf_s, torch.full((B,), s, device=idx.device), levels,
-                                     cfg.anchor_conf_anneal_mode)
-            chans = [mask_s.float()]
-            if cfg.stage2_mode == "adj":
-                chans.append(masks[:, s - 1].float())
-            if conf_s is not None:
-                chans.append(conf_s)
-            mask_in = torch.stack(chans, dim=-1) if len(chans) > 1 else mask_s
-            s_level = torch.full((B,), s, dtype=torch.long, device=idx.device)
-            x = x + interp_model(x, s_level, mask_in, cond)
-            if cfg.s2_delta_smooth > 0:
-                # binomial smoothing at missing frames (roll wraps around, as
-                # jnp.roll does); endpoints and anchors keep their values
-                keep = mask_s.clone()
-                keep[:, 0] = keep[:, -1] = True
-                for _ in range(cfg.s2_delta_smooth):
-                    xs = (0.25 * torch.roll(x, 1, dims=1) + 0.5 * x
-                          + 0.25 * torch.roll(x, -1, dims=1))
-                    xs[:, 0], xs[:, -1] = x[:, 0], x[:, -1]
-                    x = torch.where(keep[..., None], x, xs)
-            if cfg.s2_noise_mode != "none":
-                sigma = (cfg.s2_noise_sigma if cfg.s2_noise_mode == "constant"
-                         else compute_sigma_for_level(int(k_list[s]), cfg.K_min,
-                                                      cfg.s2_noise_sigma, cfg.s2_sigma_min,
-                                                      cfg.s2_sigma_pow))
-                if sigma > 0 and cfg.s2_noise_scale > 0:
-                    nz = s2_noise[s] * sigma * cfg.s2_noise_scale * (~mask_s)[..., None]
-                    x = torch.cat([x[..., :2] + nz, x[..., 2:]], dim=-1)
-            if cfg.soft_anchor_clamp and conf_s is not None:
-                lam = _soft_clamp_lambda(s, levels, cfg.soft_clamp_schedule, cfg.soft_clamp_max)
-                x = apply_soft_clamp(x, x_pred, conf_s, lam, cfg.clamp_dims)
-            if cfg.clamp_policy == "all_anchors":
-                x = apply_clamp(x, x_pred, mask_s, cfg.clamp_dims)
-            elif cfg.clamp_policy == "endpoints":
-                x = apply_clamp(x, x_pred, end_mask, cfg.clamp_dims)
-            x = clip_pos(x)
-            if cfg.collect_steps:
-                x_steps.append(x)
+            with span(LEVEL):
+                mask_s = masks[:, s]
+                conf_s = None
+                if cfg.anchor_conf:
+                    conf_s = build_anchor_conf(mask_s, None, cfg.anchor_conf_teacher, 0.5,
+                                               cfg.anchor_conf_endpoints, cfg.anchor_conf_missing,
+                                               cfg.clamp_endpoints)
+                    conf_s = anneal_conf(conf_s, torch.full((B,), s, device=idx.device), levels,
+                                         cfg.anchor_conf_anneal_mode)
+                chans = [mask_s.float()]
+                if cfg.stage2_mode == "adj":
+                    chans.append(masks[:, s - 1].float())
+                if conf_s is not None:
+                    chans.append(conf_s)
+                mask_in = torch.stack(chans, dim=-1) if len(chans) > 1 else mask_s
+                s_level = torch.full((B,), s, dtype=torch.long, device=idx.device)
+                x = x + interp_model(x, s_level, mask_in, cond)
+                if cfg.s2_delta_smooth > 0:
+                    # binomial smoothing at missing frames (roll wraps around, as
+                    # jnp.roll does); endpoints and anchors keep their values
+                    keep = mask_s.clone()
+                    keep[:, 0] = keep[:, -1] = True
+                    for _ in range(cfg.s2_delta_smooth):
+                        xs = (0.25 * torch.roll(x, 1, dims=1) + 0.5 * x
+                              + 0.25 * torch.roll(x, -1, dims=1))
+                        xs[:, 0], xs[:, -1] = x[:, 0], x[:, -1]
+                        x = torch.where(keep[..., None], x, xs)
+                if cfg.s2_noise_mode != "none":
+                    sigma = (cfg.s2_noise_sigma if cfg.s2_noise_mode == "constant"
+                             else compute_sigma_for_level(int(k_list[s]), cfg.K_min,
+                                                          cfg.s2_noise_sigma, cfg.s2_sigma_min,
+                                                          cfg.s2_sigma_pow))
+                    if sigma > 0 and cfg.s2_noise_scale > 0:
+                        nz = s2_noise[s] * sigma * cfg.s2_noise_scale * (~mask_s)[..., None]
+                        x = torch.cat([x[..., :2] + nz, x[..., 2:]], dim=-1)
+                if cfg.soft_anchor_clamp and conf_s is not None:
+                    lam = _soft_clamp_lambda(s, levels, cfg.soft_clamp_schedule, cfg.soft_clamp_max)
+                    x = apply_soft_clamp(x, x_pred, conf_s, lam, cfg.clamp_dims)
+                if cfg.clamp_policy == "all_anchors":
+                    x = apply_clamp(x, x_pred, mask_s, cfg.clamp_dims)
+                elif cfg.clamp_policy == "endpoints":
+                    x = apply_clamp(x, x_pred, end_mask, cfg.clamp_dims)
+                x = clip_pos(x)
+                if cfg.collect_steps:
+                    x_steps.append(x)
         return x, (torch.stack(x_steps, dim=0) if cfg.collect_steps else None)
 
     @torch.inference_mode()
@@ -310,32 +316,37 @@ def make_pipeline(kp_model, interp_model, schedule: DiffusionSchedule,
                  s2_noise: Optional[torch.Tensor] = None,
                  z_override: Optional[torch.Tensor] = None,
                  selector_logits: Optional[torch.Tensor] = None):
-        B, device = idx.shape[0], idx.device
-        need_z = z_override is None and z_init is None
-        need_noise = cfg.s2_noise_mode != "none" and s2_noise is None
-        if need_z or mask_rand is None or need_noise:
-            if generator is None:
-                raise ValueError("pipeline needs a generator unless its draws are given")
-            drawn = make_draws(cfg, B, data_dim, generator, device)
-            z_init = drawn["z_init"] if z_init is None else z_init
-            mask_rand = drawn["mask_rand"] if mask_rand is None else mask_rand
-            s2_noise = drawn.get("s2_noise") if s2_noise is None else s2_noise
-        sched = schedule if schedule.betas.device == device else schedule.to(device)
-        idx = idx.long()
-        # the maze CNN runs once per call, not once per DDIM / level step
-        kp_cond = hoist_cond_vec(kp_model, cond)
-        it_cond = hoist_cond_vec(interp_model, cond)
-        z_steps = None
-        if z_override is not None:
-            z_pred = z_override.float()
-        elif _best_of_runs(cfg):
-            occ = cond["occ"][:, 0] if cond["occ"].ndim == 4 else cond["occ"]
-            z_pred = best_of(sched, idx, kp_cond, occ, z_init.float())
-        else:
-            z_pred, z_steps = stage1(sched, idx, kp_cond, z_init.float())
-        x_interp = interpolate_from_indices(idx, z_pred, T, recompute_velocity=cfg.recompute_vel)
-        x_refined, x_steps = stage2(x_interp, idx, it_cond, mask_rand, s2_noise,
-                                    selector_logits)
+        with span(CALL):
+            B, device = idx.shape[0], idx.device
+            need_z = z_override is None and z_init is None
+            need_noise = cfg.s2_noise_mode != "none" and s2_noise is None
+            if need_z or mask_rand is None or need_noise:
+                if generator is None:
+                    raise ValueError("pipeline needs a generator unless its draws are given")
+                drawn = make_draws(cfg, B, data_dim, generator, device)
+                z_init = drawn["z_init"] if z_init is None else z_init
+                mask_rand = drawn["mask_rand"] if mask_rand is None else mask_rand
+                s2_noise = drawn.get("s2_noise") if s2_noise is None else s2_noise
+            sched = schedule if schedule.betas.device == device else schedule.to(device)
+            idx = idx.long()
+            # the maze CNN runs once per call, not once per DDIM / level step
+            with span(ENCODE):
+                kp_cond = hoist_cond_vec(kp_model, cond)
+                it_cond = hoist_cond_vec(interp_model, cond)
+            z_steps = None
+            with span(STAGE1):
+                if z_override is not None:
+                    z_pred = z_override.float()
+                elif _best_of_runs(cfg):
+                    occ = cond["occ"][:, 0] if cond["occ"].ndim == 4 else cond["occ"]
+                    z_pred = best_of(sched, idx, kp_cond, occ, z_init.float())
+                else:
+                    z_pred, z_steps = stage1(sched, idx, kp_cond, z_init.float())
+            with span(LERP):
+                x_interp = interpolate_from_indices(idx, z_pred, T,
+                                                    recompute_velocity=cfg.recompute_vel)
+            x_refined, x_steps = stage2(x_interp, idx, it_cond, mask_rand, s2_noise,
+                                        selector_logits)
         if not cfg.collect_steps:
             return x_interp, x_refined, z_pred
         if z_steps is None:   # z_override, rf, or pfdiff without a springboard group

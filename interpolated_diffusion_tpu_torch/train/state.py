@@ -37,6 +37,10 @@ from ..models.jax_import import matrix_layout
 from ..parallel.collectives import psum
 from ..parallel.mesh import Mesh, data_parallel_step, replicate, shard_draws
 from ..utils.ema import ema_init, ema_update
+from ..utils.profiling import span
+
+STEP, FORWARD, BACKWARD, OPTIMIZER = ("idt.train.step", "idt.train.forward",
+                                      "idt.train.backward", "idt.train.optimizer")
 
 
 class TrainState(NamedTuple):
@@ -305,6 +309,15 @@ def _replicate_once(state: "TrainState", mesh: Optional[Mesh], done: List[bool])
     done.append(True)
 
 
+def _optimize(state: TrainState, grads, norm: Optional[torch.Tensor], ema_decay: float):
+    """The optimizer's update and the EMA: (pre-clip grad norm, new EMA)."""
+    with span(OPTIMIZER):
+        grad_norm = state.opt_state.update(grads, norm)
+        ema = (ema_update(state.ema_params, state.params, ema_decay)
+               if state.ema_params is not None else None)
+    return grad_norm, ema
+
+
 def make_train_step_frozen(loss_fn, ema_decay: float = 0.999, mesh: Optional[Mesh] = None):
     """step(state, frozen, batch, rng) -> (state, metrics) for
     loss_fn(params, frozen, batch, rng) -> (loss, aux dict).
@@ -318,14 +331,15 @@ def make_train_step_frozen(loss_fn, ema_decay: float = 0.999, mesh: Optional[Mes
     replicated: List[bool] = []
 
     def step_fn(state: TrainState, frozen, batch, rng) -> Tuple[TrainState, Dict]:
-        _replicate_once(state, mesh, replicated)
-        leaves = tree_leaves(state.params)
-        loss, aux = _dp_call(loss_fn, mesh, batch, rng, state.params, frozen)
-        grads = torch.autograd.grad(loss, leaves)
-        loss, aux, grads = _dp_reduce(mesh, loss, aux, grads)
-        grad_norm = state.opt_state.update(grads, _tp_norm(mesh, grads, leaves))
-        ema = (ema_update(state.ema_params, state.params, ema_decay)
-               if state.ema_params is not None else None)
+        with span(STEP):
+            _replicate_once(state, mesh, replicated)
+            leaves = tree_leaves(state.params)
+            with span(FORWARD):
+                loss, aux = _dp_call(loss_fn, mesh, batch, rng, state.params, frozen)
+            with span(BACKWARD):
+                grads = torch.autograd.grad(loss, leaves)
+            loss, aux, grads = _dp_reduce(mesh, loss, aux, grads)
+            grad_norm, ema = _optimize(state, grads, _tp_norm(mesh, grads, leaves), ema_decay)
         metrics = dict(aux) if isinstance(aux, dict) else {}
         metrics["loss"] = loss.detach()
         metrics["grad_norm"] = grad_norm
@@ -364,12 +378,17 @@ def _loss_and_grads(loss_fn, params, batch, rng, grad_accum: int, mesh: Optional
     With `mesh` each rank splits its own rows into microbatches."""
     leaves = tree_leaves(params)
     if grad_accum <= 1:
-        loss, aux = _dp_call(loss_fn, mesh, batch, rng, params)
-        return loss.detach(), aux, _grads(loss, leaves)
+        with span(FORWARD):
+            loss, aux = _dp_call(loss_fn, mesh, batch, rng, params)
+        with span(BACKWARD):
+            grads = _grads(loss, leaves)
+        return loss.detach(), aux, grads
     loss_sum, grads, auxes = 0.0, None, []
     for i, mb in enumerate(_split_micro(batch, grad_accum)):
-        loss, aux = _dp_call(loss_fn, mesh, mb, _rng_at(rng, i), params)
-        g = _grads(loss, leaves)
+        with span(FORWARD):
+            loss, aux = _dp_call(loss_fn, mesh, mb, _rng_at(rng, i), params)
+        with span(BACKWARD):
+            g = _grads(loss, leaves)
         grads = g if grads is None else [a + b for a, b in zip(grads, g)]
         loss_sum = loss_sum + loss.detach()
         auxes.append(aux if isinstance(aux, dict) else {})
@@ -390,13 +409,14 @@ def make_train_step(loss_fn, ema_decay: float = 0.999, grad_accum: int = 1,
     replicated: List[bool] = []
 
     def step_fn(state: TrainState, batch: Dict, rng) -> Tuple[TrainState, Dict]:
-        _replicate_once(state, mesh, replicated)
-        loss, aux, grads = _loss_and_grads(loss_fn, state.params, batch, rng, grad_accum, mesh)
-        loss, aux, grads = _dp_reduce(mesh, loss, aux, grads)
-        grad_norm = state.opt_state.update(grads, _tp_norm(mesh, grads,
-                                                           tree_leaves(state.params)))
-        ema = (ema_update(state.ema_params, state.params, ema_decay)
-               if state.ema_params is not None else None)
+        with span(STEP):
+            _replicate_once(state, mesh, replicated)
+            loss, aux, grads = _loss_and_grads(loss_fn, state.params, batch, rng, grad_accum,
+                                               mesh)
+            loss, aux, grads = _dp_reduce(mesh, loss, aux, grads)
+            grad_norm, ema = _optimize(state, grads,
+                                       _tp_norm(mesh, grads, tree_leaves(state.params)),
+                                       ema_decay)
         metrics = dict(aux) if isinstance(aux, dict) else {}
         metrics["loss"] = loss
         metrics["grad_norm"] = grad_norm

@@ -100,7 +100,11 @@ def build_argparser() -> argparse.ArgumentParser:
                         "torchrun launch, one per GPU)")
     p.add_argument("--profile_dir", type=str, default=None,
                    help="write a torch.profiler trace (trace.json, viewable in "
-                        "chrome://tracing or Perfetto) of a window of steps into this dir")
+                        "chrome://tracing or Perfetto) of a window of steps into this dir; "
+                        "it carries the program's idt.* spans: idt.train.step with its "
+                        "forward, backward and optimizer, idt.data.wait (blocked on the "
+                        "prefetch queue), idt.wan.sla with its block_map, sparse and "
+                        "linear parts, and idt.wan.sla.bwd (utils/profiling.py)")
     p.add_argument("--profile_start", type=int, default=3)
     p.add_argument("--profile_steps", type=int, default=3)
     # token-transformer fallback (use_wan=0)

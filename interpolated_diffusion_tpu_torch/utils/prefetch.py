@@ -13,6 +13,10 @@ import queue
 import threading
 from typing import Any, Callable, Iterator
 
+from .profiling import span
+
+WAIT = "idt.data.wait"
+
 
 class _Stop:
     pass
@@ -104,7 +108,8 @@ class DevicePrefetcher:
             if self._terminal is _Stop:
                 raise StopIteration
             raise self._terminal
-        item = self._q.get()
+        with span(WAIT):
+            item = self._q.get()
         if item is _Stop:
             self._terminal = item
             self.close()
