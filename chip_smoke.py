@@ -2,7 +2,7 @@
 """Drive the PyTorch/CUDA port's sampling paths and its trainers once on one GPU.
 
     python3 chip_smoke.py [--profile] [--kernels] [--gemm-ab] [--wan-phase2] [--wan-interp]
-                          [--video-toy] [--multi-device] [--diagnostics]
+                          [--video-toy] [--multi-device] [--diagnostics] [--qk-norm-rope]
 
 Phases, each on its own lines; any failure exits non-zero:
   1. device       the card's name and power limit (nvidia-smi); CUDA required
@@ -117,13 +117,22 @@ Phases, each on its own lines; any failure exits non-zero:
                   ragged lengths, fewer than 64 keys, and two calls bit for
                   bit), with CUDA-event times (SLA also by graph replay) and
                   the library's backward
+  9a. wan q/k    the q/k RMSNorm + RoPE kernels (csrc/qk_norm_rope.cu) at
+                  Phase 1's self-attention [2, 7800, 1536] (frame-indexed
+                  RoPE, bf16 and f32), its cross-attention keys [2, 517, 1536]
+                  and Phase 2's [2, 32760, 1536]: the forward bit for bit the
+                  twin's on the kernel's own rstd, the share equal to the twin
+                  and dx against it, then forward and backward times (events,
+                  graph replay) beside the bound, the twin and, without RoPE,
+                  the library's F.rms_norm
   10. wan train   Phase-1 LoRA training (train/train_keypoints_wansynth) at
                   the trainer's defaults: Wan2.1-1.3B at full width and depth,
                   batch 2, L=7800, bf16, LoRA rank 8, frame conditioning,
                   remat, synthetic data; attn_mode sla (1 warm-up + 3 timed
                   steps), sage_sla and dense (1 warm-up + 2 timed steps each)
                   through the trainer's own step; finite loss, every trainable leaf
-                  changed, frozen base bit-identical, launch counts, no twin
+                  changed, frozen base bit-identical, launch counts (also
+                  qk_norm_rope: 240 forward, 120 backward a step), no twin
                   call, and loss / gradients of the kernel path against the
                   plain-twin path from the same state, batch and draws (the
                   twin path replays the kernel path's SLA LUTs: the top-k
@@ -254,7 +263,7 @@ with the device's busy share. The line before the
 last is a JSON summary of the kernels (time, bound, library time, launches);
 the last line is {"ok": true, "device": {...}}. --kernels runs only the phases
 that build, check and time the kernels alone (1-3, the kernel times of 5, 5a,
-6, the kernel times of 8, and 9), drives no model and prints neither of the two JSON lines: a short
+6, the kernel times of 8, 9 and 9a), drives no model and prints neither of the two JSON lines: a short
 first run for a changed kernel. --gemm-ab reads what the block GEMM's
 W-resident kernel buys: the maze part of phases 3 and 5 (--maze-kernels) in four
 processes, two on a build that sends every product to the streaming kernel.
@@ -263,7 +272,8 @@ processes, two on a build that sends every product to the streaming kernel.
 phase 5h alone, then a JSON line of its launches and times and the
 {"ok": true, ...} line; --multi-device the build, phase 3 and phase 5i, then
 its JSON line of launches and the ok line; --diagnostics the build and phase
-5j alone, then its JSON line of launches and times and the ok line.
+5j alone, then its JSON line of launches and times and the ok line;
+--qk-norm-rope the build and phase 9a alone.
 """
 from __future__ import annotations
 
@@ -332,6 +342,8 @@ KERNEL_SOURCES = {
                      "interpolated_diffusion_tpu/kernels/block_sparse_attention.py:214"),
     "flash_bwd_dkdv": ("interpolated_diffusion_tpu_torch/csrc/flash_bwd_sm90.cu",
                        "interpolated_diffusion_tpu/kernels/block_sparse_attention.py:248"),
+    "qk_norm_rope": ("interpolated_diffusion_tpu_torch/csrc/qk_norm_rope.cu",
+                     "none: XLA fuses interpolated_diffusion_tpu/models/wan_dit.py:155 and :92"),
 }
 
 # Times of the kernels that were redesigned (wgmma + TMA flash forward and
@@ -2720,11 +2732,12 @@ def count_twin_calls():
     """Count calls of the Wan kernels' plain twins (none on the kernel path)."""
     from interpolated_diffusion_tpu_torch.kernels import block_sparse_attention as bsa
     from interpolated_diffusion_tpu_torch.kernels import int8_attention as i8
+    from interpolated_diffusion_tpu_torch.kernels import qk_norm_rope as qknr
 
     calls = [0]
     saved = [(bsa, "block_sparse_attention_reference"), (bsa, "_torch_flash"),
              (bsa, "_torch_sla_bwd"), (bsa, "_torch_flash_bwd"), (i8, "_torch_int8_attention"),
-             (i8, "block_sparse_attention_reference")]
+             (i8, "block_sparse_attention_reference"), (qknr, "_twin")]
     originals = [getattr(m, n) for m, n in saved]
 
     def counting(fn):
@@ -2744,21 +2757,25 @@ def count_twin_calls():
 
 @contextlib.contextmanager
 def wan_plain_twins():
-    """Route WanDiT's attention kernels to their plain twins (on CUDA
-    tensors), forward and backward."""
+    """Route WanDiT's attention and q/k norm kernels to their plain twins (on
+    CUDA tensors), forward and backward."""
     from interpolated_diffusion_tpu_torch.kernels import block_sparse_attention as bsa
     from interpolated_diffusion_tpu_torch.kernels import int8_attention as i8
+    from interpolated_diffusion_tpu_torch.kernels import qk_norm_rope as qknr
     from interpolated_diffusion_tpu_torch.kernels import sla
     from interpolated_diffusion_tpu_torch.models import wan_dit
 
-    saved = sla.block_sparse_attention, sla.int8_block_sparse_attention, wan_dit.flash_attention
+    saved = (sla.block_sparse_attention, sla.int8_block_sparse_attention, wan_dit.flash_attention,
+             wan_dit.qk_norm_rope)
     sla.block_sparse_attention = bsa.block_sparse_attention_twin
     sla.int8_block_sparse_attention = i8.int8_block_sparse_attention_twin
     wan_dit.flash_attention = bsa.flash_attention_twin
+    wan_dit.qk_norm_rope = qknr.qk_norm_rope_twin
     try:
         yield
     finally:
-        sla.block_sparse_attention, sla.int8_block_sparse_attention, wan_dit.flash_attention = saved
+        (sla.block_sparse_attention, sla.int8_block_sparse_attention, wan_dit.flash_attention,
+         wan_dit.qk_norm_rope) = saved
 
 
 @contextlib.contextmanager
@@ -3193,9 +3210,117 @@ def phase_wan_bwd_kernels(dev, card):
     return errs, times, bounds
 
 
+# The q/k RMSNorm + RoPE kernel pair (csrc/qk_norm_rope.cu) at WanDiT's shapes:
+# (name, B, L, RoPE, x's dtype) with D 1536 in 12 heads of 128. Phase 1's
+# self-attention (frame-indexed tables, one per sample), its cross-attention
+# keys (517 text and frame tokens, no RoPE), Phase 2's 32760 tokens, and
+# Phase 1's self-attention in a model computing in f32 (--bf16 0).
+QK_CASES = (("p1_self", 2, 7800, True, "bfloat16"), ("p1_cross_k", 2, 517, False, "bfloat16"),
+            ("p2_self", 2, 32760, True, "bfloat16"), ("p1_self_f32", 2, 7800, True, "float32"))
+# Launches per Phase-1 training step with remat: four norms a block (self q
+# and k with RoPE, cross q and k without), the forward twice, the backward once.
+QK_TRAIN_EXPECT = (8 * TRAIN_LAYERS, 4 * TRAIN_LAYERS)
+
+
+def phase_qk_norm_rope(dev, card):
+    """The q/k norm kernels against their twin at QK_CASES (forward: for the
+    kernel's own per-row rstd the twin's arithmetic gives its output bit for
+    bit; the share equal to the twin's own output and the largest gap are
+    printed; backward: dx against the twin's autograd, 2e-2 of its scale: the
+    twin rounds its gradients to bf16 at each cast, the kernel once), then
+    their times beside the bound and the twin, and, without RoPE, beside the
+    library's torch.nn.functional.rms_norm (forward, and forward + backward
+    less forward); no PyTorch call computes the norm and the rotation.
+    Returns ({case: times}, the largest relative gap to the twin)."""
+    import torch
+    import torch.nn.functional as F
+    from interpolated_diffusion_tpu_torch.kernels import qk_norm_rope as qknr
+
+    D, H = 1536, 12
+    gen = torch.Generator(device=dev).manual_seed(50)
+    saved = qknr.qk_norm_rope.launches, qknr.qk_norm_rope.launches_bwd
+    times, worst = {}, 0.0
+    for name, B, L, rope, dtype in QK_CASES:
+        dtype = getattr(torch, dtype)
+        x = (torch.randn(B, L, D, generator=gen, device=dev) * 3.0).to(dtype)
+        w = 1 + 0.3 * torch.randn(D, generator=gen, device=dev)   # an f32 master copy
+        cos = sin = None
+        if rope:
+            ang = (torch.rand(B, L, 1, generator=gen, device=dev) * 1000
+                   * torch.rand(D // H // 2, generator=gen, device=dev))
+            cos, sin = torch.cos(ang), torch.sin(ang)
+        shape = (B, H, L, D // H) if rope else (B, L, D)
+        dq = torch.randn(shape, generator=gen, device=dev).to(dtype)
+        q, rstd = qknr._forward(x, w, cos, sin, H, 1e-6)
+        twin = qknr.qk_norm_rope_twin(x, w, cos, sin, n_heads=H)
+        mine = (x.float() * rstd.reshape(B, L, 1)).to(x.dtype) * w.to(x.dtype)
+        if rope:
+            mine = qknr.apply_rope(mine.reshape(B, L, H, D // H).transpose(1, 2), cos, sin)
+        require(q.dtype == dtype and torch.equal(q, mine),
+                f"qk_norm_rope {name}: not the twin's arithmetic on its own rstd")
+        equal = (q == twin).float().mean().item()
+        rel = _errors(q, twin)[1]
+        require(rel <= 2.0 ** -7, f"qk_norm_rope {name}: forward disagrees ({rel:.3e})")
+        xg = x.clone().requires_grad_(True)
+        dx_twin, = torch.autograd.grad(qknr.qk_norm_rope_twin(xg, w, cos, sin, n_heads=H),
+                                       [xg], dq)
+        dx, _ = qknr._backward(dq, x, w, cos, sin, rstd, H, False)
+        dx_rel = _errors(dx, dx_twin)[1]
+        require(dx_rel <= BWD_TOL, f"qk_norm_rope {name}: dx disagrees ({dx_rel:.3e})")
+        worst = max(worst, rel, dx_rel)
+        print(f"[qk_norm_rope] {name} [{B},{L},{D}] {dtype} H {H}{' RoPE' if rope else ''}: "
+              f"forward bitwise-equal share {equal:.7f}, max|d|/max|twin|={rel:.3e}; dx "
+              f"max|d|/max|twin|={dx_rel:.3e}", flush=True)
+
+        def autograd_ms(fn):   # forward + backward through autograd, less the forward
+            def run():
+                xl = x.clone().requires_grad_(True)
+                torch.autograd.grad(fn(xl), [xl], dq)
+            with torch.no_grad():
+                f = _time_ms(lambda: fn(x), iters=5)
+            return f, _time_ms(run, iters=5) - f
+
+        fwd = lambda: qknr._forward(x, w, cos, sin, H, 1e-6)
+        bwd = lambda: qknr._backward(dq, x, w, cos, sin, rstd, H, False)
+        bwd_dw = lambda: qknr._backward(dq, x, w, cos, sin, rstd, H, True)
+        tables = _nbytes(cos, sin) if rope else 0
+        rows = 4 * B * L
+        bound_f = bound_ms(_nbytes(x, w, q) + rows + tables)
+        bound_b = bound_ms(_nbytes(dq, x, w, x) + rows + tables)
+        with torch.no_grad():
+            f_ms, f_graph = _time_ms(fwd, iters=20), _graph_ms(fwd, launches=20)
+            b_ms, b_graph = _time_ms(bwd, iters=20), _graph_ms(bwd, launches=20)
+            bw_ms = _time_ms(bwd_dw, iters=10)
+        tf_ms, tb_ms = autograd_ms(lambda t: qknr.qk_norm_rope_twin(t, w, cos, sin, n_heads=H))
+        lf_ms = lf_graph = lb_ms = None
+        if not rope:   # the same function as one library call
+            lib_fn = lambda t: F.rms_norm(t, (D,), w.to(dtype), 1e-6)
+            lf_ms, lb_ms = autograd_ms(lib_fn)
+            with torch.no_grad():
+                lf_graph = _graph_ms(lambda: lib_fn(x), launches=20)
+        lib = ("none" if rope else
+               f"F.rms_norm forward {lf_ms:.4f} ms (graph {lf_graph:.4f}), forward + backward "
+               f"less forward {lb_ms:.4f} ms")
+        print(f"[timing] [{card}] qk_norm_rope {name} [{B},{L},{D}] {dtype}: forward {f_ms:.4f} ms "
+              f"(by graph replay {f_graph:.4f}), bound {bound_f[0]:.4f} ms ({bound_f[1]}), plain "
+              f"twin {tf_ms:.4f} ms; backward {b_ms:.4f} ms (graph {b_graph:.4f}; with dw "
+              f"{bw_ms:.4f}), bound {bound_b[0]:.4f} ms, plain twin's autograd {tb_ms:.4f} ms; "
+              f"library: {lib}", flush=True)
+        times[name] = dict(fwd_ms=f_ms, fwd_graph_ms=f_graph, fwd_bound_ms=bound_f[0],
+                           fwd_twin_ms=tf_ms, fwd_library_ms=lf_ms,
+                           fwd_library_graph_ms=lf_graph, bwd_ms=b_ms,
+                           bwd_graph_ms=b_graph, bwd_dw_ms=bw_ms, bwd_bound_ms=bound_b[0],
+                           bwd_twin_ms=tb_ms, bwd_library_ms=lb_ms, equal_share=equal)
+        del x, w, cos, sin, dq, q, rstd, twin, mine, xg, dx_twin, dx
+        torch.cuda.empty_cache()
+    qknr.qk_norm_rope.launches, qknr.qk_norm_rope.launches_bwd = saved
+    return times, worst
+
+
 def phase_wan_train(dev, card, profile):
     """Phase-1 LoRA training at the trainer's defaults, three attention modes."""
     import torch
+    from interpolated_diffusion_tpu_torch.kernels import qk_norm_rope as qknr
     from interpolated_diffusion_tpu_torch.train import train_keypoints_wansynth as trainer
     from interpolated_diffusion_tpu_torch.train.state import flatten_dict, tree_leaves
     from interpolated_diffusion_tpu_torch.train.wansynth_common import (build_wan,
@@ -3284,6 +3409,7 @@ def phase_wan_train(dev, card, profile):
         warm, timed = TRAIN_STEPS[mode]
         torch.cuda.reset_peak_memory_stats()
         _set_train_counts((0,) * len(TRAIN_KERNELS))
+        qk_before = qknr.qk_norm_rope.launches, qknr.qk_norm_rope.launches_bwd
         step_s = []
         with count_twin_calls() as twin_calls:
             for i in range(warm + timed):
@@ -3301,6 +3427,11 @@ def phase_wan_train(dev, card, profile):
                       f"{gnorm:.4e} {step_s[-1]:.3f} s", flush=True)
                 batch = nxt
         counts = _train_counts()
+        qk = (qknr.qk_norm_rope.launches - qk_before[0],
+              qknr.qk_norm_rope.launches_bwd - qk_before[1])
+        require(qk == tuple(c * (warm + timed) for c in QK_TRAIN_EXPECT),
+                f"train {mode}: qk_norm_rope launches (forward, backward) {qk}, expected "
+                f"{QK_TRAIN_EXPECT} a step")
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         want = tuple(c * (warm + timed) for c in TRAIN_EXPECT[mode])
         require(counts == want and twin_calls[0] == 0,
@@ -3317,7 +3448,7 @@ def phase_wan_train(dev, card, profile):
         print(f"[wan train] {tag} attn_mode={mode}: {per:.3f} s/step, {args.batch / per:.3f} "
               f"samples/s ({len(timed_s)} timed step(s) after {warm} warm-up), peak memory "
               f"{peak:.2f} GiB; launches per step {dict(zip(TRAIN_KERNELS, TRAIN_EXPECT[mode]))}, "
-              f"twin calls 0; all {len(names)} trainable leaves changed, frozen base "
+              f"qk_norm_rope {QK_TRAIN_EXPECT}, twin calls 0; all {len(names)} trainable leaves changed, frozen base "
               f"({len(base)} tensors) bit-identical", flush=True)
         for name, c in zip(TRAIN_KERNELS, counts):
             launches[name] += c
@@ -5849,7 +5980,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, ROOT)
     try:
-        import interpolated_diffusion_tpu_torch  # noqa: F401
+        from interpolated_diffusion_tpu_torch.kernels import qk_norm_rope as qknr
     except ImportError as e:
         print(f"FAIL: the port package is not next to this script ({e})", flush=True)
         return 1
@@ -5863,6 +5994,10 @@ def main() -> int:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         profile = "--profile" in sys.argv[1:]
+        if "--qk-norm-rope" in sys.argv[1:]:   # the q/k norm kernels alone: checks, times
+            phase_qk_norm_rope(dev, card)
+            print("[qk_norm_rope] the kernels agree with their plain twin", flush=True)
+            return 0
         cases = phase_kernels(dev)
         if "--maze-kernels" in sys.argv[1:]:   # one run of --gemm-ab: checks, times, one JSON line
             times = phase_timings(dev, card, cases)
@@ -5912,6 +6047,7 @@ def main() -> int:
             del wan_cases
             torch.cuda.empty_cache()
             phase_wan_bwd_kernels(dev, card)
+            phase_qk_norm_rope(dev, card)
             print("[kernels] every kernel agrees with its plain twin", flush=True)
             return 0
         kp, it, pipe, launches = phase_main(dev)
@@ -5945,7 +6081,11 @@ def main() -> int:
         torch.cuda.empty_cache()
         bwd_errs, bwd_times, bwd_bounds = phase_wan_bwd_kernels(dev, card)
         torch.cuda.empty_cache()
+        qk_times, qk_err = phase_qk_norm_rope(dev, card)
+        qk_before = qknr.qk_norm_rope.launches, qknr.qk_norm_rope.launches_bwd
         train_launches, _ = phase_wan_train(dev, card, profile)
+        qk_train = (qknr.qk_norm_rope.launches - qk_before[0],
+                    qknr.qk_norm_rope.launches_bwd - qk_before[1])
         torch.cuda.empty_cache()
         wan2_errs, wan2_times, wan2_launches, _ = phase_wan_phase2(dev, card, profile)
         torch.cuda.empty_cache()
@@ -6086,6 +6226,17 @@ def main() -> int:
             bwd_times[name], bwd_times[f"{kind}_twin"], bwd_bounds[name],
             bwd_times.get(f"{kind}_library"), full_ft_launches=full_ft_launches.get(name, {}),
             multi_device_launches=md_launches.get(name, {}), **extra)
+    # the q/k norm pair: Phase 1's self-attention shape (forward, with the
+    # backward beside it), the other shapes of phase 9a; `launches` counts the
+    # forward's over every model run above (sampler, trainers, evaluations),
+    # `train_launches` (forward, backward) the Phase-1 trainer's
+    p1 = qk_times["p1_self"]
+    row("qk_norm_rope", qknr.qk_norm_rope.launches, qk_err, p1["fwd_ms"], p1["fwd_twin_ms"],
+        (p1["fwd_bound_ms"], "bytes"), None, device_ms=p1["fwd_graph_ms"],
+        bwd_ms=p1["bwd_ms"], bwd_device_ms=p1["bwd_graph_ms"], bwd_dw_ms=p1["bwd_dw_ms"],
+        bwd_plain_ms=p1["bwd_twin_ms"], bwd_bound_ms=p1["bwd_bound_ms"],
+        launches_bwd=qknr.qk_norm_rope.launches_bwd, train_launches=qk_train,
+        shapes={k: v for k, v in qk_times.items() if k != "p1_self"})
     idle = [r["name"] for r in summary if r["launches"] <= 0]
     if idle:
         print(f"FAIL: kernels never launched on their main path: {idle}", flush=True)

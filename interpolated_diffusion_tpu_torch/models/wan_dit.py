@@ -15,7 +15,9 @@ per call, so that their gradients arrive in f32.
 Attention dispatch is the JAX package's: attn_mode "sla" / "sage_sla" route
 self-attention through SparseLinearAttention (bf16 or int8 sparse kernel);
 any other attention with L >= 2048 queries goes through the flash kernel;
-the rest is plain dense attention.
+the rest is plain dense attention. The q / k RMSNorm and RoPE go through
+kernels/qk_norm_rope (one kernel each way on CUDA tensors, its plain twin on
+the CPU), except under tensor parallelism, which keeps RMSNorm and apply_rope.
 
 Module names follow the diffusers WanTransformer3DModel state dict
 (models/wan_convert.py lists the map) so that a Wan2.1 checkpoint maps
@@ -42,6 +44,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..kernels.block_sparse_attention import flash_attention
+from ..kernels.qk_norm_rope import apply_rope, qk_norm_rope, rms_norm
 from ..kernels.sla import SparseLinearAttention
 from ..kernels.tuning import sla_blocks
 from .denoisers import timestep_embedding
@@ -92,14 +95,6 @@ def build_rope_freqs(tables, dims: Tuple[int, int, int], ppf: int, pph: int, ppw
                   wt[:ppw][None, None, None, :, :].expand(*shape, w_dim // 2)]
         out.append(torch.cat(pieces, dim=-1).reshape(B, ppf * pph * ppw, -1))
     return out[0], out[1]
-
-
-def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
-    """Rotate interleaved pairs; x [B, H, L, D], cos/sin [B or 1, L, D / 2]."""
-    x1, x2 = x[..., 0::2], x[..., 1::2]
-    cos, sin = cos[:, None], sin[:, None]
-    y = torch.stack([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
-    return y.reshape(x.shape).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -197,14 +192,12 @@ class RMSNorm(nn.Module):
         self.weight.fill_(1.0)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        dtype = self.compute_dtype or self.weight.dtype
+        var = None
         if self.tp_group is not None:   # the mean square over every member's features
             from ..parallel.collectives import psum
 
             var = psum(x.float().square().sum(dim=-1, keepdim=True), self.tp_group) / self.dim
-        else:
-            var = x.float().square().mean(dim=-1, keepdim=True)
-        return (x.float() * torch.rsqrt(var + self.eps)).to(dtype) * self.weight.to(dtype)
+        return rms_norm(x, self.weight, self.eps, self.compute_dtype or self.weight.dtype, var)
 
 
 def _gelu(x: torch.Tensor) -> torch.Tensor:
@@ -249,11 +242,24 @@ class WanAttention(nn.Module):
         H, Dh = self.n_heads, self.dim // self.n_heads
         kv_src = x if context is None else context
         Lk = kv_src.shape[1]
-        q = self.norm_q(self.to_q(x)).reshape(B, L, H, Dh).transpose(1, 2)
-        k = self.norm_k(self.to_k(kv_src)).reshape(B, Lk, H, Dh).transpose(1, 2)
+        q, k = self.to_q(x), self.to_k(kv_src)
+        if self.norm_q.tp_group is None:
+            # one kernel a norm on the card (kernels/qk_norm_rope; its twin on
+            # the CPU), in q's dtype, the norms' compute dtype; with RoPE q / k
+            # come out head-major. Tensor parallelism keeps the chain: its mean
+            # square is summed over the group.
+            cs = rope if rope is not None else (None, None)
+            q = qk_norm_rope(q, self.norm_q.weight, *cs, n_heads=H, eps=self.norm_q.eps)
+            k = qk_norm_rope(k, self.norm_k.weight, *cs, n_heads=H, eps=self.norm_k.eps)
+            if rope is None:
+                q = q.reshape(B, L, H, Dh).transpose(1, 2)
+                k = k.reshape(B, Lk, H, Dh).transpose(1, 2)
+        else:
+            q = self.norm_q(q).reshape(B, L, H, Dh).transpose(1, 2)
+            k = self.norm_k(k).reshape(B, Lk, H, Dh).transpose(1, 2)
+            if rope is not None:
+                q, k = apply_rope(q, *rope), apply_rope(k, *rope)
         v = self.to_v(kv_src).reshape(B, Lk, H, Dh).transpose(1, 2)
-        if rope is not None:
-            q, k = apply_rope(q, *rope), apply_rope(k, *rope)
         if self.attn_mode in ("sla", "sage_sla") and context is None:
             # the registry's block where it applies at this L (kernels/tuning.py)
             blk = sla_blocks(default=self.sla_block, quant=self.sla.quant, L=L)
