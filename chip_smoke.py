@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py [--profile] [--kernels] [--gemm-ab] [--wan-phase2] [--wan-interp]
                           [--video-toy] [--multi-device] [--diagnostics] [--qk-norm-rope]
+                          [--hunyuan]
 
 Phases, each on its own lines; any failure exits non-zero:
   1. device       the card's name and power limit (nvidia-smi); CUDA required
@@ -252,6 +253,21 @@ Phases, each on its own lines; any failure exits non-zero:
                   diagnose_oracle_dp, and the latent straightness and Sinkhorn
                   outlier diagnostics on a straightener and a Sinkhorn
                   interpolator trained 2 steps by their CLIs
+  10a. hunyuan    (after phase 10) HunyuanVideo's Phase-1 path at the cell's shapes
+                  (batch 1, 10,200 video + 261 text rows, 24 heads of 128):
+                  the flash forward, dQ and dK/dV with a key length per row
+                  (10,229 .. 10,365) against the twin with the same lengths
+                  (o, lse 1e-2; dq, dk, dv 2e-2 of their norms) and dK / dV
+                  exactly zero past each length; qk_norm_rope per head with
+                  RoPE rows at [1, 10200, 3072], [1, 261, 3072] and
+                  [1, 10461, 3072] (RoPE on 10,200) against its twin (2 bf16
+                  ulps; dx within twice the twin's distance from f64); their
+                  times beside bounds from the inputs and the twins; then a
+                  short run of the trainer under --dit hunyuan_video at the
+                  published widths (1 warm-up + 2 timed steps) with the
+                  launch counts set to 0 just before it: 120 flash forward,
+                  60 of each flash backward kernel, 320 / 160 qk_norm_rope a
+                  step, no twin, every LoRA leaf changed
 Every timing phase also times the one PyTorch library call that computes the
 same function, where there is one (scaled_dot_product_attention, for SLA
 under the LUT as a mask; F.linear; or for the block a chain of them), as a
@@ -273,7 +289,9 @@ phase 5h alone, then a JSON line of its launches and times and the
 {"ok": true, ...} line; --multi-device the build, phase 3 and phase 5i, then
 its JSON line of launches and the ok line; --diagnostics the build and phase
 5j alone, then its JSON line of launches and times and the ok line;
---qk-norm-rope the build and phase 9a alone.
+--qk-norm-rope the build and phase 9a alone; --hunyuan the build and phase
+10a alone, then a JSON line of its errors, times, bounds and launches and the
+ok line.
 """
 from __future__ import annotations
 
@@ -3466,6 +3484,294 @@ def phase_wan_train(dev, card, profile):
     return launches, results
 
 
+# Phase 10a: HunyuanVideo's Phase-1 path (portbench's hy13b-p1-lora-540p):
+# batch 1, K 5 keyframes of 16 x 68 x 120 latents, 10,200 video tokens after
+# the 1x2x2 patch, then 5 frame-condition and 256 prompt rows (10,461 joint
+# rows), 24 heads of 128. A (sample, head) row of the joint attention has
+# 10,200 + 5 + its valid prompt tokens (24 .. 160) keys: 10,229 .. 10,365,
+# here spread over the 24 rows.
+HY_HEADS, HY_DH, HY_LV, HY_TEXT = 24, 128, 10200, 5 + 256
+HY_LENS = tuple(HY_LV + 5 + 24 + round(i * 136 / (HY_HEADS - 1)) for i in range(HY_HEADS))
+# the q/k norms per head: (name, rows, RoPE rows) of the dual-stream blocks'
+# video and text q / k and the single-stream blocks' joint q / k
+HY_QK_CASES = (("dual_video", HY_LV, HY_LV), ("dual_text", HY_TEXT, None),
+               ("single_joint", HY_LV + HY_TEXT, HY_LV))
+HY_DOUBLE, HY_SINGLE = 20, 40
+# launches a Phase-1 step under remat (every block's forward twice): one joint
+# attention a block; four q/k norms a dual-stream block, two a single one
+HY_TRAIN_EXPECT = {"flash_attention": 2 * (HY_DOUBLE + HY_SINGLE),
+                   "flash_bwd_dq": HY_DOUBLE + HY_SINGLE, "flash_bwd_dkdv": HY_DOUBLE + HY_SINGLE,
+                   "qk_norm_rope": 2 * (4 * HY_DOUBLE + 2 * HY_SINGLE),
+                   "qk_norm_rope_bwd": 4 * HY_DOUBLE + 2 * HY_SINGLE}
+HY_TRAIN_STEPS = (1, 2)   # (warm-up, timed)
+# against the twins, as tests/test_torch_hunyuan_gpu.py holds them (relative
+# norms): the flash forward's o and lse 1e-2, dq / dk / dv BWD_TOL; the q/k
+# forward within 2 bf16 ulps of a pair's magnitude, its dx within twice the
+# twin's own distance from an f64 chain
+HY_FLASH_TOL, HY_QK_ULPS = 1e-2, 2.0
+
+
+def _rel_norm(a, b):
+    return ((a.float() - b.float()).norm() / b.float().norm().clamp_min(1e-30)).item()
+
+
+def _hy_flash(dev, card):
+    """The flash kernels with a key length per row at the joint attention's
+    shape against their twins (and dK / dV rows past a length exactly
+    zero), then their times beside the bound and the twins'."""
+    import torch
+    from interpolated_diffusion_tpu_torch.kernels import block_sparse_attention as bsa
+
+    BH, L, D = HY_HEADS, HY_LV + HY_TEXT, HY_DH
+    scale = D ** -0.5
+    gen = torch.Generator(device=dev).manual_seed(61)
+    q, k, v, do = (torch.randn((BH, L, D), generator=gen, device=dev).to(torch.bfloat16)
+                   for _ in range(4))
+    kv = torch.tensor(HY_LENS, dtype=torch.int32, device=dev)
+    before = _train_counts()
+    with torch.inference_mode():
+        o, lse = bsa.flash_attention_fwd(q, k, v, kv_lens=kv)
+        got = bsa.flash_attention_bwd(q, k, v, o, lse, do, kv_lens=kv)
+        ro, rlse = bsa._torch_flash(q, k, v, scale, 1024, kv)
+        ref = bsa.flash_attention_bwd(q, k, v, o, lse, do, twin=True, kv_lens=kv)
+    torch.cuda.synchronize()
+    after = _train_counts()
+    require((after[2] - before[2], after[5] - before[5], after[6] - before[6]) == (1, 1, 1),
+            "hunyuan flash: the wrappers did not launch one kernel each")
+    errs = {"o": _rel_norm(o, ro), "lse": _rel_norm(lse, rlse)}
+    errs.update((n, _rel_norm(a, b)) for n, a, b in zip(("dq", "dk", "dv"), got, ref))
+    past = torch.arange(L, device=dev)[None, :] >= kv[:, None].long()
+    past_max = max(float(t[past].float().abs().max()) for t in got[1:])
+    print(f"[hunyuan] flash q [{BH},{L},{D}] keys {min(HY_LENS)}..{max(HY_LENS)} a row, kernels "
+          f"vs twin (|d|/|twin|): " + ", ".join(f"{n} {e:.3e}" for n, e in errs.items())
+          + f"; dK / dV past the lengths max |.| {past_max}", flush=True)
+    require(errs["o"] <= HY_FLASH_TOL and errs["lse"] <= HY_FLASH_TOL,
+            f"hunyuan flash forward disagrees with its twin: {errs}")
+    require(all(bool(torch.isfinite(t).all()) for t in got)
+            and max(errs["dq"], errs["dk"], errs["dv"]) <= BWD_TOL,
+            f"hunyuan flash backward disagrees with its twin: {errs}")
+    require(past_max == 0.0, f"hunyuan flash: dK / dV past the key lengths reach {past_max}")
+    del got, ro, rlse, ref
+    torch.cuda.empty_cache()
+
+    keys = float(sum(HY_LENS)) * L * D   # query rows x keys x D, summed over the rows
+    rows = 4 * BH * L                    # lse (and delta), f32 a query row
+    b_fwd = bound_ms(_nbytes(q, k, v, o) + rows, 4.0 * keys)
+    b_dq = bound_ms(_nbytes(q, k, v, do) + 2 * rows + _nbytes(q), 6.0 * keys)
+    b_dkdv = bound_ms(_nbytes(q, k, v, do) + 2 * rows + _nbytes(k, v), 8.0 * keys)
+    with torch.inference_mode():
+        delta = bsa.attention_delta(o, do)
+        t_fwd = _time_ms(lambda: bsa.flash_attention_fwd(q, k, v, kv_lens=kv), iters=10, warmup=2)
+        t_dq = _time_ms(lambda: bsa.flash_bwd_dq(q, k, v, do, lse, delta, scale, kv), iters=10,
+                        warmup=2)
+        t_dkdv = _time_ms(lambda: bsa.flash_bwd_dkdv(q, k, v, do, lse, delta, scale, kv),
+                          iters=10, warmup=2)
+        p_fwd = _time_ms(lambda: bsa._torch_flash(q, k, v, scale, 1024, kv), iters=2, warmup=1)
+        p_bwd = _time_ms(lambda: bsa.flash_attention_bwd(q, k, v, o, lse, do, twin=True,
+                                                         kv_lens=kv), iters=2, warmup=1)
+    _set_train_counts(before)
+    print(f"[timing] [{card}] hunyuan flash q [{BH},{L},{D}] x {min(HY_LENS)}..{max(HY_LENS)} "
+          f"keys: forward {t_fwd:.4f} ms (bound {b_fwd[0]:.4f}, {b_fwd[1]}; twin {p_fwd:.4f}), "
+          f"dQ {t_dq:.4f} ms (bound {b_dq[0]:.4f}), dK/dV {t_dkdv:.4f} ms (bound "
+          f"{b_dkdv[0]:.4f}); the twin's backward {p_bwd:.4f} ms", flush=True)
+    shape = f"[{BH},{L},{D}] x {min(HY_LENS)}..{max(HY_LENS)} keys"
+    err_bwd = max(errs["dq"], errs["dk"], errs["dv"])
+    return {"flash_attention": dict(shape=shape, ms=t_fwd, plain_ms=p_fwd, bound_ms=b_fwd[0],
+                                    bound_by=b_fwd[1], max_rel_err=max(errs["o"], errs["lse"])),
+            "flash_bwd_dq": dict(shape=shape, ms=t_dq, plain_ms=p_bwd, bound_ms=b_dq[0],
+                                 bound_by=b_dq[1], max_rel_err=err_bwd),
+            "flash_bwd_dkdv": dict(shape=shape, ms=t_dkdv, plain_ms=p_bwd, bound_ms=b_dkdv[0],
+                                   bound_by=b_dkdv[1], max_rel_err=err_bwd)}
+
+
+def _hy_qk(dev, card):
+    """The q/k norm pair per head (a [Dh] weight) with RoPE on the first
+    rows, at HY_QK_CASES, against the twin, then times beside the bound and
+    the twin's."""
+    import torch
+    from interpolated_diffusion_tpu_torch.kernels import qk_norm_rope as qknr
+
+    H, Dh = HY_HEADS, HY_DH
+    gen = torch.Generator(device=dev).manual_seed(62)
+    saved = qknr.qk_norm_rope.launches, qknr.qk_norm_rope.launches_bwd
+    out = {}
+    for name, L, n_rope in HY_QK_CASES:
+        x = (torch.randn(1, L, H * Dh, generator=gen, device=dev) * 3.0).to(torch.bfloat16)
+        w = (1 + 0.3 * torch.randn(Dh, generator=gen, device=dev)).to(torch.bfloat16)
+        cos = sin = None
+        if n_rope is not None:
+            ang = torch.rand(1, n_rope, Dh // 2, generator=gen, device=dev) * 100
+            cos, sin = torch.cos(ang), torch.sin(ang)
+        before = qknr.qk_norm_rope.launches, qknr.qk_norm_rope.launches_bwd
+        xa = x.clone().requires_grad_(True)
+        q = qknr.qk_norm_rope(xa, w, cos, sin, n_heads=H, rope_rows=n_rope)
+        dq = torch.randn(q.shape, generator=gen, device=dev).to(torch.bfloat16)
+        (dx,) = torch.autograd.grad(q, (xa,), dq)
+        xt = x.clone().requires_grad_(True)
+        twin = qknr.qk_norm_rope_twin(xt, w, cos, sin, n_heads=H, rope_rows=n_rope)
+        (dxt,) = torch.autograd.grad(twin, (xt,), dq)
+        torch.cuda.synchronize()
+        require((qknr.qk_norm_rope.launches - before[0],
+                 qknr.qk_norm_rope.launches_bwd - before[1]) == (1, 1),
+                f"hunyuan qk {name}: not one launch each way")
+        # the f64 chain: RMS over each head's lanes, the weight, the rotation
+        x64 = x.double().requires_grad_(True)
+        xh = x64.reshape(1, L, H, Dh)
+        y = (xh * torch.rsqrt(xh.square().mean(-1, keepdim=True) + 1e-6) * w.double())
+        if n_rope is not None:
+            y = y.transpose(1, 2)
+            y1, y2 = y[:, :, :n_rope, 0::2], y[:, :, :n_rope, 1::2]
+            c, s = cos.double()[:, None], sin.double()[:, None]
+            rot = torch.stack([y1 * c - y2 * s, y1 * s + y2 * c], -1).reshape(y[:, :, :n_rope].shape)
+            y = torch.cat([rot, y[:, :, n_rope:]], dim=2)
+        else:
+            y = y.reshape(1, L, H * Dh)
+        (dx64,) = torch.autograd.grad(y, (x64,), dq.double())
+        gap = lambda a: ((a.double() - dx64).norm() / dx64.norm()).item()
+        qa, ta = ((q, twin) if n_rope is not None
+                  else (q.reshape(1, L, H, Dh), twin.reshape(1, L, H, Dh)))
+        ta = ta.float()
+        mag = torch.sqrt(ta[..., 0::2] ** 2 + ta[..., 1::2] ** 2).repeat_interleave(2, dim=-1)
+        ulp = torch.exp2(torch.floor(torch.log2(mag.clamp_min(2.0 ** -120))) - 7)
+        ulps = ((qa.float() - ta).abs() / ulp).max().item()
+        g_k, g_t = gap(dx), gap(dxt)
+        print(f"[hunyuan] qk_norm_rope {name} [1,{L},{H * Dh}] H {H} per head, RoPE rows "
+              f"{n_rope}: forward {ulps:.2f} ulps from the twin, dx {g_k:.3e} from an f64 chain "
+              f"(the twin {g_t:.3e})", flush=True)
+        require(ulps <= HY_QK_ULPS, f"hunyuan qk {name}: forward {ulps:.2f} ulps from the twin")
+        require(g_k <= max(2 * g_t, 1e-6), f"hunyuan qk {name}: dx {g_k:.3e} from f64, the twin "
+                f"{g_t:.3e}")
+        del x64, xh, y, dx64, xa, xt, twin, dxt
+        if n_rope is not None:
+            del y1, y2, c, s, rot
+
+        with torch.no_grad():
+            _, rstd = qknr._forward(x, w, cos, sin, H, 1e-6, n_rope)
+            fwd = lambda: qknr._forward(x, w, cos, sin, H, 1e-6, n_rope)
+            bwd = lambda: qknr._backward(dq, x, w, cos, sin, rstd, H, False, n_rope)
+            f_ms, f_graph = _time_ms(fwd, iters=20), _graph_ms(fwd, launches=20)
+            b_ms, b_graph = _time_ms(bwd, iters=20), _graph_ms(bwd, launches=20)
+
+        def twin_ms():   # forward + backward through the twin's autograd
+            xl = x.clone().requires_grad_(True)
+            torch.autograd.grad(qknr.qk_norm_rope_twin(xl, w, cos, sin, n_heads=H,
+                                                       rope_rows=n_rope), (xl,), dq)
+        p_ms = _time_ms(twin_ms, iters=3, warmup=1)
+        tables = _nbytes(cos, sin) if n_rope is not None else 0
+        b_f = bound_ms(_nbytes(x, w, q) + rstd.numel() * 4 + tables)
+        b_b = bound_ms(_nbytes(dq, x, w, dx) + rstd.numel() * 4 + tables)
+        print(f"[timing] [{card}] hunyuan qk_norm_rope {name} [1,{L},{H * Dh}]: forward "
+              f"{f_ms:.4f} ms (graph {f_graph:.4f}), bound {b_f[0]:.4f} ms ({b_f[1]}); backward "
+              f"{b_ms:.4f} ms (graph {b_graph:.4f}), bound {b_b[0]:.4f} ms; the twin forward + "
+              f"backward {p_ms:.4f} ms", flush=True)
+        out[name] = dict(shape=f"[1,{L},{H * Dh}] rope_rows {n_rope}", fwd_ms=f_ms,
+                         fwd_graph_ms=f_graph, fwd_bound_ms=b_f[0], bwd_ms=b_ms,
+                         bwd_graph_ms=b_graph, bwd_bound_ms=b_b[0], plain_fwd_bwd_ms=p_ms,
+                         max_ulps=ulps, dx_f64_gap=g_k, twin_dx_f64_gap=g_t)
+        del x, w, cos, sin, q, dq, dx, rstd
+        torch.cuda.empty_cache()
+    qknr.qk_norm_rope.launches, qknr.qk_norm_rope.launches_bwd = saved
+    return out
+
+
+def _hy_train(dev, card):
+    """A short HunyuanVideo Phase-1 run at the published widths through the
+    trainer's own loader, step and kernels: the launch counts set to 0 just
+    before it and read from it, every LoRA leaf changed, no twin called."""
+    import torch
+    from interpolated_diffusion_tpu_torch.kernels import qk_norm_rope as qknr
+    from interpolated_diffusion_tpu_torch.train import train_keypoints_wansynth as trainer
+    from interpolated_diffusion_tpu_torch.train.state import flatten_dict
+    from interpolated_diffusion_tpu_torch.train.wansynth_common import (build_wan,
+                                                                        make_wansynth_loader)
+    from interpolated_diffusion_tpu_torch.utils.prefetch import pinned_put
+
+    args = trainer.build_argparser().parse_args([
+        "--dit", "hunyuan_video", "--batch", "1", "--T", "33", "--K", "5", "--latent_h", "68",
+        "--latent_w", "120", "--text_len", "256", "--num_samples", "8", "--seed", "31"])
+    require((args.hy_heads, args.hy_double, args.hy_single, args.text_dim, args.pooled_dim,
+             args.lora_rank, args.use_remat, args.bf16) ==
+            (HY_HEADS, HY_DOUBLE, HY_SINGLE, 4096, 768, 8, 1, 1), "trainer defaults changed")
+    t0 = time.perf_counter()
+    model, fc = build_wan(args, True, device=dev, zero_init_scale=1e-2,
+                          generator=torch.Generator(device=dev).manual_seed(args.seed))
+    torch.cuda.empty_cache()
+    state, base, train_step, model, fc = trainer.make_trainer(args, dev, model, fc)
+    loader = make_wansynth_loader(args, args.seed)
+    put = pinned_put(dev, keys=("latents", "text_embed", "text_mask", "pooled"))
+    n_base = sum(p.numel() for p in model.parameters())
+    print(f"[hunyuan train] {type(model).__name__} ({n_base / 1e9:.2f}B parameters) + "
+          f"FrameCondProjector built in {time.perf_counter() - t0:.1f} s", flush=True)
+    leaves = flatten_dict(state.params)
+    start = {n: p.detach().clone() for n, p in leaves.items()}
+    probe = dict(list(base.items())[:8])   # a few frozen tensors, held to bit-identity
+    probe_before = {n: p.detach().clone() for n, p in probe.items()}
+    warm, timed = HY_TRAIN_STEPS
+    rng = torch.Generator(device=dev).manual_seed(32)
+    torch.cuda.reset_peak_memory_stats()
+    saved_flash = _train_counts()
+    _set_train_counts((0,) * len(TRAIN_KERNELS))
+    saved_qk = qknr.qk_norm_rope.launches, qknr.qk_norm_rope.launches_bwd
+    qknr.qk_norm_rope.launches = qknr.qk_norm_rope.launches_bwd = 0
+    step_s = []
+    with count_twin_calls() as twin_calls:
+        for i in range(warm + timed):
+            batch = put(next(loader))
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            state, metrics = train_step(state, base, batch, rng)
+            loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t1)
+            require(math.isfinite(loss) and math.isfinite(gnorm) and gnorm > 0,
+                    f"hunyuan train step {i}: loss {loss} grad norm {gnorm}")
+            print(f"[hunyuan train] step {i}: loss {loss:.4f} grad_norm {gnorm:.4e} "
+                  f"{step_s[-1]:.3f} s", flush=True)
+    counts = dict(zip(TRAIN_KERNELS, _train_counts()))
+    got = {"flash_attention": counts["flash_attention"], "flash_bwd_dq": counts["flash_bwd_dq"],
+           "flash_bwd_dkdv": counts["flash_bwd_dkdv"], "qk_norm_rope": qknr.qk_norm_rope.launches,
+           "qk_norm_rope_bwd": qknr.qk_norm_rope.launches_bwd}
+    others = {n: c for n, c in counts.items() if n not in got and c}
+    _set_train_counts(tuple(a + b for a, b in zip(saved_flash, _train_counts())))
+    qknr.qk_norm_rope.launches += saved_qk[0]
+    qknr.qk_norm_rope.launches_bwd += saved_qk[1]
+    steps = warm + timed
+    want = {n: c * steps for n, c in HY_TRAIN_EXPECT.items()}
+    require(got == want and not others and twin_calls[0] == 0,
+            f"hunyuan train: launches {got} (others {others}), twin calls {twin_calls[0]}; "
+            f"expected {want}, none and 0")
+    same = [n for n, p in leaves.items() if torch.equal(p, start[n])]
+    require(not same, f"hunyuan train: trainable leaves unchanged: {same[:3]}")
+    moved = [n for n, p in probe.items() if not torch.equal(p, probe_before[n])]
+    require(not moved, f"hunyuan train: frozen base changed: {moved}")
+    per = sum(step_s[warm:]) / timed
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    L_v = args.K * (args.latent_h // 2) * (args.latent_w // 2)
+    print(f"[hunyuan train] [{card}] {per:.3f} s/step ({timed} timed after {warm} warm-up), "
+          f"{L_v / per:.1f} video tokens/s, peak {peak:.2f} GiB; launches a step "
+          f"{HY_TRAIN_EXPECT}, twin calls 0; all {len(leaves)} trainable leaves changed",
+          flush=True)
+    del state, base, train_step, model, fc, leaves, start, probe, probe_before, batch
+    torch.cuda.empty_cache()
+    return {n: c // steps for n, c in got.items()}, per, peak
+
+
+def phase_hunyuan(dev, card):
+    """Phase 10a; see the module docstring. Returns {kernel: its HunyuanVideo
+    shapes' errors, times and bounds, and its launches a training step}."""
+    t0 = time.perf_counter()
+    out = _hy_flash(dev, card)
+    qk = _hy_qk(dev, card)
+    per_step, step_s, peak = _hy_train(dev, card)
+    for name in ("flash_attention", "flash_bwd_dq", "flash_bwd_dkdv"):
+        out[name]["train_launches_per_step"] = per_step[name]
+    out["qk_norm_rope"] = dict(shapes=qk, train_launches_per_step=per_step["qk_norm_rope"],
+                               train_launches_bwd_per_step=per_step["qk_norm_rope_bwd"])
+    out["train"] = dict(s_per_step=step_s, peak_gib=peak)
+    print(f"[hunyuan] phase 10a passed in {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
 # Phase 5f: Wan Phase 2 at Wan2.1-T2V-1.3B width and depth. The Phase-2
 # trainer sees T = 21 latent frames of 16x60x104, 21 * 30 * 52 = 32760 tokens a
 # sample (BH = 2 x 12 at batch 2), cross-attention to 512 text tokens plus 21
@@ -5998,6 +6304,12 @@ def main() -> int:
             phase_qk_norm_rope(dev, card)
             print("[qk_norm_rope] the kernels agree with their plain twin", flush=True)
             return 0
+        if "--hunyuan" in sys.argv[1:]:   # phase 10a alone: its own summary, the last line
+            print(json.dumps({"hunyuan": phase_hunyuan(dev, card)}), flush=True)
+            print(json.dumps({"ok": True, "device": {
+                "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                "count": torch.cuda.device_count()}}), flush=True)
+            return 0
         cases = phase_kernels(dev)
         if "--maze-kernels" in sys.argv[1:]:   # one run of --gemm-ab: checks, times, one JSON line
             times = phase_timings(dev, card, cases)
@@ -6086,6 +6398,8 @@ def main() -> int:
         train_launches, _ = phase_wan_train(dev, card, profile)
         qk_train = (qknr.qk_norm_rope.launches - qk_before[0],
                     qknr.qk_norm_rope.launches_bwd - qk_before[1])
+        torch.cuda.empty_cache()
+        hy = phase_hunyuan(dev, card)
         torch.cuda.empty_cache()
         wan2_errs, wan2_times, wan2_launches, _ = phase_wan_phase2(dev, card, profile)
         torch.cuda.empty_cache()
@@ -6202,6 +6516,8 @@ def main() -> int:
                                          diag_launches["wan_evals"].items() if name in n}
         if name == "block_sparse_attention":
             extra["registry_block512"] = diag_times["registry_row4"]
+        if name in hy:
+            extra["hunyuan"] = hy[name]
         row(name, wan_launches[name], max(*wan_errs[name], wan2_errs.get(name, 0.0)), k_ms, p_ms,
             wan_times["bounds"][name], lib_ms, train_launches=train_launches[name],
             full_ft_launches=full_ft_launches.get(name, {}),
@@ -6222,6 +6538,8 @@ def main() -> int:
                          self_library_ms=bwd_times["flash_library_self"],
                          self_bound_ms=bwd_bounds[f"{name}_self"][0])
         extra.update(phase2(name, *(("cross", "self") if kind == "flash" else ())))
+        if name in hy:
+            extra["hunyuan"] = hy[name]
         row(name, train_launches[name], max(bwd_errs[name], wan2_errs.get(name, 0.0)),
             bwd_times[name], bwd_times[f"{kind}_twin"], bwd_bounds[name],
             bwd_times.get(f"{kind}_library"), full_ft_launches=full_ft_launches.get(name, {}),
@@ -6236,7 +6554,7 @@ def main() -> int:
         bwd_ms=p1["bwd_ms"], bwd_device_ms=p1["bwd_graph_ms"], bwd_dw_ms=p1["bwd_dw_ms"],
         bwd_plain_ms=p1["bwd_twin_ms"], bwd_bound_ms=p1["bwd_bound_ms"],
         launches_bwd=qknr.qk_norm_rope.launches_bwd, train_launches=qk_train,
-        shapes={k: v for k, v in qk_times.items() if k != "p1_self"})
+        shapes={k: v for k, v in qk_times.items() if k != "p1_self"}, hunyuan=hy["qk_norm_rope"])
     idle = [r["name"] for r in summary if r["launches"] <= 0]
     if idle:
         print(f"FAIL: kernels never launched on their main path: {idle}", flush=True)

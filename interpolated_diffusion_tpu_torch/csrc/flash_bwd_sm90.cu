@@ -54,7 +54,11 @@
 //  - dp = do . v in f32; ds = p * (dp - delta) * scale, delta = sum(o * do)
 //    from the caller; ds rounded to bf16 before ds . k and ds^T . q, p before
 //    p^T . do; sums in f32; dq, dk, dv written as bf16;
-//  - query rows past Lq add nothing, rows past Lq / Lk are not written.
+//  - query rows past Lq add nothing, rows past Lq / Lk are not written;
+//  - per-row key lengths (the forward's kv_lens, int32 [BH], clamped to
+//    1 .. Lk): keys at or past kv_lens[bh] get p = 0, so their dK and dV rows
+//    are zero. dQ walks only the key tiles below the length; a dK/dV block
+//    whose keys all lie past it writes its zero rows and walks nothing.
 #include <math.h>
 #include <stdint.h>
 
@@ -133,8 +137,9 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap map_q,
                     const __grid_constant__ CUtensorMap map_do,
                     const __grid_constant__ CUtensorMap map_k,
                     const __grid_constant__ CUtensorMap map_v, const float* __restrict__ lse,
-                    const float* __restrict__ delta, bf16* __restrict__ dq, int Lq, int Lk,
-                    int q_tiles, int n_items, float scale_log2, float scale) {
+                    const float* __restrict__ delta, bf16* __restrict__ dq,
+                    const int* __restrict__ kv_lens, int Lq, int Lk, int q_tiles, int n_items,
+                    float scale_log2, float scale) {
   using S = DqSmem<D>;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
@@ -144,7 +149,7 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap map_q,
   auto full_v = [&](int s) { return bars + 8 * (2 + kStages + s); };
   auto empty_k = [&](int s) { return bars + 8 * (2 + 2 * kStages + s); };
   auto empty_v = [&](int s) { return bars + 8 * (2 + 3 * kStages + s); };
-  const int n_tiles = (Lk + kWalk - 1) / kWalk;
+  auto row_keys = [&](int bh) { return kv_lens ? min(max(kv_lens[bh], 1), Lk) : Lk; };
 
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
@@ -167,6 +172,7 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap map_q,
       int kv = 0;   // K / V tiles requested so far: ring stage and phase
       for (int item = blockIdx.x, n = 0; item < n_items; item += gridDim.x, ++n) {
         const int bh = item / q_tiles, row0 = (item % q_tiles) * kOwn;
+        const int n_tiles = (row_keys(bh) + kWalk - 1) / kWalk;
         mbar_wait(q_empty, (n & 1) ^ 1);   // passes at once on the first item
         mbar_expect_tx(q_full, 2 * S::kOwnTile);
 #pragma unroll
@@ -229,14 +235,14 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap map_q,
       wgmma_commit();
     };
     // dS = P (dP - delta) scale in the registers of S, P = exp2(S * scale_log2
-    // - lse); keys at or past Lk get P = 0 (only the last tile has any)
-    auto grad_tile = [&](int key0) {
-      const bool edge = key0 + kWalk > Lk;
+    // - lse); keys at or past the row's lk get P = 0 (only the last tile has any)
+    auto grad_tile = [&](int key0, int lk) {
+      const bool edge = key0 + kWalk > lk;
 #pragma unroll
       for (int i = 0; i < 32; ++i) {
         const int r = (i % 4) / 2;
         float p = ex2(fmaf(s[i], scale_log2, -lse_r[r]));
-        if (edge && key0 + 8 * (i / 4) + 2 * t4 + (i % 2) >= Lk) p = 0.f;
+        if (edge && key0 + 8 * (i / 4) + 2 * t4 + (i % 2) >= lk) p = 0.f;
         s[i] = p * (dp[i] - delta_r[r]) * scale;
       }
     };
@@ -249,8 +255,9 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap map_q,
     // goes first.
     if (wg == 1) named_arrive(1);
 
-    for (int item = blockIdx.x, n = 0; item < n_items; item += gridDim.x, ++n, kv += n_tiles) {
+    for (int item = blockIdx.x, n = 0; item < n_items; item += gridDim.x, ++n) {
       const int bh = item / q_tiles, row0 = (item % q_tiles) * kOwn;
+      const int lk = row_keys(bh), n_tiles = (lk + kWalk - 1) / kWalk;
 #pragma unroll
       for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
 #pragma unroll
@@ -273,7 +280,7 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap map_q,
       fence_regs(s);
       fence_regs(dp);
       release(empty_v(kv % kStages));
-      grad_tile(0);
+      grad_tile(0, lk);
       pack_a(ds, s);
       for (int it = 0; it + 1 < n_tiles; ++it) {
         named_sync(1 + wg);
@@ -285,7 +292,7 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap map_q,
         fence_regs(s);
         fence_regs(dp);
         release(empty_v((kv + it + 1) % kStages));
-        grad_tile((it + 1) * kWalk);
+        grad_tile((it + 1) * kWalk, lk);
         wgmma_wait<0>();   // dQ of tile it
         fence_regs(acc);
         release(empty_k((kv + it) % kStages));
@@ -308,6 +315,7 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap map_q,
           *reinterpret_cast<uint32_t*>(out + 8 * j + 2 * t4) =
               pack_bf16(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
       }
+      kv += n_tiles;
     }
   }
 }
@@ -327,7 +335,8 @@ flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap map_q,
                       const __grid_constant__ CUtensorMap map_k,
                       const __grid_constant__ CUtensorMap map_v, const float* __restrict__ lse,
                       const float* __restrict__ delta, bf16* __restrict__ dk,
-                      bf16* __restrict__ dv, int Lq, int Lk, float scale_log2, float scale) {
+                      bf16* __restrict__ dv, const int* __restrict__ kv_lens, int Lq, int Lk,
+                      float scale_log2, float scale) {
   using S = DkdvSmem<D>;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
@@ -338,6 +347,17 @@ flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap map_q,
   auto empty = [&](int s) { return bars + 8 * (1 + kStages + s); };
   const int bh = blockIdx.y, key0 = blockIdx.x * kOwn;
   const int n_tiles = (Lq + kWalk - 1) / kWalk;
+  const int lk = kv_lens ? min(max(kv_lens[bh], 1), Lk) : Lk;
+  if (key0 >= lk) {
+    // every key of this block lies past the row's length: zero rows, no walk
+    const int rows = min(kOwn, Lk - key0);
+    for (int i = threadIdx.x; i < rows * (D / 8); i += kThreads) {
+      const long long at = ((long long)bh * Lk + key0 + i / (D / 8)) * D + (i % (D / 8)) * 8;
+      *reinterpret_cast<uint4*>(dk + at) = make_uint4(0u, 0u, 0u, 0u);
+      *reinterpret_cast<uint4*>(dv + at) = make_uint4(0u, 0u, 0u, 0u);
+    }
+    return;
+  }
 
   if (threadIdx.x == 0) {
     mbar_init(kv_full, 1);
@@ -403,9 +423,13 @@ flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap map_q,
     float st[32], dpt[32];
     float dk_acc[D / 2], dv_acc[D / 2];
     uint32_t p[4][4], ds[4][4];
-    bool key_ok[2];
+    bool key_ok[2], key_in[2];   // attended (below lk); a row of the output (below Lk)
 #pragma unroll
-    for (int r = 0; r < 2; ++r) key_ok[r] = key0 + wg * 64 + warp * 16 + g + 8 * r < Lk;
+    for (int r = 0; r < 2; ++r) {
+      const int key = key0 + wg * 64 + warp * 16 + g + 8 * r;
+      key_ok[r] = key < lk;
+      key_in[r] = key < Lk;
+    }
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
 
@@ -437,7 +461,7 @@ flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap map_q,
       wgmma_commit();
     };
     // P^T = exp2(S^T * scale_log2 - lse) in the registers of S^T (0 at keys
-    // >= Lk), dS^T = P^T (dP^T - delta) scale in the registers of dP^T
+    // >= lk), dS^T = P^T (dP^T - delta) scale in the registers of dP^T
     auto grad_tile = [&](int t) {
       const int stg = t % kStages;
       const float* lse_s = reinterpret_cast<const float*>(sbase + S::kOffLse + stg * kRowBytes);
@@ -491,7 +515,7 @@ flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap map_q,
 
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      if (!key_ok[r]) continue;
+      if (!key_in[r]) continue;   // keys in lk .. Lk - 1 write their zero sums
       const long long row = (long long)bh * Lk + key0 + wg * 64 + warp * 16 + g + 8 * r;
       bf16* outk = dk + row * D;
       bf16* outv = dv + row * D;
@@ -508,8 +532,8 @@ flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap map_q,
 
 template <int D>
 cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* dout,
-                      const float* lse, const float* delta, bf16* dq, int BH, int Lq, int Lk,
-                      float scale_log2, float scale, cudaStream_t stream) {
+                      const float* lse, const float* delta, bf16* dq, const int* kv_lens, int BH,
+                      int Lq, int Lk, float scale_log2, float scale, cudaStream_t stream) {
   CUtensorMap mq, mdo, mk, mv;
   if (!make_heads_map(&mq, q, BH, Lq, D, kOwn) || !make_heads_map(&mdo, dout, BH, Lq, D, kOwn) ||
       !make_heads_map(&mk, k, BH, Lk, D, kWalk) || !make_heads_map(&mv, v, BH, Lk, D, kWalk))
@@ -523,14 +547,16 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* d
   if (sms <= 0 || n_items > 2147483647LL) return cudaErrorInvalidValue;
   const int grid = n_items < sms ? (int)n_items : sms;
   flash_bwd_dq_kernel<D><<<grid, kThreads, DqSmem<D>::kBytes, stream>>>(
-      mq, mdo, mk, mv, lse, delta, dq, Lq, Lk, q_tiles, (int)n_items, scale_log2, scale);
+      mq, mdo, mk, mv, lse, delta, dq, kv_lens, Lq, Lk, q_tiles, (int)n_items, scale_log2,
+      scale);
   return cudaGetLastError();
 }
 
 template <int D>
 cudaError_t launch_dkdv(const void* q, const void* k, const void* v, const void* dout,
-                        const float* lse, const float* delta, bf16* dk, bf16* dv, int BH, int Lq,
-                        int Lk, float scale_log2, float scale, cudaStream_t stream) {
+                        const float* lse, const float* delta, bf16* dk, bf16* dv,
+                        const int* kv_lens, int BH, int Lq, int Lk, float scale_log2, float scale,
+                        cudaStream_t stream) {
   CUtensorMap mq, mdo, mk, mv;
   if (!make_heads_map(&mq, q, BH, Lq, D, kWalk) || !make_heads_map(&mdo, dout, BH, Lq, D, kWalk) ||
       !make_heads_map(&mk, k, BH, Lk, D, kOwn) || !make_heads_map(&mv, v, BH, Lk, D, kOwn))
@@ -541,7 +567,7 @@ cudaError_t launch_dkdv(const void* q, const void* k, const void* v, const void*
   if (e != cudaSuccess) return e;
   const dim3 grid((Lk + kOwn - 1) / kOwn, BH);
   flash_bwd_dkdv_kernel<D><<<grid, kThreads, DkdvSmem<D>::kBytes, stream>>>(
-      mq, mdo, mk, mv, lse, delta, dk, dv, Lq, Lk, scale_log2, scale);
+      mq, mdo, mk, mv, lse, delta, dk, dv, kv_lens, Lq, Lk, scale_log2, scale);
   return cudaGetLastError();
 }
 
@@ -553,32 +579,39 @@ bool bad_shapes(int BH, int Lq, int Lk, int D) {
 
 // Flash backward, dQ: q/dout bf16 [BH, Lq, D], k/v bf16 [BH, Lk, D], lse
 // (base 2) / delta f32 [BH, Lq], all contiguous -> dq bf16 [BH, Lq, D].
-// D in {64, 128}. The tensor maps hold the data pointers, so they are encoded
-// per call (on the host, no allocation) and passed by value.
+// D in {64, 128}. kv_lens: null, or the forward's int32 [BH] keys per row.
+// The tensor maps hold the data pointers, so they are encoded per call (on
+// the host, no allocation) and passed by value.
 extern "C" int id_flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
-                               const void* lse, const void* delta, void* dq, int BH, int Lq,
-                               int Lk, int D, float scale_log2, float scale, void* stream) {
+                               const void* lse, const void* delta, void* dq, const void* kv_lens,
+                               int BH, int Lq, int Lk, int D, float scale_log2, float scale,
+                               void* stream) {
   if (bad_shapes(BH, Lq, Lk, D)) return (int)cudaErrorInvalidValue;
   const float* l = static_cast<const float*>(lse);
   const float* d = static_cast<const float*>(delta);
   bf16* out = static_cast<bf16*>(dq);
+  const int* lens = static_cast<const int*>(kv_lens);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D == 64) return (int)launch_dq<64>(q, k, v, dout, l, d, out, BH, Lq, Lk, scale_log2, scale, s);
-  return (int)launch_dq<128>(q, k, v, dout, l, d, out, BH, Lq, Lk, scale_log2, scale, s);
+  if (D == 64)
+    return (int)launch_dq<64>(q, k, v, dout, l, d, out, lens, BH, Lq, Lk, scale_log2, scale, s);
+  return (int)launch_dq<128>(q, k, v, dout, l, d, out, lens, BH, Lq, Lk, scale_log2, scale, s);
 }
 
 // Flash backward, dK and dV: as id_flash_bwd_dq -> dk, dv bf16 [BH, Lk, D].
 extern "C" int id_flash_bwd_dkdv(const void* q, const void* k, const void* v, const void* dout,
-                                 const void* lse, const void* delta, void* dk, void* dv, int BH,
-                                 int Lq, int Lk, int D, float scale_log2, float scale,
-                                 void* stream) {
+                                 const void* lse, const void* delta, void* dk, void* dv,
+                                 const void* kv_lens, int BH, int Lq, int Lk, int D,
+                                 float scale_log2, float scale, void* stream) {
   if (bad_shapes(BH, Lq, Lk, D)) return (int)cudaErrorInvalidValue;
   const float* l = static_cast<const float*>(lse);
   const float* d = static_cast<const float*>(delta);
   bf16* ok = static_cast<bf16*>(dk);
   bf16* ov = static_cast<bf16*>(dv);
+  const int* lens = static_cast<const int*>(kv_lens);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (D == 64)
-    return (int)launch_dkdv<64>(q, k, v, dout, l, d, ok, ov, BH, Lq, Lk, scale_log2, scale, s);
-  return (int)launch_dkdv<128>(q, k, v, dout, l, d, ok, ov, BH, Lq, Lk, scale_log2, scale, s);
+    return (int)launch_dkdv<64>(q, k, v, dout, l, d, ok, ov, lens, BH, Lq, Lk, scale_log2, scale,
+                                s);
+  return (int)launch_dkdv<128>(q, k, v, dout, l, d, ok, ov, lens, BH, Lq, Lk, scale_log2, scale,
+                               s);
 }

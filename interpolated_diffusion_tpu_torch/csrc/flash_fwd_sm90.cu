@@ -50,6 +50,13 @@
 // Lq x Lk; keys at positions >= Lk get probability 0 (their logits are set to
 // -inf before the max: a zero-filled key is not a masked key); rows >= Lq are
 // not written. P is rounded per 128-key tile.
+//
+// Per-row key lengths: with kv_lens (int32 [BH], clamped to 1 .. Lk) the keys
+// of (batch, head) row bh end at kv_lens[bh] instead of Lk, as a padding mask
+// over a joint text-video sequence needs. An item walks only the key tiles
+// below its length (the tiles past it are never loaded) and masks the keys
+// at or past it in its last tile, so the result is that of attention over the
+// first kv_lens[bh] keys. A null kv_lens is the scalar Lk.
 #include <math.h>
 #include <stdint.h>
 
@@ -142,8 +149,8 @@ template <int D>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
                  const __grid_constant__ CUtensorMap map_v, bf16* __restrict__ o,
-                 float* __restrict__ lse, int Lq, int Lk, int q_tiles, int n_items,
-                 float scale_log2) {
+                 float* __restrict__ lse, const int* __restrict__ kv_lens, int Lq, int Lk,
+                 int q_tiles, int n_items, float scale_log2) {
   using S = Smem<D>;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
@@ -153,7 +160,8 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constan
   auto full_v = [&](int s) { return bars + 8 * (2 + kStages + s); };
   auto empty_k = [&](int s) { return bars + 8 * (2 + 2 * kStages + s); };
   auto empty_v = [&](int s) { return bars + 8 * (2 + 3 * kStages + s); };
-  const int n_tiles = (Lk + kBN - 1) / kBN;
+  // the keys of row bh, and the key tiles an item of that row walks
+  auto row_keys = [&](int bh) { return kv_lens ? min(max(kv_lens[bh], 1), Lk) : Lk; };
 
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
@@ -177,6 +185,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constan
       int kv = 0;   // K / V tiles requested so far: ring stage and phase
       for (int item = blockIdx.x, n = 0; item < n_items; item += gridDim.x, ++n) {
         const int bh = item / q_tiles, row0 = (item % q_tiles) * kBM;
+        const int n_tiles = (row_keys(bh) + kBN - 1) / kBN;
         mbar_wait(q_empty, (n & 1) ^ 1);   // passes at once on the first item
         mbar_expect_tx(q_full, S::kTileBytes);
 #pragma unroll
@@ -246,8 +255,9 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constan
     // both asking for the tensor cores at once. Warpgroup 0 goes first.
     if (wg == 1) named_arrive(1);
 
-    for (int item = blockIdx.x, n = 0; item < n_items; item += gridDim.x, ++n, kv += n_tiles) {
+    for (int item = blockIdx.x, n = 0; item < n_items; item += gridDim.x, ++n) {
       const int bh = item / q_tiles, row0 = (item % q_tiles) * kBM;
+      const int lk = row_keys(bh), n_tiles = (lk + kBN - 1) / kBN;
 #pragma unroll
       for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
       m_run[0] = m_run[1] = -INFINITY;
@@ -265,7 +275,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constan
       wgmma_wait<0>();
       fence_regs(s);
       release(empty_k(kv % kStages));
-      softmax_tile(s, m_run, l_run, alpha, scale_log2, 0, Lk, t4);   // acc is 0: alpha unused
+      softmax_tile(s, m_run, l_run, alpha, scale_log2, 0, lk, t4);   // acc is 0: alpha unused
       pack_a(p, s);   // P (bf16) from the registers of S, 16 keys a k-step
       for (int it = 0; it + 1 < n_tiles; ++it) {
         named_sync(1 + wg);
@@ -276,7 +286,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constan
         wgmma_wait<1>();   // S of tile it + 1
         fence_regs(s);
         release(empty_k((kv + it + 1) % kStages));
-        softmax_tile(s, m_run, l_run, alpha, scale_log2, (it + 1) * kBN, Lk, t4);
+        softmax_tile(s, m_run, l_run, alpha, scale_log2, (it + 1) * kBN, lk, t4);
         wgmma_wait<0>();   // P V of tile it
         fence_regs(acc);
         release(empty_v((kv + it) % kStages));
@@ -304,13 +314,15 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constan
               pack_bf16(acc[4 * j + 2 * r] * inv, acc[4 * j + 2 * r + 1] * inv);
         if (t4 == 0) lse[(long long)bh * Lq + row] = m_run[r] + log2f(l);
       }
+      kv += n_tiles;
     }
   }
 }
 
 template <int D>
 cudaError_t launch(const CUtensorMap& mq, const CUtensorMap& mk, const CUtensorMap& mv, bf16* o,
-                   float* lse, int BH, int Lq, int Lk, float scale_log2, cudaStream_t stream) {
+                   float* lse, const int* kv_lens, int BH, int Lq, int Lk, float scale_log2,
+                   cudaStream_t stream) {
   const cudaError_t e = cudaFuncSetAttribute(
       flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, Smem<D>::kBytes);
   if (e != cudaSuccess) return e;
@@ -320,7 +332,7 @@ cudaError_t launch(const CUtensorMap& mq, const CUtensorMap& mk, const CUtensorM
   if (sms <= 0 || n_items > 2147483647LL) return cudaErrorInvalidValue;
   const int grid = n_items < sms ? (int)n_items : sms;
   flash_fwd_kernel<D><<<grid, kThreads, Smem<D>::kBytes, stream>>>(
-      mq, mk, mv, o, lse, Lq, Lk, q_tiles, (int)n_items, scale_log2);
+      mq, mk, mv, o, lse, kv_lens, Lq, Lk, q_tiles, (int)n_items, scale_log2);
   return cudaGetLastError();
 }
 
@@ -328,10 +340,12 @@ cudaError_t launch(const CUtensorMap& mq, const CUtensorMap& mk, const CUtensorM
 
 // Dense flash attention forward: q bf16 [BH, Lq, D], k/v bf16 [BH, Lk, D],
 // all contiguous -> o bf16 [BH, Lq, D], lse f32 [BH, Lq] (base 2). D in
-// {64, 128}. The tensor maps hold the data pointers, so they are encoded per
-// call (on the host, no allocation) and passed by value.
+// {64, 128}. kv_lens: null, or int32 [BH] keys per row (see the header). The
+// tensor maps hold the data pointers, so they are encoded per call (on the
+// host, no allocation) and passed by value.
 extern "C" int id_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
-                            int BH, int Lq, int Lk, int D, float scale_log2, void* stream) {
+                            const void* kv_lens, int BH, int Lq, int Lk, int D,
+                            float scale_log2, void* stream) {
   if (BH <= 0 || Lq <= 0 || Lk <= 0 || (D != 64 && D != 128))
     return (int)cudaErrorInvalidValue;
   CUtensorMap mq, mk, mv;
@@ -340,7 +354,8 @@ extern "C" int id_flash_fwd(const void* q, const void* k, const void* v, void* o
     return (int)cudaErrorInvalidValue;
   bf16* ob = static_cast<bf16*>(o);
   float* lb = static_cast<float*>(lse);
+  const int* lens = static_cast<const int*>(kv_lens);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D == 64) return (int)launch<64>(mq, mk, mv, ob, lb, BH, Lq, Lk, scale_log2, s);
-  return (int)launch<128>(mq, mk, mv, ob, lb, BH, Lq, Lk, scale_log2, s);
+  if (D == 64) return (int)launch<64>(mq, mk, mv, ob, lb, lens, BH, Lq, Lk, scale_log2, s);
+  return (int)launch<128>(mq, mk, mv, ob, lb, lens, BH, Lq, Lk, scale_log2, s);
 }

@@ -277,16 +277,22 @@ class SyntheticWanDataset:
 
     Latents are temporally-smooth (low-rank time interpolation of noise) so
     interpolation-corruption training signals are meaningful in tests.
+    `text_valid` (lo, hi) adds a prompt mask (`text_mask` [text_len] int32,
+    its first n tokens valid, n uniform in lo .. hi) and `pooled_dim` > 0 a
+    pooled text vector (`pooled`), the inputs of a HunyuanVideo backbone;
+    both are drawn after the rest, so the other fields do not change.
     """
 
     def __init__(self, n_samples: int = 1000, T: int = 21, C: int = 16,
                  H: int = 60, W: int = 104, text_len: int = 512,
-                 text_dim: int = 4096, seed: int = 0, n_keyframes: int = 5):
+                 text_dim: int = 4096, seed: int = 0, n_keyframes: int = 5,
+                 text_valid: Optional[Sequence[int]] = None, pooled_dim: int = 0):
         self.n_samples = n_samples
         self.T, self.C, self.H, self.W = T, C, H, W
         self.text_len, self.text_dim = text_len, text_dim
         self.seed = seed
         self.n_keyframes = max(2, n_keyframes)
+        self.text_valid, self.pooled_dim = text_valid, pooled_dim
 
     def __len__(self):
         return self.n_samples
@@ -299,7 +305,14 @@ class SyntheticWanDataset:
         w = (ts - lo)[:, None, None, None].astype(np.float32)
         lat = kf[lo] * (1 - w) + kf[lo + 1] * w
         text = rng.randn(self.text_len, self.text_dim).astype(np.float32) * 0.02
-        return {"latents": lat, "text_embed": text}
+        out = {"latents": lat, "text_embed": text}
+        if self.text_valid is not None:
+            lo, hi = self.text_valid
+            n = rng.randint(lo, min(hi, self.text_len) + 1)
+            out["text_mask"] = (np.arange(self.text_len) < n).astype(np.int32)
+        if self.pooled_dim > 0:
+            out["pooled"] = rng.randn(self.pooled_dim).astype(np.float32)
+        return out
 
     def get_batch(self, indices) -> Dict[str, np.ndarray]:
         rows = [self.get(int(i)) for i in np.asarray(indices)]

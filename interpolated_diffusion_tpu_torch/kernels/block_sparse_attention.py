@@ -9,7 +9,10 @@ of kernels/block_sparse_attention.py).
   flash_attention             exact dense attention over rectangular Lq x Lk,
                               differentiable; replaces _fwd_kernel_dense
                               (:174), _dq_kernel_dense (:214) and
-                              _dkdv_kernel_dense (:248)
+                              _dkdv_kernel_dense (:248). `kv_lens` (int32
+                              [BH]) ends each row's keys early: a padding
+                              mask over a joint sequence whose padded keys
+                              come last (models/hunyuan_video.py)
 
 On CUDA tensors each launches its hand-written sm_90a kernels, all on wgmma
 and TMA (csrc/sla_fwd_sm90.cu and csrc/sla_bwd_sm90.cu the SLA forward and
@@ -308,12 +311,25 @@ def block_sparse_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
                                       kv_len=k.shape[1], kv_pad_blocks=1)
 
 
+def _key_mask(kv_lens: Optional[torch.Tensor], c: slice, j: int, n: int, device
+              ) -> Optional[torch.Tensor]:
+    """[rows of c, 1, n] True where key j + i lies at or past its row's
+    length (None without kv_lens)."""
+    if kv_lens is None:
+        return None
+    pos = torch.arange(j, j + n, device=device)
+    return (pos[None, None, :] >= kv_lens[c].to(device).long()[:, None, None])
+
+
 def _torch_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
-                 block_n: int = 1024) -> Tuple[torch.Tensor, torch.Tensor]:
+                 block_n: int = 1024, kv_lens: Optional[torch.Tensor] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain twin of the flash kernel, in the TPU kernel's order and rounding:
     keys in tiles of block_n, online softmax in exp2 with f32 max / sum, P
     rounded to v's dtype for P.V with f32 accumulation; o in q's dtype, lse
-    f32 base 2. Chunked over BH to bound the [Lq, block_n] intermediates."""
+    f32 base 2. Keys at or past kv_lens[bh] (when given) get -inf logits, so a
+    tile wholly past a row's length adds nothing, as the kernel never loads
+    it. Chunked over BH to bound the [Lq, block_n] intermediates."""
     BH, Lq, D = q.shape
     Lk = k.shape[1]
     o = torch.empty_like(q)
@@ -325,6 +341,9 @@ def _torch_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float
         acc = torch.zeros((qc.shape[0], Lq, D), device=q.device)
         for j in range(0, Lk, block_n):
             s = (qc @ k[c, j:j + block_n].float().transpose(-1, -2)) * (scale * LOG2E)
+            masked = _key_mask(kv_lens, c, j, s.shape[-1], q.device)
+            if masked is not None:
+                s = s.masked_fill(masked, float("-inf"))
             m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
             p = torch.exp2(s - m_new)
             alpha = torch.exp2(m - m_new)
@@ -336,15 +355,35 @@ def _torch_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float
     return o, lse
 
 
+def check_kv_lens(name: str, kv_lens: Optional[torch.Tensor], BH: int, device) -> None:
+    """kv_lens, when given, is int32 [BH] on the inputs' device (the kernels
+    clamp each length to 1 .. Lk; the caller keeps them there)."""
+    if kv_lens is None:
+        return
+    if kv_lens.shape != (BH,) or kv_lens.dtype != torch.int32 or kv_lens.device != device:
+        raise ValueError(f"{name}: kv_lens must be int32 [{BH}] on {device}, got "
+                         f"{kv_lens.dtype} {tuple(kv_lens.shape)} on {kv_lens.device}")
+    if not kv_lens.is_contiguous():
+        raise ValueError(f"{name}: kv_lens must be contiguous")
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        scale: Optional[float] = None, block_n: int = 1024
+                        scale: Optional[float] = None, block_n: int = 1024,
+                        kv_lens: Optional[torch.Tensor] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(o, lse) of exact attention: the kernel on CUDA, the twin on CPU
-    (block_n sets the twin's key tile, hence where it rounds P)."""
+    (block_n sets the twin's key tile, hence where it rounds P). kv_lens
+    (int32 [BH], each in 1 .. Lk) attends row bh over its first kv_lens[bh]
+    keys only."""
     BH, Lq, D = q.shape
     scale = D ** -0.5 if scale is None else scale
+    check_kv_lens("flash_attention", kv_lens, BH, q.device)
     if q.device.type == "cpu":
-        return _torch_flash(q, k, v, scale, block_n)
+        return _torch_flash(q, k, v, scale, block_n, kv_lens)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     Lk = k.shape[1]
@@ -353,21 +392,23 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     check_cuda_inputs("flash_attention", (q, k, v), (torch.bfloat16,) * 3, D)
     o = torch.empty_like(q)
     lse = torch.empty((BH, Lq), dtype=torch.float32, device=q.device)
-    fn = _build.function("id_flash_fwd", [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+    fn = _build.function("id_flash_fwd", [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
                          + [ctypes.c_float, ctypes.c_void_p])
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-             BH, Lq, Lk, D, scale * LOG2E, _stream(q))
+             _ptr(kv_lens), BH, Lq, Lk, D, scale * LOG2E, _stream(q))
     _build.check(err, "flash_attention")
     flash_attention.launches += 1
     return o, lse
 
 
 def _torch_flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
-                     lse: torch.Tensor, do: torch.Tensor, scale: float, block_n: int = 1024
+                     lse: torch.Tensor, do: torch.Tensor, scale: float, block_n: int = 1024,
+                     kv_lens: Optional[torch.Tensor] = None
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain twin of the flash backward kernels, with the TPU kernels'
     rounding (see `_torch_sla_bwd`): keys in tiles of block_n, chunked over
-    heads. The tile size moves no rounding point, only the order of the f32
+    heads; p = 0 at keys past kv_lens[bh] (when given), so their dk and dv
+    are zero. The tile size moves no rounding point, only the order of the f32
     sums of dq."""
     BH, Lq, D = q.shape
     Lk = k.shape[1]
@@ -381,6 +422,9 @@ def _torch_flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch
         for j in range(0, Lk, block_n):
             kj, vj = k[c, j:j + block_n].float(), v[c, j:j + block_n].float()
             p = torch.exp2((qc @ kj.transpose(-1, -2)) * (scale * LOG2E) - lse_c)
+            masked = _key_mask(kv_lens, c, j, p.shape[-1], q.device)
+            if masked is not None:
+                p = p.masked_fill(masked, 0.0)
             dv[c, j:j + block_n] = (p.to(do.dtype).float().transpose(-1, -2) @ doc).to(v.dtype)
             ds = (p * (doc @ vj.transpose(-1, -2) - delta) * scale).to(q.dtype).float()
             dq_acc += ds @ kj
@@ -392,17 +436,19 @@ def _torch_flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch
 _FLASH_BWD_ARGS = [ctypes.c_void_p] * 6
 
 
-def flash_bwd_dq(q, k, v, do, lse, delta, scale: float) -> torch.Tensor:
+def flash_bwd_dq(q, k, v, do, lse, delta, scale: float,
+                 kv_lens: Optional[torch.Tensor] = None) -> torch.Tensor:
     """dQ of exact attention on CUDA tensors (the sm_90a kernel that replaces
-    the TPU _dq_kernel_dense)."""
+    the TPU _dq_kernel_dense); kv_lens as the forward's."""
     BH, Lq, D = q.shape
     _bwd_args("flash_bwd_dq", q, k, v, do, lse, delta, D)
+    check_kv_lens("flash_bwd_dq", kv_lens, BH, q.device)
     dq = torch.empty_like(q)
-    fn = _build.function("id_flash_bwd_dq", _FLASH_BWD_ARGS + [ctypes.c_void_p]
+    fn = _build.function("id_flash_bwd_dq", _FLASH_BWD_ARGS + [ctypes.c_void_p] * 2
                          + [ctypes.c_int] * 4 + [ctypes.c_float] * 2 + [ctypes.c_void_p])
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-             delta.data_ptr(), dq.data_ptr(), BH, Lq, k.shape[1], D, scale * LOG2E, scale,
-             _stream(q))
+             delta.data_ptr(), dq.data_ptr(), _ptr(kv_lens), BH, Lq, k.shape[1], D,
+             scale * LOG2E, scale, _stream(q))
     _build.check(err, "flash_bwd_dq")
     flash_bwd_dq.launches += 1
     return dq
@@ -411,17 +457,20 @@ def flash_bwd_dq(q, k, v, do, lse, delta, scale: float) -> torch.Tensor:
 flash_bwd_dq.launches = 0
 
 
-def flash_bwd_dkdv(q, k, v, do, lse, delta, scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
+def flash_bwd_dkdv(q, k, v, do, lse, delta, scale: float,
+                   kv_lens: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """(dK, dV) of exact attention on CUDA tensors (the sm_90a kernel that
-    replaces the TPU _dkdv_kernel_dense)."""
+    replaces the TPU _dkdv_kernel_dense); kv_lens as the forward's, the rows
+    of keys past a length zero."""
     BH, Lq, D = q.shape
     _bwd_args("flash_bwd_dkdv", q, k, v, do, lse, delta, D)
+    check_kv_lens("flash_bwd_dkdv", kv_lens, BH, q.device)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    fn = _build.function("id_flash_bwd_dkdv", _FLASH_BWD_ARGS + [ctypes.c_void_p] * 2
+    fn = _build.function("id_flash_bwd_dkdv", _FLASH_BWD_ARGS + [ctypes.c_void_p] * 3
                          + [ctypes.c_int] * 4 + [ctypes.c_float] * 2 + [ctypes.c_void_p])
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-             delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), BH, Lq, k.shape[1], D,
-             scale * LOG2E, scale, _stream(q))
+             delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), _ptr(kv_lens), BH, Lq, k.shape[1],
+             D, scale * LOG2E, scale, _stream(q))
     _build.check(err, "flash_bwd_dkdv")
     flash_bwd_dkdv.launches += 1
     return dk, dv
@@ -431,61 +480,67 @@ flash_bwd_dkdv.launches = 0
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, scale: Optional[float] = None,
-                        block_n: int = 1024, twin: bool = False
+                        block_n: int = 1024, twin: bool = False,
+                        kv_lens: Optional[torch.Tensor] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv) from the forward's (o, lse): the two kernels on CUDA
     tensors, the twin on CPU tensors (or anywhere with twin=True)."""
     scale = q.shape[-1] ** -0.5 if scale is None else scale
     if twin or q.device.type == "cpu":
-        return _torch_flash_bwd(q, k, v, o, lse, do, scale, block_n)
+        return _torch_flash_bwd(q, k, v, o, lse, do, scale, block_n, kv_lens)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     do = do.contiguous()
     delta = attention_delta(o, do)
-    dq = flash_bwd_dq(q, k, v, do, lse, delta, scale)
-    dk, dv = flash_bwd_dkdv(q, k, v, do, lse, delta, scale)
+    dq = flash_bwd_dq(q, k, v, do, lse, delta, scale, kv_lens)
+    dk, dv = flash_bwd_dkdv(q, k, v, do, lse, delta, scale, kv_lens)
     return dq, dk, dv
 
 
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, scale, block_n, twin):
+    def forward(ctx, q, k, v, scale, block_n, twin, kv_lens):
         if twin:
             o, lse = _torch_flash(q, k, v, q.shape[-1] ** -0.5 if scale is None else scale,
-                                  block_n)
+                                  block_n, kv_lens)
         else:
-            o, lse = flash_attention_fwd(q, k, v, scale, block_n)
-        ctx.save_for_backward(q, k, v, o, lse)
+            o, lse = flash_attention_fwd(q, k, v, scale, block_n, kv_lens)
+        ctx.save_for_backward(q, k, v, o, lse, kv_lens)
         ctx.cfg = (scale, block_n, twin)
         return o
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, o, lse = ctx.saved_tensors
+        q, k, v, o, lse, kv_lens = ctx.saved_tensors
         scale, block_n, twin = ctx.cfg
-        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do.to(o.dtype), scale, block_n, twin)
-        return dq, dk, dv, None, None, None
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do.to(o.dtype), scale, block_n, twin,
+                                         kv_lens)
+        return dq, dk, dv, None, None, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     block_m: int = 512, block_n: int = 1024,
-                    scale: Optional[float] = None) -> torch.Tensor:
+                    scale: Optional[float] = None,
+                    kv_lens: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Exact attention, q [BH, Lq, D], k/v [BH, Lk, D] -> [BH, Lq, D],
-    differentiable in q, k, v.
+    differentiable in q, k, v. kv_lens (int32 [BH], each in 1 .. Lk) limits
+    row bh to its first kv_lens[bh] keys; the keys past it get no weight and
+    a zero gradient.
 
     block_m / block_n are the TPU kernel's tiles. The math is exact for any
     tiling; the tiles only move where a bf16 P is rounded. The twin walks
     keys in tiles of block_n as the TPU kernel does; the CUDA forward uses
     its own 128-key tiles (the backward rounds no P per tile).
     """
-    return _FlashAttention.apply(q, k, v, scale, block_n, False)
+    return _FlashAttention.apply(q, k, v, scale, block_n, False, kv_lens)
 
 
 flash_attention.launches = 0  # flash forward kernel launches
 
 
 def flash_attention_twin(q, k, v, block_m: int = 512, block_n: int = 1024,
-                         scale: Optional[float] = None) -> torch.Tensor:
+                         scale: Optional[float] = None,
+                         kv_lens: Optional[torch.Tensor] = None) -> torch.Tensor:
     """flash_attention through the plain twins, forward and backward, on any
     device: what the kernel path is compared with."""
-    return _FlashAttention.apply(q, k, v, scale, block_n, True)
+    return _FlashAttention.apply(q, k, v, scale, block_n, True, kv_lens)

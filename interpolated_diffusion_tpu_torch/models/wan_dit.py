@@ -61,12 +61,16 @@ FLASH_BLOCKS = (512, 1024)  # the JAX flash tiles (kernels/tuning.flash_blocks d
 # ---------------------------------------------------------------------------
 
 def wan_rope_tables(max_seq_len: int, head_dim: int, theta: float = 10000.0,
-                    device=None) -> Tuple[Dict[str, Tuple[torch.Tensor, torch.Tensor]],
-                                          Tuple[int, int, int]]:
-    """Per-axis (t, h, w) cos/sin tables, each [max_seq_len, axis_dim / 2] f32."""
+                    device=None, dims: Optional[Tuple[int, int, int]] = None
+                    ) -> Tuple[Dict[str, Tuple[torch.Tensor, torch.Tensor]],
+                               Tuple[int, int, int]]:
+    """Per-axis (t, h, w) cos/sin tables, each [max_seq_len, axis_dim / 2] f32;
+    the axis widths are `dims`, or Wan's split of head_dim."""
     h_dim = 2 * (head_dim // 6)
     w_dim = h_dim
     t_dim = head_dim - h_dim - w_dim
+    if dims is not None:
+        t_dim, h_dim, w_dim = dims
     tables = {}
     for name, dim in (("t", t_dim), ("h", h_dim), ("w", w_dim)):
         freqs = 1.0 / (theta ** (torch.arange(0, dim, 2, dtype=torch.float32,

@@ -12,7 +12,11 @@ means), all three with absolute-time RoPE. Self-attention through SLA
 (`--attn_mode sla`, `sage_sla`) or the flash kernels (`dense`), LoRA (runtime
 or merged form) on a frozen base, optionally pretrained Wan2.1 weights
 (`--wan_pretrained`), frame-conditioning cross-attention tokens, CFG text
-dropout, throughput telemetry. `--use_wan 0` trains the token transformer
+dropout, throughput telemetry. `--dit hunyuan_video` trains HunyuanVideo
+(models/hunyuan_video.py) in WanDiT's place through the same loss, step and
+loader: its text mask and pooled vector come with the rows, the K
+frame-condition tokens go ahead of the prompt into its token refiner, and text
+dropout zeroes the prompt and the pooled vector. `--use_wan 0` trains the token transformer
 (models/video_denoisers.VideoTokenKeypointDenoiser) instead. Runs on the GPU
 unless `--device cpu`.
 
@@ -52,6 +56,7 @@ from .common import data_mesh, resolve_device, write_run_config
 from .state import TrainState, flatten_dict, init_train_state, make_optimizer, make_train_step_frozen
 from .wansynth_common import (
     WAN_HEAD_MOD_VERSION,
+    add_hunyuan_args,
     add_wan_model_args,
     add_wansynth_data_args,
     build_wan,
@@ -78,6 +83,7 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--uniform_jitter", type=float, default=0.5)
     add_wansynth_data_args(p)
     add_wan_model_args(p)
+    add_hunyuan_args(p)
     p.add_argument("--batch", type=int, default=2)
     p.add_argument("--steps", type=int, default=1000)
     p.add_argument("--lr", type=float, default=1e-4)
@@ -138,10 +144,12 @@ def draw_phase1(generator: torch.Generator, args, B: int, z_shape: Tuple[int, ..
 def phase1_loss(wan, fc, args, schedule: DiffusionSchedule, batch: Dict[str, torch.Tensor],
                 rng: Union[torch.Generator, Draws]) -> Tuple[torch.Tensor, Dict]:
     """Anchor-slot eps MSE of one batch (latents [B, T, C, H, W], text_embed
-    [B, L, text_dim]). `wan` is the WanDiT (`fc` its projector), or the
-    VideoTokenKeypointDenoiser under --use_wan 0. `rng` is a
-    torch.Generator, or the draws themselves (the dict of `draw_phase1`), so
-    that a test can hand in another framework's."""
+    [B, L, text_dim]; HunyuanVideo's rows also carry text_mask [B, L] and
+    pooled [B, pooled_dim], which go to the model as they come). `wan` is the
+    WanDiT or HunyuanVideo model (`fc` its projector), or the
+    VideoTokenKeypointDenoiser under --use_wan 0.
+    `rng` is a torch.Generator, or the draws themselves (the dict of
+    `draw_phase1`), so that a test can hand in another framework's."""
     latents, text = batch["latents"].float(), batch["text_embed"]
     B, T = latents.shape[:2]
     p_sz, K, mode = args.patch_size, min(args.K, args.T), args.phase1_input_mode
@@ -170,9 +178,13 @@ def phase1_loss(wan, fc, args, schedule: DiffusionSchedule, batch: Dict[str, tor
     somab = schedule.sqrt_one_minus_alpha_bar[t][:, None, None, None]
     z_t = sab * z0_in + somab * eps
 
+    cond = {k: batch[k] for k in ("text_mask", "pooled") if k in batch}
     if args.cond_drop_prob > 0.0:
         drop = draws["drop_rand"] < args.cond_drop_prob
         text = torch.where(drop[:, None, None], torch.zeros_like(text), text)
+        if "pooled" in cond:   # the prompt and its pooled vector go; the mask stays
+            cond["pooled"] = torch.where(drop[:, None], torch.zeros_like(cond["pooled"]),
+                                         cond["pooled"])
 
     if not args.use_wan:
         eps_hat = wan(z_t, t, idx_in, {"text_embed": text}, T, spatial)
@@ -189,10 +201,11 @@ def phase1_loss(wan, fc, args, schedule: DiffusionSchedule, batch: Dict[str, tor
         z_interp = interpolate_video_from_indices(idx_base.repeat_interleave(N, dim=0), z_flat, T,
                                                   mode=args.video_interp_mode)
         z_seq = z_interp.reshape(B, N, T, D_tok).permute(0, 2, 1, 3)
-        z_seq = z_seq.index_put((b_ix, idx_base), z_t)
-        pred = wan(unpatchify_tokens(z_seq, p_sz, spatial).transpose(1, 2), t, text, None, extra)
+        z_in, frames = z_seq.index_put((b_ix, idx_base), z_t), None
     else:
-        pred = wan(unpatchify_tokens(z_t, p_sz, spatial).transpose(1, 2), t, text, idx_in, extra)
+        z_in, frames = z_t, idx_in
+    pred = wan(unpatchify_tokens(z_in, p_sz, spatial).transpose(1, 2), t, text, frames, extra,
+               **cond)
     pred_tokens, _ = patchify_latents(pred.transpose(1, 2), p_sz)
     if mode == "full":
         pred_tokens = take(pred_tokens, idx_base)
@@ -229,6 +242,10 @@ def run_meta(args, C: int, H: int, W: int) -> Dict:
         "d_model": args.d_model, "n_layers": args.n_layers,
         "n_heads": args.n_heads, "d_ff": args.d_ff,
         "wan_head_mod": WAN_HEAD_MOD_VERSION,
+        # the backbone, and HunyuanVideo's sizes and prompt inputs (unused by WanDiT)
+        "dit": args.dit, "hy_heads": args.hy_heads, "hy_double": args.hy_double,
+        "hy_single": args.hy_single, "pooled_dim": args.pooled_dim,
+        "text_valid_min": args.text_valid_min, "text_valid_max": args.text_valid_max,
     }
 
 
@@ -290,7 +307,7 @@ def main(argv=None) -> TrainState:
     state, base, train_step, wan, fc = make_trainer(args, device)
     n_base = sum(p.numel() for p in wan.parameters())
     n_train = sum(p.numel() for p in flatten_dict(state.params).values())
-    print(f"wan params: {n_base / 1e6:.1f}M | trainable: {n_train / 1e6:.3f}M "
+    print(f"{type(wan).__name__} params: {n_base / 1e6:.1f}M | trainable: {n_train / 1e6:.3f}M "
           f"(lora_rank={args.lora_rank}, attn={args.attn_mode})")
     rng = torch.Generator(device=device).manual_seed(args.seed + 1)
 
@@ -309,7 +326,7 @@ def main(argv=None) -> TrainState:
     meta = run_meta(args, C, H, W)
     write_run_config(args, {"args": vars(args), "meta": meta})
 
-    put = pinned_put(device, keys=("latents", "text_embed"))
+    put = pinned_put(device, keys=("latents", "text_embed", "text_mask", "pooled"))
     host_iter = itertools.chain([batch0], loader)
     dev_iter = (DevicePrefetcher(host_iter, put, depth=args.prefetch_depth)
                 if args.prefetch_depth > 0 else map(put, host_iter))

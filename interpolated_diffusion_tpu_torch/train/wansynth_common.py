@@ -15,6 +15,16 @@ masters) and the frozen base (compute dtype). LoRA takes either form
 `split_lora_state_dict` / `join_lora_state_dict` / `merged_wan_params` are
 the partition and its join. `--ffn_mode moe` builds every block's FFN as the
 Switch-MoE FFN (models/moe.py, `--n_experts`, `--capacity_factor`).
+
+`--dit` (the Phase-1 trainer's, `add_hunyuan_args`) chooses the backbone:
+`wan` (WanDiT, the default) or `hunyuan_video`
+(models/hunyuan_video.HunyuanVideoTransformer3DModel, its published sizes
+but for `--hy_*`, runtime LoRA). `build_wan` and `make_wansynth_loader` are
+the two places that read the choice: the latter reads a prompt mask and a
+pooled text vector beside the text states, which the synthetic rows then
+carry (`--text_valid_min` / `--text_valid_max` valid prompt tokens,
+`--pooled_dim`), and the Phase-1 loss hands the model whatever the batch
+carries.
 """
 from __future__ import annotations
 
@@ -28,6 +38,7 @@ from ..data.dataset import BatchLoader
 from ..data.wan_synth import SyntheticWanDataset, WanSynthTarDataset
 from ..models.init import build_model
 from ..models.lora import apply_lora, init_lora, leaves_to_tree, tree_to_leaves
+from ..models.hunyuan_video import HunyuanVideoTransformer3DModel
 from ..models.wan_dit import FrameCondProjector, WanDiT, set_compute_dtype
 from ..parallel.mesh import Mesh, shard_batch
 from ..utils.memguard import add_memguard_args
@@ -50,6 +61,27 @@ def add_wansynth_data_args(p: argparse.ArgumentParser) -> None:
                    help="device-ready batches prefetched on a background "
                         "thread (utils/prefetch.py); 0 disables")
     add_memguard_args(p)
+
+
+DITS = ("wan", "hunyuan_video")
+
+
+def add_hunyuan_args(p: argparse.ArgumentParser) -> None:
+    """The backbone choice, HunyuanVideo's heads and depths (the published
+    ones by default; the rest of its sizes are the model's published
+    defaults) and its inputs: the Phase-1 trainer's flags, which no other CLI
+    takes (a checkpoint's meta carries them to the loaders)."""
+    p.add_argument("--dit", type=str, default="wan", choices=DITS,
+                   help="the backbone: WanDiT (--wan_*) or HunyuanVideo (--hy_*)")
+    p.add_argument("--hy_heads", type=int, default=24, help="heads of 128")
+    p.add_argument("--hy_double", type=int, default=20, help="dual-stream blocks")
+    p.add_argument("--hy_single", type=int, default=40, help="single-stream blocks")
+    p.add_argument("--text_valid_min", type=int, default=24,
+                   help="--dit hunyuan_video: fewest valid prompt tokens of a synthetic row")
+    p.add_argument("--text_valid_max", type=int, default=160,
+                   help="--dit hunyuan_video: most valid prompt tokens of a synthetic row")
+    p.add_argument("--pooled_dim", type=int, default=768,
+                   help="--dit hunyuan_video: width of the pooled text vector (CLIP-L)")
 
 
 def add_wan_model_args(p: argparse.ArgumentParser) -> None:
@@ -87,6 +119,15 @@ def add_wan_model_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--frame_cond", type=int, default=1)
     p.add_argument("--frame_cond_dim", type=int, default=5)
     p.add_argument("--patch_size", type=int, default=2)
+
+
+def _hunyuan(args) -> bool:
+    """Whether the backbone is HunyuanVideo (`--dit`; only the Phase-1
+    trainer and its checkpoints' meta carry the choice)."""
+    choice = str(getattr(args, "dit", "wan"))
+    if choice not in DITS:
+        raise ValueError(f"--dit {choice!r} not in {DITS}")
+    return choice == "hunyuan_video"
 
 
 def check_wan_args(args) -> None:
@@ -139,9 +180,12 @@ def make_wansynth_loader(args, seed: int, state: Optional[dict] = None,
                          "data to tar shards first (data/wan_synth.write_tar_shard) and pass "
                          "--data tar --data_root <dir>: otherwise anchors would be silently "
                          "ignored")
+    hy = _hunyuan(args)
     ds = SyntheticWanDataset(n_samples=args.num_samples, T=args.T, C=args.latent_c,
                              H=args.latent_h, W=args.latent_w, text_len=args.text_len,
-                             text_dim=args.text_dim, seed=seed)
+                             text_dim=args.text_dim, seed=seed,
+                             text_valid=(args.text_valid_min, args.text_valid_max) if hy
+                             else None, pooled_dim=args.pooled_dim if hy else 0)
     return _StatefulIter(BatchLoader(ds, batch_size=args.batch, seed=seed,
                                      start_batch=int((state or {}).get("batches", 0))), mesh)
 
@@ -196,6 +240,8 @@ def build_wan(args, bf16: bool = True, *, generator: torch.Generator,
     # a LoRA run's frozen base lives in the compute dtype; a full fine-tune
     # (lora_rank 0) keeps every weight as an f32 master from the start
     dtype = torch.bfloat16 if bf16 and int(args.lora_rank) > 0 else torch.float32
+    if _hunyuan(args):
+        return _build_hunyuan(args, dtype, generator, device, zero_init_scale, frame_cond)
     wan = build_model(
         WanDiT, generator=generator, device=device, dtype=dtype,
         zero_init_scale=zero_init_scale,
@@ -228,6 +274,36 @@ def build_wan(args, bf16: bool = True, *, generator: torch.Generator,
                          feat_dim=int(getattr(args, "frame_cond_dim", 5)),
                          text_dim=args.text_dim)
     return wan.eval(), (fc.eval() if fc is not None else None)
+
+
+def hunyuan_kwargs(args) -> Dict:
+    """HunyuanVideoTransformer3DModel's arguments from wansynth arguments."""
+    return dict(in_channels=args.latent_c, out_channels=args.latent_c,
+                num_attention_heads=int(args.hy_heads), num_layers=int(args.hy_double),
+                num_single_layers=int(args.hy_single),
+                patch_size=int(getattr(args, "patch_size", 2)), text_embed_dim=args.text_dim,
+                pooled_projection_dim=int(args.pooled_dim), lora_rank=int(args.lora_rank),
+                lora_alpha=float(args.lora_alpha),
+                lora_targets=str(getattr(args, "lora_targets", "attn,ffn")),
+                lora_form=_lora_form(args), use_remat=bool(getattr(args, "use_remat", 0)))
+
+
+def _build_hunyuan(args, dtype, generator, device, zero_init_scale: float, frame_cond: bool):
+    """(HunyuanVideo model, FrameCondProjector or None), seeded as build_wan's."""
+    if int(args.lora_rank) > 0 and _lora_form(args) != "runtime":
+        raise ValueError("--dit hunyuan_video takes runtime LoRA only")
+    if getattr(args, "wan_pretrained", None) or str(getattr(args, "ffn_mode",
+                                                            "dense")) != "dense":
+        raise ValueError("--wan_pretrained and --ffn_mode moe are WanDiT's")
+    model = build_model(HunyuanVideoTransformer3DModel, generator=generator, device=device,
+                        dtype=dtype, zero_init_scale=zero_init_scale, **hunyuan_kwargs(args))
+    fc = None
+    if frame_cond:
+        fc = build_model(FrameCondProjector, generator=generator, device=device, dtype=dtype,
+                         zero_init_scale=zero_init_scale,
+                         feat_dim=int(getattr(args, "frame_cond_dim", 5)),
+                         text_dim=args.text_dim)
+    return model.eval(), (fc.eval() if fc is not None else None)
 
 
 def load_pretrained_into(wan: WanDiT, args) -> int:
@@ -273,7 +349,10 @@ def wan_args_from_meta(meta: Dict, **over) -> argparse.Namespace:
         layer_mode=meta.get("layer_mode", "loop"), ffn_mode=meta.get("ffn_mode", "dense"),
         n_experts=int(meta.get("n_experts", 8)),
         capacity_factor=float(meta.get("capacity_factor", 1.25)),
-        frame_cond=int(meta.get("frame_cond", 1)), frame_cond_dim=5, T=int(meta["T"]))
+        frame_cond=int(meta.get("frame_cond", 1)), frame_cond_dim=5, T=int(meta["T"]),
+        dit=meta.get("dit", "wan"), hy_heads=int(meta.get("hy_heads", 24)),
+        hy_double=int(meta.get("hy_double", 20)), hy_single=int(meta.get("hy_single", 40)),
+        pooled_dim=int(meta.get("pooled_dim", 768)), patch_size=int(meta.get("patch_size", 2)))
     for k, v in over.items():
         setattr(ns, k, v)
     return ns

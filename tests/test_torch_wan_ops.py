@@ -138,6 +138,7 @@ def test_wan_port_import_pulls_in_no_jax():
     code = ("import sys; import chip_smoke, interpolated_diffusion_tpu_torch.sample.wan_anchors, "
             "interpolated_diffusion_tpu_torch.train.wansynth_common, "
             "interpolated_diffusion_tpu_torch.models.jax_import, "
+            "interpolated_diffusion_tpu_torch.models.hunyuan_video, "
             "interpolated_diffusion_tpu_torch.kernels.sla, "
             "interpolated_diffusion_tpu_torch.train.train_keypoints_wansynth, "
             "interpolated_diffusion_tpu_torch.train.state, "

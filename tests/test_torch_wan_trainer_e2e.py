@@ -18,6 +18,7 @@ element moves u by eps dg / (|g| + eps)^2, which for |g| < 1e-6 and the
 GELU units of the projector feed a few of them) are only held to the bound
 of any two Adam steps, 2 lr.
 """
+import argparse
 import json
 import os
 
@@ -89,7 +90,11 @@ def test_two_steps_match_jax_main(tmp_path, capsys):
         frame_cond=jax.tree_util.tree_map(np.asarray, trainable0["frame_cond"]))
 
     args = ptrainer.build_argparser().parse_args(PARITY + ["--device", "cpu"])
-    assert {k: v for k, v in vars(args).items() if k != "device"} == vars(j_args)   # same flags
+    # the same flags, but for --device and the port's own backbone choice (--dit, --hy_*)
+    hy = argparse.ArgumentParser()
+    pcommon.add_hunyuan_args(hy)
+    port_only = {"device"} | set(vars(hy.parse_args([])))
+    assert {k: v for k, v in vars(args).items() if k not in port_only} == vars(j_args)
     device = torch.device("cpu")
     wan, fc = pcommon.build_wan(args, False, generator=torch.Generator().manual_seed(0))
     wan.load_state_dict(sd, strict=True)
