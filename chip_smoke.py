@@ -126,6 +126,15 @@ Phases, each on its own lines; any failure exits non-zero:
                   and dx against it, then forward and backward times (events,
                   graph replay) beside the bound, the twin and, without RoPE,
                   the library's F.rms_norm
+  9b. ln modulate the LayerNorm + modulation kernels (csrc/ln_modulate.cu)
+                  at Phase 2's and Phase 1's [2, L, 1536] (adaLN on f32
+                  `mod` rows, and the affine norm2), HunyuanVideo's
+                  [1, 10200, 3072] and a strided [2, 261, 3072] text slice
+                  (adaLN on bf16 Linear chunks): the forward bit for bit the
+                  twin's on the kernel's own statistics, the share equal to
+                  the twin and dx against it, then forward and backward times
+                  (events, graph replay) beside the bound, the twin and, for
+                  the affine form, the library's F.layer_norm
   10. wan train   Phase-1 LoRA training (train/train_keypoints_wansynth) at
                   the trainer's defaults: Wan2.1-1.3B at full width and depth,
                   batch 2, L=7800, bf16, LoRA rank 8, frame conditioning,
@@ -279,7 +288,7 @@ with the device's busy share. The line before the
 last is a JSON summary of the kernels (time, bound, library time, launches);
 the last line is {"ok": true, "device": {...}}. --kernels runs only the phases
 that build, check and time the kernels alone (1-3, the kernel times of 5, 5a,
-6, the kernel times of 8, 9 and 9a), drives no model and prints neither of the two JSON lines: a short
+6, the kernel times of 8, 9, 9a and 9b), drives no model and prints neither of the two JSON lines: a short
 first run for a changed kernel. --gemm-ab reads what the block GEMM's
 W-resident kernel buys: the maze part of phases 3 and 5 (--maze-kernels) in four
 processes, two on a build that sends every product to the streaming kernel.
@@ -289,7 +298,8 @@ phase 5h alone, then a JSON line of its launches and times and the
 {"ok": true, ...} line; --multi-device the build, phase 3 and phase 5i, then
 its JSON line of launches and the ok line; --diagnostics the build and phase
 5j alone, then its JSON line of launches and times and the ok line;
---qk-norm-rope the build and phase 9a alone; --hunyuan the build and phase
+--qk-norm-rope the build and phase 9a alone; --ln-modulate the build and phase
+9b alone; --hunyuan the build and phase
 10a alone, then a JSON line of its errors, times, bounds and launches and the
 ok line.
 """
@@ -362,6 +372,9 @@ KERNEL_SOURCES = {
                        "interpolated_diffusion_tpu/kernels/block_sparse_attention.py:248"),
     "qk_norm_rope": ("interpolated_diffusion_tpu_torch/csrc/qk_norm_rope.cu",
                      "none: XLA fuses interpolated_diffusion_tpu/models/wan_dit.py:155 and :92"),
+    "ln_modulate": ("interpolated_diffusion_tpu_torch/csrc/ln_modulate.cu",
+                    "none: XLA fuses interpolated_diffusion_tpu/models/wan_dit.py:259, :267, "
+                    ":273 and :603"),
 }
 
 # Times of the kernels that were redesigned (wgmma + TMA flash forward and
@@ -2750,12 +2763,13 @@ def count_twin_calls():
     """Count calls of the Wan kernels' plain twins (none on the kernel path)."""
     from interpolated_diffusion_tpu_torch.kernels import block_sparse_attention as bsa
     from interpolated_diffusion_tpu_torch.kernels import int8_attention as i8
+    from interpolated_diffusion_tpu_torch.kernels import ln_modulate as lnm
     from interpolated_diffusion_tpu_torch.kernels import qk_norm_rope as qknr
 
     calls = [0]
     saved = [(bsa, "block_sparse_attention_reference"), (bsa, "_torch_flash"),
              (bsa, "_torch_sla_bwd"), (bsa, "_torch_flash_bwd"), (i8, "_torch_int8_attention"),
-             (i8, "block_sparse_attention_reference"), (qknr, "_twin")]
+             (i8, "block_sparse_attention_reference"), (qknr, "_twin"), (lnm, "_twin")]
     originals = [getattr(m, n) for m, n in saved]
 
     def counting(fn):
@@ -2774,26 +2788,42 @@ def count_twin_calls():
 
 
 @contextlib.contextmanager
+def count_ln_launches():
+    """The LN + modulation kernels' (forward, backward) launches made inside
+    the block, read when it ends."""
+    from interpolated_diffusion_tpu_torch.kernels import ln_modulate as lnm
+
+    before = lnm.ln_modulate.launches, lnm.ln_modulate.launches_bwd
+    got = [0, 0]
+    try:
+        yield got
+    finally:
+        got[:] = (lnm.ln_modulate.launches - before[0], lnm.ln_modulate.launches_bwd - before[1])
+
+
+@contextlib.contextmanager
 def wan_plain_twins():
-    """Route WanDiT's attention and q/k norm kernels to their plain twins (on
-    CUDA tensors), forward and backward."""
+    """Route WanDiT's attention, q/k norm and LN + modulation kernels to their
+    plain twins (on CUDA tensors), forward and backward."""
     from interpolated_diffusion_tpu_torch.kernels import block_sparse_attention as bsa
     from interpolated_diffusion_tpu_torch.kernels import int8_attention as i8
+    from interpolated_diffusion_tpu_torch.kernels import ln_modulate as lnm
     from interpolated_diffusion_tpu_torch.kernels import qk_norm_rope as qknr
     from interpolated_diffusion_tpu_torch.kernels import sla
     from interpolated_diffusion_tpu_torch.models import wan_dit
 
     saved = (sla.block_sparse_attention, sla.int8_block_sparse_attention, wan_dit.flash_attention,
-             wan_dit.qk_norm_rope)
+             wan_dit.qk_norm_rope, wan_dit.ln_modulate)
     sla.block_sparse_attention = bsa.block_sparse_attention_twin
     sla.int8_block_sparse_attention = i8.int8_block_sparse_attention_twin
     wan_dit.flash_attention = bsa.flash_attention_twin
     wan_dit.qk_norm_rope = qknr.qk_norm_rope_twin
+    wan_dit.ln_modulate = lnm.ln_modulate_twin
     try:
         yield
     finally:
         (sla.block_sparse_attention, sla.int8_block_sparse_attention, wan_dit.flash_attention,
-         wan_dit.qk_norm_rope) = saved
+         wan_dit.qk_norm_rope, wan_dit.ln_modulate) = saved
 
 
 @contextlib.contextmanager
@@ -3238,6 +3268,13 @@ QK_CASES = (("p1_self", 2, 7800, True, "bfloat16"), ("p1_cross_k", 2, 517, False
 # Launches per Phase-1 training step with remat: four norms a block (self q
 # and k with RoPE, cross q and k without), the forward twice, the backward once.
 QK_TRAIN_EXPECT = (8 * TRAIN_LAYERS, 4 * TRAIN_LAYERS)
+# LN + modulation launches per Wan training step with remat: three LNs a block
+# (norm1, norm2, norm3), each forward twice, and the head's once; every LN's
+# backward but block 0's norm1, whose input (the frozen patch embedding) and
+# modulation (the frozen time projection) want no gradient. In a full
+# fine-tune both are trained, so that backward runs too.
+LN_TRAIN_EXPECT = (6 * TRAIN_LAYERS + 1, 3 * TRAIN_LAYERS)
+LN_FULL_FT_EXPECT = (6 * TRAIN_LAYERS + 1, 3 * TRAIN_LAYERS + 1)
 
 
 def phase_qk_norm_rope(dev, card):
@@ -3335,6 +3372,118 @@ def phase_qk_norm_rope(dev, card):
     return times, worst
 
 
+# The LayerNorm + modulation kernel pair (csrc/ln_modulate.cu) at the training
+# shapes: (name, B, L, D, form, x laid out as): Wan Phase 2 and Phase 1 (adaLN
+# with the f32 rows of WanBlock's `mod`; the affine norm2 with an f32 weight),
+# HunyuanVideo's video rows and, as the dual block reads them, a strided slice
+# [:, 10200:] of a 2-row joint sequence (adaLN with bf16 Linear chunks).
+LN_CASES = (("p2", 2, 32760, 1536, "adaln", "whole"),
+            ("p2_affine", 2, 32760, 1536, "affine", "whole"),
+            ("p1", 2, 7800, 1536, "adaln", "whole"),
+            ("p1_affine", 2, 7800, 1536, "affine", "whole"),
+            ("hy_video", 1, 10200, 3072, "adaln", "whole"),
+            ("hy_text_slice", 2, 261, 3072, "adaln", "slice"))
+LN_SLICE_AT = 10200
+
+
+def phase_ln_modulate(dev, card):
+    """The LN + modulation kernels against their twin at LN_CASES (forward:
+    for the kernel's own per-row mean and rstd the twin's arithmetic gives its
+    output bit for bit; the share equal to the twin's own output and the
+    largest gap are printed; backward: dx against the twin's autograd, 2e-2 of
+    its scale: the twin rounds its gradients to bf16 at each op, the kernel
+    once), then their times by events and by graph replay beside the bound
+    (inputs read once, outputs written once), the twin's and, for the affine
+    form, the library's F.layer_norm (two-pass variance, not the port's
+    arithmetic: a yardstick of time only). Returns ({case: times}, the largest
+    relative gap to the twin)."""
+    import torch
+    import torch.nn.functional as F
+    from interpolated_diffusion_tpu_torch.kernels import ln_modulate as lnm
+
+    gen = torch.Generator(device=dev).manual_seed(51)
+    saved = lnm.ln_modulate.launches, lnm.ln_modulate.launches_bwd
+    times, worst = {}, 0.0
+    for name, B, L, D, form, layout in LN_CASES:
+        bf = torch.bfloat16
+        rows = L + LN_SLICE_AT if layout == "slice" else L
+        full = (torch.randn(B, rows, D, generator=gen, device=dev) * 2.0 + 0.5).to(bf)
+        x = full[:, LN_SLICE_AT:] if layout == "slice" else full
+        if form == "affine":
+            scale = 1 + 0.3 * torch.randn(D, generator=gen, device=dev)
+            shift = 0.2 * torch.randn(D, generator=gen, device=dev)
+        elif D == 1536:
+            mod = 0.3 * torch.randn(B, 6, D, generator=gen, device=dev)
+            scale, shift = mod[:, 1], mod[:, 0]
+        else:   # HunyuanVideo's order: shift, scale, gate, ...
+            out = (0.3 * torch.randn(B, 6 * D, generator=gen, device=dev)).to(bf)
+            shift, scale = out.chunk(6, dim=-1)[:2]
+        dy = torch.randn((B, L, D), generator=gen, device=dev).to(bf)
+        y, mean, rstd = lnm._forward(x, scale, shift, form, 1e-6)
+        twin = lnm.ln_modulate_twin(x, scale, shift, form=form)
+        xf, mu, r = x.float(), mean.reshape(B, L, 1), rstd.reshape(B, L, 1)
+        if form == "affine":
+            mine = ((xf - mu) * (r * scale) + shift).to(bf)
+        else:
+            mine = ((xf - mu) * r).to(bf) * (1 + scale.to(bf)[:, None]) + shift.to(bf)[:, None]
+        require(y.dtype == bf and torch.equal(y, mine),
+                f"ln_modulate {name}: not the twin's arithmetic on its own statistics")
+        equal = (y == twin).float().mean().item()
+        rel = _errors(y, twin)[1]
+        require(rel <= 2.0 ** -7, f"ln_modulate {name}: forward disagrees ({rel:.3e})")
+        xg = x.detach().clone().requires_grad_(True)
+        dx_twin, = torch.autograd.grad(lnm.ln_modulate_twin(xg, scale, shift, form=form), [xg],
+                                       dy)
+        dx, _, _ = lnm._backward(dy, x, scale, mean, rstd, form, False)
+        dx_rel = _errors(dx, dx_twin)[1]
+        require(dx_rel <= BWD_TOL, f"ln_modulate {name}: dx disagrees ({dx_rel:.3e})")
+        worst = max(worst, rel, dx_rel)
+        sliced = " (strided slice)" if layout == "slice" else ""
+        print(f"[ln_modulate] {name} [{B},{L},{D}] {form}{sliced}: "
+              f"forward bitwise-equal share {equal:.7f}, max|d|/max|twin|={rel:.3e}; dx "
+              f"max|d|/max|twin|={dx_rel:.3e}", flush=True)
+
+        def autograd_ms(fn):   # forward + backward through autograd, less the forward
+            def run():
+                xl = x.detach().clone().requires_grad_(True)
+                torch.autograd.grad(fn(xl), [xl], dy)
+            with torch.no_grad():
+                f = _time_ms(lambda: fn(x), iters=5)
+            return f, _time_ms(run, iters=5) - f
+
+        fwd = lambda: lnm._forward(x, scale, shift, form, 1e-6)
+        bwd = lambda: lnm._backward(dy, x, scale, mean, rstd, form, False)
+        bwd_mod = lambda: lnm._backward(dy, x, scale, mean, rstd, form, True)
+        stats = 8 * B * L   # mean and rstd, f32 a row
+        bound_f = bound_ms(_nbytes(x, scale, shift, y) + stats)
+        bound_b = bound_ms(_nbytes(dy, x, scale, dx) + stats)
+        with torch.no_grad():
+            f_ms, f_graph = _time_ms(fwd, iters=20), _graph_ms(fwd, launches=20)
+            b_ms, b_graph = _time_ms(bwd, iters=20), _graph_ms(bwd, launches=20)
+            bm_ms = _time_ms(bwd_mod, iters=10)
+        tf_ms, tb_ms = autograd_ms(lambda t: lnm.ln_modulate_twin(t, scale, shift, form=form))
+        lf_ms = lb_ms = None
+        if form == "affine":
+            lf_ms, lb_ms = autograd_ms(
+                lambda t: F.layer_norm(t, (D,), scale.to(bf), shift.to(bf), 1e-6))
+        lib = ("none" if lf_ms is None else
+               f"F.layer_norm forward {lf_ms:.4f} ms, forward + backward less forward {lb_ms:.4f} ms")
+        print(f"[timing] [{card}] ln_modulate {name} [{B},{L},{D}] {form}: forward {f_ms:.4f} ms "
+              f"(by graph replay {f_graph:.4f}), bound {bound_f[0]:.4f} ms ({bound_f[1]}), plain "
+              f"twin {tf_ms:.4f} ms; backward {b_ms:.4f} ms (graph {b_graph:.4f}; with the "
+              f"modulation's gradients {bm_ms:.4f}), bound {bound_b[0]:.4f} ms, plain twin's "
+              f"autograd {tb_ms:.4f} ms; library: {lib}", flush=True)
+        times[name] = dict(fwd_ms=f_ms, fwd_graph_ms=f_graph, fwd_bound_ms=bound_f[0],
+                           fwd_twin_ms=tf_ms, fwd_library_ms=lf_ms, bwd_ms=b_ms,
+                           bwd_graph_ms=b_graph, bwd_mod_ms=bm_ms, bwd_bound_ms=bound_b[0],
+                           bwd_twin_ms=tb_ms, bwd_library_ms=lb_ms, equal_share=equal,
+                           fwd_gap=rel, dx_gap=dx_rel)
+        del full, x, scale, shift, dy, y, mean, rstd, twin, mine, xg, dx_twin, dx
+        torch.cuda.empty_cache()
+    lnm.ln_modulate.launches, lnm.ln_modulate.launches_bwd = saved
+    return times, worst
+
+
 def phase_wan_train(dev, card, profile):
     """Phase-1 LoRA training at the trainer's defaults, three attention modes."""
     import torch
@@ -3363,6 +3512,7 @@ def phase_wan_train(dev, card, profile):
           f"built in {time.perf_counter() - t0:.1f} s; batch {args.batch}, "
           f"L = {args.K * (args.latent_h // 2) * (args.latent_w // 2)}, remat on", flush=True)
     launches = dict.fromkeys(TRAIN_KERNELS, 0)
+    launches["ln_modulate"] = (0, 0)   # (forward, backward) over the trainer's own steps
     results = {}
     for mode in ("sla", "sage_sla", "dense"):
         args.attn_mode = mode
@@ -3429,7 +3579,7 @@ def phase_wan_train(dev, card, profile):
         _set_train_counts((0,) * len(TRAIN_KERNELS))
         qk_before = qknr.qk_norm_rope.launches, qknr.qk_norm_rope.launches_bwd
         step_s = []
-        with count_twin_calls() as twin_calls:
+        with count_twin_calls() as twin_calls, count_ln_launches() as ln:
             for i in range(warm + timed):
                 nxt = put(next(loader))
                 torch.cuda.synchronize()
@@ -3450,6 +3600,9 @@ def phase_wan_train(dev, card, profile):
         require(qk == tuple(c * (warm + timed) for c in QK_TRAIN_EXPECT),
                 f"train {mode}: qk_norm_rope launches (forward, backward) {qk}, expected "
                 f"{QK_TRAIN_EXPECT} a step")
+        require(tuple(ln) == tuple(c * (warm + timed) for c in LN_TRAIN_EXPECT),
+                f"train {mode}: ln_modulate launches (forward, backward) {tuple(ln)}, expected "
+                f"{LN_TRAIN_EXPECT} a step")
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         want = tuple(c * (warm + timed) for c in TRAIN_EXPECT[mode])
         require(counts == want and twin_calls[0] == 0,
@@ -3466,10 +3619,12 @@ def phase_wan_train(dev, card, profile):
         print(f"[wan train] {tag} attn_mode={mode}: {per:.3f} s/step, {args.batch / per:.3f} "
               f"samples/s ({len(timed_s)} timed step(s) after {warm} warm-up), peak memory "
               f"{peak:.2f} GiB; launches per step {dict(zip(TRAIN_KERNELS, TRAIN_EXPECT[mode]))}, "
-              f"qk_norm_rope {QK_TRAIN_EXPECT}, twin calls 0; all {len(names)} trainable leaves changed, frozen base "
+              f"qk_norm_rope {QK_TRAIN_EXPECT}, ln_modulate {LN_TRAIN_EXPECT}, twin calls 0; all {len(names)} "
+              f"trainable leaves changed, frozen base "
               f"({len(base)} tensors) bit-identical", flush=True)
         for name, c in zip(TRAIN_KERNELS, counts):
             launches[name] += c
+        launches["ln_modulate"] = tuple(a + b for a, b in zip(launches["ln_modulate"], ln))
         results[mode] = per
         del before_leaves, before_base
         if profile and mode == "sla":
@@ -3498,11 +3653,17 @@ HY_QK_CASES = (("dual_video", HY_LV, HY_LV), ("dual_text", HY_TEXT, None),
                ("single_joint", HY_LV + HY_TEXT, HY_LV))
 HY_DOUBLE, HY_SINGLE = 20, 40
 # launches a Phase-1 step under remat (every block's forward twice): one joint
-# attention a block; four q/k norms a dual-stream block, two a single one
+# attention a block; four q/k norms a dual-stream block, two a single one;
+# four LN + modulations a dual-stream block (video and text, before attention
+# and before the FFNs), one a single one, and the head's once; each LN's
+# backward once, the first video LN's too (its rows are a slice of the joint
+# x, which wants a gradient for the trainable frame-condition tokens)
 HY_TRAIN_EXPECT = {"flash_attention": 2 * (HY_DOUBLE + HY_SINGLE),
                    "flash_bwd_dq": HY_DOUBLE + HY_SINGLE, "flash_bwd_dkdv": HY_DOUBLE + HY_SINGLE,
                    "qk_norm_rope": 2 * (4 * HY_DOUBLE + 2 * HY_SINGLE),
-                   "qk_norm_rope_bwd": 4 * HY_DOUBLE + 2 * HY_SINGLE}
+                   "qk_norm_rope_bwd": 4 * HY_DOUBLE + 2 * HY_SINGLE,
+                   "ln_modulate": 2 * (4 * HY_DOUBLE + HY_SINGLE) + 1,
+                   "ln_modulate_bwd": 4 * HY_DOUBLE + HY_SINGLE + 1}
 HY_TRAIN_STEPS = (1, 2)   # (warm-up, timed)
 # against the twins, as tests/test_torch_hunyuan_gpu.py holds them (relative
 # norms): the flash forward's o and lse 1e-2, dq / dk / dv BWD_TOL; the q/k
@@ -3714,7 +3875,7 @@ def _hy_train(dev, card):
     saved_qk = qknr.qk_norm_rope.launches, qknr.qk_norm_rope.launches_bwd
     qknr.qk_norm_rope.launches = qknr.qk_norm_rope.launches_bwd = 0
     step_s = []
-    with count_twin_calls() as twin_calls:
+    with count_twin_calls() as twin_calls, count_ln_launches() as ln:
         for i in range(warm + timed):
             batch = put(next(loader))
             torch.cuda.synchronize()
@@ -3730,7 +3891,8 @@ def _hy_train(dev, card):
     counts = dict(zip(TRAIN_KERNELS, _train_counts()))
     got = {"flash_attention": counts["flash_attention"], "flash_bwd_dq": counts["flash_bwd_dq"],
            "flash_bwd_dkdv": counts["flash_bwd_dkdv"], "qk_norm_rope": qknr.qk_norm_rope.launches,
-           "qk_norm_rope_bwd": qknr.qk_norm_rope.launches_bwd}
+           "qk_norm_rope_bwd": qknr.qk_norm_rope.launches_bwd, "ln_modulate": ln[0],
+           "ln_modulate_bwd": ln[1]}
     others = {n: c for n, c in counts.items() if n not in got and c}
     _set_train_counts(tuple(a + b for a, b in zip(saved_flash, _train_counts())))
     qknr.qk_norm_rope.launches += saved_qk[0]
@@ -3767,6 +3929,8 @@ def phase_hunyuan(dev, card):
         out[name]["train_launches_per_step"] = per_step[name]
     out["qk_norm_rope"] = dict(shapes=qk, train_launches_per_step=per_step["qk_norm_rope"],
                                train_launches_bwd_per_step=per_step["qk_norm_rope_bwd"])
+    out["ln_modulate"] = dict(train_launches_per_step=per_step["ln_modulate"],
+                              train_launches_bwd_per_step=per_step["ln_modulate_bwd"])
     out["train"] = dict(s_per_step=step_s, peak_gib=peak)
     print(f"[hunyuan] phase 10a passed in {time.perf_counter() - t0:.1f} s", flush=True)
     return out
@@ -4072,12 +4236,15 @@ def phase_wan_phase2(dev, card, profile):
         make_synth_tars.main(["--out_root", data, "--num_samples", str(WAN2_SAMPLES),
                               "--shard_size", str(WAN2_SAMPLES)])
         p1_dir = os.path.join(work, "p1")
-        _, counts, twin, log, secs, peak = _cli_run(p1.main, [
-            "--steps", str(WAN2_P1_STEPS), "--log_every", "1", "--data", "tar",
-            "--data_root", data, "--out_dir", p1_dir])
+        with count_ln_launches() as ln:
+            _, counts, twin, log, secs, peak = _cli_run(p1.main, [
+                "--steps", str(WAN2_P1_STEPS), "--log_every", "1", "--data", "tar",
+                "--data_root", data, "--out_dir", p1_dir])
         want = {k: c * WAN2_P1_STEPS for k, c in zip(TRAIN_KERNELS, TRAIN_EXPECT["sla"])}
         require(counts == want and twin == 0, f"Phase-1 CLI: launches {counts}, twin calls "
                 f"{twin}, expected {want} and 0")
+        require(tuple(ln) == tuple(c * WAN2_P1_STEPS for c in LN_TRAIN_EXPECT),
+                f"Phase-1 CLI: ln_modulate launches {tuple(ln)}, expected {LN_TRAIN_EXPECT} a step")
         print(f"[wan2] {tag} Phase-1 trainer CLI at its defaults, {WAN2_P1_STEPS} steps on the "
               f"tar shards: {secs:.1f} s with the model build and a checkpoint, peak "
               f"{peak:.2f} GiB, launches {counts}", flush=True)
@@ -4129,7 +4296,8 @@ def phase_wan_phase2(dev, card, profile):
             argv = ["--data", "tar", "--data_root", data, "--anchors_root", anchors_root,
                     "--out_dir", p2_dir, "--log_every", "1", "--attn_mode", mode,
                     "--steps", str(done + n)] + (["--resume", p2_dir] if done else [])
-            _, counts, twin, log, secs, peak = _cli_run(p2.main, argv)
+            with count_ln_launches() as ln:
+                _, counts, twin, log, secs, peak = _cli_run(p2.main, argv)
             steps = [(int(a), float(b), float(c)) for a, b, c in re.findall(_STEP_LINE, log)]
             require([s[0] for s in steps] == list(range(done, done + n)) and
                     all(np.isfinite(s[1]) for s in steps),
@@ -4137,6 +4305,9 @@ def phase_wan_phase2(dev, card, profile):
             want = {k: c * n for k, c in zip(TRAIN_KERNELS, TRAIN_EXPECT[mode])}
             require(counts == want and twin == 0, f"Phase-2 CLI {mode}: launches {counts}, "
                     f"twin calls {twin}, expected {want} and 0")
+            require(tuple(ln) == tuple(c * n for c in LN_TRAIN_EXPECT),
+                    f"Phase-2 CLI {mode}: ln_modulate launches {tuple(ln)}, expected "
+                    f"{LN_TRAIN_EXPECT} a step")
             timed = [s[2] for s in steps[1:]]
             per = sum(timed) / len(timed)
             results[mode] = dict(s_per_step=per, peak_gib=peak, losses=[s[1] for s in steps])
@@ -4146,7 +4317,8 @@ def phase_wan_phase2(dev, card, profile):
                   f"{' (resumed)' if done else ''}: {per:.3f} s/step over {len(timed)} step(s) "
                   f"after the first ({steps[0][2]:.3f} s), {2 / per:.3f} samples/s, peak memory "
                   f"{peak:.2f} GiB, launches per step "
-                  f"{dict(zip(TRAIN_KERNELS, TRAIN_EXPECT[mode]))}, twin calls 0; losses "
+                  f"{dict(zip(TRAIN_KERNELS, TRAIN_EXPECT[mode]))}, ln_modulate "
+                  f"{LN_TRAIN_EXPECT}, twin calls 0; losses "
                   f"{[round(s[1], 4) for s in steps]}", flush=True)
             results[mode]["ckpt"] = os.path.join(p2_dir, f"ckpt_{done + n}")
             require(os.path.exists(os.path.join(results[mode]["ckpt"], "params.pt")),
@@ -4419,13 +4591,17 @@ def _full_ft_cli(dev, card, data, work):
         out = os.path.join(work, f"full_{mode}")
         argv = ["--lora_rank", "0", "--data", "tar", "--data_root", data, "--attn_mode", mode,
                 "--steps", str(FULL_FT_STEPS), "--log_every", "1", "--out_dir", out]
-        state, counts, twin, log, secs, peak = _cli_run(p1.main, argv)
+        with count_ln_launches() as ln:
+            state, counts, twin, log, secs, peak = _cli_run(p1.main, argv)
         steps = [(int(a), float(b), float(c)) for a, b, c in re.findall(_STEP_LINE, log)]
         want = {k: c * FULL_FT_STEPS for k, c in zip(TRAIN_KERNELS, TRAIN_EXPECT[mode])}
         require([s[0] for s in steps] == list(range(FULL_FT_STEPS)) and
                 all(np.isfinite(s[1]) for s in steps), f"full fine-tune {mode}: steps {steps}")
         require(counts == want and twin == 0, f"full fine-tune {mode}: launches {counts}, twin "
                 f"calls {twin}, expected {want} and 0")
+        require(tuple(ln) == tuple(c * FULL_FT_STEPS for c in LN_FULL_FT_EXPECT),
+                f"full fine-tune {mode}: ln_modulate launches {tuple(ln)}, expected "
+                f"{LN_FULL_FT_EXPECT} a step")
         leaves = state.params["wan"]
         require(set(state.params) == {"wan", "frame_cond"} and
                 all(p.dtype == torch.float32 for p in leaves.values()),
@@ -4445,7 +4621,8 @@ def _full_ft_cli(dev, card, data, work):
         print(f"[wan interp] {card} full fine-tune (--lora_rank 0 --bf16 1, 30 layers, batch 2, "
               f"L = 7800, remat) attn_mode={mode}: {per:.3f} s/step after the first "
               f"({steps[0][2]:.3f} s), peak memory {peak:.2f} GiB, launches per step "
-              f"{dict(zip(TRAIN_KERNELS, TRAIN_EXPECT[mode]))}, twin calls 0; all {n_weights} "
+              f"{dict(zip(TRAIN_KERNELS, TRAIN_EXPECT[mode]))}, ln_modulate "
+              f"{LN_FULL_FT_EXPECT}, twin calls 0; all {n_weights} "
               f"WanDiT weights f32 and moved; losses {[round(s[1], 4) for s in steps]}; "
               f"{secs:.1f} s with the build and a checkpoint", flush=True)
     return launches
@@ -6286,6 +6463,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, ROOT)
     try:
+        from interpolated_diffusion_tpu_torch.kernels import ln_modulate as lnm
         from interpolated_diffusion_tpu_torch.kernels import qk_norm_rope as qknr
     except ImportError as e:
         print(f"FAIL: the port package is not next to this script ({e})", flush=True)
@@ -6303,6 +6481,10 @@ def main() -> int:
         if "--qk-norm-rope" in sys.argv[1:]:   # the q/k norm kernels alone: checks, times
             phase_qk_norm_rope(dev, card)
             print("[qk_norm_rope] the kernels agree with their plain twin", flush=True)
+            return 0
+        if "--ln-modulate" in sys.argv[1:]:   # the LN + modulation kernels alone: checks, times
+            phase_ln_modulate(dev, card)
+            print("[ln_modulate] the kernels agree with their plain twin", flush=True)
             return 0
         if "--hunyuan" in sys.argv[1:]:   # phase 10a alone: its own summary, the last line
             print(json.dumps({"hunyuan": phase_hunyuan(dev, card)}), flush=True)
@@ -6360,6 +6542,7 @@ def main() -> int:
             torch.cuda.empty_cache()
             phase_wan_bwd_kernels(dev, card)
             phase_qk_norm_rope(dev, card)
+            phase_ln_modulate(dev, card)
             print("[kernels] every kernel agrees with its plain twin", flush=True)
             return 0
         kp, it, pipe, launches = phase_main(dev)
@@ -6394,6 +6577,7 @@ def main() -> int:
         bwd_errs, bwd_times, bwd_bounds = phase_wan_bwd_kernels(dev, card)
         torch.cuda.empty_cache()
         qk_times, qk_err = phase_qk_norm_rope(dev, card)
+        ln_times, ln_err = phase_ln_modulate(dev, card)
         qk_before = qknr.qk_norm_rope.launches, qknr.qk_norm_rope.launches_bwd
         train_launches, _ = phase_wan_train(dev, card, profile)
         qk_train = (qknr.qk_norm_rope.launches - qk_before[0],
@@ -6555,6 +6739,18 @@ def main() -> int:
         bwd_plain_ms=p1["bwd_twin_ms"], bwd_bound_ms=p1["bwd_bound_ms"],
         launches_bwd=qknr.qk_norm_rope.launches_bwd, train_launches=qk_train,
         shapes={k: v for k, v in qk_times.items() if k != "p1_self"}, hunyuan=hy["qk_norm_rope"])
+    # the LN + modulation pair: Phase 1's adaLN shape, the other shapes of
+    # phase 9b beside it; `launches` over every model run above, `train_launches`
+    # (forward, backward) over the Phase-1 trainer's own steps (each step held
+    # to LN_TRAIN_EXPECT), `hunyuan` the HunyuanVideo trainer's a step
+    p1 = ln_times["p1"]
+    row("ln_modulate", lnm.ln_modulate.launches, ln_err, p1["fwd_ms"], p1["fwd_twin_ms"],
+        (p1["fwd_bound_ms"], "bytes"), None, device_ms=p1["fwd_graph_ms"],
+        bwd_ms=p1["bwd_ms"], bwd_device_ms=p1["bwd_graph_ms"], bwd_mod_ms=p1["bwd_mod_ms"],
+        bwd_plain_ms=p1["bwd_twin_ms"], bwd_bound_ms=p1["bwd_bound_ms"],
+        launches_bwd=lnm.ln_modulate.launches_bwd, train_launches=train_launches["ln_modulate"],
+        train_launches_per_step=LN_TRAIN_EXPECT, hunyuan=hy["ln_modulate"],
+        shapes={k: v for k, v in ln_times.items() if k != "p1"})
     idle = [r["name"] for r in summary if r["launches"] <= 0]
     if idle:
         print(f"FAIL: kernels never launched on their main path: {idle}", flush=True)

@@ -58,91 +58,20 @@
 //    video rows ahead of the text rows of a joint sequence); the tables are
 //    [B or 1, rope_rows, Dh / 2] and the other rows pass unrotated (cos 1,
 //    sin 0: the same values), still written head-major.
-#include <stdint.h>
-
-#include <type_traits>
-
 #include "id_kernels.cuh"
+#include "row8.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
-constexpr int kVec = 8;                  // elements a thread: four RoPE pairs
 constexpr int kMaxThreads = 1024;
-
-// A thread's 8 elements of T as they arrive from memory: one 16-byte word in
-// bf16, two in f32.
-template <typename T>
-struct Raw8 {
-  static constexpr int kWords = (int)sizeof(T) * kVec / 16;
-  uint4 u[kWords];
-};
-
-template <typename T>
-__device__ __forceinline__ Raw8<T> load8(const T* p) {
-  Raw8<T> r;
-#pragma unroll
-  for (int j = 0; j < Raw8<T>::kWords; ++j) r.u[j] = reinterpret_cast<const uint4*>(p)[j];
-  return r;
-}
-
-template <typename T>
-__device__ __forceinline__ void store8(T* p, const Raw8<T>& r) {
-#pragma unroll
-  for (int j = 0; j < Raw8<T>::kWords; ++j) reinterpret_cast<uint4*>(p)[j] = r.u[j];
-}
-
-template <typename T>
-__device__ __forceinline__ void unpack8(const Raw8<T>& r, float (&v)[kVec]) {
-  if constexpr (std::is_same_v<T, float>) {
-    const float* f = reinterpret_cast<const float*>(r.u);
-#pragma unroll
-    for (int i = 0; i < kVec; ++i) v[i] = f[i];
-  } else {
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(r.u);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 f = __bfloat1622float2(h[i]);
-      v[2 * i] = f.x;
-      v[2 * i + 1] = f.y;
-    }
-  }
-}
-
-// v rounded to T (to nearest even), packed.
-template <typename T>
-__device__ __forceinline__ Raw8<T> pack8(const float (&v)[kVec]) {
-  Raw8<T> r;
-  if constexpr (std::is_same_v<T, float>) {
-    float* f = reinterpret_cast<float*>(r.u);
-#pragma unroll
-    for (int i = 0; i < kVec; ++i) f[i] = v[i];
-  } else {
-    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(r.u);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
-  }
-  return r;
-}
-
-template <typename T>
-__device__ __forceinline__ float round_to(float v) {
-  if constexpr (std::is_same_v<T, float>)
-    return v;
-  else
-    return __bfloat162float(__float2bfloat16_rn(v));
-}
 
 // T(w[d0 .. d0 + 8)) as f32; w is f32 (a master copy) or bf16.
 template <typename T>
 __device__ __forceinline__ void load_weight(const void* w, int w_f32, int d0, float (&wt)[kVec]) {
-  if (w_f32) {
-    unpack8(load8(static_cast<const float*>(w) + d0), wt);
+  load8_any(w, w_f32, d0, wt);
 #pragma unroll
-    for (int i = 0; i < kVec; ++i) wt[i] = round_to<T>(wt[i]);
-  } else {
-    unpack8(load8(static_cast<const bf16*>(w) + d0), wt);
-  }
+  for (int i = 0; i < kVec; ++i) wt[i] = round_to<T>(wt[i]);
 }
 
 // The sum of v over the `lanes` neighbouring threads of a head (a power of

@@ -36,7 +36,9 @@ that length per row (kernels/block_sparse_attention.flash_attention's
 kv_lens), so padded text keys get no weight and no gradient; the refiner's
 261-token attention is plain masked attention. Each block's q and k norms
 (and RoPE) are one `qk_norm_rope` launch each way (its per-head form, told by
-the [Dh] weight).
+the [Dh] weight), and each mod() one `ln_modulate` launch each way (the
+dual block's video and text slices of x read in place); the refiner's affine
+LNs keep LayerNorm.
 
 The compute dtype is the parameters' unless `set_compute_dtype` names
 another, as in WanDiT; `use_remat` puts one activation checkpoint around each
@@ -55,6 +57,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..kernels.block_sparse_attention import flash_attention
+from ..kernels.ln_modulate import ln_modulate
 from ..kernels.qk_norm_rope import qk_norm_rope
 from ..utils.profiling import backward_span, span
 from .transformer import LayerNorm
@@ -99,8 +102,9 @@ def _heads(t: torch.Tensor, H: int) -> torch.Tensor:
     return t.reshape(B, L, H, D // H).transpose(1, 2)
 
 
-def _mod(norm: nn.Module, x: torch.Tensor, shift: torch.Tensor, scale: torch.Tensor):
-    return norm(x) * (1 + scale[:, None]) + shift[:, None]
+def _mod(x: torch.Tensor, shift: torch.Tensor, scale: torch.Tensor):
+    """mod(x, shift, scale) through kernels/ln_modulate (its twin on the CPU)."""
+    return ln_modulate(x, scale, shift, form="adaln")
 
 
 class _Lin(LoRALinear):
@@ -273,7 +277,6 @@ class HunyuanVideoTransformerBlock(nn.Module):
         self.attn = HunyuanVideoAttention(dim, heads, lora_attn, dual=True)
         self.ff = FeedForward(dim, hidden, *lora_ffn)
         self.ff_context = FeedForward(dim, hidden, *lora_ffn)
-        self.ln = LayerNorm(dim, affine=False)   # every LN of the block: no parameters
 
     def forward(self, x, temb, rope, kv_len, L_v: int):
         with span(DOUBLE):
@@ -284,7 +287,7 @@ class HunyuanVideoTransformerBlock(nn.Module):
         sh, sc, g, sh2, sc2, g2 = self.norm1(temb)
         csh, csc, cg, csh2, csc2, cg2 = self.norm1_context(temb)
         a = self.attn
-        h_img, h_txt = _mod(self.ln, img, sh, sc), _mod(self.ln, txt, csh, csc)
+        h_img, h_txt = _mod(img, sh, sc), _mod(txt, csh, csc)
         q_i, k_i = a.qk(h_img, a.to_q, a.to_k, a.norm_q, a.norm_k, rope)
         q_t, k_t = a.qk(h_txt, a.add_q_proj, a.add_k_proj, a.norm_added_q, a.norm_added_k, None)
         v = torch.cat([_heads(a.to_v(h_img), a.heads), _heads(a.add_v_proj(h_txt), a.heads)],
@@ -293,8 +296,8 @@ class HunyuanVideoTransformerBlock(nn.Module):
                             kv_len)
         img = img + a.to_out[0](o[:, :L_v]) * g[:, None]
         txt = txt + a.to_add_out(o[:, L_v:]) * cg[:, None]
-        img = img + g2[:, None] * self.ff(_mod(self.ln, img, sh2, sc2))
-        txt = txt + cg2[:, None] * self.ff_context(_mod(self.ln, txt, csh2, csc2))
+        img = img + g2[:, None] * self.ff(_mod(img, sh2, sc2))
+        txt = txt + cg2[:, None] * self.ff_context(_mod(txt, csh2, csc2))
         return torch.cat([img, txt], dim=1)
 
 
@@ -309,7 +312,6 @@ class HunyuanVideoSingleTransformerBlock(nn.Module):
         self.norm = _AdaLinear(dim, 3)
         self.proj_mlp = LoRALinear(dim, hidden, *lora_ffn)
         self.proj_out = LoRALinear(dim + hidden, dim, *lora_out)
-        self.ln = LayerNorm(dim, affine=False)
 
     def forward(self, x, temb, rope, kv_len, L_v: int):
         with span(SINGLE):
@@ -317,7 +319,7 @@ class HunyuanVideoSingleTransformerBlock(nn.Module):
 
     def _forward(self, x, temb, rope, kv_len, L_v):
         sh, sc, g = self.norm(temb)
-        h = _mod(self.ln, x, sh, sc)
+        h = _mod(x, sh, sc)
         a = self.attn
         q, k = a.qk(h, a.to_q, a.to_k, a.norm_q, a.norm_k, rope, rope_rows=L_v)
         o = joint_attention(q, k, _heads(a.to_v(h), a.heads), kv_len)
@@ -378,7 +380,6 @@ class HunyuanVideoTransformer3DModel(nn.Module):
                                                l_ffn, l_out)
             for _ in range(num_single_layers)])
         self.norm_out = _AdaLinear(dim, 2)
-        self.ln_out = LayerNorm(dim, affine=False)
         self.proj_out = _Lin(dim, out_channels * math.prod(self.patch_size))
 
     def _run(self, block, x, temb, rope, kv_len, L_v):
@@ -437,7 +438,7 @@ class HunyuanVideoTransformer3DModel(nn.Module):
             x = self._run(block, x, temb, rope, kv_len, L_v)
 
         scale, shift = self.norm_out(temb)
-        out = self.proj_out(_mod(self.ln_out, x[:, :L_v], shift, scale))
+        out = self.proj_out(_mod(x[:, :L_v], shift, scale))
         out = out.reshape(B, ppf, pph, ppw, self.out_channels, pt, ph, pw)
         out = out.permute(0, 4, 1, 5, 2, 6, 3, 7).reshape(B, self.out_channels, T, H, W)
         return out.float()

@@ -18,6 +18,8 @@ any other attention with L >= 2048 queries goes through the flash kernel;
 the rest is plain dense attention. The q / k RMSNorm and RoPE go through
 kernels/qk_norm_rope (one kernel each way on CUDA tensors, its plain twin on
 the CPU), except under tensor parallelism, which keeps RMSNorm and apply_rope.
+Each block's three LayerNorms with their modulation (norm1 and norm3 adaLN,
+the affine norm2) and the head's go through kernels/ln_modulate likewise.
 
 Module names follow the diffusers WanTransformer3DModel state dict
 (models/wan_convert.py lists the map) so that a Wan2.1 checkpoint maps
@@ -44,6 +46,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..kernels.block_sparse_attention import flash_attention
+from ..kernels.ln_modulate import ln_modulate
 from ..kernels.qk_norm_rope import apply_rope, qk_norm_rope, rms_norm
 from ..kernels.sla import SparseLinearAttention
 from ..kernels.tuning import sla_blocks
@@ -318,13 +321,11 @@ class WanBlock(nn.Module):
         r_attn = lora_rank if "attn" in targets else 0
         r_ffn = lora_rank if "ffn" in targets else 0
         self.scale_shift_table = nn.Parameter(torch.empty(1, 6, dim))
-        self.norm1 = LayerNorm(dim, affine=False)
         self.attn1 = WanAttention(dim, n_heads, attn_mode, sla_topk, sla_block, r_attn,
                                   lora_alpha, lora_form)
         self.norm2 = LayerNorm(dim)
         self.attn2 = WanAttention(dim, n_heads, "dense", lora_rank=r_attn, lora_alpha=lora_alpha,
                                   lora_form=lora_form)
-        self.norm3 = LayerNorm(dim, affine=False)
         if ffn_mode == "moe":   # Switch top-1 experts (no LoRA on them, as in JAX)
             self.moe_ffn = SwitchFFN(dim, ffn_dim, n_experts, capacity_factor)
             self.moe_aux: Optional[torch.Tensor] = None   # the JAX block's sown aux loss
@@ -336,13 +337,15 @@ class WanBlock(nn.Module):
 
     def forward(self, x, context, t_mod, rope):
         dtype = x.dtype
+        # rows of mod: shift1, scale1, gate1, shift2, scale2, gate2
         mod = self.scale_shift_table.float() + t_mod.float()
-        shift1, scale1, gate1, shift2, scale2, gate2 = (
-            mod[:, i][:, None, :].to(dtype) for i in range(6))
-        h = self.norm1(x) * (1 + scale1) + shift1
+        gate1, gate2 = (mod[:, i][:, None, :].to(dtype) for i in (2, 5))
+        h = ln_modulate(x, mod[:, 1], mod[:, 0], form="adaln")
         x = x + gate1 * self.attn1(h, rope=rope)
-        x = x + self.attn2(self.norm2(x), context=context)
-        h = self.norm3(x) * (1 + scale2) + shift2
+        n2 = self.norm2
+        x = x + self.attn2(ln_modulate(x, n2.weight, n2.bias, form="affine", eps=n2.eps),
+                           context=context)
+        h = ln_modulate(x, mod[:, 4], mod[:, 3], form="adaln")
         if hasattr(self, "moe_ffn"):
             h, aux = self.moe_ffn(h)
             self.moe_aux = aux.detach()
@@ -440,7 +443,6 @@ class WanDiT(nn.Module):
                      lora_alpha, lora_targets, ffn_mode, lora_form, n_experts, capacity_factor)
             for _ in range(n_layers)])
         self.scale_shift_table = nn.Parameter(torch.empty(1, 2, dim))
-        self.norm_out = LayerNorm(dim, affine=False)
         self.proj_out = nn.Linear(dim, out_channels * math.prod(self.patch_size))
 
     def init_seeded(self, uniform_) -> None:
@@ -527,9 +529,9 @@ class WanDiT(nn.Module):
         delta = x - x_embed if return_delta else None
 
         # head: modulated by the time embedding itself (diffusers Wan semantics)
-        mod = self.scale_shift_table.float() + t_emb[:, None].float()
-        shift, scale = mod[:, 0][:, None].to(dtype), mod[:, 1][:, None].to(dtype)
-        x = _linear(self.proj_out, self.norm_out(x) * (1 + scale) + shift, dtype)
+        mod = self.scale_shift_table.float() + t_emb[:, None].float()   # shift, scale
+        h = ln_modulate(x, mod[:, 1], mod[:, 0], form="adaln")
+        x = _linear(self.proj_out, h, dtype)
         x = x.reshape(B, ppf, pph, ppw, self.out_channels, pt, ph, pw)
         x = x.permute(0, 4, 1, 5, 2, 6, 3, 7).reshape(B, self.out_channels, T, H, W)
         return (x.float(), delta) if return_delta else x.float()
